@@ -1,0 +1,99 @@
+"""Build and load the package's CUDA kernels (plain C interface + ctypes).
+
+Each `csrc/<name>.cu` compiles with nvcc for sm_90a into a shared library
+under `build/deeprec_tpu_torch/` at the checkout root, named by a digest of
+its source, so a changed source rebuilds and an unchanged one loads as is.
+Nothing builds at import time: `load` runs at a kernel's first launch, and
+`build_all` starts one nvcc per source at once (set-up time of a run).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deeprec_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+# ctypes signatures of each library's launcher: pointers and the stream as
+# c_void_p (a bare Python int would be cut to 32 bits), sizes as 64-bit.
+_SIGNATURES = {
+    "gather_rows": {
+        "gather_rows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+        + [ctypes.c_void_p],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source into a temp file; None if already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
+            + log.decode(errors="replace")
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all() -> List[str]:
+    """Compile every kernel source, one nvcc per source, all started
+    together. Returns the kernel names."""
+    names = sorted(_SIGNATURES)
+    with _lock:
+        started = {name: _start(name) for name in names}
+        for name in names:
+            _finish(name, started[name])
+    return names
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib

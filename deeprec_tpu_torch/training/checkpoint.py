@@ -1,0 +1,253 @@
+"""Full checkpoints in the JAX package's on-disk format — the port of
+`deeprec_tpu/training/checkpoint.py`, full saves only.
+
+Layout of one save, `<dir>/full-<step>/`:
+  * `table_<bundle>_t<k>.npz` per member k of a stacked bundle
+    (`table_<bundle>_t.npz` for an unstacked one): the live rows, compacted,
+    as `keys`, `values` (f32 logical rows), `freqs`, `versions`, plus the
+    trainer's `slot:*` optimizer rows (which serving ignores);
+  * `dense.npz`: the dense parameters as `leaf_<i>` in `jax.tree_util`
+    flatten order of the JAX param tree (nn.jax_leaf_names);
+  * `manifest.json`, written last and atomically — its presence marks a
+    complete save — with a crc32 digest of every array, checked on read.
+
+Restore inserts each key by probing (so a checkpoint restores onto any
+capacity) and writes its row in place. Incremental chains, part files,
+quarantine of corrupt saves and the async writer wait for a later slice.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import zlib
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from deeprec_tpu_torch.embedding.table import (
+    KEY_DTYPES, META_FREQ, META_VERSION, EmbeddingTable, TableState, empty_key,
+)
+from deeprec_tpu_torch.nn import jax_leaf_names
+from deeprec_tpu_torch.training.trainer import Trainer, TrainState
+
+_ROW_ARRAYS = ("keys", "values", "freqs", "versions")
+
+
+class CheckpointCorrupt(RuntimeError):
+    """A committed checkpoint failed verification (missing file or array,
+    unreadable npz, digest mismatch)."""
+
+
+def _array_digest(arr: np.ndarray) -> str:
+    """crc32 over the raw bytes plus dtype and shape — the JAX package's
+    manifest digest, byte for byte."""
+    a = np.ascontiguousarray(arr)
+    crc = zlib.crc32(a.tobytes()) & 0xFFFFFFFF
+    shape = "x".join(map(str, a.shape))
+    return f"crc32:{crc:08x}:{a.dtype.str}:{shape}"
+
+
+def table_file(bname: str, member: Optional[int]) -> str:
+    return f"table_{bname}_{'t' if member is None else f't{member}'}.npz"
+
+
+# ----------------------------------------------------------- table rows
+
+
+def export_table_arrays(table: EmbeddingTable, state: TableState,
+                        member: int) -> Dict[str, np.ndarray]:
+    """The live rows of table `member` of a stacked state, compacted in
+    ascending slot order, as host arrays."""
+    cfg = table.cfg
+    keys = state.keys[member]
+    occ = keys != empty_key(cfg)
+    cf = cfg.ev.counter_filter
+    if not cfg.ev.ckpt.save_filtered_features and cf is not None and cf.filter_freq > 0:
+        occ = occ & (state.meta[member, META_FREQ] >= cf.filter_freq)
+    idx = torch.nonzero(occ).flatten()
+    return {
+        "keys": keys[idx].cpu().numpy(),
+        "values": state.values[member, idx].to(torch.float32).cpu().numpy(),
+        "freqs": state.meta[member, META_FREQ, idx].cpu().numpy(),
+        "versions": state.meta[member, META_VERSION, idx].cpu().numpy(),
+    }
+
+
+def import_rows(table: EmbeddingTable, state: TableState, member: int,
+                rows: Dict[str, np.ndarray]) -> None:
+    """Insert checkpointed rows into table `member` of `state`, IN PLACE:
+    probe-insert the keys, then write values, freqs and versions at the
+    slots they landed in. Which slot a key wins in a claim race is free;
+    the row a key reads back is not."""
+    n = rows["keys"].shape[0]
+    if n == 0:
+        return
+    device = state.keys.device
+    keys = torch.as_tensor(rows["keys"]).to(device, KEY_DTYPES[table.cfg.key_dtype])
+    slot_ix, failed = table._probe(
+        state.keys[member:member + 1], keys[None],
+        torch.ones((1, n), dtype=torch.bool, device=device),
+    )
+    if bool(failed.any()):
+        raise RuntimeError(
+            f"table {table.cfg.name}: {int(failed.sum())} keys failed to "
+            "insert on restore — grow the capacity"
+        )
+    slot = slot_ix[0].long()
+    ok = slot >= 0  # a sentinel key places nowhere; its row is dropped
+    ix = slot[ok]
+
+    def col(name, dtype):
+        return torch.as_tensor(np.asarray(rows[name])).to(device)[ok].to(dtype)
+
+    state.values[member, ix] = col("values", state.values.dtype)
+    state.meta[member, META_FREQ, ix] = col("freqs", torch.int32)
+    state.meta[member, META_VERSION, ix] = col("versions", torch.int32)
+
+
+# ------------------------------------------------------------ writing
+
+
+def write_full(path: str, step: int, tables: Dict[str, Dict[str, np.ndarray]],
+               dense_leaves: Sequence[np.ndarray],
+               bundles: Dict[str, List[str]]) -> str:
+    """Write one full checkpoint directory: every table file of `tables`
+    ({file name: arrays}), `dense.npz` from `dense_leaves` (JAX flatten
+    order), then the manifest, atomically, last."""
+    os.makedirs(path, exist_ok=True)
+    mf = os.path.join(path, "manifest.json")
+    if os.path.exists(mf):
+        os.remove(mf)  # the directory is incomplete until the new manifest
+    digests: Dict[str, Dict[str, str]] = {}
+    files = dict(tables)
+    files["dense.npz"] = {f"leaf_{i}": l for i, l in enumerate(dense_leaves)}
+    for fname, arrays in files.items():
+        arrays = {k: np.asarray(v) for k, v in arrays.items()}
+        np.savez(os.path.join(path, fname), **arrays)
+        digests[fname] = {k: _array_digest(v) for k, v in arrays.items()}
+    manifest = {
+        "step": int(step), "kind": "full", "digests": digests,
+        "routing": {b: "uniform" for b in bundles}, "bundles": bundles,
+    }
+    tmp = os.path.join(path, ".manifest.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(tmp, mf)
+    return path
+
+
+# ------------------------------------------------------------ manager
+
+
+class CheckpointManager:
+    """Full save and restore for a Trainer (single device)."""
+
+    def __init__(self, directory: str, trainer: Trainer):
+        self.dir = directory
+        self.trainer = trainer
+        os.makedirs(directory, exist_ok=True)
+
+    def _members(self):
+        for bname, b in self.trainer.bundles.items():
+            for k in range(b.num_tables):
+                yield bname, b, k, table_file(bname, k if b.stacked else None)
+
+    def save(self, state: TrainState) -> str:
+        """Write a full checkpoint of `state`; returns its directory."""
+        tables = {
+            fname: export_table_arrays(b.table, state.tables[bname], k)
+            for bname, b, k, fname in self._members()
+        }
+        leaves = [
+            state.dense[n].detach().cpu().numpy()
+            for n in jax_leaf_names(self.trainer.model)
+        ]
+        bundles = {
+            bname: [f.name for f in b.features]
+            for bname, b in self.trainer.bundles.items()
+        }
+        path = os.path.join(self.dir, f"full-{int(state.step)}")
+        return write_full(path, state.step, tables, leaves, bundles)
+
+    def latest_full(self) -> Optional[int]:
+        """Step of the newest complete (manifest-bearing) full save."""
+        pat = re.compile(r"^full-(\d+)$")
+        return max((
+            int(m.group(1)) for d in os.listdir(self.dir)
+            if (m := pat.match(d))
+            and os.path.exists(os.path.join(self.dir, d, "manifest.json"))
+        ), default=None)
+
+    @staticmethod
+    def _manifest(path: str) -> dict:
+        try:
+            with open(os.path.join(path, "manifest.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError) as e:
+            raise CheckpointCorrupt(f"checkpoint {path}: manifest: {e}") from e
+
+    def verify(self, path: str) -> None:
+        """Raise CheckpointCorrupt unless every array the manifest lists is
+        present and matches its recorded digest."""
+        for fname, arrays in self._manifest(path).get("digests", {}).items():
+            fpath = os.path.join(path, fname)
+            if not os.path.exists(fpath):
+                raise CheckpointCorrupt(f"checkpoint {path}: {fname} missing")
+            try:
+                with np.load(fpath) as z:
+                    for aname, want in arrays.items():
+                        if aname not in z.files:
+                            raise CheckpointCorrupt(
+                                f"checkpoint {path}: {fname}:{aname} absent")
+                        got = _array_digest(z[aname])
+                        if got != want:
+                            raise CheckpointCorrupt(
+                                f"checkpoint {path}: {fname}:{aname} digest "
+                                f"mismatch ({got} != recorded {want})")
+            except (OSError, ValueError, zlib.error) as e:
+                raise CheckpointCorrupt(
+                    f"checkpoint {path}: {fname} unreadable: {e}") from e
+
+    def restore(self) -> TrainState:
+        """The latest full checkpoint, verified, onto fresh tables of the
+        trainer's configs and device."""
+        step = self.latest_full()
+        if step is None:
+            raise FileNotFoundError(f"no full checkpoint under {self.dir}")
+        path = os.path.join(self.dir, f"full-{step}")
+        manifest = self._manifest(path)
+        if manifest.get("format") == "parts":
+            raise NotImplementedError("part-file checkpoints wait for a later slice")
+        self.verify(path)
+        state = self.trainer.init()
+        declared = manifest.get("bundles", {})
+        for bname, b, k, fname in self._members():
+            fpath = os.path.join(path, fname)
+            if not os.path.exists(fpath):
+                if bname in declared:
+                    raise CheckpointCorrupt(f"checkpoint {path}: {fname} missing")
+                continue  # a table added after this checkpoint was written
+            with np.load(fpath) as z:
+                rows = {name: z[name] for name in _ROW_ARRAYS}
+            import_rows(b.table, state.tables[bname], k, rows)
+        self._load_dense(state, os.path.join(path, "dense.npz"))
+        return TrainState(step=int(manifest.get("step", step)),
+                          tables=state.tables, dense=state.dense)
+
+    def _load_dense(self, state: TrainState, fpath: str) -> None:
+        names = jax_leaf_names(self.trainer.model)
+        with np.load(fpath) as z:
+            if len(z.files) != len(names):
+                raise ValueError(
+                    f"{fpath}: {len(z.files)} dense leaves, the model has "
+                    f"{len(names)}")
+            for i, name in enumerate(names):
+                t = state.dense[name]
+                leaf = np.asarray(z[f"leaf_{i}"], np.float32)
+                if leaf.size != t.numel():
+                    raise ValueError(
+                        f"{fpath}: leaf_{i} has shape {leaf.shape}, parameter "
+                        f"{name} has {tuple(t.shape)}")
+                t.copy_(torch.from_numpy(leaf.reshape(tuple(t.shape))))

@@ -1,0 +1,49 @@
+"""Integer hashing for hash-embedding tables, bit-exact with
+`deeprec_tpu/utils/hashing.py`.
+
+Slot positions carried over from a JAX checkpoint are only found again with
+the same hash, so every function here reproduces the JAX uint32 arithmetic
+exactly. PyTorch's uint32 support is partial, so values are held as int64
+in [0, 2^32) and every product is split into 16-bit halves: no intermediate
+leaves the signed 64-bit range, and masking with 0xFFFFFFFF gives the
+wrapped uint32 result.
+"""
+from __future__ import annotations
+
+import zlib
+
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def name_salt(name: str) -> int:
+    """Stable per-name initializer salt (the same definition as JAX)."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a uint32 constant c."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def fold64(ids: torch.Tensor) -> torch.Tensor:
+    """Fold integer ids to uint32 values (held in int64) for hashing."""
+    if ids.dtype == torch.int64:
+        lo = ids & _M32
+        hi = (ids >> 32) & _M32
+        return lo ^ _mul32(hi, 0x9E3779B9)
+    return ids.to(torch.int64) & _M32
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on uint32 values held in int64."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x
