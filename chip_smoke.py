@@ -5,12 +5,14 @@
 
 Phases, each of which must pass:
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from csrc/ (one nvcc per
-     source, started together);
+  2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
+     started together);
   3. each kernel against its plain PyTorch version on the card, bit-exact,
-     at the serving path's shape (26 tables x 2^20 slots x 128, 2048 ids per
+     at the main paths' shape (26 tables x 2^20 slots x 128, 2048 ids per
      table) and at edge shapes, with its time, the plain version's time,
-     one PyTorch library call's time and the memory-bound least time;
+     one PyTorch library call's time and the memory-bound least time:
+     `gather_rows` (row gather) and `apply_rows_sr` (row scatter, f32 and
+     bf16 given the same random bits, the whole table compared);
   4. the serving main path at full width: MLPerf DLRM-DCN (emb_dim 128,
      26 x 2^20-slot tables, bottom 512-256-128, top 512-256-1, cross depth
      3) restored from a full checkpoint written with numpy from --seed
@@ -20,7 +22,18 @@ Phases, each of which must pass:
      probabilities must be finite in (0, 1), and every kernel of the path
      must have launched during those requests;
   5. the same model at capacity 2^12 restored on the card and on the CPU,
-     answering one batch within PROB_ATOL.
+     answering one batch within PROB_ATOL;
+  6. the training main path at full width: the same model from empty
+     tables, Adagrad(0.05) on the tables and Adam(1e-3) on the dense
+     parameters, batch 2048 of SyntheticCriteo(vocab=1_000_000) staged on
+     the card; 5 checked steps (finite losses, no failed insert, table sizes
+     equal to the distinct ids seen, rows the step's batch does not hold
+     unchanged across it, every kernel of the path launched as the bundles
+     imply), then 30 timed steps and 3 profiled ones; the trained state is
+     saved and served back by Predictor bit for bit;
+  7. the same widths at capacity 2^12 and batch 256 from one initial state,
+     3 train steps on the card and 3 on the CPU, within TRAIN_RTOL and
+     ROW_ATOL.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -47,17 +60,33 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # the f32 sums run in another order, and a 1-ulp difference before a bf16
 # rounding flips that operand by 2^-8 relative. Width 3456 makes flips common.
 PROB_ATOL = 1e-3
+# CUDA vs CPU training, 3 steps: the same flips reach the loss (a mean over
+# the batch) and the gradients; an Adagrad step is at most lr per element
+# and a gradient difference of 1e-3 relative moves it by far less than
+# ROW_ATOL; dense parameters move at most 2 lr per step apart under Adam.
+TRAIN_RTOL = 1e-3
+ROW_ATOL = 1e-4
 
 FULL = dict(emb_dim=128, capacity=1 << 20, bottom=(512, 256, 128))
 LIVE_KEYS = 1 << 17
 SMALL_CAPACITY, SMALL_LIVE = 1 << 12, 1500
+TRAIN = dict(batch=2048, vocab=1_000_000, checked=5, timed=30, profiled=3,
+             lr=0.05, dense_lr=1e-3, agree_batch=256, sample=4096)
 
 
 def _ms(fn, dev, reps=50):
-    """Mean device time of fn() in ms: CUDA events around `reps` calls
-    after a warm-up. None off the card (a CPU rehearsal measures nothing)."""
+    """(device ms, call ms) of fn() after a warm-up. Device: the summed
+    duration of the kernels one call launches, from torch.profiler over
+    `reps` calls. Call: CUDA events around `reps` back-to-back calls, which
+    times the host's launch interval wherever that is longer than the
+    kernels (a wrapper's Python checks and a ctypes launch take tens of
+    microseconds). (None, None) off the card: a CPU rehearsal measures
+    nothing."""
     if dev.type != "cuda":
-        return None
+        return None, None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -67,7 +96,14 @@ def _ms(fn, dev, reps=50):
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / reps
+    call = a.elapsed_time(b) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return busy_us / reps / 1e3, call
 
 
 def _sync(dev):
@@ -75,12 +111,29 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+def _cycled_ms(fn, args, dev):
+    """_ms of fn over a cycle of argument tuples."""
+    it = itertools.cycle(args)
+    return _ms(lambda: fn(*next(it)), dev)
+
+
+def _timed_record(rec, label, kernel, plain, library):
+    """Fill a kernel record's ms, plain_ms and library_ms with device times
+    from ((device, call) ms pairs), and print the per-call times beside
+    them."""
+    rec.update(ms=kernel[0], plain_ms=plain[0], library_ms=library[0])
+    print(f"{label} timing, device ms (per-call ms): kernel {kernel[0]} "
+          f"({kernel[1]}), plain {plain[0]} ({plain[1]}), library "
+          f"{library[0]} ({library[1]}), byte bound {rec['bound_ms']}")
+    return rec
+
+
 # ------------------------------------------------------------ phase 3
 
 
 def kernel_phase(dev, main_shape, edge_shapes, seed):
     """gather_rows against its plain version; returns the kernel record
-    (timed at the main shape in f32, the serving table dtype)."""
+    (timed at the main shape in f32, the table dtype of both paths)."""
     from deeprec_tpu_torch.ops.fused_lookup import gather_rows, gather_rows_plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -127,22 +180,110 @@ def time_gather(values, n, g, err, sets=8):
     row = D * values.element_size()
     moved = sum(int(torch.unique(gi).numel()) * row + T * n * (row + 4)
                 for gi in gidx) / sets
-
-    def cycled(fn, args):
-        it = itertools.cycle(args)
-        return _ms(lambda: fn(*next(it)), dev)
-
-    return {
+    rec = {
         "name": "gather_rows", "route": "cuda",
         "source": "deeprec_tpu_torch/csrc/gather_rows.cu",
         "replaces": "deeprec_tpu/ops/fused_lookup.py:367",
         "launches": 0, "max_abs_err": err,
-        "ms": cycled(gather_rows, [(values, ix) for ix in ixs]),
-        "plain_ms": cycled(gather_rows_plain, [(values, ix) for ix in ixs]),
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": cycled(torch.index_select, [(flat, 0, gi) for gi in gidx]),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
+    return _timed_record(
+        rec, f"gather_rows {str(values.dtype)[6:]}", _cycled_ms(gather_rows, [(values, ix) for ix in ixs], dev),
+        _cycled_ms(gather_rows_plain, [(values, ix) for ix in ixs], dev),
+        _cycled_ms(torch.index_select, [(flat, 0, gi) for gi in gidx], dev))
+
+
+def _scatter_inputs(T, C, D, U, g, dev, skip=0.05):
+    """Unique slots per table (about `skip` of them -1) and f32 rows."""
+    slot = torch.stack([torch.randperm(C, generator=g, device=dev)[:U]
+                        for _ in range(T)]).to(torch.int32)
+    drop = torch.rand((T, U), generator=g, device=dev) < skip
+    slot = torch.where(drop, -1, slot)
+    rows = torch.randn((T, U, D), generator=g, device=dev)
+    return slot, rows
+
+
+def scatter_phase(dev, main_shape, edge_shapes, seed):
+    """apply_rows_sr against its plain version on the same input and bits:
+    the whole table after the write, bit-exact in f32 and bf16. Returns the
+    kernel record (timed at the main shape in f32)."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        apply_rows_sr, apply_rows_sr_plain, sr_bits)
+
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    record = None
+    for T, C, D, U in [main_shape] + list(edge_shapes):
+        slot, rows = _scatter_inputs(T, C, D, U, g, dev)
+        values32 = torch.randn((T, C, D), generator=g, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):  # f32 last: it writes values32
+            bits = sr_bits(seed, (T, U, D), dev) if dtype == torch.bfloat16 else None
+            want = values32.to(dtype, copy=True)
+            apply_rows_sr_plain(want, slot, rows, bits)
+            got = values32 if dtype == torch.float32 else values32.to(dtype)
+            apply_rows_sr(got, slot, rows, bits=bits)
+            _sync(dev)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"apply_rows_sr {dtype} T={T} C={C} D={D} U={U}: kernel "
+                    "differs from the plain version")
+            err = float((got.float() - want.float()).abs().max())
+            print(f"apply_rows_sr {str(dtype)[6:]} T={T} C={C} D={D} U={U} "
+                  f"({int((slot >= 0).sum())} rows written): whole table "
+                  f"bit-exact (max_abs_err {err})")
+            del want
+            if (T, C, D, U) == tuple(main_shape):
+                rec = time_scatter(got, U, g, err, seed)
+                if dtype == torch.float32:
+                    record = rec
+            del got
+        del values32, slot, rows
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return record
+
+
+def time_scatter(values, U, g, err, seed, sets=8):
+    """The kernel record at one shape: the kernel, its plain version and
+    (f32) index_copy_ of the valid rows into the flattened table with
+    pre-offset int64 indices, timed over `sets` slot sets in turn (8 sets
+    of 26 x 2048 rows of 512 B read and written span 436 MB, past the 50 MB
+    L2). The bound counts, per set, the rows written (read once from
+    `rows` and, for bf16, one row of 4-byte bits each; written once) and
+    every slot index."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        apply_rows_sr, apply_rows_sr_plain, sr_bits)
+
+    T, C, D = values.shape
+    dev = values.device
+    bf16 = values.dtype == torch.bfloat16
+    ins = [_scatter_inputs(T, C, D, U, g, dev) for _ in range(sets)]
+    args = [(values, slot, rows, sr_bits(seed, (T, U, D), dev) if bf16 else None)
+            for slot, rows in ins]
+    moved = 0
+    for slot, _ in ins:
+        n = int((slot >= 0).sum())
+        moved += n * D * (4 + values.element_size() + (4 if bf16 else 0)) + T * U * 4
+    moved /= sets
+    rec = {
+        "name": "apply_rows_sr", "route": "cuda",
+        "source": "deeprec_tpu_torch/csrc/apply_rows_sr.cu",
+        "replaces": "deeprec_tpu/ops/fused_lookup.py:564",
+        "launches": 0, "max_abs_err": err,
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    library = (None, None)
+    if not bf16:  # no single PyTorch call rounds stochastically
+        flat = values.view(T * C, D)
+        lib = []
+        for slot, rows in ins:
+            ok = slot >= 0
+            gi = (torch.arange(T, device=dev)[:, None] * C + slot.long())[ok]
+            lib.append((0, gi, rows[ok]))
+        library = _cycled_ms(flat.index_copy_, lib, dev)
+    return _timed_record(
+        rec, f"apply_rows_sr {str(values.dtype)[6:]}",
+        _cycled_ms(lambda v, s, r, b: apply_rows_sr(v, s, r, bits=b), args, dev),
+        _cycled_ms(apply_rows_sr_plain, args, dev), library)
 
 
 # ------------------------------------------------------------ checkpoint
@@ -237,7 +378,10 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
     rng = np.random.default_rng(seed + 1)
     reqs = [make_batch(model, host, B, rng) for B in batches]
 
+    tables = [b.table for b in p._trainer.bundles.values()]
     gather_rows.launches = 0  # the main path's run starts here
+    for t in tables:
+        t.probe_syncs = 0
     for b in reqs:
         probs = p.predict(b)
         n = len(next(iter(b.values())))
@@ -245,6 +389,7 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
                 np.all(probs > 0) and np.all(probs < 1)):
             raise AssertionError(f"batch {n}: probabilities not finite in (0, 1)")
     launches = gather_rows.launches  # ... and ends here
+    probe_syncs = sum(t.probe_syncs for t in tables) / len(reqs)
     per_request = sum(1 if b.stacked else len(b.features)
                       for b in p._trainer.bundles.values())
     if dev.type == "cuda" and launches != per_request * len(reqs):
@@ -261,7 +406,7 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
     stats = {
         "write_s": write_s, "restore_s": restore_s, "launches": launches,
         "requests": len(reqs), "launches_per_request": per_request,
-        "live_ids_checked": live_checked,
+        "live_ids_checked": live_checked, "probe_syncs": probe_syncs,
         "p50_ms": float(np.percentile(lat, 50)) if lat else None,
         "p90_ms": float(np.percentile(lat, 90)) if lat else None,
         "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
@@ -270,11 +415,13 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
     return p, reqs[0], stats
 
 
-def profile_predict(p, batch, p50_ms, reps=5):
-    """Device kernel time by name over `reps` predicts, and the share of
-    wall time the device was idle: of the profiled wall time, and of the
-    unprofiled p50 latency (the profiler slows the host, not the device).
-    The first profiled window (CUPTI start-up) is discarded."""
+def profile_device(fn, reps):
+    """Device kernel time by name over `reps` calls of fn() and the wall
+    time they took. The first profiled window (CUPTI start-up) is
+    discarded. Returns (wall_us per call, busy_us per call, kernels per
+    call, [(device us per call, name, count per call)] by time, {phase
+    range: (host us per call, device us per call)} of the `phase_*`
+    ranges and of the autograd engine's backward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -284,44 +431,345 @@ def profile_predict(p, batch, p50_ms, reps=5):
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                p.predict(batch)
+                fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [
-        (e.self_device_time_total, e.key, e.count)
-        for e in prof.key_averages()
+    events = prof.key_averages()
+    # A `phase_*` range appears twice: its host range (device type CPU,
+    # whose device time sums the kernels launched inside it) and its span
+    # on the device timeline, which is no kernel and is left out of the
+    # busy time.
+    rows = sorted((
+        (e.self_device_time_total / reps, e.key, e.count // reps)
+        for e in events
         if getattr(e, "device_type", None) == DeviceType.CUDA
-    ]
-    rows.sort(reverse=True)
+        and not e.key.startswith("phase_")
+    ), reverse=True)
     busy = sum(r[0] for r in rows)
+    host = [e for e in events if getattr(e, "device_type", None) == DeviceType.CPU]
+    phases = {e.key: (e.cpu_time_total / reps, e.device_time_total / reps)
+              for e in host if e.key.startswith("phase_")}
+    # The backward's kernels are launched by autograd's engine thread, so
+    # they fall outside the main thread's `phase_dense_fwd_bwd` range.
+    bwd = [e for e in host if e.key.startswith("autograd::engine::evaluate_function")]
+    if bwd:
+        phases["autograd_engine_backward"] = (
+            sum(e.cpu_time_total for e in bwd) / reps,
+            sum(e.device_time_total for e in bwd) / reps)
+    return wall_us / reps, busy, sum(r[2] for r in rows), rows, phases
+
+
+def profile_predict(p, batch, p50_ms, reps=5):
+    """The share of wall time the device was idle over `reps` predicts: of
+    the profiled wall time, and of the unprofiled p50 latency (the
+    profiler slows the host, not the device)."""
+    wall, busy, kernels, rows, _ = profile_device(lambda: p.predict(batch), reps)
     print(f"profile: {reps} predicts of batch {len(next(iter(batch.values())))}: "
-          f"wall {wall_us / reps / 1e3:.3f} ms/request, device busy "
-          f"{busy / reps / 1e3:.3f} ms/request, idle share "
-          f"{1 - busy / wall_us:.3f} (of the p50 latency "
-          f"{1 - busy / reps / 1e3 / p50_ms:.3f}), "
-          f"{sum(r[2] for r in rows) // reps} kernels/request")
+          f"wall {wall / 1e3:.3f} ms/request, device busy "
+          f"{busy / 1e3:.3f} ms/request, idle share "
+          f"{1 - busy / wall:.3f} (of the p50 latency "
+          f"{1 - busy / 1e3 / p50_ms:.3f}), {kernels} kernels/request")
     for dt, key, count in rows[:12]:
-        print(f"profile:   {dt / reps:10.1f} us/request  x{count // reps:<4d} {key[:100]}")
+        print(f"profile:   {dt:10.1f} us/request  x{count:<4d} {key[:100]}")
+
+
+# ------------------------------------------------------------ training
+
+
+def _table_rows(ts, t, slots):
+    """(values rows, accum rows) of table t at `slots`, copied."""
+    return (ts.values[t, slots].clone(), ts.slots["accum"][t, slots].clone())
+
+
+def _untouched_sample(trainer, state, batch, n, gen):
+    """Per member of the stacked bundle: up to `n` resident slots whose key
+    the batch does not hold, with their key, value and accum rows."""
+    out = []
+    for bname, b in trainer.bundles.items():
+        ts = state.tables[bname]
+        sentinel = torch.iinfo(ts.keys.dtype).min
+        for t, f in enumerate(b.features):
+            live = torch.nonzero(ts.keys[t] != sentinel).flatten()
+            keep = live[~torch.isin(ts.keys[t, live], batch[f.name].to(ts.keys.dtype))]
+            pick = keep[torch.randperm(keep.numel(), generator=gen)[:n].to(keep.device)]
+            out.append((bname, t, pick, ts.keys[t, pick].clone(),
+                        *_table_rows(ts, t, pick)))
+    return out
+
+
+def _check_untouched(state, sample):
+    for bname, t, pick, keys, values, accum in sample:
+        ts = state.tables[bname]
+        now = _table_rows(ts, t, pick)
+        if not (torch.equal(ts.keys[t, pick], keys) and torch.equal(now[0], values)
+                and torch.equal(now[1], accum)):
+            raise AssertionError(
+                f"{bname}[{t}]: a row the step's batch does not hold changed")
+    return sum(s[2].numel() for s in sample)
+
+
+def _path_launches(trainer):
+    """Launches of (apply_rows_sr, gather_rows) one train step implies:
+    per lookup group, the initializer scatter, the value write-back and one
+    write-back per per-row slot; the forward gather, one gather per per-row
+    slot, and a value re-gather where the apply cannot reuse the lookup's
+    rows (shared tables)."""
+    from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
+
+    nslots = sum(1 for name in trainer.sparse_opt.slot_specs(1)
+                 if not name.startswith(SCALAR_PREFIX))
+    apply = gather = 0
+    for b in trainer.bundles.values():
+        groups = 1 if b.stacked else len(b.features)
+        reuse = b.stacked or len(b.features) == 1
+        apply += groups * (2 + nslots)
+        gather += groups * (1 + nslots + (0 if reuse else 1))
+    return apply, gather
+
+
+def train_phase(dev, model_kw, ckdir, seed, cfg):
+    """The training main path at full width (see the module docstring).
+    Returns stats."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    model = DLRMDCN(**model_kw, seed=seed)
+    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.init()
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    # the profiler discards its first window: one more batch for it
+    nsteps = cfg["checked"] + cfg["timed"] + cfg["profiled"] + 1
+    gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed,
+                          num_cat=model.num_cat, num_dense=model.num_dense)
+    host = [gen.batch() for _ in range(nsteps)]
+    staged = [trainer.device_batch(b) for b in host]  # inputs on the device
+    _sync(dev)
+    tables = [b.table for b in trainer.bundles.values()]
+    cpu_gen = torch.Generator().manual_seed(seed)
+
+    apply_rows_sr.launches = gather_rows.launches = 0  # the main path starts here
+    for t in tables:
+        t.probe_syncs = 0
+    losses, untouched = [], 0
+    for i in range(cfg["checked"]):
+        sample = (_untouched_sample(trainer, state, staged[i], cfg["sample"], cpu_gen)
+                  if i else [])
+        state, m = trainer.train_step(state, staged[i])
+        losses.append(float(m["loss"]))
+        untouched += _check_untouched(state, sample)
+    launches = (apply_rows_sr.launches, gather_rows.launches)  # ... and ends here
+    probe_syncs = sum(t.probe_syncs for t in tables) / cfg["checked"]
+    per_step = _path_launches(trainer)
+    if dev.type == "cuda" and launches != tuple(cfg["checked"] * n for n in per_step):
+        raise AssertionError(
+            f"train path launched (apply_rows_sr, gather_rows) {launches}, the "
+            f"bundles imply {tuple(cfg['checked'] * n for n in per_step)}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    fails = sum(int(ts.insert_fails.sum()) for ts in state.tables.values())
+    if fails:
+        raise AssertionError(f"{fails} ids failed to insert")
+    for bname, b in trainer.bundles.items():
+        size = b.table.size(state.tables[bname]).cpu().numpy()
+        want = [len(np.unique(np.concatenate([h[f.name] for h in host[:cfg["checked"]]])))
+                for f in b.features]
+        if not np.array_equal(size, want):
+            raise AssertionError(f"{bname}: table sizes {size}, distinct ids {want}")
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(cfg["checked"], cfg["checked"] + cfg["timed"]):
+        state, m = trainer.train_step(state, staged[i])
+    _sync(dev)
+    timed_s = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    stats = {
+        "init_s": init_s, "losses": losses, "launches": launches,
+        "per_step": per_step, "probe_syncs_per_step": probe_syncs,
+        "untouched_rows_checked": untouched,
+        "examples_per_s": cfg["timed"] * cfg["batch"] / timed_s,
+        "step_ms": timed_s / cfg["timed"] * 1e3,
+        "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                    if dev.type == "cuda" else None),
+    }
+    if dev.type == "cuda":
+        box = [state]
+        nxt = iter(staged[cfg["checked"] + cfg["timed"]:])
+
+        def step():
+            box[0] = trainer.train_step(box[0], next(nxt))[0]
+
+        stats["profile"] = profile_device(step, cfg["profiled"])
+        state = box.pop()
+
+    # the trained rows, served back through a checkpoint and Predictor
+    served = {}
+    for bname, b in trainer.bundles.items():
+        ts = state.tables[bname]
+        for t, f in enumerate(b.features):
+            live = torch.nonzero(ts.keys[t] != torch.iinfo(ts.keys.dtype).min).flatten()
+            pick = live[torch.randperm(live.numel(), generator=cpu_gen)[:cfg["sample"]]
+                        .to(live.device)]
+            served[f.name] = (ts.keys[t, pick].cpu().numpy(),
+                              ts.values[t, pick].float().cpu().numpy())
+    t0 = time.perf_counter()
+    CheckpointManager(ckdir, trainer).save(state)
+    stats["save_s"] = time.perf_counter() - t0
+    del state, staged, trainer
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p = Predictor(model, ckdir, device=dev)
+    n = min(len(k) for k, _ in served.values())
+    rng = np.random.default_rng(seed + 2)
+    req = {f.name: rng.lognormal(0, 1, (n, f.width)).astype(np.float32)
+           for f in model.features if f.name not in served}
+    req.update({name: keys[:n] for name, (keys, _) in served.items()})
+    stats["served_checked"] = check_rows(
+        p, {name: (k[:n], v[:n]) for name, (k, v) in served.items()}, req)
+    return stats
+
+
+def _copy_state(state, dev):
+    """A deep copy of a TrainState on `dev`."""
+    import copy
+
+    from deeprec_tpu_torch.optim.dense import AdamState
+
+    out = copy.copy(state)
+    out.tables = {
+        b: type(ts)(**{
+            k: ({n: a.to(dev, copy=True) for n, a in v.items()}
+                if isinstance(v, dict) else v.to(dev, copy=True))
+            for k, v in vars(ts).items()})
+        for b, ts in state.tables.items()
+    }
+    out.dense = {n: p.to(dev, copy=True) for n, p in state.dense.items()}
+    o = state.opt_state
+    out.opt_state = AdamState(
+        count=o.count.to(dev, copy=True),
+        mu={n: a.to(dev, copy=True) for n, a in o.mu.items()},
+        nu={n: a.to(dev, copy=True) for n, a in o.nu.items()})
+    return out
+
+
+def train_agreement(dev, model_kw, seed, cfg, steps=3):
+    """One initial state made on the CPU and copied to `dev`; `steps`
+    train steps on each; returns (max loss relative difference, max row
+    difference, max dense difference, rows compared)."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    model = DLRMDCN(**model_kw, seed=seed)
+    trainers = {d: Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=d)
+                for d in ("cpu", dev)}
+    states = {"cpu": trainers["cpu"].init()}
+    states[dev] = _copy_state(states["cpu"], dev)
+    gen = SyntheticCriteo(batch_size=cfg["agree_batch"], vocab=cfg["vocab"],
+                          seed=seed + 3, num_cat=model.num_cat, num_dense=model.num_dense)
+    loss_diff = 0.0
+    for _ in range(steps):
+        b = gen.batch()
+        ls = {}
+        for d in ("cpu", dev):
+            states[d], m = trainers[d].train_step(states[d], b)
+            ls[d] = float(m["loss"])
+        loss_diff = max(loss_diff, abs(ls[dev] - ls["cpu"]) / abs(ls["cpu"]))
+    row_diff, compared = 0.0, 0
+    for bname, ts in states["cpu"].tables.items():
+        tsd = states[dev].tables[bname]
+        for t in range(ts.keys.shape[0]):
+            rows = {}
+            for side, s in (("cpu", ts), ("dev", tsd)):
+                keys = s.keys[t].cpu().numpy()
+                live = np.nonzero(keys != np.iinfo(keys.dtype).min)[0]
+                v = s.values[t].float().cpu().numpy()[live]
+                a = s.slots["accum"][t].cpu().numpy()[live]
+                rows[side] = dict(zip(keys[live].tolist(), zip(v, a)))
+            if rows["cpu"].keys() != rows["dev"].keys():
+                raise AssertionError(f"{bname}[{t}]: card and CPU hold other keys")
+            for k, (v, a) in rows["cpu"].items():
+                dv, da = rows["dev"][k]
+                row_diff = max(row_diff, float(np.abs(dv - v).max()),
+                               float(np.abs(da - a).max()))
+            compared += len(rows["cpu"])
+    dense_diff = max(float((states[dev].dense[n].cpu() - p).abs().max())
+                     for n, p in states["cpu"].dense.items())
+    return loss_diff, row_diff, dense_diff, compared
+
+
+def run_training(dev, full, small, ckroot, seed, cfg):
+    """Phases 6 and 7. Returns the training stats."""
+    st = train_phase(dev, full, os.path.join(ckroot, "train"), seed, cfg)
+    apply_n, gather_n = st["launches"]
+    losses = st["losses"]
+    print(f"training: DLRM-DCN {full} from empty tables (init {st['init_s']:.2f} s), "
+          f"batch {cfg['batch']}: {cfg['checked']} checked steps launched "
+          f"apply_rows_sr {apply_n} and gather_rows {gather_n} times "
+          f"({st['per_step'][0]} and {st['per_step'][1]} per step), "
+          f"{st['untouched_rows_checked']} untouched rows unchanged, "
+          f"{st['served_checked']} trained ids served back bit for bit "
+          f"(checkpoint saved in {st['save_s']:.2f} s)")
+    print(f"training: {st['examples_per_s']:.1f} examples/s over {cfg['timed']} "
+          f"timed steps ({st['step_ms']:.3f} ms/step); loss step 1 {losses[0]:.6f}, "
+          f"step {cfg['checked']} {losses[cfg['checked'] - 1]:.6f}, step "
+          f"{cfg['checked'] + cfg['timed']} {losses[-1]:.6f}; peak device memory "
+          f"{st['peak_gb']} GB; probe loop {st['probe_syncs_per_step']:.1f} host "
+          f"syncs per step")
+    if "profile" in st:
+        wall, busy, kernels, rows, phases = st["profile"]
+        print(f"profile: {cfg['profiled']} train steps of batch {cfg['batch']}: "
+              f"wall {wall / 1e3:.3f} ms/step, device busy {busy / 1e3:.3f} ms/step, "
+              f"idle share {1 - busy / wall:.3f} (of the timed step "
+              f"{1 - busy / 1e3 / st['step_ms']:.3f}), {kernels} kernels/step")
+        for name, (host_us, dev_us) in phases.items():
+            print(f"profile:   {name:22s} host {host_us / 1e3:8.3f} ms/step, "
+                  f"device {dev_us / 1e3:8.3f} ms/step")
+        for dt, key, count in rows[:14]:
+            print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    loss_d, row_d, dense_d, n = train_agreement(dev, small, seed, cfg)
+    print(f"agreement: training at capacity {small['capacity']}, batch "
+          f"{cfg['agree_batch']}, 3 steps on {dev.type} vs cpu: loss rel diff "
+          f"{loss_d:.3g} (tolerance {TRAIN_RTOL}), max row diff {row_d:.3g} over "
+          f"{n} keys (tolerance {ROW_ATOL}), max dense diff {dense_d:.3g} "
+          f"(bound {6 * cfg['dense_lr']:.3g})")
+    if loss_d > TRAIN_RTOL or row_d > ROW_ATOL or dense_d > 6 * cfg["dense_lr"]:
+        raise AssertionError("card and CPU training disagree")
+    return st
 
 
 # ------------------------------------------------------------ main
 
 
-def run(dev, seed, full, small, kernel_shapes, batches, timed):
-    """Phases 3-5 on `dev`. Returns the kernel records."""
-    record = kernel_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)
+def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN):
+    """Phases 3-7 on `dev`. Returns the kernel records."""
+    records = [kernel_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed),
+               scatter_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)]
 
     ckroot = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckroot, ignore_errors=True)
     try:
         p, batch, st = serve_phase(dev, full, LIVE_KEYS,
                                    os.path.join(ckroot, "full"), seed, batches, timed)
-        record["launches"] = st["launches"]
+        records[0]["launches"] = st["launches"]
         print(f"serving: DLRM-DCN {full} restored in {st['restore_s']:.2f} s "
               f"(checkpoint written in {st['write_s']:.2f} s), "
               f"{st['requests']} requests, gather_rows launches {st['launches']} "
               f"({st['launches_per_request']} per request), "
-              f"{st['live_ids_checked']} looked-up ids checked row for row")
+              f"{st['live_ids_checked']} looked-up ids checked row for row, "
+              f"probe loop {st['probe_syncs']:.1f} host syncs per request")
         print(f"serving: predict latency at batch {batches[0]}: "
               f"p50 {st['p50_ms']} ms, p90 {st['p90_ms']} ms over {timed}; "
               f"peak device memory {st['peak_gb']} GB")
@@ -345,9 +793,15 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed):
               f"max |prob diff| {diff:.3g} (tolerance {PROB_ATOL})")
         if diff > PROB_ATOL:
             raise AssertionError("card and CPU probabilities disagree")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        tst = run_training(dev, full, small, ckroot, seed, train)
+        records[0]["launches"] += tst["launches"][1]
+        records[1]["launches"] = tst["launches"][0]
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
-    return [record]
+    return records
 
 
 def main(argv=None) -> int:
@@ -387,6 +841,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

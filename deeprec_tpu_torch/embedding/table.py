@@ -1,44 +1,45 @@
-"""Hash-embedding table — the port of `deeprec_tpu/embedding/table.py`,
-serving subset.
+"""Hash-embedding table — the port of `deeprec_tpu/embedding/table.py`
+(create, probe/insert, train and read-only lookups, initializer rows,
+scatter_update).
 
 The table is a set of dense tensors in device memory: `keys [T, C]`,
-`values [T, C, D]` and the fused per-slot metadata `meta [T, 3, C]`
-(freq / version / dirty rows). Every state carries a leading table axis
+`values [T, C, D]`, the fused per-slot metadata `meta [T, 3, C]`
+(freq / version / dirty rows) and the optimizer's `slots` ([T, C, w] per-row
+rows, [T, 1, 1] per-table scalars). Every state carries a leading table axis
 [T]: a grouped bundle stacks its T member tables there (the JAX package's
 vmap over a stacked bundle becomes a batch dimension), and an unstacked
 table has T = 1.
 
 Lookups are the JAX package's vectorized open-addressing probe: every
 pending id gathers its candidate slot, matches its key or stops at an empty
-slot; inserts (checkpoint restore) claim empty slots by a batched scatter
-whose losers advance to the next offset. Unlike JAX, the port updates keys
-in place during an insert: the restore owns the state it fills.
-
-Training-mode lookups (insert, metadata stamps, initializer rows),
-`lookup_readonly` and `_init_rows` wait for the training slice: every
-lookup here is read-only.
+slot; inserts claim empty slots by a batched scatter whose losers advance to
+the next offset. Unlike JAX, the port updates every tensor of a state IN
+PLACE (keys on insert, values through the row-scatter kernel, meta, the
+counters): a train step owns the state it is given, as the JAX step owns
+its donated state.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from deeprec_tpu_torch import resolve_device
 from deeprec_tpu_torch.config import TableConfig
 from deeprec_tpu_torch.ops import dedup
-from deeprec_tpu_torch.ops.fused_lookup import gather_rows
+from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
 from deeprec_tpu_torch.utils import hashing
 
 KEY_DTYPES = {"int32": torch.int32, "int64": torch.int64}
 VALUE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# Row indices of the fused metadata tensor (the third row is the dirty
-# flag), and each row's fill value for an empty slot: freq 0, version -1
-# (never touched), dirty 0.
+# Row indices of the fused metadata tensor, and each row's fill value for an
+# empty slot: freq 0, version -1 (never touched), dirty 0.
 META_FREQ = 0
 META_VERSION = 1
+META_DIRTY = 2
 _META_FILL = (0, -1, 0)
 
 
@@ -54,6 +55,19 @@ class TableState:
     keys: torch.Tensor  # [T, C] key dtype, empty slots hold the sentinel
     values: torch.Tensor  # [T, C, D] value dtype
     meta: torch.Tensor  # [T, 3, C] int32: freq / version / dirty rows
+    # optimizer slots, f32: [T, C, w] per-row, [T, 1, 1] per-table scalars
+    slots: Dict[str, torch.Tensor]
+    # [T] int32 counters of train lookups (not checkpointed): ids that found
+    # no slot (the grow signal), unique ids and id positions seen
+    insert_fails: torch.Tensor
+    dedup_unique: torch.Tensor
+    dedup_ids: torch.Tensor
+
+
+def zero_counters(T: int, device) -> Dict[str, torch.Tensor]:
+    """The three [T] int32 counters of a fresh TableState."""
+    return {name: torch.zeros((T,), dtype=torch.int32, device=device)
+            for name in ("insert_fails", "dedup_unique", "dedup_ids")}
 
 
 @dataclasses.dataclass
@@ -67,6 +81,11 @@ class UniqueLookup:
     valid: torch.Tensor  # [T, U] bool: real id (not padding)
     admitted: torch.Tensor  # [T, U] bool: present and passes admission
     embeddings: torch.Tensor  # [T, U, D] rows (default where not admitted)
+    # [T, U, D] the forward residual: the raw gathered value rows, which
+    # the same step's apply reuses instead of gathering again. The gather's
+    # own output, never a view of `values`. Empty: not gathered.
+    rows: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((0,)))
 
 
 class EmbeddingTable:
@@ -74,11 +93,15 @@ class EmbeddingTable:
 
     def __init__(self, cfg: TableConfig):
         self.cfg = cfg
+        # Host syncs spent by the probe loop (one `pending.any()` per
+        # round), summed over every lookup and restore of this table.
+        self.probe_syncs = 0
 
     # ------------------------------------------------------------------ state
 
     def create(self, num_tables: int = 1, device=None) -> TableState:
-        """Empty state of `num_tables` stacked tables on `device`."""
+        """Empty state of `num_tables` stacked tables on `device` (no
+        optimizer slots: `optim.apply.ensure_slots` adds them)."""
         cfg = self.cfg
         if cfg.value_dtype not in VALUE_DTYPES:
             raise NotImplementedError(
@@ -94,7 +117,64 @@ class EmbeddingTable:
             values=torch.zeros((T, C, D), dtype=VALUE_DTYPES[cfg.value_dtype],
                                device=device),
             meta=fill[None, :, None].expand(T, 3, C).contiguous(),
+            slots={},
+            **zero_counters(T, device),
         )
+
+    def size(self, state: TableState) -> torch.Tensor:
+        """Live key count per table, [T] int64."""
+        return (state.keys != empty_key(self.cfg)).sum(-1)
+
+    # ------------------------------------------------------------ initializer
+
+    def default_salt(self) -> int:
+        return hashing.name_salt(self.cfg.name)
+
+    def _init_rows(self, uids: torch.Tensor, salt=None) -> torch.Tensor:
+        """Initializer rows [T, U, D] (value dtype) for ids uids [T, U]: a
+        pure function of (key, table salt), as in the JAX package. `salt` is
+        an int, a [T] tensor (one per stacked member) or None for the
+        table's own name salt."""
+        cfg = self.cfg
+        init = cfg.ev.init
+        D = cfg.dim
+        vdt = VALUE_DTYPES[cfg.value_dtype]
+        device = uids.device
+        if init.kind == "constant":
+            return torch.full((*uids.shape, D), init.constant, dtype=vdt,
+                              device=device)
+        salt = torch.as_tensor(self.default_salt() if salt is None else salt,
+                               dtype=torch.int64, device=device)
+        if salt.dim() == 1:
+            salt = salt[:, None, None]
+        iota = torch.arange(D, dtype=torch.int64, device=device)
+        if init.kind == "matrix_normal":
+            # row (key % default_value_dim) of a normal matrix regenerated
+            # from the salt, never stored
+            rows = (uids.to(torch.int64) & 0xFFFFFFFF) % init.default_value_dim
+            x = (rows[..., None] * D + iota).to(torch.int32)
+            u = hashing.stateless_uniform_from_ids(
+                x, (salt & 0xFFFFFFFF) ^ 0x5EED)
+        elif init.kind == "stateless_normal":
+            # `uids * D + iota` in the key dtype: int32 keys wrap as JAX's
+            # int32 product does once an id passes 2^31 / D
+            x = uids[..., None].to(torch.int64) * max(D, 1) + iota
+            if uids.dtype == torch.int32:
+                x = hashing.wrap_int32(x)
+            u = hashing.stateless_uniform_from_ids(x, salt)
+        else:
+            raise ValueError(f"unknown initializer kind {init.kind!r}")
+        return self._uniform_to_normal(u).to(vdt)
+
+    def _uniform_to_normal(self, u: torch.Tensor) -> torch.Tensor:
+        """N(mean, stddev) by the inverse CDF. `torch.erfinv` is not XLA's
+        erfinv: over every uniform the hash gives, the two differ by at most
+        65 f32 ulps of erfinv's output (4 away from the tails)."""
+        init = self.cfg.ev.init
+        eps = 1e-6
+        z = math.sqrt(2.0) * torch.erfinv(
+            torch.clamp(2.0 * u - 1.0, -1.0 + eps, 1.0 - eps))
+        return init.mean + init.stddev * z
 
     # ------------------------------------------------------------ probe/insert
 
@@ -103,7 +183,7 @@ class EmbeddingTable:
         keys: torch.Tensor,
         uids: torch.Tensor,
         want_create: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Vectorized open-addressing lookup-or-create over T tables.
 
         Args:
@@ -113,9 +193,9 @@ class EmbeddingTable:
           want_create: [T, U] bool, ids allowed to claim an empty slot, or
             None for a read-only probe (no writes at all).
 
-        Returns (slot_ix [T, U] int32 (-1 = not found/placed), failed
-        [T, U]). The loop stops when no id is pending: one host sync per
-        probe round.
+        Returns (slot_ix [T, U] int32 (-1 = not found/placed), created
+        [T, U], failed [T, U]). The loop stops when no id is pending: one
+        host sync per probe round, counted in `self.probe_syncs`.
         """
         T, C = keys.shape
         device = keys.device
@@ -124,8 +204,10 @@ class EmbeddingTable:
         flat = keys.view(-1)
         base = (torch.arange(T, device=device) * C)[:, None]
         slot_ix = torch.full(uids.shape, -1, dtype=torch.int64, device=device)
+        created = torch.zeros(uids.shape, dtype=torch.bool, device=device)
         pending = uids != sentinel
         for step in range(self.cfg.max_probes):
+            self.probe_syncs += 1
             if not bool(pending.any()):
                 break
             pos = (h + step) & (C - 1)
@@ -141,39 +223,74 @@ class EmbeddingTable:
                 pending = pending & ~is_empty
                 continue
             want = pending & is_empty & want_create
-            # Claim race: scatter all claimants; duplicates resolve to one
-            # winner, which the re-gather reveals. Losers keep probing.
-            flat[gpos[want]] = uids[want]
+            # Claim race: every claimant of one empty slot writes at once
+            # and the largest id wins (the sentinel is the dtype's minimum,
+            # so non-claimants' sentinel writes change nothing, and no
+            # host-side mask is needed); the re-gather reveals the winner.
+            # Losers keep probing.
+            flat.scatter_reduce_(0, gpos.flatten(),
+                                 torch.where(want, uids, sentinel).flatten(),
+                                 reduce="amax")
             won = want & (flat[gpos] == uids)
             slot_ix = torch.where(won, pos, slot_ix)
+            created = created | won
             pending = pending & ~won & ~(is_empty & ~want_create)
-        return slot_ix.to(torch.int32), pending
+        return slot_ix.to(torch.int32), created, pending
 
     # ----------------------------------------------------------------- lookup
 
     def lookup_unique(self, state: TableState, ids: torch.Tensor, *,
-                      pad_value: int = -1) -> UniqueLookup:
-        """Read-only lookup: deduplicate ids [T, ...] per table, resolve
-        them, gather rows. The state is not changed."""
+                      step: int = 0, train: bool = True, pad_value: int = -1,
+                      salt=None) -> UniqueLookup:
+        """Deduplicate ids [T, ...] per table, resolve them, gather rows.
+
+        train=True inserts new keys (initializer rows written through the
+        row-scatter kernel, bf16 tables rounding stochastically with seed
+        `step`), stamps freq/version/dirty and moves the counters, all IN
+        PLACE; train=False changes nothing."""
         uids, inverse, counts, valid = dedup.route_ids(
             ids, pad_value=pad_value, sentinel=empty_key(self.cfg), lead=1,
         )
-        res = dataclasses.replace(
-            self._resolve(state, uids, counts, valid), inverse=inverse)
-        return self._finish_resolved(state, res)
+        res = self._resolve(state, uids, counts, valid, step=step,
+                            train=train, salt=salt)
+        if train:
+            state.dedup_unique += valid.sum(-1, dtype=torch.int32)
+            state.dedup_ids += counts.sum(-1, dtype=torch.int32)
+        return self._finish_resolved(
+            state, dataclasses.replace(res, inverse=inverse))
 
     def _resolve(self, state: TableState, uids: torch.Tensor,
-                 counts: torch.Tensor, valid: torch.Tensor) -> UniqueLookup:
-        """Key half of a read-only lookup: probe, then the admission
-        decision (the counter filter). Embeddings stay an empty placeholder
-        until `_finish_resolved`."""
-        slot_ix, _ = self._probe(state.keys, uids, None)
+                 counts: torch.Tensor, valid: torch.Tensor, *, step: int = 0,
+                 train: bool = False, salt=None) -> UniqueLookup:
+        """Key half of a lookup: probe (and, in train mode, insert, write
+        the initializer rows of created keys and stamp the fused metadata),
+        then the admission decision (the counter filter, on the
+        post-update frequency). Embeddings stay an empty placeholder until
+        `_finish_resolved`."""
+        cfg = self.cfg
+        cf = cfg.ev.counter_filter
+        need_filter = cf is not None and cf.filter_freq > 0
+        if train and cfg.ev.cbf_filter is not None:
+            raise NotImplementedError(
+                f"table {cfg.name}: the counting-Bloom-filter admission "
+                "(embedding/filters.py) waits for slice 5 of the port")
+        slot_ix, created, failed = self._probe(
+            state.keys, uids, valid if train else None)
         present = slot_ix >= 0
-        admitted = present
-        cf = self.cfg.ev.counter_filter
-        if cf is not None and cf.filter_freq > 0:
+        f_cur = None
+        if train:
+            # initializer rows of the keys this probe created (bf16 tables
+            # round stochastically, seed `step`)
+            apply_rows_sr(state.values, torch.where(created, slot_ix, -1),
+                          self._init_rows(uids, salt).to(torch.float32),
+                          seed=step)
+            f_cur = self._stamp_meta(state, slot_ix, counts, step)
+            state.insert_fails += failed.sum(-1, dtype=torch.int32)
+        elif need_filter:
             safe = torch.where(present, slot_ix, 0).long()
             f_cur = state.meta[:, META_FREQ, :].gather(1, safe)
+        admitted = present
+        if need_filter:
             admitted = present & (f_cur >= cf.filter_freq)
         return UniqueLookup(
             uids=uids, slot_ix=slot_ix, inverse=uids.new_zeros((0,)),
@@ -181,15 +298,55 @@ class EmbeddingTable:
             embeddings=state.values.new_zeros((0,)),
         )
 
+    def _stamp_meta(self, state, slot_ix, counts, step) -> torch.Tensor:
+        """The fused metadata update of a train lookup: ONE [T, 3, U]
+        gather and ONE scatter set freq += counts, version = step, dirty = 1
+        on every present slot. uids are unique, so present slots are too;
+        the scatter adds (new - old) and adds 0 where an id is absent, which
+        makes the write exact without a host-side mask. Returns the
+        post-update freq [T, U]."""
+        T, U = slot_ix.shape
+        present = slot_ix >= 0
+        idx = torch.where(present, slot_ix, 0).long()[:, None, :].expand(T, 3, U)
+        old = state.meta.gather(2, idx)
+        f_cur = old[:, META_FREQ] + counts
+        new = torch.stack([f_cur, torch.full_like(f_cur, int(step)),
+                           torch.ones_like(f_cur)], dim=1)
+        state.meta.scatter_add_(2, idx, torch.where(present[:, None], new - old, 0))
+        return f_cur
+
     def _finish_resolved(self, state: TableState,
                          res: UniqueLookup) -> UniqueLookup:
         """Value half of a lookup: gather the resolved rows through the
         row-gather kernel, then serve `default_value_no_permission` where a
-        key is absent or not admitted."""
+        key is absent or not admitted. The raw gathered rows ride along as
+        the `rows` residual."""
         safe_ix = torch.where(res.slot_ix >= 0, res.slot_ix, 0)
         emb = gather_rows(state.values, safe_ix)
         masked = torch.where(
             res.admitted[..., None], emb,
             self.cfg.ev.init.default_value_no_permission,
         )
-        return dataclasses.replace(res, embeddings=masked)
+        return dataclasses.replace(res, embeddings=masked, rows=emb)
+
+    # ---------------------------------------------------------------- updates
+
+    def scatter_update(self, state: TableState, slot_ix: torch.Tensor,
+                       new_values: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       seed: int = 0) -> TableState:
+        """Write rows [T, U, D] at slot_ix [T, U] (< 0 = skip), IN PLACE,
+        through the row-scatter kernel, and mark them dirty. Pass the
+        global step as `seed` for a bf16 table so stochastic rounding draws
+        fresh bits each step."""
+        ok = slot_ix >= 0
+        if mask is not None:
+            ok = ok & mask
+        write_ix = torch.where(ok, slot_ix, -1)
+        apply_rows_sr(state.values, write_ix, new_values.to(torch.float32),
+                      seed=seed)
+        T, U = slot_ix.shape
+        idx = torch.where(ok, slot_ix, 0).long()
+        dirty = state.meta[:, META_DIRTY, :]
+        dirty.scatter_add_(1, idx, torch.where(ok, 1 - dirty.gather(1, idx), 0))
+        return state

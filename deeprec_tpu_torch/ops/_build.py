@@ -27,6 +27,10 @@ NVCC_FLAGS = [
 # ctypes signatures of each library's launcher: pointers and the stream as
 # c_void_p (a bare Python int would be cut to 32 bits), sizes as 64-bit.
 _SIGNATURES = {
+    "apply_rows_sr": {
+        "apply_rows_sr_launch": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+        + [ctypes.c_int, ctypes.c_void_p],
+    },
     "gather_rows": {
         "gather_rows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
         + [ctypes.c_void_p],

@@ -1,0 +1,98 @@
+"""Applying sparse gradients to a table — the port of
+`deeprec_tpu/optim/apply.py` (`ensure_slots`, `apply_gradients`).
+
+Autograd gives the gradients with respect to the unique gathered
+embeddings [T, U, D]; the apply gathers the matching slot rows through the
+row-gather kernel, runs the optimizer's row function, masks out invalid and
+filter-blocked keys and writes the value and slot rows back through the
+row-scatter kernel, IN PLACE.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from deeprec_tpu_torch.embedding.table import (
+    META_DIRTY, META_VERSION, EmbeddingTable, TableState, UniqueLookup,
+)
+from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX, SparseOptimizer
+
+
+def ensure_slots(table: EmbeddingTable, state: TableState,
+                 opt: SparseOptimizer) -> TableState:
+    """Create the optimizer's slot tensors for this table (idempotent):
+    [T, C, w] f32 per-row slots and [T, 1, 1] per-table scalars, filled
+    with their initial values."""
+    T, C = state.keys.shape
+    D = state.values.shape[-1]
+    device = state.keys.device
+    for name, (shape, init) in opt.slot_specs(D).items():
+        if name in state.slots:
+            continue
+        (w,) = tuple(shape)
+        size = (T, 1, 1) if name.startswith(SCALAR_PREFIX) else (T, C, w)
+        state.slots[name] = torch.full(size, init, dtype=torch.float32,
+                                       device=device)
+    return state
+
+
+def apply_gradients(
+    table: EmbeddingTable,
+    state: TableState,
+    opt: SparseOptimizer,
+    res: UniqueLookup,
+    grad_u: torch.Tensor,  # [T, U, D] grads w.r.t. res.embeddings
+    *,
+    step: int = 0,
+    lr: Optional[float] = None,
+    grad_averaging: bool = False,
+    reuse_rows: bool = False,
+    stamp_meta: bool = True,
+) -> TableState:
+    """Update the touched rows of `state` IN PLACE in one pass.
+
+    `reuse_rows=True` takes the value rows from the same step's train
+    lookup (`res.rows`) instead of gathering them again, and
+    `stamp_meta=False` leaves version/dirty to that lookup's metadata
+    stamp: the trainer's hot path (valid only when nothing wrote the rows
+    between that lookup and this apply). bf16 tables round the written
+    rows stochastically with seed `step`; slots are f32 and store exactly.
+    """
+    lr = opt.lr if lr is None else lr
+    ok = (res.slot_ix >= 0) & res.valid & res.admitted  # [T, U]
+    safe_ix = torch.where(ok, res.slot_ix, 0)
+    write_ix = torch.where(ok, res.slot_ix, -1)
+
+    grad = grad_u.to(torch.float32)
+    if grad_averaging:
+        grad = grad / torch.clamp(res.counts.to(torch.float32), min=1.0)[..., None]
+
+    if reuse_rows and res.rows.numel():
+        value = res.rows.to(torch.float32)
+    else:
+        value = gather_rows(state.values, safe_ix).to(torch.float32)
+    row_slots: Dict[str, torch.Tensor] = {
+        name: arr if name.startswith(SCALAR_PREFIX) else gather_rows(arr, safe_ix)
+        for name, arr in state.slots.items()
+    }
+
+    new_value, new_slots = opt.update(value, row_slots, grad, res.counts,
+                                      step, lr)
+
+    apply_rows_sr(state.values, write_ix, new_value, seed=step)
+    for name, rows in new_slots.items():
+        if name.startswith(SCALAR_PREFIX):
+            state.slots[name].copy_(rows)
+        else:
+            apply_rows_sr(state.slots[name], write_ix, rows, seed=step)
+    if stamp_meta:
+        T, U = ok.shape
+        idx = safe_ix.long()[:, None, :].expand(T, 2, U)
+        rows = state.meta[:, META_VERSION:META_DIRTY + 1]
+        new = torch.stack([torch.full_like(safe_ix, int(step)),
+                           torch.ones_like(safe_ix)], dim=1)
+        old = rows.gather(2, idx)
+        rows.scatter_add_(2, idx, torch.where(ok[:, None], new - old, 0))
+    return state

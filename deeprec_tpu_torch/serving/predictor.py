@@ -34,7 +34,7 @@ class Predictor:
 
     def __init__(self, model, ckpt_dir: str, device=None):
         self.model = model
-        self._trainer = Trainer(model, device)
+        self._trainer = Trainer(model, device=device)
         self.device = self._trainer.device
         self._ck = CheckpointManager(ckpt_dir, self._trainer)
         self._snap = None

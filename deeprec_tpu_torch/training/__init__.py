@@ -1,1 +1,1 @@
-"""Serving-subset trainer and full checkpoints."""
+"""Trainer, metrics and full checkpoints."""

@@ -1,20 +1,29 @@
-"""Read-only forward over (hash tables + dense params) — the serving subset
-of `deeprec_tpu/training/trainer.py`.
+"""Training and the read-only forward over (hash tables + dense params) —
+the port of `deeprec_tpu/training/trainer.py` (`Trainer.init`,
+`train_step`, `eval_step`, `evaluate`, `forward_views`,
+`probs_from_views`), single device, `pipeline_mode="off"`, legacy U = N
+sort-unique dedup.
 
 Features whose tables share a config and id shape are bundled: their
 states stack along the leading table axis [T] and one batched lookup serves
 all of them (the JAX package vmaps over that axis; here every table op
 takes it as a batch dimension). The dense parameters live in a flat
-{name: tensor} dict and the model runs through `torch.func.functional_call`,
-so a state is a self-contained snapshot that a serving reload can replace
-atomically. Training (train_step, optimizers, budgets) waits for the
-training slice.
+{name: tensor} dict and the model runs through `torch.func.functional_call`.
+
+A train step mutates the state it is given IN PLACE (tables, dense
+parameters, optimizer moments) and returns a TrainState over the same
+tensors, as the JAX step consumes its donated state. Table tensors never
+enter the autograd graph: the lookup runs under `no_grad`, the unique
+embeddings [T, U, D] of each bundle become the leaves that require grad,
+and `torch.autograd.grad` differentiates the loss with respect to (dense
+parameters, those leaves).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -23,6 +32,10 @@ from deeprec_tpu_torch import resolve_device
 from deeprec_tpu_torch.embedding import combiners
 from deeprec_tpu_torch.embedding.table import KEY_DTYPES, EmbeddingTable, TableState
 from deeprec_tpu_torch.features import SparseFeature
+from deeprec_tpu_torch.optim import dense as dense_optim
+from deeprec_tpu_torch.optim.apply import apply_gradients, ensure_slots
+from deeprec_tpu_torch.training import metrics as M
+from deeprec_tpu_torch.utils.hashing import name_salt
 
 
 @dataclasses.dataclass
@@ -30,6 +43,7 @@ class TrainState:
     step: int
     tables: Dict[str, TableState]  # bundle name -> stacked table state
     dense: Dict[str, torch.Tensor]  # model parameter name -> tensor
+    opt_state: Any = None  # the dense optimizer's state (None: serving only)
 
 
 @dataclasses.dataclass
@@ -46,6 +60,12 @@ class Bundle:
     @property
     def num_tables(self) -> int:
         return len(self.features) if self.stacked else 1
+
+    @property
+    def salts(self) -> List[int]:
+        """Per-member initializer salts of a stacked bundle (the feature
+        names', as in the JAX package)."""
+        return [name_salt(f.name) for f in self.features]
 
 
 def build_bundles(specs) -> Dict[str, Bundle]:
@@ -93,35 +113,70 @@ def _prep_ids(ids: torch.Tensor) -> torch.Tensor:
     return ids[:, None] if ids.dim() == 1 else ids
 
 
-class Trainer:
-    """Serving subset of the JAX Trainer: bundles, the read-only lookup
-    and the label-free forward. `model` is an nn.Module with `features`
-    and `forward(inputs)`; its own parameters are only the template of
-    `TrainState.dense`."""
+def _phase(name: str):
+    """A `phase_<name>` range of the train step for torch.profiler (the
+    JAX package's `jax.named_scope("phase_<name>")`): a profile attributes
+    host time and the device time of the kernels launched inside to it.
+    Costs a few microseconds when no profiler runs."""
+    return torch.profiler.record_function(f"phase_{name}")
 
-    def __init__(self, model, device=None):
+
+class Trainer:
+    """Single-device trainer. `model` is an nn.Module with `features` and
+    `forward(inputs)`; its own parameters are only the template of
+    `TrainState.dense`. `sparse_opt` (an `optim.sparse` row optimizer)
+    trains the tables and `dense_opt` (default `optim.dense.adam(1e-3)`, as
+    the JAX package's `optax.adam(1e-3)`) the dense parameters; a Trainer
+    without a sparse optimizer only serves (lookups and forward) and its
+    `init()` carries no optimizer state."""
+
+    def __init__(self, model, sparse_opt=None, dense_opt=None,
+                 grad_averaging: bool = False, device=None):
         self.model = model
+        self.sparse_opt = sparse_opt
+        self.dense_opt = dense_opt or dense_optim.adam(1e-3)
+        self.grad_averaging = grad_averaging
         self.device = resolve_device(device)
         self.sparse_specs = fcol.sparse_features(model.features)
         self.dense_specs = fcol.dense_features(model.features)
         self.bundles = build_bundles(model.features)
+        self._salts = {
+            bname: torch.tensor(b.salts, dtype=torch.int64, device=self.device)
+            for bname, b in self.bundles.items() if b.stacked
+        }
 
     def init(self) -> TrainState:
-        """Empty tables and the model's own parameters, on the device."""
-        tables = {
-            bname: b.table.create(b.num_tables, self.device)
-            for bname, b in self.bundles.items()
-        }
+        """Empty tables (with the sparse optimizer's slots), the model's own
+        parameters and the dense optimizer's state, on the device."""
+        tables = {}
+        for bname, b in self.bundles.items():
+            ts = b.table.create(b.num_tables, self.device)
+            if self.sparse_opt is not None:
+                ensure_slots(b.table, ts, self.sparse_opt)
+            tables[bname] = ts
         dense = {
             n: p.detach().to(self.device, copy=True)
             for n, p in self.model.named_parameters()
         }
-        return TrainState(step=0, tables=tables, dense=dense)
+        opt_state = (self.dense_opt.init(dense)
+                     if self.sparse_opt is not None else None)
+        return TrainState(step=0, tables=tables, dense=dense, opt_state=opt_state)
 
     def input_keys(self) -> frozenset:
         return frozenset(f.name for f in self.sparse_specs) | frozenset(
             f.name for f in self.dense_specs
         )
+
+    def device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch's input features and labels as tensors on the device:
+        numpy arrays are copied once, tensors already there pass as they
+        are."""
+        keep = self.input_keys()
+        return {
+            k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)
+                               ).to(self.device)
+            for k, v in batch.items() if k in keep or k.startswith("label")
+        }
 
     def _ids(self, b: Bundle, batch, feats) -> torch.Tensor:
         """[T, B, L] id stack of `feats` in the table's key dtype (64-bit
@@ -136,17 +191,33 @@ class Trainer:
             )
         return torch.stack(ids).to(KEY_DTYPES[b.table.cfg.key_dtype])
 
-    def _lookup_all(self, tables, batch):
-        """Every bundle's read-only lookup. Returns (per-feature views
-        (embeddings [U, D], inverse [B, L], mask [B, L]), per-bundle
-        results)."""
+    @staticmethod
+    def _members(b: Bundle) -> List[List[SparseFeature]]:
+        """The feature groups of one bundle that look up together: all
+        members of a stacked bundle at once, a shared table's features one
+        after another."""
+        return [b.features] if b.stacked else [[f] for f in b.features]
+
+    @staticmethod
+    def _results(b: Bundle, res) -> list:
+        """(features, lookup result) pairs of one bundle's entry of
+        `bundle_res`, in lookup order."""
+        if b.stacked:
+            return [(b.features, res)]
+        return [([f], res[f.name]) for f in b.features]
+
+    def _lookup_all(self, tables, batch, step: int = 0, train: bool = False):
+        """Every bundle's lookup (train mode inserts and stamps IN PLACE).
+        Returns (per-feature views (embeddings [U, D], inverse [B, L],
+        mask [B, L]), per-bundle results)."""
         views, bundle_res = {}, {}
         for bname, b in self.bundles.items():
-            members = [b.features] if b.stacked else [[f] for f in b.features]
-            for feats in members:
+            for feats in self._members(b):
                 ids = self._ids(b, batch, feats)
                 pad = feats[0].pad_value
-                res = b.table.lookup_unique(tables[bname], ids, pad_value=pad)
+                res = b.table.lookup_unique(
+                    tables[bname], ids, step=step, train=train, pad_value=pad,
+                    salt=self._salts.get(bname))
                 masks = ids != pad
                 for k, f in enumerate(feats):
                     views[f.name] = (res.embeddings[k], res.inverse[k], masks[k])
@@ -164,6 +235,84 @@ class Trainer:
                                                f.pooling)
         dense = {f.name: batch[f.name] for f in self.dense_specs}
         return ModelInputs(pooled=pooled, dense=dense)
+
+    # ---------------------------------------------------------------- training
+
+    def train_step(self, state: TrainState, batch, lr: Optional[float] = None):
+        """One step: train lookups (insert, initializer rows, metadata),
+        forward and backward, the sparse applies and the dense optimizer,
+        all IN PLACE on `state`'s tensors. Returns (the next TrainState,
+        {"loss", "accuracy"} as 0-d device tensors)."""
+        if self.sparse_opt is None:
+            raise ValueError("train_step needs a Trainer with a sparse optimizer")
+        lr = self.sparse_opt.lr if lr is None else float(lr)
+        step = int(state.step)
+        batch = self.device_batch(batch)
+        with _phase("lookup"), torch.no_grad():
+            views, bundle_res = self._lookup_all(state.tables, batch, step, True)
+        with _phase("dense_fwd_bwd"):
+            leaves, embs = [], {}
+            for bname, b in self.bundles.items():
+                for feats, res in self._results(b, bundle_res[bname]):
+                    e = res.embeddings.to(torch.float32).detach().requires_grad_(True)
+                    leaves.append(e)
+                    for k, f in enumerate(feats):
+                        embs[f.name] = e[k]
+            dense = {n: p.detach().requires_grad_(True) for n, p in state.dense.items()}
+            logits = functional_call(self.model, dense,
+                                     (self._build_inputs(embs, views, batch),))
+            loss = M.bce_loss(logits, batch["label"])
+            grads = torch.autograd.grad(loss, [*dense.values(), *leaves],
+                                        allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip([*dense.values(), *leaves], grads)]
+        g_dense = dict(zip(dense, grads[:len(dense)]))
+        g_embs = iter(grads[len(dense):])
+        with _phase("sparse_apply"), torch.no_grad():
+            for bname, b in self.bundles.items():
+                # A shared table's features apply one after another, so each
+                # gathers its rows again (an earlier apply may have moved
+                # them); every other bundle reuses the lookup's rows.
+                reuse = b.stacked or len(b.features) == 1
+                for _, res in self._results(b, bundle_res[bname]):
+                    apply_gradients(
+                        b.table, state.tables[bname], self.sparse_opt, res,
+                        next(g_embs), step=step, lr=lr,
+                        grad_averaging=self.grad_averaging,
+                        reuse_rows=reuse, stamp_meta=False,
+                    )
+        with _phase("dense_apply"), torch.no_grad():
+            updates, opt_state = self.dense_opt.update(g_dense, state.opt_state,
+                                                       state.dense)
+            dense_optim.apply_updates(state.dense, updates)
+        with torch.no_grad():
+            probs = torch.sigmoid(logits.detach())
+            mets = {"loss": loss.detach(),
+                    "accuracy": M.accuracy(probs, batch["label"])}
+        return TrainState(step=step + 1, tables=state.tables, dense=state.dense,
+                          opt_state=opt_state), mets
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch):
+        """Read-only forward of a labelled batch: (loss, probabilities)."""
+        batch = self.device_batch(batch)
+        views, _ = self._lookup_all(state.tables, batch)
+        logits, probs = self.probs_from_views(state, views, batch)
+        return M.bce_loss(logits, batch["label"]), probs
+
+    def evaluate(self, state: TrainState, batches) -> Dict[str, float]:
+        """Streamed loss and histogram AUC over an iterable of batches."""
+        auc = M.AucState.create(self.device)
+        total, n = 0.0, 0
+        for batch in batches:
+            batch = self.device_batch(batch)
+            loss, probs = self.eval_step(state, batch)
+            auc = M.auc_update(auc, probs, batch["label"])
+            total += float(loss)
+            n += 1
+        return {"loss": total / max(n, 1), "auc": float(M.auc_compute(auc))}
+
+    # ------------------------------------------------------------- serving
 
     @torch.no_grad()
     def forward_views(self, state: TrainState, batch):

@@ -2,8 +2,8 @@
 `deeprec_tpu/utils/hashing.py`.
 
 Slot positions carried over from a JAX checkpoint are only found again with
-the same hash, so every function here reproduces the JAX uint32 arithmetic
-exactly. PyTorch's uint32 support is partial, so values are held as int64
+the same hash, and a new key's initializer row is a hash of its id, so every
+function here reproduces the JAX uint32 arithmetic exactly. PyTorch's uint32 support is partial, so values are held as int64
 in [0, 2^32) and every product is split into 16-bit halves: no intermediate
 leaves the signed 64-bit range, and masking with 0xFFFFFFFF gives the
 wrapped uint32 result.
@@ -47,3 +47,19 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     x = _mul32(x, 0xC2B2AE35)
     x = x ^ (x >> 16)
     return x
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32 two's complement, as int32 arithmetic
+    overflows in JAX (`uids * D + iota` on int32 keys)."""
+    return (((x + (1 << 31)) & _M32) - (1 << 31)).to(torch.int32)
+
+
+def stateless_uniform_from_ids(ids: torch.Tensor, salt) -> torch.Tensor:
+    """Deterministic per-id uniform in [0, 1) float32, a pure function of
+    (id, salt). `salt` is an int or an integer tensor broadcasting against
+    `ids` (a stacked bundle passes one salt per table)."""
+    salt = torch.as_tensor(salt, dtype=torch.int64, device=ids.device)
+    bits = mix32(fold64(ids) ^ mix32(salt & _M32))
+    # the 24 high bits, exact in float32
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))

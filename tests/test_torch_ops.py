@@ -177,7 +177,7 @@ def test_readonly_lookup_matches_jax(value_dtype, filter_freq):
     state = table_state_from_arrays(
         tt.cfg, {"keys": np.asarray(st.keys), "values": np.asarray(
             st.values.astype(jnp.float32)), "meta": np.asarray(st.meta)}, 1, "cpu")
-    res = tt.lookup_unique(state, torch.from_numpy(q)[None])
+    res = tt.lookup_unique(state, torch.from_numpy(q)[None], train=False)
     got = res.embeddings[0].float().numpy()[res.inverse[0].numpy()]
     np.testing.assert_array_equal(got, want)
     blocked = (q < 0) | (q >= 1000) | ((q % 4) + 1 < filter_freq)

@@ -109,7 +109,7 @@ def _batch(st, tr, B, seed):
 
 def test_jax_save_port_restore_exact(jax_run):
     model, tr, st, d = jax_run
-    trainer = Trainer(DLRMDCN(**KW), "cpu")
+    trainer = Trainer(DLRMDCN(**KW), device="cpu")
     state = CheckpointManager(d, trainer).restore()
     assert state.step == int(st.step) == 3
     assert _port_tables(trainer, state) == _jax_tables(tr, st)
@@ -120,7 +120,7 @@ def test_jax_save_port_restore_exact(jax_run):
 
 def test_port_save_jax_restore_exact(jax_run, tmp_path):
     model, tr, st, d = jax_run
-    trainer = Trainer(DLRMDCN(**KW), "cpu")
+    trainer = Trainer(DLRMDCN(**KW), device="cpu")
     state = CheckpointManager(d, trainer).restore()
     CheckpointManager(str(tmp_path), trainer).save(state)
     jtr = JaxTrainer(JaxDLRMDCN(**KW), Adagrad(lr=0.1), optax.adam(1e-3))
@@ -133,7 +133,7 @@ def test_port_save_jax_restore_exact(jax_run, tmp_path):
 
 
 def _converted(tr, st):
-    trainer = Trainer(DLRMDCN(**KW), "cpu")
+    trainer = Trainer(DLRMDCN(**KW), device="cpu")
     tables = {
         bname: {"keys": np.asarray(ts.keys), "values": np.asarray(ts.values),
                 "meta": np.asarray(ts.meta)}
