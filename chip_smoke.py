@@ -33,7 +33,21 @@ Phases, each of which must pass:
      saved and served back by Predictor bit for bit;
   7. the same widths at capacity 2^12 and batch 256 from one initial state,
      3 train steps on the card and 3 on the CPU, within TRAIN_RTOL and
-     ROW_ATOL.
+     ROW_ATOL;
+  8. the fused bag step at full width: 26 tables of 2^20 x 128 f32 with
+     Adagrad(0.05), stacked by bag length (the MLPerf DLRM-DCNv2
+     multi-hot sizes: 12 groups), batch 2048 of zipf(1.2) ids over 10^6
+     with 10 % pads in multi-hot bags; each step runs, per group, the train
+     lookup, row_ix = slot_ix[inverse], bag_forward (kernel #6),
+     g = out * 0.25 + 1 and apply_bag_gradients (kernel #7). 5 checked
+     steps (launch counts, finite bags and rows), 20 timed, 3 profiled;
+     then on copies of the L = 100 and L = 1 groups (and a bf16 copy of one
+     table) both kernels bit for bit against their plain versions, rows
+     off the batch unchanged, and a tight budget whose overflow both count
+     alike and whose out-of-budget positions add nothing; per-step device
+     times of both kernels, their plain versions and embedding_bag;
+  9. DLRM-DCN training with Trainer(unique_budget="auto"): 5 steps,
+     update_budgets, 5 steps at the measured budget, no overflow.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -74,8 +88,8 @@ TRAIN = dict(batch=2048, vocab=1_000_000, checked=5, timed=30, profiled=3,
              lr=0.05, dense_lr=1e-3, agree_batch=256, sample=4096)
 
 
-def _ms(fn, dev, reps=50):
-    """(device ms, call ms) of fn() after a warm-up. Device: the summed
+def _ms(fn, dev, reps=50, warm=3):
+    """(device ms, call ms) of fn() after `warm` calls. Device: the summed
     duration of the kernels one call launches, from torch.profiler over
     `reps` calls. Call: CUDA events around `reps` back-to-back calls, which
     times the host's launch interval wherever that is longer than the
@@ -87,7 +101,7 @@ def _ms(fn, dev, reps=50):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -133,7 +147,9 @@ def _timed_record(rec, label, kernel, plain, library):
 
 def kernel_phase(dev, main_shape, edge_shapes, seed):
     """gather_rows against its plain version; returns the kernel record
-    (timed at the main shape in f32, the table dtype of both paths)."""
+    (timed at the main shape in f32, the table dtype of both paths; the
+    bf16 timing, the branch that stands for the TPU's pair-granule gather,
+    is printed beside it)."""
     from deeprec_tpu_torch.ops.fused_lookup import gather_rows, gather_rows_plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -153,8 +169,9 @@ def kernel_phase(dev, main_shape, edge_shapes, seed):
             err = float((got.float() - want.float()).abs().max())
             print(f"gather_rows {str(dtype)[6:]} T={T} C={C} D={D} n={n}: "
                   f"bit-exact (max_abs_err {err})")
-            if record is None and (T, C, D, n) == tuple(main_shape):
-                record = time_gather(values, n, g, err)
+            if (T, C, D, n) == tuple(main_shape):
+                rec = time_gather(values, n, g, err)
+                record = record or rec  # f32 comes first
             del values
         del values32, ix
     if dev.type == "cuda":
@@ -750,11 +767,369 @@ def run_training(dev, full, small, ckroot, seed, cfg):
     return st
 
 
+# ------------------------------------------------------------ fused bag step
+
+# Bag lengths of the 26 categorical features: `multi_hot_sizes` of the
+# public MLPerf DLRM-DCNv2 reference (Criteo 1TB multi-hot).
+MULTI_HOT = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1)
+FUSED = dict(batch=2048, vocab=1_000_000, zipf=1.2, pad=0.1, checked=5,
+             timed=20, lr=0.05, capacity=1 << 20, dim=128, compare=(100, 1))
+
+
+def bag_groups(lengths):
+    """{L: feature indices}: features of one bag length stack into one
+    bundle, as the JAX package groups features whose id shapes match."""
+    groups = {}
+    for i, L in enumerate(lengths):
+        groups.setdefault(L, []).append(i)
+    return dict(sorted(groups.items()))
+
+
+def make_bags(rng, groups, cfg, dev):
+    """One step's ids per group on `dev`: [T, B, L] int32 zipf ids over
+    `vocab`, about `pad` of the positions padded (-1) in multi-hot bags."""
+    from deeprec_tpu_torch.data.synthetic import zipf_ids
+
+    out = {}
+    for L, members in groups.items():
+        ids = zipf_ids(rng, cfg["vocab"], cfg["zipf"], (len(members), cfg["batch"], L))
+        if L > 1:
+            ids = np.where(rng.random(ids.shape) < cfg["pad"], -1, ids)
+        out[L] = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    return out
+
+
+def fused_step(bundles, bags, step, opt):
+    """One fused bag step through the public API, per group (the JAX
+    package's fused bench, tools/bench_lookup.py): the train lookup
+    resolves the keys, row_ix = slot_ix[inverse] where not pad,
+    bag_forward, g = out * 0.25 + 1, apply_bag_gradients. Returns {L:
+    (row_ix, FusedBags)}."""
+    from deeprec_tpu_torch.ops.dedup import resolve_size
+    from deeprec_tpu_torch.optim.apply import apply_bag_gradients
+
+    out = {}
+    for L, (table, st) in bundles.items():
+        ids = bags[L]
+        T, B, _ = ids.shape
+        look = table.lookup_unique(st, ids, step=step, train=True, pad_value=-1)
+        slot = look.slot_ix.gather(1, look.inverse.reshape(T, -1).long())
+        row_ix = torch.where(ids != -1, slot.view(T, B, L), -1)
+        res = table.bag_forward(st, row_ix, combiner="sum",
+                                unique_size=resolve_size(B * L, B * L))
+        apply_bag_gradients(table, st, opt, res, res.out * 0.25 + 1.0, row_ix,
+                            combiner="sum", step=step)
+        out[L] = (row_ix, res)
+    return out
+
+
+def _bag_multisets(res):
+    return [sorted(zip(res.uids[t].tolist(), res.counts[t].tolist()))
+            for t in range(res.uids.shape[0])]
+
+
+def _check_bags(kres, pres, what):
+    if not torch.equal(kres.overflow, pres.overflow):
+        raise AssertionError(f"{what}: overflow {kres.overflow.tolist()} vs "
+                             f"{pres.overflow.tolist()}")
+    if not torch.equal(kres.out, pres.out):
+        raise AssertionError(f"{what}: pooled bags differ from the plain version")
+    if _bag_multisets(kres) != _bag_multisets(pres):
+        raise AssertionError(f"{what}: uids/counts differ as multisets")
+
+
+def compare_fused(values, accum, row_ix, opt, step, what):
+    """Kernels #6 and #7 against their plain versions on copies: out bit
+    for bit, uids/counts as multisets, overflow; then each backward on its
+    own copy of (values, accum) from its own forward, the tables compared
+    whole (every row id) bit for bit; rows off the batch unchanged.
+    Returns the count of rows written."""
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+    from deeprec_tpu_torch.ops.dedup import resolve_size
+
+    T, B, L = row_ix.shape
+    U = resolve_size(B * L, B * L)
+    kres = fl.fused_sparse_forward(values, row_ix, combiner="sum", unique_size=U)
+    pres = fl.fused_sparse_forward_plain(values, row_ix, combiner="sum", unique_size=U)
+    _check_bags(kres, pres, what)
+    kv, ka, pv, pa = values.clone(), accum.clone(), values.clone(), accum.clone()
+    fl.fused_sparse_backward(kv, {"accum": ka}, kres.out * 0.25 + 1.0, row_ix, kres,
+                             opt, combiner="sum", step=step, seed=step)
+    fl.fused_sparse_backward_plain(pv, {"accum": pa}, pres.out * 0.25 + 1.0, row_ix,
+                                   pres, opt, combiner="sum", step=step, seed=step)
+    if not (torch.equal(kv, pv) and torch.equal(ka, pa)):
+        raise AssertionError(f"{what}: the backward's rows differ from the plain version")
+    changed = (kv != values).any(-1) | (ka != accum).any(-1)  # [T, C]
+    touched = torch.zeros_like(changed)
+    ok = kres.uids >= 0
+    t = torch.arange(T, device=values.device)[:, None].expand_as(ok)
+    touched[t[ok], kres.uids[ok].long()] = True
+    if bool((changed & ~touched).any()):
+        raise AssertionError(f"{what}: a row off the batch changed")
+    written = int(touched.sum())
+    del kv, ka, pv, pa, changed, touched
+    print(f"fused {what}: T={T} B={B} L={L}: out, overflow "
+          f"{kres.overflow.tolist()[:3]}, uids/counts and {written} written rows "
+          "bit-exact against the plain version; rows off the batch unchanged")
+    return written
+
+
+def tight_budget(values, row_ix, what):
+    """A budget of a quarter of the batch's unique rows: equal overflow
+    counts, and out-of-budget positions add nothing (the kernel's out equals
+    the l-order sum of the budgeted positions' rows)."""
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+    from deeprec_tpu_torch.ops.dedup import resolve_size
+
+    T, B, L = row_ix.shape
+    C = values.shape[1]
+    n = int((fl.fused_sparse_forward(values, row_ix, combiner="sum",
+                                     unique_size=resolve_size(B * L, B * L)
+                                     ).uids >= 0).sum(-1).min())
+    U = resolve_size(n // 4, B * L)
+    kres = fl.fused_sparse_forward(values, row_ix, combiner="sum", unique_size=U)
+    pres = fl.fused_sparse_forward_plain(values, row_ix, combiner="sum", unique_size=U)
+    if not torch.equal(kres.overflow, pres.overflow) or int(kres.overflow.min()) <= 0:
+        raise AssertionError(f"{what}: tight-budget overflow {kres.overflow.tolist()} "
+                             f"vs {pres.overflow.tolist()}")
+    t = torch.arange(T, device=values.device)[:, None, None]
+    rows = values[t, row_ix.long().clamp(0, C - 1)].float()
+    rows = torch.where((kres.inverse > 0)[..., None], rows, 0.0)
+    want = torch.zeros_like(kres.out)
+    for pos in range(L):
+        want = want + rows[:, :, pos]
+    if not torch.equal(kres.out, want):
+        raise AssertionError(f"{what}: an out-of-budget position reached its bag")
+    print(f"fused {what}: budget U={U} of {n} unique rows: overflow "
+          f"{kres.overflow.tolist()[:3]} equal in kernel and plain version; "
+          "out-of-budget positions add nothing")
+
+
+def fused_bytes(bundles, last, slot_width):
+    """The byte bounds (forward, backward) of one step from the fused
+    model's terms (ops/traffic.py fused_sparse_step_traffic(fused=True) of
+    the JAX package), summed over tables, with this step's unique rows: ids
+    read once per direction, each unique row read once (and written once
+    backward, with its slot rows), bags out, gradients in."""
+    fwd = bwd = 0
+    for L, (table, st) in bundles.items():
+        row_ix, res = last[L]
+        T, B, _ = row_ix.shape
+        N, D = B * L, st.values.shape[2]
+        vb = st.values.element_size()
+        for u in (res.uids >= 0).sum(-1).tolist():
+            fwd += 4 * N + u * D * vb + B * D * 4
+            bwd += B * D * 4 + 4 * N + 2 * u * D * vb + 2 * slot_width * 4 * u
+    return fwd, bwd
+
+
+def fused_phase(dev, seed, cfg):
+    """The fused bag step at full width (see the module docstring). Returns
+    (stats, forward record, backward record)."""
+    from deeprec_tpu_torch.config import TableConfig
+    from deeprec_tpu_torch.embedding.table import EmbeddingTable
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+    from deeprec_tpu_torch.ops.dedup import resolve_size
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+    from deeprec_tpu_torch.optim import Adagrad
+    from deeprec_tpu_torch.optim.apply import ensure_slots
+
+    opt = Adagrad(lr=cfg["lr"])
+    groups = bag_groups(MULTI_HOT)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    bundles = {}
+    for L, members in groups.items():
+        table = EmbeddingTable(TableConfig(name=f"bag{L}", dim=cfg["dim"],
+                                           capacity=cfg["capacity"]))
+        bundles[L] = (table, ensure_slots(table, table.create(len(members), dev), opt))
+    rng = np.random.default_rng(seed + 11)
+    nsteps = cfg["checked"] + cfg["timed"] + 1
+    bags = [make_bags(rng, groups, cfg, dev) for _ in range(nsteps)]
+    _sync(dev)
+
+    kernels = (fl.fused_sparse_forward, fl.fused_sparse_backward, gather_rows,
+               apply_rows_sr)
+    for k in kernels:  # the main path starts here
+        k.launches = 0
+    for s in range(cfg["checked"]):
+        last = fused_step(bundles, bags[s], s, opt)
+        for L, (_, res) in last.items():
+            if not bool(torch.isfinite(res.out).all()):
+                raise AssertionError(f"bag length {L}: non-finite pooled bags")
+    launches = [k.launches for k in kernels]  # ... and ends here
+    want = cfg["checked"] * len(groups)
+    if dev.type == "cuda" and launches != [want] * 4:
+        raise AssertionError(
+            f"fused path launched (forward, backward, gather_rows, apply_rows_sr) "
+            f"{launches} times, the {len(groups)} groups imply {want} each")
+    for L, (table, st) in bundles.items():
+        row_ix, res = last[L]
+        ok = res.uids >= 0
+        t = torch.arange(ok.shape[0], device=dev)[:, None].expand_as(ok)
+        rows = st.values[t[ok], res.uids[ok].long()]
+        if not bool(torch.isfinite(rows).all()):
+            raise AssertionError(f"bag length {L}: non-finite trained rows")
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for s in range(cfg["checked"], cfg["checked"] + cfg["timed"]):
+        last = fused_step(bundles, bags[s], s, opt)
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) / cfg["timed"] * 1e3
+    stats = {"launches": launches, "groups": len(groups), "step_ms": step_ms,
+             "examples_per_s": cfg["batch"] / step_ms * 1e3,
+             "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                         if dev.type == "cuda" else None)}
+    step = cfg["checked"] + cfg["timed"]
+    if dev.type == "cuda":
+        # the last staged batch, three times (its keys are resident after
+        # the first, as in a steady state)
+        box = [step]
+
+        def one_step():
+            last.update(fused_step(bundles, bags[-1], box[0], opt))
+            box[0] += 1
+
+        stats["profile"] = profile_device(one_step, 2)
+        step = box[0]
+
+    # kernel and plain version on copies of two groups, one step further
+    written = 0
+    for L in cfg["compare"]:
+        table, st = bundles[L]
+        one = fused_step({L: bundles[L]}, {L: bags[-1][L]}, step, opt)
+        row_ix = one[L][0]
+        written += compare_fused(st.values, st.slots["accum"], row_ix, opt,
+                                 step + 1, f"L={L} f32")
+        if L == cfg["compare"][0]:
+            written += compare_fused(st.values[:1].to(torch.bfloat16),
+                                     st.slots["accum"][:1], row_ix[:1], opt,
+                                     step + 1, f"L={L} bf16 (table 0)")
+            tight_budget(st.values, row_ix, f"L={L} f32")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    stats["rows_compared"] = written
+    if dev.type == "cuda":
+        stats["peak_gb_checks"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # per-step device times at the main path's shapes: all groups once
+    fwd_b, bwd_b = fused_bytes(bundles, last, cfg["dim"])
+    items = [(L, table, st, *last[L]) for L, (table, st) in bundles.items()]
+    U = {L: resolve_size(row_ix.shape[1] * L, row_ix.shape[1] * L)
+         for L, _, _, row_ix, _ in items}
+
+    def fwd(fn):
+        return lambda: [fn(st.values, row_ix, combiner="sum", unique_size=U[L])
+                        for L, _, st, row_ix, _ in items]
+
+    lib_args = []
+    for L, _, st, row_ix, _ in items:
+        T, C, D = st.values.shape
+        ok = row_ix >= 0
+        flat = (torch.arange(T, device=dev)[:, None, None] * C + row_ix.long())[ok]
+        per_bag = ok.sum(-1).flatten()
+        offsets = torch.cumsum(per_bag, 0) - per_bag
+        lib_args.append((flat, st.values.view(T * C, D), offsets))
+
+    def library():
+        return [torch.nn.functional.embedding_bag(i, w, o, mode="sum")
+                for i, w, o in lib_args]
+
+    grads = {L: res.out * 0.25 + 1.0 for L, _, _, _, res in items}
+
+    def bwd(fn):
+        return lambda: [fn(st.values, st.slots, grads[L], row_ix, res, opt,
+                           combiner="sum", step=step, seed=step)
+                        for L, _, st, row_ix, res in items]
+
+    f_rec = {
+        "name": "fused_sparse_forward", "route": "cuda",
+        "source": "deeprec_tpu_torch/csrc/fused_sparse_forward.cu",
+        "replaces": "deeprec_tpu/ops/fused_lookup.py:778",
+        "launches": launches[0], "max_abs_err": 0.0,
+        "bound_ms": fwd_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    b_rec = {
+        "name": "fused_sparse_backward", "route": "cuda",
+        "source": "deeprec_tpu_torch/csrc/fused_sparse_backward.cu",
+        "replaces": "deeprec_tpu/ops/fused_lookup.py:1028",
+        "launches": launches[1], "max_abs_err": 0.0,
+        "bound_ms": bwd_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    _timed_record(f_rec, f"fused_sparse_forward ({len(items)} groups, per step)",
+                  _ms(fwd(fl.fused_sparse_forward), dev, reps=10),
+                  _ms(fwd(fl.fused_sparse_forward_plain), dev, reps=2, warm=1),
+                  _ms(library, dev, reps=10))
+    _timed_record(b_rec, f"fused_sparse_backward ({len(items)} groups, per step)",
+                  _ms(bwd(fl.fused_sparse_backward), dev, reps=10),
+                  _ms(bwd(fl.fused_sparse_backward_plain), dev, reps=1, warm=1),
+                  (None, None))
+    stats["bytes"] = (fwd_b, bwd_b)
+    return stats, f_rec, b_rec
+
+
+def budget_phase(dev, model_kw, seed, cfg, steps=5):
+    """DLRM-DCN trained with Trainer(unique_budget="auto"): `steps` steps at
+    U = N through the hash engine, update_budgets, `steps` steps at the
+    measured budget. Returns stats; fails on overflow or a launch count
+    the path does not imply."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.ops.dedup import hash_dedup
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    model = DLRMDCN(**model_kw, seed=seed)
+    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev,
+                      unique_budget="auto")
+    state = trainer.init()
+    gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed + 5,
+                          num_cat=model.num_cat, num_dense=model.num_dense)
+    staged = [trainer.device_batch(gen.batch()) for _ in range(2 * steps)]
+    ids = staged[0][trainer.sparse_specs[0].name][None, :, None]
+    sizes = {}
+    apply_rows_sr.launches = gather_rows.launches = 0  # the main path starts here
+    hash_dedup.probe_syncs = 0
+    losses = []
+    for i in range(2 * steps):
+        if i == steps:
+            state, report = trainer.update_budgets(state)
+        for b in trainer.bundles.values():
+            sizes.setdefault(b.name, []).append(trainer._budget_for_lookup(b, ids, True))
+        state, m = trainer.train_step(state, staged[i])
+        losses.append(float(m["loss"]))
+    launches = (apply_rows_sr.launches, gather_rows.launches)  # ... and ends here
+    syncs = hash_dedup.probe_syncs / (2 * steps)
+    per_step = _path_launches(trainer)
+    if dev.type == "cuda" and launches != tuple(2 * steps * n for n in per_step):
+        raise AssertionError(
+            f"budgeted path launched (apply_rows_sr, gather_rows) {launches}, "
+            f"the bundles imply {tuple(2 * steps * n for n in per_step)}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite budgeted training loss: {losses}")
+    stats = trainer.dedup_stats(state)
+    overflow = sum(r["dedup_overflow"] for r in stats.values()) + sum(
+        r["dedup_overflow"] for r in report.values())
+    if overflow:
+        raise AssertionError(f"{overflow} ids overflowed the auto budget")
+    for name, s in sizes.items():
+        if not s[steps] < s[0]:
+            raise AssertionError(f"{name}: the auto budget did not engage ({s})")
+    return {"launches": launches, "losses": losses, "report": report,
+            "probe_syncs_per_step": syncs,
+            "sizes": {k: (v[0], v[-1]) for k, v in sizes.items()},
+            "unique_fraction": {k: r["unique_fraction"] for k, r in stats.items()}}
+
+
 # ------------------------------------------------------------ main
 
 
-def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN):
-    """Phases 3-7 on `dev`. Returns the kernel records."""
+def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
+        fused=FUSED):
+    """Phases 3-9 on `dev`. Returns the kernel records."""
     records = [kernel_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed),
                scatter_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)]
 
@@ -799,6 +1174,47 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN):
         tst = run_training(dev, full, small, ckroot, seed, train)
         records[0]["launches"] += tst["launches"][1]
         records[1]["launches"] = tst["launches"][0]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        fst, f_rec, b_rec = fused_phase(dev, seed, fused)
+        records += [f_rec, b_rec]
+        records[0]["launches"] += fst["launches"][2]
+        records[1]["launches"] += fst["launches"][3]
+        print(f"fused bag step: {fst['groups']} bag-length groups of the MLPerf "
+              f"multi-hot sizes, {fused['checked']} checked steps launched "
+              f"(fused_sparse_forward, fused_sparse_backward, gather_rows, "
+              f"apply_rows_sr) {fst['launches']} times; {fst['rows_compared']} "
+              f"rows compared bit for bit")
+        print(f"fused bag step: {fst['step_ms']:.3f} ms/step over {fused['timed']} "
+              f"timed steps ({fst['examples_per_s']:.1f} examples/s); byte bound "
+              f"forward {fst['bytes'][0] / HBM_BYTES_PER_S * 1e3:.5f} ms, backward "
+              f"{fst['bytes'][1] / HBM_BYTES_PER_S * 1e3:.5f} ms per step; peak "
+              f"device memory {fst['peak_gb']} GB on the main path, "
+              f"{fst.get('peak_gb_checks')} GB with the checks' copies")
+        if "profile" in fst:
+            wall, busy, kernels, rows, _ = fst["profile"]
+            print(f"profile: 2 fused steps: wall {wall / 1e3:.3f} ms/step, device "
+                  f"busy {busy / 1e3:.3f} ms/step, idle share {1 - busy / wall:.3f} "
+                  f"(of the timed step {1 - busy / 1e3 / fst['step_ms']:.3f}), "
+                  f"{kernels} kernels/step")
+            for dt, key, count in rows[:16]:
+                print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        bst = budget_phase(dev, full, seed, train)
+        records[0]["launches"] += bst["launches"][1]
+        records[1]["launches"] += bst["launches"][0]
+        fr = {b: r.get("unique_budget_fraction") for b, r in bst["report"].items()}
+        print(f"budgeted training: DLRM-DCN {full}, Trainer(unique_budget='auto'), "
+              f"batch {train['batch']}: unique fraction "
+              f"{ {b: r.get('unique_fraction') for b, r in bst['report'].items()} }, "
+              f"budget fraction {fr}, unique size (before, after update_budgets) "
+              f"{bst['sizes']}; dedup_overflow 0; losses {bst['losses'][0]:.6f} .. "
+              f"{bst['losses'][-1]:.6f}; launched (apply_rows_sr, gather_rows) "
+              f"{bst['launches']}; hash-dedup probe loop "
+              f"{bst['probe_syncs_per_step']:.1f} host syncs per step")
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     return records

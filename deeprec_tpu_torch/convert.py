@@ -14,13 +14,13 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from deeprec_tpu_torch.embedding.table import KEY_DTYPES, VALUE_DTYPES, TableState
+from deeprec_tpu_torch.embedding.table import (
+    COUNTERS, KEY_DTYPES, VALUE_DTYPES, TableState,
+)
 from deeprec_tpu_torch.nn import jax_leaf_names
 from deeprec_tpu_torch.optim import dense as dense_optim
 from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
 from deeprec_tpu_torch.training.trainer import Trainer, TrainState
-
-_COUNTERS = ("insert_fails", "dedup_unique", "dedup_ids")
 
 
 def table_state_from_arrays(cfg, arrays: Dict[str, np.ndarray], num_tables: int,
@@ -28,7 +28,7 @@ def table_state_from_arrays(cfg, arrays: Dict[str, np.ndarray], num_tables: int,
     """TableState from one JAX bundle's arrays (stacked [T, ...] or
     unstacked): `keys`, `values`, `meta`, and optionally `slots` ({name:
     array}) and the int32 counters `insert_fails`, `dedup_unique`,
-    `dedup_ids` (zero when absent). Packed small-dim arrays ([C // P,
+    `dedup_ids`, `dedup_overflow` (zero when absent). Packed small-dim arrays ([C // P,
     P * w]) unpack by a reshape: the rows are row-major."""
     T = num_tables
     keys = np.asarray(arrays["keys"]).reshape(T, -1)
@@ -43,7 +43,7 @@ def table_state_from_arrays(cfg, arrays: Dict[str, np.ndarray], num_tables: int,
     counters = {
         name: torch.tensor(np.asarray(arrays.get(name, np.zeros(T)), np.int32
                                       ).reshape(T), device=device)
-        for name in _COUNTERS
+        for name in COUNTERS
     }
     return TableState(
         keys=torch.tensor(keys, device=device, dtype=KEY_DTYPES[cfg.key_dtype]),

@@ -58,16 +58,21 @@ class TableState:
     # optimizer slots, f32: [T, C, w] per-row, [T, 1, 1] per-table scalars
     slots: Dict[str, torch.Tensor]
     # [T] int32 counters of train lookups (not checkpointed): ids that found
-    # no slot (the grow signal), unique ids and id positions seen
+    # no slot (the grow signal), unique ids and id positions seen, and
+    # distinct ids past the unique budget (moves only under a budget)
     insert_fails: torch.Tensor
     dedup_unique: torch.Tensor
     dedup_ids: torch.Tensor
+    dedup_overflow: torch.Tensor
+
+
+COUNTERS = ("insert_fails", "dedup_unique", "dedup_ids", "dedup_overflow")
 
 
 def zero_counters(T: int, device) -> Dict[str, torch.Tensor]:
-    """The three [T] int32 counters of a fresh TableState."""
+    """The [T] int32 counters of a fresh TableState."""
     return {name: torch.zeros((T,), dtype=torch.int32, device=device)
-            for name in ("insert_fails", "dedup_unique", "dedup_ids")}
+            for name in COUNTERS}
 
 
 @dataclasses.dataclass
@@ -241,21 +246,29 @@ class EmbeddingTable:
 
     def lookup_unique(self, state: TableState, ids: torch.Tensor, *,
                       step: int = 0, train: bool = True, pad_value: int = -1,
-                      salt=None) -> UniqueLookup:
+                      salt=None, unique_size: Optional[int] = None
+                      ) -> UniqueLookup:
         """Deduplicate ids [T, ...] per table, resolve them, gather rows.
+
+        `unique_size=None` dedups at U = N (sort); an int engages the hash
+        dedup engine at that static budget: ids past it serve the blocked
+        default and count into `dedup_overflow`.
 
         train=True inserts new keys (initializer rows written through the
         row-scatter kernel, bf16 tables rounding stochastically with seed
         `step`), stamps freq/version/dirty and moves the counters, all IN
         PLACE; train=False changes nothing."""
-        uids, inverse, counts, valid = dedup.route_ids(
+        uids, inverse, counts, valid, overflow = dedup.route_ids(
             ids, pad_value=pad_value, sentinel=empty_key(self.cfg), lead=1,
+            unique_size=unique_size,
         )
         res = self._resolve(state, uids, counts, valid, step=step,
                             train=train, salt=salt)
         if train:
             state.dedup_unique += valid.sum(-1, dtype=torch.int32)
             state.dedup_ids += counts.sum(-1, dtype=torch.int32)
+            if overflow is not None:
+                state.dedup_overflow += overflow
         return self._finish_resolved(
             state, dataclasses.replace(res, inverse=inverse))
 
@@ -328,6 +341,18 @@ class EmbeddingTable:
             self.cfg.ev.init.default_value_no_permission,
         )
         return dataclasses.replace(res, embeddings=masked, rows=emb)
+
+    def bag_forward(self, state: TableState, row_ix: torch.Tensor, *,
+                    combiner: str = "mean", unique_size: int):
+        """Single-pass bag lookup over RESOLVED slot indices row_ix
+        [T, B, L] (< 0 = pad): hash-probe dedup, row gather and combine
+        in one fused op (`ops.fused_lookup.fused_sparse_forward`, kernel
+        #6 on the card). Returns FusedBags; pair it with
+        `optim.apply.apply_bag_gradients` for the fused backward."""
+        from deeprec_tpu_torch.ops.fused_lookup import fused_sparse_forward
+
+        return fused_sparse_forward(state.values, row_ix, combiner=combiner,
+                                    unique_size=unique_size)
 
     # ---------------------------------------------------------------- updates
 

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into a shared library
 under `build/deeprec_tpu_torch/` at the checkout root, named by a digest of
-its source, so a changed source rebuilds and an unchanged one loads as is.
+its source and flags, so a changed source rebuilds and an unchanged one
+loads as is.
 Nothing builds at import time: `load` runs at a kernel's first launch, and
 `build_all` starts one nvcc per source at once (set-up time of a run).
 """
@@ -19,9 +20,11 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deeprec_tpu_torch"
+# -fmad=false: no a*b+c contraction into one FMA, so a kernel's float
+# arithmetic rounds after every operation, as its plain PyTorch version does.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 
 # ctypes signatures of each library's launcher: pointers and the stream as
@@ -30,6 +33,19 @@ _SIGNATURES = {
     "apply_rows_sr": {
         "apply_rows_sr_launch": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
         + [ctypes.c_int, ctypes.c_void_p],
+    },
+    "fused_sparse_backward": {
+        "fused_sparse_backward_partials": [ctypes.c_void_p] * 7
+        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
+        "fused_sparse_backward_apply": [ctypes.c_void_p] * 9
+        + [ctypes.c_longlong] * 5 + [ctypes.c_int] + [ctypes.c_float] * 8
+        + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    },
+    "fused_sparse_forward": {
+        "fused_sparse_forward_probe": [ctypes.c_void_p] * 4
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p],
+        "fused_sparse_forward_finish": [ctypes.c_void_p] * 10
+        + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_void_p],
     },
     "gather_rows": {
         "gather_rows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
@@ -49,7 +65,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    src = (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(src).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,23 +1,29 @@
-"""Row gather and row scatter of the embedding tables — the port of the
-Pallas kernels `deeprec_tpu/ops/fused_lookup.py::gather_rows` (#3) and
-`::apply_rows_sr` (#5).
+"""Row gather, row scatter and the fused sparse bag step — the port of the
+Pallas kernels of `deeprec_tpu/ops/fused_lookup.py`: `gather_rows` (#3),
+`apply_rows_sr` (#5), `fused_sparse_forward` (#6) and
+`fused_sparse_backward` (#7). The bf16 pair-granule kernels (#1
+`gather_rows_pair`, #2 `apply_rows_sr_pair`) exist only because a TPU
+cannot move one bf16 row; on Hopper they are the bf16 branches of #3 and
+#5. `fused_gather_combine` (#4) is still to port (ROADMAP.md, queue B).
 
 Each wrapper launches its hand-written kernel for a CUDA tensor
-(`csrc/gather_rows.cu`, `csrc/apply_rows_sr.cu`, built by `ops/_build.py`
-at first use) and counts the launch in `<wrapper>.launches`; for a CPU
-tensor it runs its plain PyTorch version. Nothing falls back: a failed
-build or launch raises. The other TPU kernels of `fused_lookup.py` wait for
-later slices (ROADMAP.md, queue B).
+(`csrc/<name>.cu`, built by `ops/_build.py` at first use) and counts the
+launch in `<wrapper>.launches`; for a CPU tensor it runs its plain PyTorch
+version. Nothing falls back: a failed build or launch raises.
 
 Stochastic rounding: the port cannot reproduce `jax.random`'s threefry
-stream, so its random bits are its own (`sr_bits`, a counter hash of
-(seed, element index) on the device). The bits reach the kernel as a
-tensor, so the kernel and `apply_rows_sr_plain` round identically given
-the same bits — and so does the JAX package given its own bits.
+stream, so the row scatter's random bits are its own (`sr_bits`, a counter
+hash of (seed, element index) on the device). The bits reach the kernel as
+a tensor, so the kernel and `apply_rows_sr_plain` round identically given
+the same bits — and so does the JAX package given its own bits. The fused
+backward's bits are the JAX package's own (`sr_bits_rows`, an integer hash
+of (seed, row id, column)), computed inside the kernel, so a bf16 table
+trained through it rounds bit for bit as the JAX package rounds it.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -27,15 +33,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _SR_SALT = 0x5EED
 
 
-def _launch(name: str, tensor: torch.Tensor, *args) -> None:
-    """Run kernel `name`'s launcher on the current stream of `tensor`'s
-    device; raise on any CUDA error code."""
+def _launch(name: str, tensor: torch.Tensor, *args, entry: str = "launch") -> None:
+    """Run the launcher `<name>_<entry>` of kernel library `name` on the
+    current stream of `tensor`'s device; raise on any CUDA error code."""
     from deeprec_tpu_torch.ops import _build
 
     lib = _build.load(name)
     with torch.cuda.device(tensor.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args, stream)
+        err = getattr(lib, f"{name}_{entry}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
@@ -186,3 +192,430 @@ def apply_rows_sr(values: torch.Tensor, slot_ix: torch.Tensor,
 
 
 apply_rows_sr.launches = 0
+
+
+# ------------------------------------------------------- fused sparse step
+#
+# The single-pass per-table step of the JAX package (docs/kernels.md).
+# Forward: hash-probe dedup at a static budget U, one row read per
+# position, a segment sum straight into [B, D]. Backward: a segment sum of
+# the per-bag gradients into unique-row space in a fixed order, then the
+# optimizer's row function and the write-back of the value and slot rows.
+# Both take the port's leading table axis [T].
+
+
+class FusedBags(NamedTuple):
+    """What fused_sparse_forward produces and the backward consumes.
+
+    out      [T, B, D] f32 pooled bags (rows are cast up before the
+             combine, so bf16 tables pool exactly).
+    uids     [T, U] int32 unique row indices; uids[:, 0] == -1 (the
+             reserved sentinel). The ORDER is path-dependent (the kernel's
+             claim race and the plain version's differ); `out` and the
+             uids-inverse correspondence are not.
+    inverse  [T, B, L] int32 position -> unique slot (0 = pad/overflow).
+    counts   [T, U] int32 occurrences per unique slot (counts[:, 0] == 0).
+    overflow [T] int32 distinct ids past the budget + unresolved probes.
+    """
+
+    out: torch.Tensor
+    uids: torch.Tensor
+    inverse: torch.Tensor
+    counts: torch.Tensor
+    overflow: torch.Tensor
+
+
+def sr_bits_rows(seed, uids: torch.Tensor, dim: int) -> torch.Tensor:
+    """Row-keyed stochastic-rounding bits, int32 [..., U, dim] (the uint32
+    pattern): a pure integer hash of (seed, row id, column), bit for bit
+    the JAX package's `_sr_bits_rows`. The bits belong to the row, not to
+    its position in the unique set, so paths that emit uids in different
+    orders round alike."""
+    s = hashing.mix32(torch.as_tensor(seed, dtype=torch.int64,
+                                      device=uids.device) & 0xFFFFFFFF)
+    base = hashing.mix32(hashing.fold64(uids) ^ s)
+    # column * golden ratio, wrapped to uint32 (exact in int64 for any dim)
+    col = hashing.mix32(torch.arange(dim, dtype=torch.int64, device=uids.device)
+                        * 0x9E3779B9 & 0xFFFFFFFF)
+    return hashing.wrap_int32(hashing.mix32(base[..., None] ^ col))
+
+
+def _bag_denominator(mask: torch.Tensor, combiner: str) -> torch.Tensor:
+    """Per-bag combine denominator [..., B, 1] f32: 1 for sum, max(n, 1)
+    for mean, sqrt(max(n, 1)) for sqrtn. Applied outside the kernel (the
+    forward's epilogue and the backward's gradient pre-scaling), so the
+    kernel and the plain version share one division."""
+    n = mask.to(torch.float32).sum(-1, keepdim=True)
+    if combiner == "sum":
+        return torch.ones_like(n)
+    if combiner == "mean":
+        return torch.clamp(n, min=1.0)
+    if combiner == "sqrtn":
+        return torch.sqrt(torch.clamp(n, min=1.0))
+    raise ValueError(f"unknown combiner: {combiner}")
+
+
+def _prescale(grad_out: torch.Tensor, ids: torch.Tensor,
+              combiner: str) -> torch.Tensor:
+    """The backward's per-bag gradients divided by the combine denominator
+    (shared by both paths; "sum" divides by 1, which changes nothing)."""
+    g = grad_out.to(torch.float32)
+    return g if combiner == "sum" else g / _bag_denominator(ids >= 0, combiner)
+
+
+def _combine_epilogue(bags: FusedBags, ids: torch.Tensor,
+                      combiner: str) -> FusedBags:
+    """mean/sqrtn scaling of the raw per-bag sums, shared by both paths."""
+    if combiner == "sum":
+        return bags
+    return bags._replace(out=bags.out / _bag_denominator(ids >= 0, combiner))
+
+
+def fusable_optimizer(opt, dim: int) -> bool:
+    """True iff every slot of `opt` is a full-width (dim,) row: no
+    per-table scalars (AdamAsync), no (1,)-wide rows (AdagradDecay).
+    sgd, adagrad, adam, adamw and ftrl qualify."""
+    from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
+
+    for name, (shape, _) in opt.slot_specs(dim).items():
+        if name.startswith(SCALAR_PREFIX) or tuple(shape) != (dim,):
+            return False
+    return True
+
+
+def _check_bags(values, ids, unique_size):
+    if values.dim() != 3 or ids.dim() != 3 or ids.shape[0] != values.shape[0]:
+        raise ValueError(
+            f"fused_sparse_forward: want values [T, C, D] and ids [T, B, L], "
+            f"got {tuple(values.shape)} and {tuple(ids.shape)}")
+    if values.dtype not in _DTYPES:
+        raise TypeError(f"fused_sparse_forward: unsupported dtype {values.dtype}")
+    if int(unique_size) < 2:
+        raise ValueError("fused_sparse_forward: unique_size must be >= 2 "
+                         "(index 0 is the reserved sentinel)")
+
+
+def _forward_sums_plain(values, ids, U, max_probes) -> FusedBags:
+    """The raw per-bag sums by the JAX package's fallback composition:
+    hash_dedup -> unique-row gather -> combine, positions summed in l
+    order (the kernel's order)."""
+    from deeprec_tpu_torch.ops import dedup
+
+    T, B, L = ids.shape
+    flat = torch.where(ids >= 0, ids, -1).reshape(T, B * L).to(torch.int32)
+    uids, inverse, counts, overflow = dedup.hash_dedup(
+        flat, U, sentinel=-1, max_probes=max_probes)
+    emb = gather_rows_plain(values, uids).to(torch.float32)
+    emb = torch.where((uids >= 0)[..., None], emb, 0.0)
+    t = torch.arange(T, device=ids.device)[:, None]
+    e = emb[t, inverse.long()].view(T, B, L, -1)
+    m = (ids >= 0).to(torch.float32)[..., None]
+    out = torch.zeros((T, B, values.shape[2]), dtype=torch.float32,
+                      device=values.device)
+    for pos in range(L):
+        out = out + e[:, :, pos] * m[:, :, pos]
+    return FusedBags(out, uids, inverse.view(T, B, L), counts, overflow)
+
+
+def fused_sparse_forward_plain(values: torch.Tensor, ids: torch.Tensor, *,
+                               combiner: str = "sum", unique_size: int,
+                               max_probes: int = 64) -> FusedBags:
+    """Plain PyTorch version of `fused_sparse_forward` (the JAX package's
+    fallback). The CPU path and the on-card comparison use it."""
+    _check_bags(values, ids, unique_size)
+    return _combine_epilogue(
+        _forward_sums_plain(values, ids, int(unique_size), max_probes),
+        ids, combiner)
+
+
+def fused_sparse_forward(values: torch.Tensor, ids: torch.Tensor, *,
+                         combiner: str = "sum", unique_size: int,
+                         max_probes: int = 64) -> FusedBags:
+    """Single-pass budgeted bag lookup: dedup probe + row gather + combine.
+
+    values [T, C, D] (f32 or bf16); ids [T, B, L] int32 ROW indices into
+    values (< 0 = pad; the gather clips to [0, C-1], the dedup keys on the
+    raw value); `unique_size` the static budget U >= 2 (index 0 is the
+    reserved sentinel: use `dedup.resolve_size`). Returns FusedBags. When
+    `overflow > 0`, WHICH distinct ids make the budget is path-dependent;
+    both paths keep the budget contract."""
+    _check_bags(values, ids, unique_size)
+    if values.device.type == "cpu":
+        return fused_sparse_forward_plain(values, ids, combiner=combiner,
+                                          unique_size=unique_size,
+                                          max_probes=max_probes)
+    if values.device.type != "cuda" or ids.device != values.device:
+        raise ValueError(f"fused_sparse_forward: values on {values.device}, "
+                         f"ids on {ids.device}")
+    if not values.is_contiguous():
+        raise ValueError("fused_sparse_forward: values must be contiguous")
+    from deeprec_tpu_torch.ops import dedup
+
+    T, C, D = values.shape
+    _, B, L = ids.shape
+    U, N = int(unique_size), B * L
+    S = dedup.scratch_size(N)
+    dev = values.device
+    flat = ids.to(torch.int32).contiguous()
+    i32 = dict(dtype=torch.int32, device=dev)
+    scratch = torch.empty((T, S), **i32)
+    slotpos = torch.empty((T, N), **i32)
+    overflow = torch.empty((T,), **i32)
+    out = torch.empty((T, B, D), dtype=torch.float32, device=dev)
+    uids = torch.empty((T, U), **i32)
+    inverse = torch.empty((T, B, L), **i32)
+    counts = torch.empty((T, U), **i32)
+    if T * N == 0:
+        bags = FusedBags(out.zero_(), uids.fill_(-1), inverse.zero_(),
+                         counts.zero_(), overflow.zero_())
+        return _combine_epilogue(bags, ids, combiner)
+    _launch("fused_sparse_forward", values, flat.data_ptr(), scratch.data_ptr(),
+            slotpos.data_ptr(), overflow.data_ptr(), T, N, S, int(max_probes),
+            entry="probe")
+    # the budget compaction's rank of each occupied scratch slot: a prefix
+    # sum over occupancy between the two launches (the JAX package's
+    # rank_compact is a cumsum too)
+    rank = torch.cumsum(scratch >= 0, dim=1, dtype=torch.int32)
+    _launch("fused_sparse_forward", values, values.data_ptr(), flat.data_ptr(),
+            slotpos.data_ptr(), scratch.data_ptr(), rank.data_ptr(),
+            out.data_ptr(), uids.data_ptr(), inverse.data_ptr(),
+            counts.data_ptr(), overflow.data_ptr(), T, B, L, C, D, S, U,
+            int(values.dtype == torch.bfloat16), entry="finish")
+    fused_sparse_forward.launches += 1
+    return _combine_epilogue(FusedBags(out, uids, inverse, counts, overflow),
+                             ids, combiner)
+
+
+fused_sparse_forward.launches = 0
+
+
+# The backward's fixed summation order, in two levels: the positions of a
+# unique slot, in flat-position order, go in chunks of _CHUNK; each chunk
+# sums its positions in order, then the slot sums its chunks' partials in
+# order (both from 0). A zipf head id's thousands of positions then cost
+# one serial chain of a few hundred partials instead of one of thousands
+# of positions, and the plain version can follow the same order.
+_CHUNK = 32
+
+
+def _chunk_layout(inverse: torch.Tensor, U: int):
+    """Index bookkeeping of the backward's order for inverse [T, ...]:
+    order [T, N] int64, the flat positions sorted stably by unique slot;
+    start [T, U + 1] int32, each slot's first index into order; nch [T, U]
+    int32, each slot's chunk count (slot 0, pad and overflow, has none);
+    base [T, U] int32, the index of each slot's first chunk within its
+    table."""
+    T = inverse.shape[0]
+    sinv, order = torch.sort(inverse.reshape(T, -1).to(torch.int32), dim=1,
+                             stable=True)
+    keys = torch.arange(U + 1, dtype=torch.int32, device=inverse.device)
+    start = torch.searchsorted(sinv, keys.expand(T, U + 1).contiguous(),
+                               out_int32=True)
+    cnt = start[:, 1:] - start[:, :-1]
+    cnt[:, 0] = 0
+    nch = (cnt + _CHUNK - 1) // _CHUNK
+    base = torch.cumsum(nch, 1, dtype=torch.int32) - nch
+    return order, start, nch, base
+
+
+def _ordered_sums(rows: torch.Tensor, first: torch.Tensor, count: torch.Tensor
+                  ) -> torch.Tensor:
+    """[len(first), D]: sum k < count[i] of rows[first[i] + k], in k order
+    from 0. One round per k, over the sums that still have a k-th term."""
+    by = torch.sort(count, descending=True, stable=True)[1]
+    sizes = count[by].tolist()  # descending
+    acc = torch.zeros((count.numel(), rows.shape[-1]), dtype=torch.float32,
+                      device=rows.device)
+    m = len(sizes)
+    for k in range(sizes[0] if sizes else 0):
+        while sizes[m - 1] <= k:  # sums with no k-th term drop out
+            m -= 1
+        acc[:m].add_(rows[first[by[:m]] + k])
+    out = torch.empty_like(acc)
+    out[by] = acc
+    return out
+
+
+def _segment_sum_plain(gs, mask, inverse, U) -> torch.Tensor:
+    """grad_u [T, U, D] f32: every position's bag gradient gs[t, b] times
+    its mask, summed per unique slot in the kernel's two-level order, so
+    the two agree bit for bit."""
+    T, B, L = inverse.shape
+    D = gs.shape[-1]
+    N = B * L
+    contrib = (gs[:, :, None, :] * mask.to(torch.float32)[..., None]).reshape(T, N, D)
+    order, start, nch, base = _chunk_layout(inverse, U)
+    nch = nch.reshape(-1).long()
+    gfirst = torch.cumsum(nch, 0) - nch  # each slot's first chunk, all tables
+    # level 1: the chunks of every slot in (t, u, j) order, over the
+    # positions sorted by slot
+    tu = torch.repeat_interleave(torch.arange(T * U, device=gs.device), nch)
+    t, u = tu // U, tu % U
+    j = torch.arange(tu.numel(), device=gs.device) - gfirst[tu]
+    first = start[t, u].long() + _CHUNK * j
+    count = torch.clamp(start[t, u + 1].long() - first, max=_CHUNK)
+    by_slot = contrib.gather(1, order[..., None].expand(T, N, D)).reshape(T * N, D)
+    part = _ordered_sums(by_slot, t * N + first, count)
+    # level 2: each slot's chunk partials in j order
+    return _ordered_sums(part, gfirst, nch).view(T, U, D)
+
+
+_OPT_CODES = {"GradientDescent": 0, "Adagrad": 1, "Adam": 2, "AdamW": 3,
+              "Ftrl": 4}
+# slot order of each optimizer in the kernel's (s0, s1) arguments
+_OPT_SLOTS = {0: (), 1: ("accum",), 2: ("m", "v"), 3: ("m", "v"),
+              4: ("accum", "linear")}
+
+
+def _check_backward(values, slots, grad_out, ids, res, opt):
+    if values.dim() != 3 or ids.dim() != 3:
+        raise ValueError(
+            f"fused_sparse_backward: want values [T, C, D] and ids [T, B, L], "
+            f"got {tuple(values.shape)} and {tuple(ids.shape)}")
+    T, C, D = values.shape
+    for name in sorted(slots):
+        if tuple(slots[name].shape) != (T, C, D):
+            raise ValueError(
+                f"fused_sparse_backward: slot {name!r} has shape "
+                f"{tuple(slots[name].shape)}, want {(T, C, D)} — slot layouts "
+                "other than [T, C, D] keep the split-phase apply_gradients path")
+    if tuple(grad_out.shape) != (T, ids.shape[1], D):
+        raise ValueError(
+            f"fused_sparse_backward: grad_out {tuple(grad_out.shape)}, want "
+            f"{(T, ids.shape[1], D)}")
+    if not fusable_optimizer(opt, D):
+        raise NotImplementedError(
+            f"fused_sparse_backward: optimizer {type(opt).__name__} has scalar "
+            "or non-[dim] slots; use apply_gradients")
+
+
+def _backward_plain(values, slots, gs, ids, res, opt, lr, step, seed,
+                    grad_averaging):
+    """The JAX package's fallback composition, IN PLACE, with the kernel's
+    summation order."""
+    T, C, D = values.shape
+    U = res.uids.shape[1]
+    grad_u = _segment_sum_plain(gs, ids >= 0, res.inverse, U)
+    grad_u[:, 0] = 0.0
+    if grad_averaging:
+        grad_u = grad_u / torch.clamp(res.counts.to(torch.float32), min=1.0)[..., None]
+    ok = res.uids >= 0
+    safe = torch.where(ok, res.uids.clamp(0, C - 1), 0)
+    value = gather_rows_plain(values, safe).to(torch.float32)
+    snames = sorted(slots)
+    row_slots = {n: gather_rows_plain(slots[n], safe) for n in snames}
+    new_value, new_slots = opt.update(value, row_slots, grad_u, res.counts,
+                                      step, lr)
+    if values.dtype == torch.bfloat16:
+        rows = stochastic_round_plain(new_value, sr_bits_rows(seed, res.uids, D))
+    else:
+        rows = new_value.to(values.dtype)
+    t = torch.arange(T, device=values.device)[:, None].expand_as(safe)
+    tk, sk = t[ok], safe[ok].long()
+    values[tk, sk] = rows[ok]
+    for n in snames:
+        slots[n][tk, sk] = new_slots[n][ok].to(slots[n].dtype)
+    return values, slots
+
+
+def fused_sparse_backward_plain(values, slots, grad_out, ids, res, opt, *,
+                                combiner: str = "sum", step=0, lr=None,
+                                seed=0, grad_averaging: bool = False):
+    """Plain PyTorch version of `fused_sparse_backward`, IN PLACE. The CPU
+    path and the on-card comparison use it."""
+    from deeprec_tpu_torch.optim.sparse import _f32
+
+    _check_backward(values, slots, grad_out, ids, res, opt)
+    lr = _f32(opt.lr if lr is None else lr, values)
+    return _backward_plain(values, slots, _prescale(grad_out, ids, combiner),
+                           ids, res, opt, lr, int(step), seed, grad_averaging)
+
+
+def fused_sparse_backward(values: torch.Tensor, slots: Dict[str, torch.Tensor],
+                          grad_out: torch.Tensor, ids: torch.Tensor,
+                          res: FusedBags, opt, *, combiner: str = "sum",
+                          step=0, lr=None, seed=0,
+                          grad_averaging: bool = False,
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-pass backward: segment-sum the per-bag gradients to unique
+    rows and apply the optimizer's row function, fused into the write-back.
+
+    values [T, C, D]; slots {name: [T, C, D] f32} (a fusable optimizer's
+    row slots; any other layout raises ValueError); grad_out [T, B, D]
+    w.r.t. the forward's `out`; ids and res from the matching forward.
+    Updates values and slots IN PLACE (the port's counterpart of the TPU
+    kernel's input/output aliasing) and returns them. bf16 tables round
+    stochastically with `sr_bits_rows(seed, uids)`. The sentinel and
+    unclaimed slots (uids < 0) are never written."""
+    from deeprec_tpu_torch.optim.sparse import _bias_corrected_lr, _f32
+
+    _check_backward(values, slots, grad_out, ids, res, opt)
+    dev = values.device
+    lr = _f32(opt.lr if lr is None else lr, values)
+    # the combiner's scaling, shared by both paths (see _bag_denominator)
+    gs = _prescale(grad_out, ids, combiner)
+    if dev.type == "cpu":
+        return _backward_plain(values, slots, gs, ids, res, opt, lr, int(step),
+                               seed, grad_averaging)
+    tensors = [values, grad_out, ids, res.uids, res.inverse, res.counts,
+               *slots.values()]
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError("fused_sparse_backward: every tensor must be on "
+                         f"{dev}")
+    if not values.is_contiguous() or not all(s.is_contiguous()
+                                             for s in slots.values()):
+        raise ValueError("fused_sparse_backward: values and slots must be "
+                         "contiguous")
+    code = _OPT_CODES.get(type(opt).__name__)
+    if code is None or set(_OPT_SLOTS[code]) != set(slots):
+        raise NotImplementedError(
+            f"fused_sparse_backward: no fused row function for "
+            f"{type(opt).__name__} with slots {sorted(slots)}")
+    T, C, D = values.shape
+    _, B, L = ids.shape
+    U = res.uids.shape[1]
+    if T * U == 0 or B * L == 0:
+        return values, slots
+    # the per-call scalar factors, computed on the device by the same torch
+    # expressions the plain version evaluates: lr, Adam's bias-corrected lr
+    # and AdamW's lr * weight_decay
+    alpha = lrwd = lr
+    if code in (2, 3):
+        alpha = _bias_corrected_lr(lr, opt.beta1, opt.beta2, int(step) + 1, lr)
+    if code == 3:
+        lrwd = lr * opt.weight_decay
+    scal = torch.stack([lr, alpha, lrwd]).contiguous()
+    hyper = [float(getattr(opt, a, 0.0)) for a in ("beta1", "beta2", "epsilon")]
+    b1, b2, eps = hyper
+    if code == 4:
+        p, l2x2, l1 = -opt.learning_rate_power, 2.0 * opt.l2, opt.l1
+    else:
+        p = l2x2 = l1 = 0.0
+    # the fixed summation order's bookkeeping (a stable sort of inverse,
+    # a sorted search, a prefix sum), and the chunk partials' buffer: at
+    # most ceil(N / _CHUNK) + U chunks per table
+    order, start, nch, base = _chunk_layout(res.inverse, U)
+    M = -(-B * L // _CHUNK) + U
+    part = torch.empty((T, M, D), dtype=torch.float32, device=dev)
+    sl = [slots[n] for n in _OPT_SLOTS[code]]
+    gs = gs.contiguous()
+    flat = ids.to(torch.int32).contiguous()
+    uids = res.uids.to(torch.int32).contiguous()
+    counts = res.counts.to(torch.int32).contiguous()
+    _launch("fused_sparse_backward", values, gs.data_ptr(), flat.data_ptr(),
+            order.data_ptr(), start.data_ptr(), nch.data_ptr(), base.data_ptr(),
+            part.data_ptr(), T, B, L, D, U, M, entry="partials")
+    _launch("fused_sparse_backward", values, values.data_ptr(),
+            sl[0].data_ptr() if sl else None,
+            sl[1].data_ptr() if len(sl) > 1 else None,
+            part.data_ptr(), nch.data_ptr(), base.data_ptr(),
+            uids.data_ptr(), counts.data_ptr(), scal.data_ptr(),
+            T, C, D, U, M, code,
+            b1, 1.0 - b1, b2, 1.0 - b2, eps, p, l2x2, l1,
+            int(seed) & 0xFFFFFFFF, int(bool(grad_averaging)),
+            int(values.dtype == torch.bfloat16), entry="apply")
+    fused_sparse_backward.launches += 1
+    return values, slots
+
+
+fused_sparse_backward.launches = 0

@@ -1,11 +1,14 @@
 """Applying sparse gradients to a table — the port of
-`deeprec_tpu/optim/apply.py` (`ensure_slots`, `apply_gradients`).
+`deeprec_tpu/optim/apply.py` (`ensure_slots`, `apply_gradients`,
+`apply_bag_gradients`).
 
 Autograd gives the gradients with respect to the unique gathered
 embeddings [T, U, D]; the apply gathers the matching slot rows through the
 row-gather kernel, runs the optimizer's row function, masks out invalid and
 filter-blocked keys and writes the value and slot rows back through the
-row-scatter kernel, IN PLACE.
+row-scatter kernel, IN PLACE. The fused bag step's apply
+(`apply_bag_gradients`) takes per-bag gradients [T, B, D] instead and runs
+the whole backward in the fused backward kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from deeprec_tpu_torch.embedding.table import (
     META_DIRTY, META_VERSION, EmbeddingTable, TableState, UniqueLookup,
 )
+from deeprec_tpu_torch.ops import fused_lookup as fl
 from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
 from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX, SparseOptimizer
 
@@ -88,11 +92,56 @@ def apply_gradients(
         else:
             apply_rows_sr(state.slots[name], write_ix, rows, seed=step)
     if stamp_meta:
-        T, U = ok.shape
-        idx = safe_ix.long()[:, None, :].expand(T, 2, U)
-        rows = state.meta[:, META_VERSION:META_DIRTY + 1]
-        new = torch.stack([torch.full_like(safe_ix, int(step)),
-                           torch.ones_like(safe_ix)], dim=1)
-        old = rows.gather(2, idx)
-        rows.scatter_add_(2, idx, torch.where(ok[:, None], new - old, 0))
+        _stamp_version_dirty(state, safe_ix, ok, step)
+    return state
+
+
+def _stamp_version_dirty(state: TableState, safe_ix: torch.Tensor,
+                         ok: torch.Tensor, step: int) -> None:
+    """version = step, dirty = 1 at the slots safe_ix [T, U] where ok,
+    IN PLACE (ok slots are unique per table; the rest add 0 at slot 0)."""
+    T, U = ok.shape
+    idx = safe_ix.long()[:, None, :].expand(T, 2, U)
+    rows = state.meta[:, META_VERSION:META_DIRTY + 1]
+    new = torch.stack([torch.full_like(safe_ix, int(step)),
+                       torch.ones_like(safe_ix)], dim=1)
+    old = rows.gather(2, idx)
+    rows.scatter_add_(2, idx, torch.where(ok[:, None], new - old, 0))
+
+
+def apply_bag_gradients(
+    table: EmbeddingTable,
+    state: TableState,
+    opt: SparseOptimizer,
+    res: "fl.FusedBags",  # from table.bag_forward(state, row_ix, ...)
+    grad_out: torch.Tensor,  # [T, B, D] grads w.r.t. res.out
+    row_ix: torch.Tensor,  # [T, B, L] the slot indices fed to bag_forward
+    *,
+    combiner: str = "mean",
+    step: int = 0,
+    lr: Optional[float] = None,
+    grad_averaging: bool = False,
+    stamp_meta: bool = True,
+) -> TableState:
+    """The fused-step counterpart of apply_gradients, IN PLACE: one pass
+    segment-sums the per-bag grads into unique-row space and applies the
+    optimizer update fused into the write-back
+    (`ops.fused_lookup.fused_sparse_backward`, kernel #7 on the card). bf16
+    tables round stochastically with seed `step`.
+
+    `res` must come from `table.bag_forward(state, row_ix, ...)` with the
+    same combiner. Requires a fusable optimizer (no scalar slots, every slot
+    [dim]-shaped); version/dirty are stamped on the rows with uids >= 0."""
+    if not fl.fusable_optimizer(opt, table.cfg.dim):
+        raise NotImplementedError(
+            f"apply_bag_gradients: optimizer {type(opt).__name__} has "
+            "scalar or non-[dim] slots; use apply_gradients")
+    fl.fused_sparse_backward(
+        state.values, state.slots, grad_out, row_ix, res, opt,
+        combiner=combiner, step=step, lr=lr, seed=step,
+        grad_averaging=grad_averaging)
+    if stamp_meta:
+        C = state.values.shape[1]
+        ok = (res.uids >= 0) & (res.uids < C)
+        _stamp_version_dirty(state, torch.where(ok, res.uids, 0), ok, step)
     return state

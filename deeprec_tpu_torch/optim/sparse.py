@@ -23,7 +23,11 @@ SCALAR_PREFIX = "scalar/"
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """x as a 0-d float32 tensor on `like`'s device; a Python number is
+    filled on the device, with no host-to-device copy."""
+    if torch.is_tensor(x):
+        return x.to(device=like.device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _rsqrt_guarded(acc: torch.Tensor) -> torch.Tensor:

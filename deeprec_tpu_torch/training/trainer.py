@@ -1,8 +1,17 @@
 """Training and the read-only forward over (hash tables + dense params) —
 the port of `deeprec_tpu/training/trainer.py` (`Trainer.init`,
 `train_step`, `eval_step`, `evaluate`, `forward_views`,
-`probs_from_views`), single device, `pipeline_mode="off"`, legacy U = N
-sort-unique dedup.
+`probs_from_views`, the unique-budget engine's `update_budgets` and
+`dedup_stats`), single device, `pipeline_mode="off"`.
+
+Unique budgets: a bundle whose budget mode (the trainer's
+`unique_budget`, else its features', else its table config's) is an int or
+"auto" dedups its TRAIN lookups through the hash engine at a static budget
+(`ops/dedup.py`); ids past it serve the blocked default and count into
+`dedup_overflow`. Eval and serving lookups stay exact at U = N. "auto" runs
+at U = N through the hash engine until `update_budgets` has measured a
+unique fraction; a changed budget takes effect at the next step (the port
+has no compiled step to rebuild).
 
 Features whose tables share a config and id shape are bundled: their
 states stack along the leading table axis [T] and one batched lookup serves
@@ -21,7 +30,8 @@ parameters, those leaves).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +42,7 @@ from deeprec_tpu_torch import resolve_device
 from deeprec_tpu_torch.embedding import combiners
 from deeprec_tpu_torch.embedding.table import KEY_DTYPES, EmbeddingTable, TableState
 from deeprec_tpu_torch.features import SparseFeature
+from deeprec_tpu_torch.ops import dedup
 from deeprec_tpu_torch.optim import dense as dense_optim
 from deeprec_tpu_torch.optim.apply import apply_gradients, ensure_slots
 from deeprec_tpu_torch.training import metrics as M
@@ -131,15 +142,24 @@ class Trainer:
     `init()` carries no optimizer state."""
 
     def __init__(self, model, sparse_opt=None, dense_opt=None,
-                 grad_averaging: bool = False, device=None):
+                 grad_averaging: bool = False, device=None,
+                 unique_budget=None):
         self.model = model
         self.sparse_opt = sparse_opt
         self.dense_opt = dense_opt or dense_optim.adam(1e-3)
         self.grad_averaging = grad_averaging
+        # trainer-wide budget override: None (the configs decide) | "auto"
+        # | "off" | a positive int, checked like the configs'
+        fcol.validate_unique_budget(unique_budget, "Trainer(unique_budget=)")
+        self.unique_budget = unique_budget
         self.device = resolve_device(device)
         self.sparse_specs = fcol.sparse_features(model.features)
         self.dense_specs = fcol.dense_features(model.features)
         self.bundles = build_bundles(model.features)
+        self._budget_modes = {bname: self._bundle_budget_mode(b)
+                              for bname, b in self.bundles.items()}
+        self._auto_frac: Dict[str, float] = {}  # bundle -> budget fraction
+        self._unique_ema: Dict[str, float] = {}  # bundle -> raw EMA
         self._salts = {
             bname: torch.tensor(b.salts, dtype=torch.int64, device=self.device)
             for bname, b in self.bundles.items() if b.stacked
@@ -206,10 +226,123 @@ class Trainer:
             return [(b.features, res)]
         return [([f], res[f.name]) for f in b.features]
 
+    # ----------------------------------------------------- unique budgets
+
+    def _bundle_budget_mode(self, b: Bundle):
+        """Effective budget mode of one bundle: the trainer-wide override
+        wins, then feature-level settings (largest int, else "auto" if
+        any), then the table config. None (U = N, logged) | "off" (U = N,
+        silent) | "auto" | int."""
+        mode = self.unique_budget
+        if mode is None:
+            feat = [f.unique_budget for f in b.features
+                    if f.unique_budget is not None]
+            if feat:
+                ints = [m for m in feat if isinstance(m, int)]
+                mode = (max(ints) if ints
+                        else ("auto" if any(m == "auto" for m in feat) else "off"))
+            else:
+                mode = b.table.cfg.unique_budget
+        return mode
+
+    def _resolve_budget(self, b: Bundle, n: int) -> Optional[int]:
+        """Static uids size for an n-position lookup of bundle `b`, or None
+        for U = N. "auto" uses the quantized EMA fraction once
+        `update_budgets` has measured one (clamped by the table capacity),
+        and before that runs at U = N through the hash engine."""
+        mode = self._budget_modes.get(b.name)
+        if mode is None or mode == "off":
+            if mode is None:  # "off" is a deliberate choice: stay silent
+                dedup.log_full_fallback(b.name, n)
+            return None
+        if isinstance(mode, int):
+            return dedup.resolve_size(mode, n)
+        frac = self._auto_frac.get(b.name)
+        budget = n if frac is None else min(int(math.ceil(frac * n)),
+                                            self._budget_capacity(b))
+        return dedup.resolve_size(budget, n)
+
+    def _budget_capacity(self, b: Bundle) -> int:
+        """Upper clamp of the auto budget: a batch cannot hold more
+        resident uniques than the table has slots."""
+        return b.table.cfg.capacity
+
+    def _budget_for_lookup(self, b: Bundle, ids: torch.Tensor,
+                           train: bool) -> Optional[int]:
+        """Static unique size of one lookup of ids [T, ...]: budgets apply
+        to TRAIN lookups only (the overflow counter moves only on train
+        state); eval and serving run exact at U = N."""
+        if not train:
+            return None
+        return self._resolve_budget(b, math.prod(ids.shape[1:]))
+
+    @staticmethod
+    def _bundle_dedup_counters(ts: TableState, member: Optional[int] = None
+                               ) -> Tuple[int, int, int]:
+        """Host-read (unique, ids, overflow) totals of a state's counters:
+        of one member of a stacked state, else summed over the table
+        axis."""
+        sel = slice(None) if member is None else slice(member, member + 1)
+        return tuple(int(getattr(ts, name)[sel].sum())
+                     for name in ("dedup_unique", "dedup_ids", "dedup_overflow"))
+
+    def dedup_stats(self, state: TrainState) -> Dict[str, Dict[str, float]]:
+        """Per-TABLE dedup telemetry since the last counter reset:
+        `unique_fraction` ((budgeted uniques + overflow) over id positions,
+        what the auto budget tracks) and `dedup_overflow`. Stacked bundles
+        report each member under its table's name."""
+        out: Dict[str, Dict[str, float]] = {}
+        for bname, b in self.bundles.items():
+            ts = state.tables[bname]
+            for k, f in enumerate(b.features):
+                uniq, ids, ovf = self._bundle_dedup_counters(
+                    ts, k if b.stacked else None)
+                out[fcol.resolve_table_name(f)] = {
+                    "unique_fraction": round((uniq + ovf) / ids, 4) if ids else None,
+                    "dedup_overflow": ovf,
+                }
+                if not b.stacked:
+                    break  # a shared table holds one merged counter
+        return out
+
+    def update_budgets(self, state: TrainState, *, slack: float = 1.5,
+                       ema: float = 0.5
+                       ) -> Tuple[TrainState, Dict[str, Dict[str, float]]]:
+        """Fold each bundle's dedup counters into the auto-budget EMA,
+        derive each "auto" bundle's budget fraction (slack x EMA, rounded
+        UP onto a 1/16 grid) and reset the counters IN PLACE. Host-side:
+        call at log cadence. Returns (state, report) with per-bundle
+        unique_fraction / dedup_overflow / unique_budget_fraction."""
+        report: Dict[str, Dict[str, float]] = {}
+        for bname, b in self.bundles.items():
+            ts = state.tables[bname]
+            uniq, ids, ovf = self._bundle_dedup_counters(ts)
+            rep: Dict[str, float] = {"dedup_overflow": ovf}
+            if ids > 0:
+                # overflowed ids are uniques the budget refused: count them
+                # so a too-tight budget widens instead of latching
+                frac = min(1.0, (uniq + ovf) / ids)
+                rep["unique_fraction"] = round(frac, 4)
+                old = self._unique_ema.get(bname)
+                self._unique_ema[bname] = (
+                    frac if old is None else (1.0 - ema) * old + ema * frac)
+                if self._budget_modes.get(bname) == "auto":
+                    self._auto_frac[bname] = dedup.auto_budget_fraction(
+                        self._unique_ema[bname], slack=slack)
+            if bname in self._auto_frac:
+                rep["unique_budget_fraction"] = self._auto_frac[bname]
+            for name in ("dedup_unique", "dedup_ids", "dedup_overflow"):
+                getattr(ts, name).zero_()
+            report[bname] = rep
+        return state, report
+
+    # ------------------------------------------------------------- lookups
+
     def _lookup_all(self, tables, batch, step: int = 0, train: bool = False):
-        """Every bundle's lookup (train mode inserts and stamps IN PLACE).
-        Returns (per-feature views (embeddings [U, D], inverse [B, L],
-        mask [B, L]), per-bundle results)."""
+        """Every bundle's lookup (train mode inserts and stamps IN PLACE;
+        budgeted bundles dedup at their unique size). Returns (per-feature
+        views (embeddings [U, D], inverse [B, L], mask [B, L]), per-bundle
+        results)."""
         views, bundle_res = {}, {}
         for bname, b in self.bundles.items():
             for feats in self._members(b):
@@ -217,7 +350,8 @@ class Trainer:
                 pad = feats[0].pad_value
                 res = b.table.lookup_unique(
                     tables[bname], ids, step=step, train=train, pad_value=pad,
-                    salt=self._salts.get(bname))
+                    salt=self._salts.get(bname),
+                    unique_size=self._budget_for_lookup(b, ids, train))
                 masks = ids != pad
                 for k, f in enumerate(feats):
                     views[f.name] = (res.embeddings[k], res.inverse[k], masks[k])

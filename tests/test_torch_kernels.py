@@ -1,7 +1,8 @@
 """The PyTorch port on its own (no jax in this file, so it also runs on the
 CUDA machine): package isolation, the no-silent-CPU rule, and the CUDA
-row-gather and row-scatter kernels against their plain versions (marked
-`cuda`; skip without a card)."""
+kernels against their plain versions (marked `cuda`; skip without a card):
+the row gather and row scatter, and the fused bag step's forward and
+backward."""
 import os
 import subprocess
 import sys
@@ -43,6 +44,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from deeprec_tpu_torch.serving import Predictor
     from deeprec_tpu_torch.training.trainer import Trainer
 
+    from deeprec_tpu_torch.config import TableConfig
+    from deeprec_tpu_torch.embedding.table import EmbeddingTable
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = DLRMDCN(emb_dim=8, capacity=1 << 6, bottom=(8,), top=(4, 1),
                     num_cat=2, num_dense=2, cross_depth=1)
@@ -50,9 +54,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Predictor(model, os.path.join(ROOT, "does-not-exist"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model, Adagrad(lr=0.05))
+    for budget in ("auto", 64):  # the budgeted trainer
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(model, Adagrad(lr=0.05), unique_budget=budget)
+    # the state the fused bag step (bag_forward, apply_bag_gradients) runs on
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EmbeddingTable(TableConfig(name="t", dim=8, capacity=64)).create(2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    st = EmbeddingTable(TableConfig(name="t", dim=8, capacity=64)).create(2, "cpu")
+    assert st.values.device.type == "cpu" and st.dedup_overflow.shape == (2,)
 
 
 @pytest.fixture
@@ -124,3 +136,110 @@ def test_apply_rows_sr_kernel_matches_plain(cuda_device, dtype, T, C, D, U):
                   bits=bits[1:].to(cuda_device))
     assert torch.equal(sub.cpu()[1:], apply_rows_sr_plain(
         values.clone()[1:], slot[1:], rows[1:], bits[1:]))
+
+
+def _bag_ids(g, T, B, L, vocab, pad=0.1):
+    """Zipf-like row ids (the square of a uniform favours small ids) with
+    about `pad` of the positions padded (-1)."""
+    u = torch.rand((T, B, L), generator=g)
+    ids = (u * u * vocab).to(torch.int32)
+    return torch.where(torch.rand((T, B, L), generator=g) < pad, -1, ids)
+
+
+def _multisets(res, t):
+    return sorted(zip(res.uids[t].cpu().tolist(), res.counts[t].cpu().tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,C,D,B,L,budget", [
+    (1, 4096, 128, 256, 100, None), (3, 500, 96, 32, 4, None),
+    (2, 100, 1, 16, 3, None), (11, 1000, 128, 64, 1, None),
+    (2, 1000, 128, 64, 8, 40)])
+def test_fused_sparse_forward_kernel_matches_plain(cuda_device, dtype, T, C, D,
+                                                   B, L, budget):
+    """`out` bit-exact; uids/counts as multisets per table (the claim races
+    differ) without overflow; overflow counts equal; uids[inverse] rebuilds
+    every budgeted position; one launch counted per call."""
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+    from deeprec_tpu_torch.ops.dedup import resolve_size
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    values = torch.randn((T, C, D), generator=g).to(cuda_device, dtype)
+    ids = _bag_ids(g, T, B, L, C).to(cuda_device)
+    U = resolve_size(B * L if budget is None else budget, B * L)
+    for combiner in ("sum", "mean"):
+        before = fl.fused_sparse_forward.launches
+        got = fl.fused_sparse_forward(values, ids, combiner=combiner, unique_size=U)
+        torch.cuda.synchronize()
+        assert fl.fused_sparse_forward.launches == before + 1
+        want = fl.fused_sparse_forward_plain(values, ids, combiner=combiner,
+                                             unique_size=U)
+        assert torch.equal(got.overflow, want.overflow)
+        flat = ids.reshape(T, -1).long()
+        inv = got.inverse.reshape(T, -1).long()
+        rebuilt = got.uids.long().gather(1, inv)
+        assert torch.equal(rebuilt[inv > 0], flat[inv > 0])
+        assert bool((got.uids[:, 0] == -1).all()) and bool((got.counts[:, 0] == 0).all())
+        if budget is None:
+            assert torch.equal(got.out, want.out)
+            for t in range(T):
+                assert _multisets(got, t) == _multisets(want, t)
+        else:  # out-of-budget positions add nothing
+            assert int(got.overflow.min()) > 0
+            rows = values.float()[torch.arange(T, device=cuda_device)[:, None],
+                                  flat.clamp(0, C - 1)]
+            rows = torch.where((inv > 0)[..., None], rows, 0.0).view(T, B, L, D)
+            want_sum = torch.zeros((T, B, D), device=cuda_device)
+            for pos in range(L):
+                want_sum = want_sum + rows[:, :, pos]
+            if combiner == "sum":
+                assert torch.equal(got.out, want_sum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("opt_name,kw", [
+    ("sgd", {}), ("adagrad", {}), ("adam", {}), ("adamw", {}), ("ftrl", {}),
+    ("ftrl", {"learning_rate_power": -0.3, "l1": 0.001, "l2": 0.01})])
+@pytest.mark.parametrize("T,C,D,B,L", [(2, 2000, 128, 128, 20), (3, 300, 96, 16, 3),
+                                       (1, 64, 1, 8, 5), (1, 64, 128, 256, 50)])
+def test_fused_sparse_backward_kernel_matches_plain(cuda_device, dtype, opt_name,
+                                                    kw, T, C, D, B, L):
+    """The whole table and every slot after the step, bit-exact against the
+    plain version on the card (the kernel's two-level summation order — the
+    last shape gives one row some 1,600 positions, 50 chunks — the same
+    scalar factors, torch.pow's special exponents and powf otherwise); the
+    sentinel and untouched rows unchanged; one launch counted per call."""
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+    from deeprec_tpu_torch.ops.dedup import resolve_size
+    from deeprec_tpu_torch.optim.sparse import REGISTRY
+
+    opt = REGISTRY[opt_name](lr=0.05, **kw)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    values = torch.randn((T, C, D), generator=g).to(cuda_device, dtype)
+    slots = {n: torch.full((T, C, D), init, device=cuda_device)
+             for n, (_, init) in opt.slot_specs(D).items()}
+    ids = _bag_ids(g, T, B, L, C).to(cuda_device)
+    res = fl.fused_sparse_forward(values, ids, combiner="mean",
+                                  unique_size=resolve_size(B * L, B * L))
+    grad = torch.randn((T, B, D), generator=g).to(cuda_device)
+    for averaging in (False, True):
+        kv, ks = values.clone(), {n: s.clone() for n, s in slots.items()}
+        pv, ps = values.clone(), {n: s.clone() for n, s in slots.items()}
+        before = fl.fused_sparse_backward.launches
+        fl.fused_sparse_backward(kv, ks, grad, ids, res, opt, combiner="mean",
+                                 step=4, seed=4, grad_averaging=averaging)
+        torch.cuda.synchronize()
+        assert fl.fused_sparse_backward.launches == before + 1
+        fl.fused_sparse_backward_plain(pv, ps, grad, ids, res, opt, combiner="mean",
+                                       step=4, seed=4, grad_averaging=averaging)
+        assert torch.equal(kv, pv)
+        for n in slots:
+            assert torch.equal(ks[n], ps[n]), n
+        touched = torch.zeros((T, C), dtype=torch.bool, device=cuda_device)
+        ok = res.uids >= 0
+        touched[torch.arange(T, device=cuda_device)[:, None].expand_as(ok)[ok],
+                res.uids[ok].long()] = True
+        assert torch.equal(kv[~touched], values[~touched])
+        assert bool((kv[touched] != values[touched]).any())

@@ -25,7 +25,8 @@ from deeprec_tpu_torch.convert import table_state_from_arrays
 from deeprec_tpu_torch.data import SyntheticCriteo
 from deeprec_tpu_torch.embedding.table import EmbeddingTable
 from deeprec_tpu_torch.ops.fused_lookup import (
-    apply_rows_sr, apply_rows_sr_plain, sr_bits, stochastic_round_plain,
+    apply_rows_sr, apply_rows_sr_plain, gather_rows, sr_bits,
+    stochastic_round_plain,
 )
 from deeprec_tpu_torch.optim import dense as tdense
 from deeprec_tpu_torch.training import metrics as tmetrics
@@ -136,6 +137,50 @@ def test_apply_rows_bf16_rounds_to_neighbors():
     written = out[[0, 1, 2, 3, 5, 6, 7]]
     assert np.isin(written, [1.0, 1.0 + 2.0 ** -7]).all(), np.unique(written)
     np.testing.assert_array_equal(out[4], 0.0)
+
+
+# ------------------------- the bf16 pair-granule kernels (#1, #2) on #3/#5
+
+
+def test_gather_rows_bf16_matches_pair_kernel():
+    """The cases of the pair-granule gather (#1): odd indices, duplicates,
+    clamping and a non-block-multiple n, bit for bit against the Pallas
+    pair kernel in interpret mode, through the bf16 branch of #3."""
+    rng = np.random.default_rng(3)
+    vals = jnp.asarray(rng.normal(0, 1, (256, 128)).astype(np.float32)
+                       ).astype(jnp.bfloat16)
+    ix = np.array([1, 1, 0, 255, 254, 7, -3, 300, 13, 13, 12, 200, 77], np.int32)
+    want = np.asarray(jfl.gather_rows_pair(vals, jnp.asarray(ix), block=8,
+                                           interpret=True).astype(jnp.float32))
+    tv = torch.from_numpy(np.asarray(vals.astype(jnp.float32))).to(torch.bfloat16)
+    got = gather_rows(tv[None], torch.from_numpy(ix)[None])[0]
+    assert got.dtype == torch.bfloat16 and got.shape == (13, 128)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_apply_rows_sr_bf16_matches_pair_kernel():
+    """The cases of the pair-granule scatter (#2) through the bf16 branch
+    of #5: rows 6 and 7 share a granule (consecutive updates to one
+    granule both land), 11 and 20 are half-granules whose mates 10 and 21
+    must not move, -1 skips; bit for bit against the Pallas pair kernel in
+    interpret mode given its positional bits (`_sr_bits(seed, (U padded
+    to the block of 8, D))[:U]`)."""
+    rng = np.random.default_rng(4)
+    vals = rng.normal(0, 1, (64, 128)).astype(np.float32)
+    jv = jnp.asarray(vals).astype(jnp.bfloat16)
+    slot = np.array([6, 7, 11, 20, -1], np.int32)
+    new = rng.normal(0, 1, (5, 128)).astype(np.float32)
+    want = np.asarray(jfl.apply_rows_sr_pair(jv, jnp.asarray(slot), jnp.asarray(new),
+                                             jnp.int32(9), interpret=True)
+                      .astype(jnp.float32))
+    bits = _as_i32(np.asarray(jfl._sr_bits(jnp.int32(9), (8, 128)))[:5])
+    tv = torch.from_numpy(np.asarray(jv.astype(jnp.float32))).to(torch.bfloat16)[None]
+    before = tv.clone()
+    apply_rows_sr(tv, torch.from_numpy(slot)[None], torch.from_numpy(new)[None],
+                  bits=bits[None])
+    np.testing.assert_array_equal(tv[0].float().numpy(), want)
+    untouched = [i for i in range(64) if i not in (6, 7, 11, 20)]
+    assert torch.equal(tv[0, untouched], before[0, untouched])
 
 
 def test_bf16_table_sr_preserves_small_updates_in_expectation():
