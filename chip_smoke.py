@@ -47,7 +47,29 @@ Phases, each of which must pass:
      alike and whose out-of-budget positions add nothing; per-step device
      times of both kernels, their plain versions and embedding_bag;
   9. DLRM-DCN training with Trainer(unique_budget="auto"): 5 steps,
-     update_budgets, 5 steps at the measured budget, no overflow.
+     update_budgets, 5 steps at the measured budget, no overflow;
+ 10. the flash attention kernels (forward #8; backward #9, a dK/dV and a dQ
+     launch) against their plain versions on the card at BST's attention
+     shape [2048, 4, 256, 8] (masks of SyntheticBehaviorSequence histories
+     plus the target, padded to 256) and at FLASH_SHAPES (causal, blocks 64
+     and 128, dead rows, Dh 64, a padded Dh), o and lse within 1e-5
+     relative and the gradients within 1e-4 of their largest; at BST's
+     shape the device times of both, their plain versions and
+     scaled_dot_product_attention (forward and backward), and the bounds;
+ 11. BST with use_flash=True as modelzoo/bst/train.py runs it (emb 16,
+     3 tables of 2^20 slots, two of them shared by the histories, heads 4,
+     ff 128, hidden 256-64, Adagrad 0.2 + Adam 1e-3), histories of 200,
+     batch 2048 of SyntheticBehaviorSequence(vocab=100_000): 5 checked
+     steps (finite losses, no failed insert, table sizes, rows off the
+     batch unchanged, one launch each of flash fwd, dK/dV and dQ and the
+     gather/scatter launches the bundles imply per step), 30 timed, 3
+     profiled, on to 300 steps; held-out AUC over 8 batches at step 0 and
+     step 300, at least 0.60 at the end; card vs CPU at capacity 2^12
+     (bst_agreement);
+ 12. the phase-11 state saved and served by Predictor: 30 requests of
+     batch 2048 and one each of batch 1 and 37, every answer equal to
+     Trainer.eval_step's on the trained state bit for bit, one flash
+     forward per request; p50 and p90.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -56,6 +78,7 @@ phase fails, when CUDA is absent, or when the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -499,15 +522,19 @@ def _table_rows(ts, t, slots):
 
 
 def _untouched_sample(trainer, state, batch, n, gen):
-    """Per member of the stacked bundle: up to `n` resident slots whose key
-    the batch does not hold, with their key, value and accum rows."""
+    """Per table (each member of a stacked bundle; a shared table once, for
+    all its features): up to `n` resident slots whose key the batch does
+    not hold, with their key, value and accum rows."""
     out = []
     for bname, b in trainer.bundles.items():
         ts = state.tables[bname]
         sentinel = torch.iinfo(ts.keys.dtype).min
-        for t, f in enumerate(b.features):
+        members = (list(enumerate([f] for f in b.features)) if b.stacked
+                   else [(0, b.features)])
+        for t, feats in members:
+            ids = torch.cat([batch[f.name].flatten() for f in feats]).to(ts.keys.dtype)
             live = torch.nonzero(ts.keys[t] != sentinel).flatten()
-            keep = live[~torch.isin(ts.keys[t, live], batch[f.name].to(ts.keys.dtype))]
+            keep = live[~torch.isin(ts.keys[t, live], ids)]
             pick = keep[torch.randperm(keep.numel(), generator=gen)[:n].to(keep.device)]
             out.append((bname, t, pick, ts.keys[t, pick].clone(),
                         *_table_rows(ts, t, pick)))
@@ -678,22 +705,18 @@ def _copy_state(state, dev):
     return out
 
 
-def train_agreement(dev, model_kw, seed, cfg, steps=3):
-    """One initial state made on the CPU and copied to `dev`; `steps`
-    train steps on each; returns (max loss relative difference, max row
-    difference, max dense difference, rows compared)."""
-    from deeprec_tpu_torch.data import SyntheticCriteo
-    from deeprec_tpu_torch.models import DLRMDCN
+def train_agreement(dev, model, gen, cfg, steps=3):
+    """One initial state of `model` made on the CPU and copied to `dev`;
+    `steps` train steps on each, on batches of `gen`; returns (max loss
+    relative difference, max row difference, max dense difference, rows
+    compared)."""
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.training.trainer import Trainer
 
-    model = DLRMDCN(**model_kw, seed=seed)
     trainers = {d: Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=d)
                 for d in ("cpu", dev)}
     states = {"cpu": trainers["cpu"].init()}
     states[dev] = _copy_state(states["cpu"], dev)
-    gen = SyntheticCriteo(batch_size=cfg["agree_batch"], vocab=cfg["vocab"],
-                          seed=seed + 3, num_cat=model.num_cat, num_dense=model.num_dense)
     loss_diff = 0.0
     for _ in range(steps):
         b = gen.batch()
@@ -756,7 +779,14 @@ def run_training(dev, full, small, ckroot, seed, cfg):
             print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    loss_d, row_d, dense_d, n = train_agreement(dev, small, seed, cfg)
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+
+    model = DLRMDCN(**small, seed=seed)
+    loss_d, row_d, dense_d, n = train_agreement(
+        dev, model, SyntheticCriteo(batch_size=cfg["agree_batch"], vocab=cfg["vocab"],
+                                    seed=seed + 3, num_cat=model.num_cat,
+                                    num_dense=model.num_dense), cfg)
     print(f"agreement: training at capacity {small['capacity']}, batch "
           f"{cfg['agree_batch']}, 3 steps on {dev.type} vs cpu: loss rel diff "
           f"{loss_d:.3g} (tolerance {TRAIN_RTOL}), max row diff {row_d:.3g} over "
@@ -1124,12 +1154,450 @@ def budget_phase(dev, model_kw, seed, cfg, steps=5):
             "unique_fraction": {k: r["unique_fraction"] for k, r in stats.items()}}
 
 
+# ------------------------------------------------------------ flash attention and BST
+
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+# Flash kernels against their plain versions on the card: expf is not
+# torch.exp and the sums run in another order, so they are not bit-exact.
+# o and lse within 1e-5 * max(1, |plain|); dq, dk and dv within 1e-4 of the
+# tensor's largest |plain| gradient.
+FLASH_FWD_RTOL, FLASH_GRAD_TOL = 1e-5, 1e-4
+# (B, H, Lq, S, D, causal, block_q, block_k, dead rows), besides BST's own
+# shape: tests/test_attention.py's [2, 2, 256, 32] at blocks 64 and 128;
+# rows that see no real key; a head width of 64; a width the kernels pad.
+FLASH_SHAPES = [
+    (2, 2, 256, 256, 32, False, 64, 64, False),
+    (2, 2, 256, 256, 32, True, 64, 64, False),
+    (2, 2, 256, 256, 32, False, 128, 128, False),
+    (2, 2, 256, 256, 32, True, 128, 128, False),
+    (4, 2, 256, 256, 16, False, 64, 64, True),
+    (4, 2, 256, 256, 16, True, 64, 64, True),
+    (64, 4, 256, 256, 64, False, 128, 128, False),
+    (2, 3, 128, 384, 12, True, 64, 128, False),
+]
+# BST as modelzoo/bst/train.py runs it (emb 16, capacity 2^20, batch 2048,
+# vocab 100,000, Adagrad 0.2, Adam 1e-3; heads 4, ff 128, one block,
+# hidden 256-64) with use_flash=True and histories at max_len 200. The
+# agreement cell's vocabulary keeps every id of its 3 batches inside
+# capacity 2^12.
+BST_RUN = dict(emb_dim=16, capacity=1 << 20, heads=4, ff=128, blocks=1, max_len=200,
+               hidden=(256, 64), batch=2048, vocab=100_000, seq_len=200, lr=0.2,
+               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=300,
+               eval_batches=8, auc_floor=0.60, agree_capacity=1 << 12,
+               agree_batch=256, agree_vocab=2000, requests=30, sample=4096)
+
+
+def _bst(cfg, seed, **over):
+    from deeprec_tpu_torch.models import BST
+
+    kw = {k: cfg[k] for k in ("emb_dim", "capacity", "heads", "ff", "blocks",
+                              "max_len", "hidden")}
+    return BST(**{**kw, **over}, use_flash=True, seed=seed)
+
+
+def _flash_errs(got, want, grad):
+    """(max abs error, the measure the tolerance applies to, its
+    tolerance): forward tensors by error / max(1, |plain|), gradients by
+    error over the largest |plain| gradient."""
+    err = (got - want).abs()
+    if grad:
+        return float(err.max()), float(err.max()), FLASH_GRAD_TOL * float(want.abs().max())
+    rel = float((err / torch.clamp(want.abs(), min=1.0)).max())
+    return float(err.max()), rel, FLASH_FWD_RTOL
+
+
+def compare_flash(q, k, v, mask, do, causal, block_q, block_k, what):
+    """Both flash kernels against their plain versions (the backward from
+    the plain forward's o and lse); a row that sees no key gets exactly 0
+    gradients. Returns {tensor: max abs error}."""
+    from deeprec_tpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = fa.flash_forward(q, k, v, mask, causal, scale, block_q, block_k)
+    po, plse = fa.flash_forward_plain(q, k, v, mask, causal, scale, block_q, block_k)
+    got = fa.flash_backward(q, k, v, mask, causal, scale, block_q, block_k, po, plse, do)
+    want = fa.flash_backward_plain(q, k, v, mask, causal, scale, block_q, block_k,
+                                   po, plse, do)
+    _sync(q.device)
+    errs, parts = {}, []
+    for name, a, b, grad in (("o", o, po, False), ("lse", lse, plse, False),
+                             ("dq", got[0], want[0], True), ("dk", got[1], want[1], True),
+                             ("dv", got[2], want[2], True)):
+        err, measure, tol = _flash_errs(a, b, grad)
+        if not measure <= tol:
+            raise AssertionError(f"flash {what}: {name} off by {measure:.3g} "
+                                 f"(tolerance {tol:.3g})")
+        errs[name] = err
+        parts.append(f"{name} {err:.3g} ({measure:.3g} <= {tol:.3g})")
+    dead = ~mask.any(dim=1)
+    if bool(dead.any()) and not all(bool((g[dead] == 0).all()) for g in got):
+        raise AssertionError(f"flash {what}: a dead row's gradient is not 0")
+    print(f"flash {what}: kernel vs plain, max abs err " + ", ".join(parts))
+    return errs
+
+
+def _bst_attention_inputs(cfg, seed, dev):
+    """q, k, v, do [B, H, 256, D] normal and the key mask BST's encoder
+    gives flash attention: SyntheticBehaviorSequence histories of max_len,
+    the always-real target at position max_len, zero padding to 256."""
+    from deeprec_tpu_torch.data import SyntheticBehaviorSequence
+
+    B, L = cfg["batch"], cfg["max_len"] + 1
+    H, D = cfg["heads"], 2 * cfg["emb_dim"] // cfg["heads"]
+    Lp = -(-L // 128) * 128
+    hist = SyntheticBehaviorSequence(batch_size=B, vocab=cfg["vocab"],
+                                     seq_len=cfg["seq_len"], seed=seed + 21).batch()
+    mask = np.zeros((B, Lp), bool)
+    mask[:, :cfg["seq_len"]] = hist["hist_items"] != -1
+    mask[:, L - 1] = True
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    q, k, v, do = (torch.randn((B, H, Lp, D), generator=g, device=dev) for _ in range(4))
+    return q, k, v, torch.from_numpy(mask).to(dev), do
+
+
+def flash_phase(dev, seed, cfg, shapes):
+    """Phase 10: both flash kernels against their plain versions at BST's
+    shape and at `shapes`; at BST's shape the device times of the kernels,
+    their plain versions and scaled_dot_product_attention (forward, and its
+    backward), and the bounds. Returns the two kernel records."""
+    from deeprec_tpu_torch.ops import flash_attention as fa
+
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    errs = []
+    for B, H, Lq, S, D, causal, bq, bk, dead in shapes:
+        q = torch.randn((B, H, Lq, D), generator=g, device=dev)
+        k, v = (torch.randn((B, H, S, D), generator=g, device=dev) for _ in range(2))
+        do = torch.randn((B, H, Lq, D), generator=g, device=dev)
+        lengths = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        mask = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+        if dead:  # batch 0 sees no key; batch 1's first 64 keys are masked
+            mask[0] = False
+            mask[1, :64] = False
+        errs.append(compare_flash(q, k, v, mask, do, causal, bq, bk,
+                                  f"B={B} H={H} Lq={Lq} S={S} D={D} causal={causal} "
+                                  f"blocks {bq}/{bk}{' dead rows' if dead else ''}"))
+    q, k, v, mask, do = _bst_attention_inputs(cfg, seed, dev)
+    B, H, Lq, D = q.shape
+    errs.append(compare_flash(q, k, v, mask, do, False, 128, 128,
+                              f"BST B={B} H={H} L={Lq} D={D}"))
+    fwd_err = max(max(e["o"], e["lse"]) for e in errs)
+    bwd_err = max(max(e["dq"], e["dk"], e["dv"]) for e in errs)
+
+    # bounds, with the key pairs this run's mask needs (masked keys give
+    # exactly-zero terms): forward 2 products, backward 5, of 2 D flops each
+    scale = 1.0 / D ** 0.5
+    pairs = H * Lq * int(mask.sum())
+    elem = B * H * Lq * D * 4
+    fwd_bytes = 3 * elem + mask.numel() + elem + B * H * Lq * 4
+    bwd_bytes = 5 * elem + B * H * Lq * 4 + mask.numel() + 3 * elem
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    f_bound, f_by = bound(4 * D * pairs, fwd_bytes)
+    b_bound, b_by = bound(10 * D * pairs, bwd_bytes)
+    f_rec = {"name": "flash_attention_fwd", "route": "cuda",
+             "source": "deeprec_tpu_torch/csrc/flash_attention_fwd.cu",
+             "replaces": "deeprec_tpu/ops/flash_attention.py:136",
+             "launches": 0, "max_abs_err": fwd_err, "bound_ms": f_bound, "bound_by": f_by}
+    b_rec = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "deeprec_tpu_torch/csrc/flash_attention_bwd.cu",
+             "replaces": "deeprec_tpu/ops/flash_attention.py:309",
+             "launches": 0, "max_abs_err": bwd_err, "bound_ms": b_bound, "bound_by": b_by}
+    print(f"flash BST shape [{B}, {H}, {Lq}, {D}]: {int(mask.sum())} real keys of "
+          f"{mask.numel()}; bounds forward {f_bound:.5f} ms ({f_by}), backward "
+          f"{b_bound:.5f} ms ({b_by}) at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s")
+    o, lse = fa.flash_forward_plain(q, k, v, mask, False, scale, 128, 128)
+    am = mask[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*leaves, attn_mask=am)
+    _timed_record(f_rec, "flash_attention_fwd (BST shape)",
+                  _ms(lambda: fa.flash_forward(q, k, v, mask, False, scale, 128, 128),
+                      dev, reps=20),
+                  _ms(lambda: fa.flash_forward_plain(q, k, v, mask, False, scale, 128, 128),
+                      dev, reps=2, warm=1),
+                  _ms(lambda: sdpa(q, k, v, attn_mask=am), dev, reps=20))
+    _timed_record(b_rec, "flash_attention_bwd (BST shape)",
+                  _ms(lambda: fa.flash_backward(q, k, v, mask, False, scale, 128, 128,
+                                                o, lse, do), dev, reps=20),
+                  _ms(lambda: fa.flash_backward_plain(q, k, v, mask, False, scale, 128,
+                                                      128, o, lse, do),
+                      dev, reps=2, warm=1),
+                  _ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
+                      dev, reps=20))
+    del q, k, v, mask, do, o, lse, leaves, lib_out
+    return f_rec, b_rec
+
+
+def _flash_counts():
+    from deeprec_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_forward.launches, fa.flash_backward.launches_dkdv,
+            fa.flash_backward.launches_dq)
+
+
+def _reset_flash_counts():
+    from deeprec_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_forward.launches = 0
+    fa.flash_backward.launches_dkdv = fa.flash_backward.launches_dq = 0
+
+
+def bst_train_phase(dev, seed, cfg):
+    """Phase 11: BST with flash attention trained at full width (see the
+    module docstring). Returns (trainer, state, stats)."""
+    from deeprec_tpu_torch.data import SyntheticBehaviorSequence
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    model = _bst(cfg, seed)
+    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = trainer.init()
+
+    def gen(s):
+        return SyntheticBehaviorSequence(batch_size=cfg["batch"], vocab=cfg["vocab"],
+                                         seq_len=cfg["seq_len"], seed=s)
+
+    held = gen(seed + 1)
+    evals = [trainer.device_batch(held.batch()) for _ in range(cfg["eval_batches"])]
+    auc0 = trainer.evaluate(state, evals)["auc"]
+    train_gen = gen(seed)
+    nsteps = cfg["checked"] + cfg["timed"] + cfg["profiled"] + 1
+    host = [train_gen.batch() for _ in range(nsteps)]
+    staged = [trainer.device_batch(b) for b in host]
+    _sync(dev)
+    cpu_gen = torch.Generator().manual_seed(seed)
+
+    _reset_flash_counts()  # the main path starts here
+    apply_rows_sr.launches = gather_rows.launches = 0
+    losses, untouched = [], 0
+    for i in range(cfg["checked"]):
+        sample = (_untouched_sample(trainer, state, staged[i], cfg["sample"], cpu_gen)
+                  if i else [])
+        state, m = trainer.train_step(state, staged[i])
+        losses.append(float(m["loss"]))
+        untouched += _check_untouched(state, sample)
+    flash = _flash_counts()
+    rows = (apply_rows_sr.launches, gather_rows.launches)  # ... and ends here
+    per_step = _path_launches(trainer)
+    n = cfg["checked"]
+    if dev.type == "cuda" and (flash != (n, n, n)
+                               or rows != tuple(n * c for c in per_step)):
+        raise AssertionError(
+            f"BST train path launched (flash fwd, dK/dV, dQ) {flash} and "
+            f"(apply_rows_sr, gather_rows) {rows}; {n} steps imply {(n, n, n)} and "
+            f"{tuple(n * c for c in per_step)}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite BST training loss: {losses}")
+    fails = sum(int(ts.insert_fails.sum()) for ts in state.tables.values())
+    if fails:
+        raise AssertionError(f"{fails} ids failed to insert")
+    for bname, b in trainer.bundles.items():
+        ids = np.concatenate([h[f.name].ravel() for h in host[:n] for f in b.features])
+        want = len(np.unique(ids[ids != b.features[0].pad_value]))
+        size = int(b.table.size(state.tables[bname]).sum())
+        if size != want:
+            raise AssertionError(f"{bname}: table size {size}, distinct ids {want}")
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(n, n + cfg["timed"]):
+        state, m = trainer.train_step(state, staged[i])
+    _sync(dev)
+    timed_s = time.perf_counter() - t0
+    stats = {"flash": flash, "rows": rows, "per_step": per_step, "losses": losses,
+             "untouched": untouched, "step_ms": timed_s / cfg["timed"] * 1e3,
+             "examples_per_s": cfg["timed"] * cfg["batch"] / timed_s}
+    done = n + cfg["timed"]
+    if dev.type == "cuda":
+        box = [state]
+        nxt = iter(staged[done:])
+
+        def step():
+            box[0] = trainer.train_step(box[0], next(nxt))[0]
+
+        stats["profile"] = profile_device(step, cfg["profiled"])
+        state = box.pop()
+        done += cfg["profiled"] + 1
+        stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del staged
+    stats["rest_from"] = done
+    t0 = time.perf_counter()
+    for _ in range(done, cfg["steps"]):
+        state, m = trainer.train_step(state, train_gen.batch())
+    losses.append(float(m["loss"]))
+    stats["rest_s"] = time.perf_counter() - t0
+    auc = trainer.evaluate(state, evals)["auc"]
+    stats.update(auc0=auc0, auc=auc, steps=state.step)
+    if not np.isfinite(losses[-1]) or not auc >= cfg["auc_floor"]:
+        raise AssertionError(f"BST after {state.step} steps: loss {losses[-1]}, "
+                             f"held-out AUC {auc} (floor {cfg['auc_floor']})")
+    return trainer, state, stats
+
+
+def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
+    """Phase 12: the trained state saved and served by Predictor: `requests`
+    requests of the full batch and one each of batch 1 and 37, every
+    answer equal to Trainer.eval_step's on the trained state bit for bit,
+    one flash forward per request. Returns stats."""
+    from deeprec_tpu_torch.data import SyntheticBehaviorSequence
+    from deeprec_tpu_torch.ops.fused_lookup import gather_rows
+    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    CheckpointManager(ckdir, trainer).save(state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = Predictor(trainer.model, ckdir, device=dev)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    gen = SyntheticBehaviorSequence(batch_size=cfg["batch"], vocab=cfg["vocab"],
+                                    seq_len=cfg["seq_len"], seed=seed + 2)
+    reqs = [gen.batch() for _ in range(cfg["requests"])]
+    reqs += [{k: a[:n] for k, a in reqs[0].items()} for n in (1, 37)]
+    want = [trainer.eval_step(state, b)[1].cpu().numpy() for b in reqs]
+
+    _reset_flash_counts()  # the main path starts here
+    gather_rows.launches = 0
+    got, lat = [], []
+    for b in reqs:
+        t0 = time.perf_counter()
+        got.append(p.predict(b))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = (_flash_counts()[0], gather_rows.launches)  # ... and ends here
+    per_request = sum(1 if b.stacked else len(b.features)
+                      for b in p._trainer.bundles.values())
+    if dev.type == "cuda" and launches != (len(reqs), per_request * len(reqs)):
+        raise AssertionError(
+            f"BST serving launched (flash fwd, gather_rows) {launches}; "
+            f"{len(reqs)} requests imply {(len(reqs), per_request * len(reqs))}")
+    for b, g, w in zip(reqs, got, want):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(
+                f"BST serving, batch {len(w)}: Predictor differs from eval_step by "
+                f"{np.abs(g - w).max() if g.shape == w.shape else g.shape}")
+        if not (np.all(np.isfinite(g)) and np.all(g > 0) and np.all(g < 1)):
+            raise AssertionError("BST serving: probabilities not finite in (0, 1)")
+    full = lat[:cfg["requests"]]
+    return {"save_s": save_s, "restore_s": restore_s, "launches": launches,
+            "requests": len(reqs), "per_request": per_request,
+            "p50_ms": float(np.percentile(full, 50)),
+            "p90_ms": float(np.percentile(full, 90))}
+
+
+@contextlib.contextmanager
+def _f32_dense_operands():
+    """dense_apply's bf16 operand rounding switched off in the port for the
+    duration (the "f32 numerics" of tests/test_torch_bst.py)."""
+    from deeprec_tpu_torch import nn as dnn
+
+    rounding = dnn._bf16
+    dnn._bf16 = lambda x: x
+    try:
+        yield
+    finally:
+        dnn._bf16 = rounding
+
+
+def bst_agreement(dev, seed, cfg):
+    """BST trained on the card and on the CPU from one state at capacity
+    2^12 and batch 256. A 1-ulp difference before a bf16 operand rounding
+    flips that operand by 2^-8, and Adam's first step moves a dense element
+    by about lr whatever the size of its gradient, so a flipped sign moves
+    it 2 lr apart; the next steps' embedding gradients carry that apart
+    (card vs CPU rows 3.6e-3 after 3 steps, with or without flash
+    attention). So: in the models' own numerics, 1 step within TRAIN_RTOL
+    and ROW_ATOL and 3 steps' losses within TRAIN_RTOL; with dense_apply's
+    operands in f32 on both sides, 3 steps within TRAIN_RTOL and ROW_ATOL.
+    Dense parameters within 2 lr per step. Returns printable results."""
+    from deeprec_tpu_torch.data import SyntheticBehaviorSequence
+
+    def agree(steps):
+        model = _bst(cfg, seed, capacity=cfg["agree_capacity"])
+        gen = SyntheticBehaviorSequence(batch_size=cfg["agree_batch"],
+                                        vocab=cfg["agree_vocab"],
+                                        seq_len=cfg["seq_len"], seed=seed + 3)
+        return train_agreement(dev, model, gen, cfg, steps=steps)
+
+    out = []
+    for numerics, steps, rows_held in (("bf16", 1, True), ("bf16", 3, False),
+                                       ("f32", 3, True)):
+        if numerics == "f32":
+            with _f32_dense_operands():
+                loss_d, row_d, dense_d, n = agree(steps)
+        else:
+            loss_d, row_d, dense_d, n = agree(steps)
+        dense_bound = 2 * steps * cfg["dense_lr"] + 1e-6  # + f32 rounding
+        line = (f"{numerics} numerics, {steps} step(s): loss rel diff {loss_d:.3g} "
+                f"(tolerance {TRAIN_RTOL}), max row diff {row_d:.3g} over {n} keys "
+                f"({'tolerance ' + str(ROW_ATOL) if rows_held else 'not held'}), max "
+                f"dense diff {dense_d:.3g} (bound {dense_bound:.3g})")
+        out.append(line)
+        if (loss_d > TRAIN_RTOL or (rows_held and row_d > ROW_ATOL)
+                or dense_d > dense_bound):
+            raise AssertionError(f"card and CPU BST training disagree: {line}")
+    return out
+
+
+def run_bst(dev, seed, cfg, ckroot):
+    """Phases 11 and 12, and the card-vs-CPU BST agreement. Returns
+    (training stats, serving stats)."""
+    trainer, state, st = bst_train_phase(dev, seed, cfg)
+    fl, (apply_n, gather_n) = st["flash"], st["rows"]
+    print(f"BST training: emb {cfg['emb_dim']}, 3 tables of {cfg['capacity']} slots "
+          f"(two shared), batch {cfg['batch']}, histories of {cfg['seq_len']}: "
+          f"{cfg['checked']} checked steps launched flash fwd / dK/dV / dQ {fl}, "
+          f"apply_rows_sr {apply_n} and gather_rows {gather_n} "
+          f"({st['per_step'][0]} and {st['per_step'][1]} per step); "
+          f"{st['untouched']} untouched rows unchanged")
+    print(f"BST training: {st['examples_per_s']:.1f} examples/s over {cfg['timed']} "
+          f"timed steps ({st['step_ms']:.3f} ms/step); loss step 1 "
+          f"{st['losses'][0]:.6f}, step {st['steps']} {st['losses'][-1]:.6f}; held-out "
+          f"AUC over {cfg['eval_batches']} batches {st['auc0']:.6f} at step 0, "
+          f"{st['auc']:.6f} at step {st['steps']} (floor {cfg['auc_floor']}); peak "
+          f"device memory {st.get('peak_gb')} GB; steps {st['rest_from'] + 1}-"
+          f"{st['steps']} (batches made on the host) took {st['rest_s']:.1f} s")
+    if "profile" in st:
+        wall, busy, kernels, rows, phases = st["profile"]
+        print(f"profile: {cfg['profiled']} BST train steps: wall {wall / 1e3:.3f} "
+              f"ms/step, device busy {busy / 1e3:.3f} ms/step, idle share "
+              f"{1 - busy / wall:.3f} (of the timed step "
+              f"{1 - busy / 1e3 / st['step_ms']:.3f}), {kernels} kernels/step")
+        for name, (host_us, dev_us) in phases.items():
+            print(f"profile:   {name:24s} host {host_us / 1e3:8.3f} ms/step, "
+                  f"device {dev_us / 1e3:8.3f} ms/step")
+        for dt, key, count in rows[:14]:
+            print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
+    sv = bst_serve_phase(dev, trainer, state, os.path.join(ckroot, "bst"), seed, cfg)
+    print(f"BST serving: restored in {sv['restore_s']:.2f} s (saved in "
+          f"{sv['save_s']:.2f} s); {sv['requests']} requests launched (flash fwd, "
+          f"gather_rows) {sv['launches']} ({sv['per_request']} gathers per request); "
+          f"every answer equal to eval_step's bit for bit; p50 {sv['p50_ms']:.3f} ms, "
+          f"p90 {sv['p90_ms']:.3f} ms at batch {cfg['batch']}")
+    del trainer, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for line in bst_agreement(dev, seed, cfg):
+        print(f"agreement: BST at capacity {cfg['agree_capacity']}, batch "
+              f"{cfg['agree_batch']}, {dev.type} vs cpu, {line}")
+    return st, sv
+
+
 # ------------------------------------------------------------ main
 
 
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
-        fused=FUSED):
-    """Phases 3-9 on `dev`. Returns the kernel records."""
+        fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN):
+    """Phases 3-12 on `dev`. Returns the kernel records."""
     records = [kernel_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed),
                scatter_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)]
 
@@ -1203,18 +1671,30 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-        bst = budget_phase(dev, full, seed, train)
-        records[0]["launches"] += bst["launches"][1]
-        records[1]["launches"] += bst["launches"][0]
-        fr = {b: r.get("unique_budget_fraction") for b, r in bst["report"].items()}
+        bud = budget_phase(dev, full, seed, train)
+        records[0]["launches"] += bud["launches"][1]
+        records[1]["launches"] += bud["launches"][0]
+        fr = {b: r.get("unique_budget_fraction") for b, r in bud["report"].items()}
         print(f"budgeted training: DLRM-DCN {full}, Trainer(unique_budget='auto'), "
               f"batch {train['batch']}: unique fraction "
-              f"{ {b: r.get('unique_fraction') for b, r in bst['report'].items()} }, "
+              f"{ {b: r.get('unique_fraction') for b, r in bud['report'].items()} }, "
               f"budget fraction {fr}, unique size (before, after update_budgets) "
-              f"{bst['sizes']}; dedup_overflow 0; losses {bst['losses'][0]:.6f} .. "
-              f"{bst['losses'][-1]:.6f}; launched (apply_rows_sr, gather_rows) "
-              f"{bst['launches']}; hash-dedup probe loop "
-              f"{bst['probe_syncs_per_step']:.1f} host syncs per step")
+              f"{bud['sizes']}; dedup_overflow 0; losses {bud['losses'][0]:.6f} .. "
+              f"{bud['losses'][-1]:.6f}; launched (apply_rows_sr, gather_rows) "
+              f"{bud['launches']}; hash-dedup probe loop "
+              f"{bud['probe_syncs_per_step']:.1f} host syncs per step")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        f_rec, b_rec = flash_phase(dev, seed, bst, flash_shapes)
+        records += [f_rec, b_rec]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        st, sv = run_bst(dev, seed, bst, ckroot)
+        f_rec["launches"] = st["flash"][0] + sv["launches"][0]
+        b_rec["launches"] = st["flash"][1]
+        records[0]["launches"] += st["rows"][1] + sv["launches"][1]
+        records[1]["launches"] += st["rows"][0]
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     return records

@@ -1,3 +1,4 @@
-from deeprec_tpu_torch.data.synthetic import SyntheticCriteo, zipf_ids
+from deeprec_tpu_torch.data.synthetic import (
+    SyntheticBehaviorSequence, SyntheticCriteo, zipf_ids)
 
-__all__ = ["SyntheticCriteo", "zipf_ids"]
+__all__ = ["SyntheticBehaviorSequence", "SyntheticCriteo", "zipf_ids"]

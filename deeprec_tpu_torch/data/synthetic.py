@@ -1,6 +1,6 @@
 """Synthetic click logs — the port's copy of `deeprec_tpu/data/synthetic.py`
-(`zipf_ids`, `SyntheticCriteo`), numpy only: batches are bit-identical to
-the JAX package's for a seed.
+(`zipf_ids`, `SyntheticCriteo`, `SyntheticBehaviorSequence`), numpy only:
+batches are bit-identical to the JAX package's for a seed.
 
 Ids are zipf-distributed (recommendation workloads are heavy-tailed), and
 the label is a noisy logistic function of hidden per-id weights, so a
@@ -154,6 +154,71 @@ class SyntheticCriteo:
             off = c * self.vocab if self.offset_ids else 0
             out[f"C{c+1}"] = (cats[c] + off).astype(self.dtype)
         return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.batch()
+
+
+class SyntheticBehaviorSequence:
+    """Taobao user-behavior layout for DIN/DIEN/BST (matches
+    models/taobao.behavior_features): user, target_item/target_cat,
+    variable-length hist_items/hist_cats (pad -1), label.
+
+    A click is more likely when the target item's hidden embedding aligns
+    with the user's history, plus first-order item and category
+    propensities, so attention models can learn."""
+
+    def __init__(
+        self,
+        batch_size: int = 512,
+        vocab: int = 50_000,
+        num_cats: int = 1000,
+        seq_len: int = 50,
+        seed: int = 0,
+        dtype=np.int32,
+    ):
+        self.B = batch_size
+        self.vocab = vocab
+        self.num_cats = num_cats
+        self.seq_len = seq_len
+        self.rng = np.random.default_rng(seed)
+        self.dtype = dtype
+        wrng = np.random.default_rng(777)
+        self.item_vec = wrng.normal(0, 1, size=(vocab, 8)).astype(np.float32)
+        self.item_cat = wrng.integers(0, num_cats, size=(vocab,))
+        self.item_bias = wrng.normal(0, 1.0, size=(vocab,)).astype(np.float32)
+        self.cat_bias = wrng.normal(0, 1.0, size=(num_cats,)).astype(np.float32)
+
+    def _zipf_ids(self, shape):
+        return zipf_ids(self.rng, self.vocab, 1.0, shape)
+
+    def batch(self) -> Dict[str, np.ndarray]:
+        B, L = self.B, self.seq_len
+        hist = self._zipf_ids((B, L))
+        lengths = self.rng.integers(1, L + 1, size=(B,))
+        mask = np.arange(L)[None, :] < lengths[:, None]
+        target = self._zipf_ids((B,))
+        user = self._zipf_ids((B,))
+        # label: affinity of target with mean history vector
+        hvec = (self.item_vec[hist] * mask[..., None]).sum(1) / np.maximum(
+            lengths[:, None], 1
+        )
+        logit = (
+            (hvec * self.item_vec[target]).sum(1) * 1.5
+            + self.item_bias[target]
+            + self.cat_bias[self.item_cat[target]] * 0.5
+        )
+        prob = 1.0 / (1.0 + np.exp(-(logit - logit.mean())))
+        label = (self.rng.random(B) < prob).astype(np.float32)
+        return {
+            "label": label,
+            "user": user.astype(self.dtype),
+            "target_item": target.astype(self.dtype),
+            "target_cat": self.item_cat[target].astype(self.dtype),
+            "hist_items": np.where(mask, hist, -1).astype(self.dtype),
+            "hist_cats": np.where(mask, self.item_cat[hist], -1).astype(self.dtype),
+        }
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:

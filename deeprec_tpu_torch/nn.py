@@ -1,5 +1,5 @@
 """NN layers for the modelzoo — the port of `deeprec_tpu/nn.py` (the layers
-DLRM and DLRM-DCN use).
+DLRM, DLRM-DCN and BST use).
 
 Parameters keep the JAX package's layout (`w` is [in, out]) and names, so a
 module's parameter tree is the JAX param tree: `param_tree` rebuilds it and
@@ -10,8 +10,9 @@ Numerics follow the JAX package: `dense_apply` rounds both operands to
 bf16 and accumulates in f32 (the MXU's bf16-in / f32-out product). Products
 of bf16 values are exact in f32, so rounding the operands and multiplying
 in f32 computes the same thing; `torch.matmul` on bf16 tensors would round
-the output to bf16 as well, which JAX does not. The cross network
-multiplies in plain f32.
+the output to bf16 as well, which JAX does not. The cross network, the
+transformer block's qkv and output projections (`matmul`) multiply in plain
+f32; its attention runs through `ops/flash_attention.py`.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from typing import Dict, List, Sequence
 
 import torch
 from torch import nn
+
+from deeprec_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +35,12 @@ def _glorot(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- dense / MLP
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A plain f32 product (JAX's `jnp.dot(..., preferred_element_type=f32)`
+    on f32 operands; TF32 stays off on the card)."""
+    return torch.matmul(x, w)
 
 
 def dense_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +78,47 @@ def dot_interaction(emb_stack: torch.Tensor, keep_diag: bool = False) -> torch.T
     return z[:, i, j]
 
 
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * g + b over the last axis, with the
+    population variance (jnp.var)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+
+
+# ------------------------------------------------------------ transformer (BST)
+
+
+def transformer_block_apply(p, x: torch.Tensor, mask: torch.Tensor, heads: int,
+                            flash: bool = False) -> torch.Tensor:
+    """Post-LN transformer encoder block with a padding mask: x [B, L, D],
+    mask [B, L] bool. flash=True pads q, k, v and the mask to a multiple of
+    128 and runs `flash_attention` (the hand-written CUDA kernels on the
+    card); flash=False runs `attention_reference`. Positions the mask
+    drops come out 0."""
+    B, L, D = x.shape
+    H = heads
+    qkv = matmul(x, p["qkv"]).reshape(B, L, 3, H, D // H)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, L, Dh]
+    if flash:
+        blk = 128
+        pad = -L % blk
+        if pad:
+            q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+            fmask = torch.cat([mask, mask.new_zeros((B, pad))], dim=1)
+        else:
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            fmask = mask
+        out = flash_attention(q, k, v, fmask)[:, :, :L]
+    else:
+        out = attention_reference(q, k, v, mask)
+    out = out.transpose(1, 2).reshape(B, L, D)
+    x = layernorm_apply(p["ln1"], x + matmul(out, p["proj"]))
+    ff = dense_apply(p["ff2"], torch.relu(dense_apply(p["ff1"], x)))
+    x = layernorm_apply(p["ln2"], x + ff)
+    return torch.where(mask[..., None], x, 0.0)
+
+
 # --------------------------------------------------------------- modules
 
 
@@ -82,6 +132,39 @@ class Dense(nn.Module):
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
+
+
+class LayerNorm(nn.Module):
+    """{"g" [dim] = 1, "b" [dim] = 0}."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(dim))
+        self.b = nn.Parameter(torch.zeros(dim))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+class TransformerBlock(nn.Module):
+    """The JAX `transformer_block_init` tree: qkv [dim, 3 dim], proj [dim,
+    dim] (glorot), ff1 Dense(dim, ff), ff2 Dense(ff, dim), ln1, ln2.
+    `heads` stays an argument of `forward`, as in the JAX package."""
+
+    def __init__(self, dim: int, ff: int, generator: torch.Generator):
+        super().__init__()
+        self.qkv = nn.Parameter(_glorot((dim, 3 * dim), generator))
+        self.proj = nn.Parameter(_glorot((dim, dim), generator))
+        self.ff1 = Dense(dim, ff, generator)
+        self.ff2 = Dense(ff, dim, generator)
+        self.ln1 = LayerNorm(dim)
+        self.ln2 = LayerNorm(dim)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def forward(self, x, mask, heads: int, flash: bool = False):
+        return transformer_block_apply(self, x, mask, heads, flash)
 
 
 class MLP(nn.Module):

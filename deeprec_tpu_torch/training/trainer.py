@@ -112,12 +112,14 @@ def build_bundles(specs) -> Dict[str, Bundle]:
 
 @dataclasses.dataclass
 class ModelInputs:
-    """What the model's forward receives. Sequence features (pooling
-    "none", the JAX package's `seq` field) wait for the models that use
-    them."""
+    """What the model's forward receives: pooled bags, sequence features
+    (pooling "none": the embeddings per position, zero where the mask is
+    False, and the mask) and dense features."""
 
     pooled: Dict[str, torch.Tensor]  # feature -> [B, D]
     dense: Dict[str, torch.Tensor]  # feature -> [B, W]
+    seq: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default_factory=dict)  # feature -> ([B, L, D], [B, L] mask)
 
 
 def _prep_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -362,13 +364,17 @@ class Trainer:
         return views, bundle_res
 
     def _build_inputs(self, embs, views, batch) -> ModelInputs:
-        pooled = {}
+        pooled, seq = {}, {}
         for f in self.sparse_specs:
             _, inverse, mask = views[f.name]
-            pooled[f.name] = combiners.combine(embs[f.name], inverse, mask,
-                                               f.pooling)
+            if f.pooling == "none":
+                e = embs[f.name][inverse.long()]  # [B, L, D]
+                seq[f.name] = (torch.where(mask[..., None], e, 0.0), mask)
+            else:
+                pooled[f.name] = combiners.combine(embs[f.name], inverse, mask,
+                                                   f.pooling)
         dense = {f.name: batch[f.name] for f in self.dense_specs}
-        return ModelInputs(pooled=pooled, dense=dense)
+        return ModelInputs(pooled=pooled, dense=dense, seq=seq)
 
     # ---------------------------------------------------------------- training
 

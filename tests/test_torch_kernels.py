@@ -1,8 +1,8 @@
 """The PyTorch port on its own (no jax in this file, so it also runs on the
 CUDA machine): package isolation, the no-silent-CPU rule, and the CUDA
 kernels against their plain versions (marked `cuda`; skip without a card):
-the row gather and row scatter, and the fused bag step's forward and
-backward."""
+the row gather and row scatter, the fused bag step's forward and backward,
+and flash attention's forward and backward."""
 import os
 import subprocess
 import sys
@@ -18,7 +18,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, and chip_smoke.py, load with jax and
-    deeprec_tpu absent from sys.modules."""
+    deeprec_tpu absent from sys.modules; the modules include BST's
+    (ops.flash_attention, models.bst, models.taobao)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deeprec_tpu_torch\n"
@@ -28,12 +29,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'deeprec_tpu' or k.startswith('deeprec_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('deeprec_tpu_torch')]))\n"
+        "print(' '.join(k for k in sys.modules if k.startswith('deeprec_tpu_torch')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 29
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 33
+    for name in ("ops.flash_attention", "models.bst", "models.taobao"):
+        assert f"deeprec_tpu_torch.{name}" in loaded, name
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -60,6 +64,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the state the fused bag step (bag_forward, apply_bag_gradients) runs on
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EmbeddingTable(TableConfig(name="t", dim=8, capacity=64)).create(2)
+    # BST with flash attention, through training and serving
+    from deeprec_tpu_torch.models import BST
+    bst = BST(emb_dim=4, capacity=1 << 6, heads=2, ff=8, max_len=8,
+              use_flash=True, hidden=(4,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(bst, Adagrad(lr=0.2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(bst, os.path.join(ROOT, "does-not-exist"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
@@ -243,3 +255,96 @@ def test_fused_sparse_backward_kernel_matches_plain(cuda_device, dtype, opt_name
                 res.uids[ok].long()] = True
         assert torch.equal(kv[~touched], values[~touched])
         assert bool((kv[touched] != values[touched]).any())
+
+
+# Flash attention (#8, #9) on the card: not bit-exact with the plain version
+# (expf is not torch.exp, and the sums run in another order), so o and lse
+# are held within 1e-5 * max(1, |plain|) and dq, dk, dv within 1e-4 of the
+# largest |plain| gradient of the tensor.
+FLASH_FWD_RTOL, FLASH_GRAD_TOL = 1e-5, 1e-4
+
+
+def _flash_inputs(g, B, H, Lq, S, D, dead, device):
+    q = torch.randn((B, H, Lq, D), generator=g)
+    k, v = (torch.randn((B, H, S, D), generator=g) for _ in range(2))
+    do = torch.randn((B, H, Lq, D), generator=g)
+    lengths = torch.randint(S // 2, S + 1, (B,), generator=g)
+    mask = torch.arange(S)[None, :] < lengths[:, None]
+    if dead:  # batch 0 sees no key; batch 1's first 64 keys are masked
+        mask[0] = False
+        if B > 1:
+            mask[1, :64] = False
+    return [t.to(device) for t in (q, k, v, mask, do)]
+
+
+def _assert_flash_close(got, want, name, grad):
+    if grad:
+        tol = FLASH_GRAD_TOL * max(float(want.abs().max()), 1e-30)
+        err = float((got - want).abs().max())
+        assert err <= tol, f"{name}: max err {err} above {tol}"
+    else:
+        bound = FLASH_FWD_RTOL * torch.clamp(want.abs(), min=1.0)
+        assert bool(((got - want).abs() <= bound).all()), (
+            f"{name}: max err {float((got - want).abs().max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,Lq,S,D,block_q,block_k,dead", [
+    (4, 4, 256, 256, 8, 128, 128, False),   # BST's head width, two tiles
+    (2, 2, 256, 256, 32, 64, 64, False),    # tests/test_attention.py
+    (2, 2, 256, 256, 32, 128, 128, False),
+    (3, 2, 256, 256, 16, 64, 64, True),     # dead rows
+    (2, 1, 128, 256, 64, 64, 128, False),   # Lq != S, mixed blocks
+    (1, 3, 64, 192, 3, 32, 64, True),       # a padded head width, 64 rows
+    (1, 2, 128, 128, 128, 128, 32, False),  # the widest head
+])
+def test_flash_kernels_match_plain(cuda_device, causal, B, H, Lq, S, D, block_q,
+                                   block_k, dead):
+    """Kernel #8 (o, lse) and kernel #9 (dq, dk, dv, from the plain
+    forward's o and lse) against their plain versions on the card; dead
+    rows' gradients exactly 0; one launch of each counted per call."""
+    from deeprec_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, k, v, mask, do = _flash_inputs(g, B, H, Lq, S, D, dead, cuda_device)
+    scale = 1.0 / D ** 0.5
+    before = (fa.flash_forward.launches, fa.flash_backward.launches_dkdv,
+              fa.flash_backward.launches_dq)
+    o, lse = fa.flash_forward(q, k, v, mask, causal, scale, block_q, block_k)
+    po, plse = fa.flash_forward_plain(q, k, v, mask, causal, scale, block_q, block_k)
+    torch.cuda.synchronize()
+    _assert_flash_close(o, po, "o", False)
+    _assert_flash_close(lse, plse, "lse", False)
+    got = fa.flash_backward(q, k, v, mask, causal, scale, block_q, block_k, po,
+                            plse, do)
+    want = fa.flash_backward_plain(q, k, v, mask, causal, scale, block_q, block_k,
+                                   po, plse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        _assert_flash_close(a, b, name, True)
+    assert (fa.flash_forward.launches, fa.flash_backward.launches_dkdv,
+            fa.flash_backward.launches_dq) == tuple(n + 1 for n in before)
+    if dead:
+        assert bool((got[0][0] == 0).all() and (got[1][0] == 0).all()
+                    and (got[2][0] == 0).all())
+        assert bool((lse[0] == -1e30).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(cuda_device):
+    """FlashAttention's gradient on the card against the plain versions'
+    on the CPU, through torch.autograd.grad."""
+    from deeprec_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    q, k, v, mask, _ = _flash_inputs(g, 2, 2, 128, 128, 16, False, "cpu")
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, mask.to(dev), True, None, 64, 64)
+        grads[str(dev)] = [x.cpu() for x in torch.autograd.grad((out ** 2).sum(), leaves)]
+    for name, a, b in zip("qkv", grads[str(cuda_device)], grads["cpu"]):
+        _assert_flash_close(a, b, f"d{name}", True)
