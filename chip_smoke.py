@@ -11,8 +11,12 @@ Phases, each of which must pass:
      at the main paths' shape (26 tables x 2^20 slots x 128, 2048 ids per
      table) and at edge shapes, with its time, the plain version's time,
      one PyTorch library call's time and the memory-bound least time:
-     `gather_rows` (row gather) and `apply_rows_sr` (row scatter, f32 and
-     bf16 given the same random bits, the whole table compared);
+     `gather_rows` (row gather, f32 and bf16), `apply_rows_sr` (row
+     scatter, f32 and bf16 given the same random bits, the whole table
+     compared) and `fused_gather_combine` (#4, pooled bags: one 2^20 x 128
+     f32 table, batch 2048 of L = 100 zipf(1.2) ids, 5 % pads, mean
+     weights, against embedding_bag; edge shapes in f32 and bf16, D 128,
+     16, 12 and 7, sum, mean and sqrtn weights);
   4. the serving main path at full width: MLPerf DLRM-DCN (emb_dim 128,
      26 x 2^20-slot tables, bottom 512-256-128, top 512-256-1, cross depth
      3) restored from a full checkpoint written with numpy from --seed
@@ -20,9 +24,15 @@ Phases, each of which must pass:
      each of batch 1 and 37 (ids 90% live, 5% unseen, 5% pad). Live ids must
      return their checkpoint row bit for bit, unseen ids the blocked default,
      probabilities must be finite in (0, 1), and every kernel of the path
-     must have launched during those requests;
+     must have launched during those requests (one gather and 26 #4
+     launches per request); then multi-hot requests to the same Predictor:
+     bags of the MLPerf multi-hot sizes padded with -1 to L = 100 (5 of
+     batch 2048, one of 1, one of 37), 26 #4 launches per request, 64 bags
+     of every feature bit-exact against a numpy recomputation, #4 against
+     its plain version at the L = 100 feature's own rows and bags, p50,
+     p90 and a profile;
   5. the same model at capacity 2^12 restored on the card and on the CPU,
-     answering one batch within PROB_ATOL;
+     answering one batch and one multi-hot batch within PROB_ATOL;
   6. the training main path at full width: the same model from empty
      tables, Adagrad(0.05) on the tables and Adam(1e-3) on the dense
      parameters, batch 2048 of SyntheticCriteo(vocab=1_000_000) staged on
@@ -53,7 +63,8 @@ Phases, each of which must pass:
      shape [2048, 4, 256, 8] (masks of SyntheticBehaviorSequence histories
      plus the target, padded to 256) and at FLASH_SHAPES (causal, blocks 64
      and 128, dead rows, Dh 64, a padded Dh), o and lse within 1e-5
-     relative and the gradients within 1e-4 of their largest; at BST's
+     relative and the gradients within 1e-4 of their largest (bf16
+     q, k, v at [2, 2, 256, 32]: one bf16 ulp more); at BST's
      shape the device times of both, their plain versions and
      scaled_dot_product_attention (forward and backward), and the bounds;
  11. BST with use_flash=True as modelzoo/bst/train.py runs it (emb 16,
@@ -69,7 +80,14 @@ Phases, each of which must pass:
  12. the phase-11 state saved and served by Predictor: 30 requests of
      batch 2048 and one each of batch 1 and 37, every answer equal to
      Trainer.eval_step's on the trained state bit for bit, one flash
-     forward per request; p50 and p90.
+     forward and three #4 launches per request; p50 and p90;
+ 13. WDL, DeepFM, DCN, DCNv2, MaskNet and DIN at the modelzoo's widths
+     (emb 16, 2^20 slots per table, batch 2048; Criteo vocab 10^6, DIN
+     histories of 50 over vocab 10^5): 5 checked steps (finite losses, no
+     failed insert, the gather and scatter launches the bundles imply), 20
+     timed, on to 300; held-out AUC at least 0.60; the state saved and
+     served by Predictor, 5 requests equal to eval_step bit for bit with
+     26 (DIN: 3) #4 launches per request.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -148,10 +166,10 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def _cycled_ms(fn, args, dev):
+def _cycled_ms(fn, args, dev, reps=50):
     """_ms of fn over a cycle of argument tuples."""
     it = itertools.cycle(args)
-    return _ms(lambda: fn(*next(it)), dev)
+    return _ms(lambda: fn(*next(it)), dev, reps=reps)
 
 
 def _timed_record(rec, label, kernel, plain, library):
@@ -165,18 +183,43 @@ def _timed_record(rec, label, kernel, plain, library):
     return rec
 
 
+# bf16 launches of #3 and #5 on the main paths, read by `_row_counts`:
+# they are the launches of #1 and #2, whose work is those kernels' bf16
+# branches on this card.
+PAIR_LAUNCHES = {"gather_rows": 0, "apply_rows_sr": 0}
+
+
+def _zero_row_counts():
+    """Zero the launch counts of #3 and #5, their bf16 branches' too, just
+    before a main path."""
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+
+    for k in (gather_rows, apply_rows_sr):
+        k.launches = k.launches_bf16 = 0
+
+
+def _row_counts():
+    """(apply_rows_sr, gather_rows) launches just after a main path; the
+    bf16 ones among them are added to PAIR_LAUNCHES."""
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+
+    for k in (gather_rows, apply_rows_sr):
+        PAIR_LAUNCHES[k.__name__] += k.launches_bf16
+    return apply_rows_sr.launches, gather_rows.launches
+
+
 # ------------------------------------------------------------ phase 3
 
 
 def kernel_phase(dev, main_shape, edge_shapes, seed):
-    """gather_rows against its plain version; returns the kernel record
-    (timed at the main shape in f32, the table dtype of both paths; the
-    bf16 timing, the branch that stands for the TPU's pair-granule gather,
-    is printed beside it)."""
+    """gather_rows against its plain version; returns the kernel records
+    {dtype: record}, timed at the main shape: f32, the table dtype of the
+    main paths (#3), and bf16, the branch that stands for the TPU's
+    pair-granule gather (#1)."""
     from deeprec_tpu_torch.ops.fused_lookup import gather_rows, gather_rows_plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    record = None
+    records = {}
     for T, C, D, n in [main_shape] + list(edge_shapes):
         values32 = torch.randn((T, C, D), generator=g, device=dev)
         ix = torch.randint(-8, C + 8, (T, n), generator=g, device=dev,
@@ -193,13 +236,12 @@ def kernel_phase(dev, main_shape, edge_shapes, seed):
             print(f"gather_rows {str(dtype)[6:]} T={T} C={C} D={D} n={n}: "
                   f"bit-exact (max_abs_err {err})")
             if (T, C, D, n) == tuple(main_shape):
-                rec = time_gather(values, n, g, err)
-                record = record or rec  # f32 comes first
+                records[dtype] = time_gather(values, n, g, err)
             del values
         del values32, ix
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return record
+    return records
 
 
 def time_gather(values, n, g, err, sets=8):
@@ -220,10 +262,11 @@ def time_gather(values, n, g, err, sets=8):
     row = D * values.element_size()
     moved = sum(int(torch.unique(gi).numel()) * row + T * n * (row + 4)
                 for gi in gidx) / sets
+    bf16 = values.dtype == torch.bfloat16
     rec = {
-        "name": "gather_rows", "route": "cuda",
+        "name": "gather_rows_pair" if bf16 else "gather_rows", "route": "cuda",
         "source": "deeprec_tpu_torch/csrc/gather_rows.cu",
-        "replaces": "deeprec_tpu/ops/fused_lookup.py:367",
+        "replaces": "deeprec_tpu/ops/fused_lookup.py:" + ("204" if bf16 else "367"),
         "launches": 0, "max_abs_err": err,
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
@@ -246,12 +289,13 @@ def _scatter_inputs(T, C, D, U, g, dev, skip=0.05):
 def scatter_phase(dev, main_shape, edge_shapes, seed):
     """apply_rows_sr against its plain version on the same input and bits:
     the whole table after the write, bit-exact in f32 and bf16. Returns the
-    kernel record (timed at the main shape in f32)."""
+    kernel records {dtype: record} timed at the main shape: f32 (#5) and
+    bf16, the branch that stands for the TPU's pair-granule scatter (#2)."""
     from deeprec_tpu_torch.ops.fused_lookup import (
         apply_rows_sr, apply_rows_sr_plain, sr_bits)
 
     g = torch.Generator(device=dev).manual_seed(seed + 7)
-    record = None
+    records = {}
     for T, C, D, U in [main_shape] + list(edge_shapes):
         slot, rows = _scatter_inputs(T, C, D, U, g, dev)
         values32 = torch.randn((T, C, D), generator=g, device=dev)
@@ -272,14 +316,12 @@ def scatter_phase(dev, main_shape, edge_shapes, seed):
                   f"bit-exact (max_abs_err {err})")
             del want
             if (T, C, D, U) == tuple(main_shape):
-                rec = time_scatter(got, U, g, err, seed)
-                if dtype == torch.float32:
-                    record = rec
+                records[dtype] = time_scatter(got, U, g, err, seed)
             del got
         del values32, slot, rows
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    return record
+    return records
 
 
 def time_scatter(values, U, g, err, seed, sets=8):
@@ -305,9 +347,9 @@ def time_scatter(values, U, g, err, seed, sets=8):
         moved += n * D * (4 + values.element_size() + (4 if bf16 else 0)) + T * U * 4
     moved /= sets
     rec = {
-        "name": "apply_rows_sr", "route": "cuda",
+        "name": "apply_rows_sr_pair" if bf16 else "apply_rows_sr", "route": "cuda",
         "source": "deeprec_tpu_torch/csrc/apply_rows_sr.cu",
-        "replaces": "deeprec_tpu/ops/fused_lookup.py:564",
+        "replaces": "deeprec_tpu/ops/fused_lookup.py:" + ("278" if bf16 else "564"),
         "launches": 0, "max_abs_err": err,
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
@@ -324,6 +366,126 @@ def time_scatter(values, U, g, err, seed, sets=8):
         rec, f"apply_rows_sr {str(values.dtype)[6:]}",
         _cycled_ms(lambda v, s, r, b: apply_rows_sr(v, s, r, bits=b), args, dev),
         _cycled_ms(apply_rows_sr_plain, args, dev), library)
+
+
+# ------------------------------------------------------------ phase 3: #4
+
+# Kernel #4 at the use the JAX docstring names, bags pooled straight out of
+# a full table: one 2^20 x 128 f32 table, batch 2048 of L = 100 zipf(1.2)
+# ids over 10^6 mapped to rows by a random permutation, 5 % pads, mean
+# weights; `sets` index sets (each with its own permutation) timed in turn,
+# so one call's rows were not read by the call before. The edge shapes
+# (C, D, B, L, dtype), each under sum, mean and sqrtn weights with a bag of
+# pads only and rows past the table: B = 37, L = 1, bf16 at D 128 and 16,
+# f32 at the modelzoo's D 16, D 12 (three 16-byte vectors a row) and D 7
+# (the scalar path).
+COMBINE = dict(capacity=1 << 20, dim=128, batch=2048, L=100, vocab=1_000_000,
+               zipf=1.2, pad=0.05, sets=4)
+COMBINE_EDGES = [(4096, 128, 37, 100, torch.float32), (4096, 128, 2048, 1, torch.float32),
+                 (4096, 128, 64, 8, torch.bfloat16), (4096, 16, 64, 8, torch.bfloat16),
+                 (4096, 16, 2048, 20, torch.float32), (1000, 12, 37, 9, torch.float32),
+                 (1000, 7, 37, 9, torch.float32)]
+
+
+def combine_weights(row_ix, combiner):
+    """The combiner's per-position weights [B, L] of the read-only path
+    (`combiners.pooled_operands`) for rows `row_ix`, < 0 at pads."""
+    from deeprec_tpu_torch.embedding.combiners import pooled_operands
+
+    return pooled_operands(row_ix, row_ix >= 0, combiner)[1]
+
+
+def compare_combine(values, row_ix, w, what):
+    """Kernel #4 against its plain version on the same inputs, bit for bit.
+    Returns the max abs error (0)."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_gather_combine, fused_gather_combine_plain)
+
+    got = fused_gather_combine(values, row_ix, w)
+    want = fused_gather_combine_plain(values, row_ix, w)
+    _sync(values.device)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"fused_gather_combine {what}: kernel differs from the "
+                             "plain version")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    print(f"fused_gather_combine {what}: bit-exact (max_abs_err {err})")
+    return err
+
+
+def _zipf_rows(rng, cfg, perm, dev):
+    """[B, L] int32 rows: zipf ids over `vocab` through the permutation
+    `perm` of the table's rows, about `pad` of them -1."""
+    from deeprec_tpu_torch.data.synthetic import zipf_ids
+
+    ids = zipf_ids(rng, cfg["vocab"], cfg["zipf"], (cfg["batch"], cfg["L"]))
+    rows = perm[torch.from_numpy(ids).to(dev)].to(torch.int32)
+    pad = torch.from_numpy(rng.random(ids.shape) < cfg["pad"]).to(dev)
+    return torch.where(pad, -1, rows)
+
+
+def combine_phase(dev, seed, cfg=COMBINE, edges=COMBINE_EDGES):
+    """Kernel #4 against its plain version at the edge shapes and at the
+    main shape; at the main shape the device times of the kernel, its plain
+    version and embedding_bag (clamped rows, the weights as
+    per_sample_weights, 0 at pads), and the byte bound. Returns the kernel
+    record."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_gather_combine, fused_gather_combine_plain)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    rng = np.random.default_rng(seed + 31)
+    err = 0.0
+    for C, D, B, L, dtype in edges:
+        values = torch.randn((C, D), generator=g, device=dev).to(dtype)
+        row_ix = torch.randint(-1, C + 3, (B, L), generator=g, device=dev,
+                               dtype=torch.int32)
+        row_ix[min(1, B - 1)] = -1  # a bag of pads only
+        for combiner in ("sum", "mean", "sqrtn"):
+            err = max(err, compare_combine(
+                values, row_ix, combine_weights(row_ix, combiner),
+                f"C={C} D={D} B={B} L={L} {str(dtype)[6:]} {combiner}"))
+    C, D, B, L = cfg["capacity"], cfg["dim"], cfg["batch"], cfg["L"]
+    values = torch.randn((C, D), generator=g, device=dev)
+    sets = []
+    for _ in range(cfg["sets"]):
+        row_ix = _zipf_rows(rng, cfg, torch.randperm(C, generator=g, device=dev), dev)
+        sets.append((row_ix, combine_weights(row_ix, "mean")))
+    err = max(err, compare_combine(values, *sets[0],
+                                   f"main shape C={C} D={D} B={B} L={L} mean"))
+    # the bound by the table's rule: each distinct row read once, 8 bytes of
+    # row_ix and weight per position, out written once; and, beside it, the
+    # figure with every non-pad position's row read
+    moved = per_position = 0
+    for row_ix, _ in sets:
+        live = row_ix[row_ix >= 0]
+        fixed = row_ix.numel() * 8 + B * D * 4
+        moved += int(torch.unique(live).numel()) * D * 4 + fixed
+        per_position += int(live.numel()) * D * 4 + fixed
+    moved, per_position = moved / len(sets), per_position / len(sets)
+    rec = {"name": "fused_gather_combine", "route": "cuda",
+           "source": "deeprec_tpu_torch/csrc/fused_gather_combine.cu",
+           "replaces": "deeprec_tpu/ops/fused_lookup.py:441",
+           "launches": 0, "max_abs_err": err,
+           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    print(f"fused_gather_combine main shape: {moved / 1e6:.3f} MB by the table's rule "
+          f"(distinct rows), {per_position / 1e6:.3f} MB with every non-pad "
+          f"position's row: bounds {rec['bound_ms']:.5f} / "
+          f"{per_position / HBM_BYTES_PER_S * 1e3:.5f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s")
+    lib = [(row_ix.clamp(min=0), w) for row_ix, w in sets]
+    _timed_record(
+        rec, f"fused_gather_combine (C={C} D={D} B={B} L={L})",
+        _cycled_ms(lambda ix, w: fused_gather_combine(values, ix, w), sets, dev),
+        _cycled_ms(lambda ix, w: fused_gather_combine_plain(values, ix, w), sets, dev,
+                   reps=4),
+        _cycled_ms(lambda ix, w: torch.nn.functional.embedding_bag(
+            ix, values, per_sample_weights=w, mode="sum"), lib, dev))
+    del values, sets, lib
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"fused_gather_combine checks and timing took {time.perf_counter() - t0:.1f} s")
+    return rec
 
 
 # ------------------------------------------------------------ checkpoint
@@ -396,13 +558,21 @@ def check_rows(p, host, batch):
     return checked
 
 
+def _per_request(trainer):
+    """Launches of (gather_rows, fused_gather_combine) one read-only forward
+    implies: a gather per lookup group (a stacked bundle at once, a shared
+    table per feature) and a #4 launch per pooled feature."""
+    return (sum(1 if b.stacked else len(b.features) for b in trainer.bundles.values()),
+            sum(1 for f in trainer.sparse_specs if f.pooling != "none"))
+
+
 def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
     """Write a checkpoint, restore it through Predictor and answer
     `batches` on the main path, counting kernel launches; then time
     `timed` more requests of the first batch. Returns (predictor, first
-    batch, stats)."""
+    batch, stats, the checkpoint's {feature: (keys, rows)})."""
     from deeprec_tpu_torch.models import DLRMDCN
-    from deeprec_tpu_torch.ops.fused_lookup import gather_rows
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
     from deeprec_tpu_torch.serving import Predictor
 
     model = DLRMDCN(**model_kw, seed=seed)
@@ -419,7 +589,8 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
     reqs = [make_batch(model, host, B, rng) for B in batches]
 
     tables = [b.table for b in p._trainer.bundles.values()]
-    gather_rows.launches = 0  # the main path's run starts here
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
     for t in tables:
         t.probe_syncs = 0
     for b in reqs:
@@ -428,14 +599,16 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
         if probs.shape != (n,) or not np.all(np.isfinite(probs)) or not (
                 np.all(probs > 0) and np.all(probs < 1)):
             raise AssertionError(f"batch {n}: probabilities not finite in (0, 1)")
-    launches = gather_rows.launches  # ... and ends here
+    launches = _row_counts()[1]  # ... and ends here
+    combines = fused_gather_combine.launches
     probe_syncs = sum(t.probe_syncs for t in tables) / len(reqs)
-    per_request = sum(1 if b.stacked else len(b.features)
-                      for b in p._trainer.bundles.values())
-    if dev.type == "cuda" and launches != per_request * len(reqs):
+    per_request, pooled = _per_request(p._trainer)
+    if dev.type == "cuda" and (launches, combines) != (per_request * len(reqs),
+                                                       pooled * len(reqs)):
         raise AssertionError(
-            f"gather_rows launched {launches} times on the main path, the path "
-            f"implies {per_request * len(reqs)}")
+            f"(gather_rows, fused_gather_combine) launched {(launches, combines)} "
+            f"times on the main path, the path implies "
+            f"{(per_request * len(reqs), pooled * len(reqs))}")
     live_checked = check_rows(p, host, reqs[0])
 
     lat = []
@@ -445,6 +618,7 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
         lat.append((time.perf_counter() - t0) * 1e3)
     stats = {
         "write_s": write_s, "restore_s": restore_s, "launches": launches,
+        "combine_launches": combines, "pooled": pooled,
         "requests": len(reqs), "launches_per_request": per_request,
         "live_ids_checked": live_checked, "probe_syncs": probe_syncs,
         "p50_ms": float(np.percentile(lat, 50)) if lat else None,
@@ -452,7 +626,7 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
         "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
                     if dev.type == "cuda" else None),
     }
-    return p, reqs[0], stats
+    return p, reqs[0], stats, host
 
 
 def profile_device(fn, reps):
@@ -511,6 +685,121 @@ def profile_predict(p, batch, p50_ms, reps=5):
           f"{1 - busy / 1e3 / p50_ms:.3f}), {kernels} kernels/request")
     for dt, key, count in rows[:12]:
         print(f"profile:   {dt:10.1f} us/request  x{count:<4d} {key[:100]}")
+
+
+# ------------------------------------------------------------ multi-hot serving
+
+# Multi-hot requests to phase 4's Predictor: each of the 26 features gets
+# bags of its MLPerf DLRM-DCNv2 `multi_hot_sizes` length (MULTI_HOT), padded
+# with -1 to the longest, L = 100 (one stacked bundle needs one id shape);
+# 5 requests of batch 2048, one of 1 and one of 37, 10 timed.
+MULTI = dict(batch=2048, requests=5, timed=10, check_bags=64, profiled=3)
+
+
+def make_multi_hot(model, host, B, rng, lengths=None):
+    """[B, max(lengths)] ids per feature: within the feature's real length
+    the ids of make_batch (90 % live, 5 % never seen, 5 % pad), -1 past it;
+    dense features lognormal."""
+    lengths = MULTI_HOT if lengths is None else lengths
+    L, lengths = max(lengths), iter(lengths)
+    batch = {}
+    for f in model.features:
+        if f.name not in host:
+            batch[f.name] = rng.lognormal(0, 1, (B, f.width)).astype(np.float32)
+            continue
+        keys = host[f.name][0]
+        ids = keys[rng.integers(0, len(keys), (B, L))]
+        u = rng.random((B, L))
+        ids = np.where(u < 0.10, rng.integers(1 << 30, (1 << 31) - 1, (B, L)), ids)
+        ids = np.where(u < 0.05, -1, ids)
+        real = np.arange(L)[None, :] < next(lengths)
+        batch[f.name] = np.where(real, ids, -1).astype(np.int32)
+    return batch
+
+
+def check_pooled(p, host, batch, nbags):
+    """The read-only forward's pooled inputs of the first `nbags` bags of
+    every feature against numpy: the checkpoint row of each live id, the
+    blocked default of an unseen one, pads skipped, summed in position order
+    in f32 as out = out + w * row with w = 1/max(n, 1) (mean). Bit for bit.
+    Returns the count of bags checked."""
+    dflt = np.float32(p.model.features[0].table.ev.init.default_value_no_permission)
+    trainer = p._trainer
+    dbatch = p._device_batch(batch)
+    views, _ = trainer.forward_views(p._snap.state, dbatch)
+    inputs = trainer._build_inputs({n: v[0] for n, v in views.items()}, views, dbatch,
+                                   read_only=True)
+    checked = 0
+    for name, (keys, values) in host.items():
+        ids = batch[name][:nbags]
+        order = np.argsort(keys)
+        pos = order[np.clip(np.searchsorted(keys[order], ids), 0, len(keys) - 1)]
+        rows = np.where((keys[pos] == ids)[..., None], values[pos], dflt)
+        real = ids != -1
+        w = np.float32(1) / np.maximum(real.sum(1), 1).astype(np.float32)
+        want = np.zeros((len(ids), values.shape[1]), np.float32)
+        for pos_l in range(ids.shape[1]):
+            want = np.where(real[:, pos_l, None], want + w[:, None] * rows[:, pos_l], want)
+        got = inputs.pooled[name][:nbags].cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: pooled bags differ from numpy by "
+                                 f"{np.abs(got - want).max()}")
+        checked += len(ids)
+    return checked, views
+
+
+def multi_hot_phase(dev, p, host, seed, cfg=MULTI):
+    """Multi-hot serving at full width on phase 4's Predictor (see MULTI).
+    Returns stats."""
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 41)
+    B = cfg["batch"]
+    reqs = [make_multi_hot(p.model, host, B, rng) for _ in range(cfg["requests"])]
+    extra = make_multi_hot(p.model, host, 37, rng)
+    reqs += [{k: a[:1] for k, a in reqs[0].items()}, extra]
+    trainer = p._trainer
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
+    for b in reqs:
+        probs = p.predict(b)
+        n = len(next(iter(b.values())))
+        if probs.shape != (n,) or not (np.all(np.isfinite(probs)) and np.all(probs > 0)
+                                       and np.all(probs < 1)):
+            raise AssertionError(f"multi-hot batch {n}: probabilities not finite in (0, 1)")
+    launches = (_row_counts()[1], fused_gather_combine.launches)  # ... and ends here
+    per_request = _per_request(trainer)
+    want = tuple(len(reqs) * n for n in per_request)
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"multi-hot serving launched (gather_rows, "
+                             f"fused_gather_combine) {launches}, the path implies {want}")
+    checked, views = check_pooled(p, host, reqs[0], cfg["check_bags"])
+    # main shape (b): the L = 100 feature's unique rows and inverse
+    name = f"C{MULTI_HOT.index(max(MULTI_HOT)) + 1}"
+    emb, inv, mask = views[name]
+    row_ix = torch.where(mask, inv.to(torch.int32), -1)
+    err = compare_combine(emb, row_ix, combine_weights(row_ix, "mean"),
+                          f"serving shape {name}: rows {tuple(emb.shape)}, "
+                          f"bags {tuple(row_ix.shape)}")
+    real = int((row_ix >= 0).sum())
+    del views, emb, inv, mask, row_ix
+    lat = []
+    for _ in range(cfg["timed"]):
+        t1 = time.perf_counter()
+        p.predict(reqs[0])
+        lat.append((time.perf_counter() - t1) * 1e3)
+    stats = {"launches": launches, "per_request": per_request, "requests": len(reqs),
+             "bags_checked": checked, "err": err, "ids": real,
+             "p50_ms": float(np.percentile(lat, 50)),
+             "p90_ms": float(np.percentile(lat, 90))}
+    if dev.type == "cuda":
+        wall, busy, kernels, rows, _ = profile_device(lambda: p.predict(reqs[0]),
+                                                      cfg["profiled"])
+        combine_us = sum(r[0] for r in rows if "gather_combine_kernel" in r[1])
+        stats["profile"] = (wall, busy, kernels, rows, combine_us)
+    stats["seconds"] = time.perf_counter() - t0
+    return stats
 
 
 # ------------------------------------------------------------ training
@@ -576,7 +865,6 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
     Returns stats."""
     from deeprec_tpu_torch.data import SyntheticCriteo
     from deeprec_tpu_torch.models import DLRMDCN
-    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.serving import Predictor
     from deeprec_tpu_torch.training.checkpoint import CheckpointManager
@@ -600,7 +888,7 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
     tables = [b.table for b in trainer.bundles.values()]
     cpu_gen = torch.Generator().manual_seed(seed)
 
-    apply_rows_sr.launches = gather_rows.launches = 0  # the main path starts here
+    _zero_row_counts()  # the main path starts here
     for t in tables:
         t.probe_syncs = 0
     losses, untouched = [], 0
@@ -610,7 +898,7 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
         state, m = trainer.train_step(state, staged[i])
         losses.append(float(m["loss"]))
         untouched += _check_untouched(state, sample)
-    launches = (apply_rows_sr.launches, gather_rows.launches)  # ... and ends here
+    launches = _row_counts()  # ... and ends here
     probe_syncs = sum(t.probe_syncs for t in tables) / cfg["checked"]
     per_step = _path_launches(trainer)
     if dev.type == "cuda" and launches != tuple(cfg["checked"] * n for n in per_step):
@@ -961,7 +1249,6 @@ def fused_phase(dev, seed, cfg):
     from deeprec_tpu_torch.embedding.table import EmbeddingTable
     from deeprec_tpu_torch.ops import fused_lookup as fl
     from deeprec_tpu_torch.ops.dedup import resolve_size
-    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
     from deeprec_tpu_torch.optim import Adagrad
     from deeprec_tpu_torch.optim.apply import ensure_slots
 
@@ -979,16 +1266,16 @@ def fused_phase(dev, seed, cfg):
     bags = [make_bags(rng, groups, cfg, dev) for _ in range(nsteps)]
     _sync(dev)
 
-    kernels = (fl.fused_sparse_forward, fl.fused_sparse_backward, gather_rows,
-               apply_rows_sr)
+    kernels = (fl.fused_sparse_forward, fl.fused_sparse_backward)
     for k in kernels:  # the main path starts here
         k.launches = 0
+    _zero_row_counts()
     for s in range(cfg["checked"]):
         last = fused_step(bundles, bags[s], s, opt)
         for L, (_, res) in last.items():
             if not bool(torch.isfinite(res.out).all()):
                 raise AssertionError(f"bag length {L}: non-finite pooled bags")
-    launches = [k.launches for k in kernels]  # ... and ends here
+    launches = [k.launches for k in kernels] + list(_row_counts()[::-1])  # ... and ends here
     want = cfg["checked"] * len(groups)
     if dev.type == "cuda" and launches != [want] * 4:
         raise AssertionError(
@@ -1108,7 +1395,6 @@ def budget_phase(dev, model_kw, seed, cfg, steps=5):
     from deeprec_tpu_torch.data import SyntheticCriteo
     from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.ops.dedup import hash_dedup
-    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.training.trainer import Trainer
 
@@ -1121,7 +1407,7 @@ def budget_phase(dev, model_kw, seed, cfg, steps=5):
     staged = [trainer.device_batch(gen.batch()) for _ in range(2 * steps)]
     ids = staged[0][trainer.sparse_specs[0].name][None, :, None]
     sizes = {}
-    apply_rows_sr.launches = gather_rows.launches = 0  # the main path starts here
+    _zero_row_counts()  # the main path starts here
     hash_dedup.probe_syncs = 0
     losses = []
     for i in range(2 * steps):
@@ -1131,7 +1417,7 @@ def budget_phase(dev, model_kw, seed, cfg, steps=5):
             sizes.setdefault(b.name, []).append(trainer._budget_for_lookup(b, ids, True))
         state, m = trainer.train_step(state, staged[i])
         losses.append(float(m["loss"]))
-    launches = (apply_rows_sr.launches, gather_rows.launches)  # ... and ends here
+    launches = _row_counts()  # ... and ends here
     syncs = hash_dedup.probe_syncs / (2 * steps)
     per_step = _path_launches(trainer)
     if dev.type == "cuda" and launches != tuple(2 * steps * n for n in per_step):
@@ -1175,6 +1461,9 @@ FLASH_SHAPES = [
     (64, 4, 256, 256, 64, False, 128, 128, False),
     (2, 3, 128, 384, 12, True, 64, 128, False),
 ]
+# bf16 q, k, v, do (the JAX function takes them; the kernels upcast on load
+# and store o, dq, dk, dv in bf16): tests/test_attention.py's shape.
+FLASH_BF16_SHAPES = [(2, 2, 256, 256, 32, False, 64, 64, False)]
 # BST as modelzoo/bst/train.py runs it (emb 16, capacity 2^20, batch 2048,
 # vocab 100,000, Adagrad 0.2, Adam 1e-3; heads 4, ff 128, one block,
 # hidden 256-64) with use_flash=True and histories at max_len 200. The
@@ -1195,10 +1484,25 @@ def _bst(cfg, seed, **over):
     return BST(**{**kw, **over}, use_flash=True, seed=seed)
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of x (8 significant bits), 0 at 0."""
+    a = x.abs().double()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 7), torch.zeros_like(a))
+
+
 def _flash_errs(got, want, grad):
     """(max abs error, the measure the tolerance applies to, its
     tolerance): forward tensors by error / max(1, |plain|), gradients by
-    error over the largest |plain| gradient."""
+    error over the largest |plain| gradient. bf16 tensors may differ by one
+    more bf16 ulp of the plain value (a sum in another order rounds to the
+    neighbour): their measure is the largest error over that widened
+    tolerance, held to 1."""
+    if want.dtype == torch.bfloat16:
+        err = (got.double() - want.double()).abs()
+        base = (FLASH_GRAD_TOL * float(want.double().abs().max()) if grad
+                else FLASH_FWD_RTOL * torch.clamp(want.double().abs(), min=1.0))
+        return float(err.max()), float((err / (base + _bf16_ulp(want))).max()), 1.0
     err = (got - want).abs()
     if grad:
         return float(err.max()), float(err.max()), FLASH_GRAD_TOL * float(want.abs().max())
@@ -1278,6 +1582,15 @@ def flash_phase(dev, seed, cfg, shapes):
         errs.append(compare_flash(q, k, v, mask, do, causal, bq, bk,
                                   f"B={B} H={H} Lq={Lq} S={S} D={D} causal={causal} "
                                   f"blocks {bq}/{bk}{' dead rows' if dead else ''}"))
+    for B, H, Lq, S, D, causal, bq, bk, _ in FLASH_BF16_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                       for shape in ((B, H, Lq, D), (B, H, S, D), (B, H, S, D),
+                                     (B, H, Lq, D)))
+        lengths = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        mask = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+        compare_flash(q, k, v, mask, do, causal, bq, bk,
+                      f"bf16 B={B} H={H} Lq={Lq} S={S} D={D} causal={causal} "
+                      f"blocks {bq}/{bk}")
     q, k, v, mask, do = _bst_attention_inputs(cfg, seed, dev)
     B, H, Lq, D = q.shape
     errs.append(compare_flash(q, k, v, mask, do, False, 128, 128,
@@ -1352,7 +1665,6 @@ def bst_train_phase(dev, seed, cfg):
     """Phase 11: BST with flash attention trained at full width (see the
     module docstring). Returns (trainer, state, stats)."""
     from deeprec_tpu_torch.data import SyntheticBehaviorSequence
-    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.training.trainer import Trainer
 
@@ -1377,7 +1689,7 @@ def bst_train_phase(dev, seed, cfg):
     cpu_gen = torch.Generator().manual_seed(seed)
 
     _reset_flash_counts()  # the main path starts here
-    apply_rows_sr.launches = gather_rows.launches = 0
+    _zero_row_counts()
     losses, untouched = [], 0
     for i in range(cfg["checked"]):
         sample = (_untouched_sample(trainer, state, staged[i], cfg["sample"], cpu_gen)
@@ -1386,7 +1698,7 @@ def bst_train_phase(dev, seed, cfg):
         losses.append(float(m["loss"]))
         untouched += _check_untouched(state, sample)
     flash = _flash_counts()
-    rows = (apply_rows_sr.launches, gather_rows.launches)  # ... and ends here
+    rows = _row_counts()  # ... and ends here
     per_step = _path_launches(trainer)
     n = cfg["checked"]
     if dev.type == "cuda" and (flash != (n, n, n)
@@ -1447,9 +1759,10 @@ def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
     """Phase 12: the trained state saved and served by Predictor: `requests`
     requests of the full batch and one each of batch 1 and 37, every
     answer equal to Trainer.eval_step's on the trained state bit for bit,
-    one flash forward per request. Returns stats."""
+    one flash forward and three #4 launches (user, target_item, target_cat)
+    per request. Returns stats."""
     from deeprec_tpu_torch.data import SyntheticBehaviorSequence
-    from deeprec_tpu_torch.ops.fused_lookup import gather_rows
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
     from deeprec_tpu_torch.serving import Predictor
     from deeprec_tpu_torch.training.checkpoint import CheckpointManager
 
@@ -1467,19 +1780,21 @@ def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
     want = [trainer.eval_step(state, b)[1].cpu().numpy() for b in reqs]
 
     _reset_flash_counts()  # the main path starts here
-    gather_rows.launches = 0
+    _zero_row_counts()
+    fused_gather_combine.launches = 0
     got, lat = [], []
     for b in reqs:
         t0 = time.perf_counter()
         got.append(p.predict(b))
         lat.append((time.perf_counter() - t0) * 1e3)
-    launches = (_flash_counts()[0], gather_rows.launches)  # ... and ends here
-    per_request = sum(1 if b.stacked else len(b.features)
-                      for b in p._trainer.bundles.values())
-    if dev.type == "cuda" and launches != (len(reqs), per_request * len(reqs)):
+    launches = (_flash_counts()[0], _row_counts()[1],
+                fused_gather_combine.launches)  # ... and ends here
+    per_request, pooled = _per_request(p._trainer)
+    want_launches = tuple(len(reqs) * c for c in (1, per_request, pooled))
+    if dev.type == "cuda" and launches != want_launches:
         raise AssertionError(
-            f"BST serving launched (flash fwd, gather_rows) {launches}; "
-            f"{len(reqs)} requests imply {(len(reqs), per_request * len(reqs))}")
+            f"BST serving launched (flash fwd, gather_rows, fused_gather_combine) "
+            f"{launches}; {len(reqs)} requests imply {want_launches}")
     for b, g, w in zip(reqs, got, want):
         if g.shape != w.shape or not np.array_equal(g, w):
             raise AssertionError(
@@ -1580,7 +1895,8 @@ def run_bst(dev, seed, cfg, ckroot):
     sv = bst_serve_phase(dev, trainer, state, os.path.join(ckroot, "bst"), seed, cfg)
     print(f"BST serving: restored in {sv['restore_s']:.2f} s (saved in "
           f"{sv['save_s']:.2f} s); {sv['requests']} requests launched (flash fwd, "
-          f"gather_rows) {sv['launches']} ({sv['per_request']} gathers per request); "
+          f"gather_rows, fused_gather_combine) {sv['launches']} "
+          f"({sv['per_request']} gathers per request); "
           f"every answer equal to eval_step's bit for bit; p50 {sv['p50_ms']:.3f} ms, "
           f"p90 {sv['p90_ms']:.3f} ms at batch {cfg['batch']}")
     del trainer, state
@@ -1592,25 +1908,198 @@ def run_bst(dev, seed, cfg, ckroot):
     return st, sv
 
 
+# ------------------------------------------------------------ the modelzoo
+
+# WDL, DeepFM, DCN, DCNv2, MaskNet and DIN at the modelzoo's widths
+# (modelzoo/common.py: emb 16, capacity 2^20 per table, batch 2048, Adagrad
+# 0.05, Adam 1e-3; modelzoo/din/train.py: vocab 100,000, Adagrad 0.2) and
+# their own default architectures: the five Criteo models on
+# SyntheticCriteo(vocab=1_000_000), DIN on SyntheticBehaviorSequence at its
+# default seq_len of 50. Each: 5 checked steps, 20 timed, on to 300;
+# held-out AUC over 8 batches of another seed at step 0 and step 300; the
+# state saved, restored by Predictor and asked 5 requests of batch 2048.
+ZOO = dict(emb_dim=16, capacity=1 << 20, batch=2048, dense_lr=1e-3, checked=5,
+           timed=20, steps=300, eval_batches=8, auc_floor=0.60, requests=5,
+           criteo=dict(vocab=1_000_000, lr=0.05), din=dict(vocab=100_000, lr=0.2,
+                                                          seq_len=50),
+           models=("WDL", "DeepFM", "DCN", "DCNv2", "MaskNet", "DIN"))
+
+
+def zoo_model(name, seed, cfg):
+    """(model, data generator factory seed -> generator, sparse lr)."""
+    from deeprec_tpu_torch import models
+    from deeprec_tpu_torch.data import SyntheticBehaviorSequence, SyntheticCriteo
+
+    model = getattr(models, name)(emb_dim=cfg["emb_dim"], capacity=cfg["capacity"],
+                                  seed=seed)
+    if name == "DIN":
+        d = cfg["din"]
+        return model, (lambda s: SyntheticBehaviorSequence(
+            batch_size=cfg["batch"], vocab=d["vocab"], seq_len=d["seq_len"], seed=s)), \
+            d["lr"]
+    d = cfg["criteo"]
+    return model, (lambda s: SyntheticCriteo(
+        batch_size=cfg["batch"], vocab=d["vocab"], seed=s, num_cat=model.num_cat,
+        num_dense=model.num_dense)), d["lr"]
+
+
+def zoo_run(dev, name, seed, cfg, ckdir):
+    """One model of the modelzoo phase: trained, evaluated, saved and served
+    (see ZOO). Returns stats."""
+    from deeprec_tpu_torch.embedding.combiners import pooled_operands
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    model, gen, lr = zoo_model(name, seed, cfg)
+    trainer = Trainer(model, Adagrad(lr=lr), adam(cfg["dense_lr"]), device=dev)
+    state = trainer.init()
+    held = gen(seed + 1)
+    evals = [trainer.device_batch(held.batch()) for _ in range(cfg["eval_batches"])]
+    auc0 = trainer.evaluate(state, evals)["auc"]
+    train_gen = gen(seed)
+    n = cfg["checked"]
+    staged = [trainer.device_batch(train_gen.batch()) for _ in range(n + cfg["timed"])]
+    _sync(dev)
+
+    _zero_row_counts()  # the main path starts here
+    losses = []
+    for i in range(n):
+        state, m = trainer.train_step(state, staged[i])
+        losses.append(float(m["loss"]))
+    rows = _row_counts()  # ... and ends here
+    per_step = _path_launches(trainer)
+    if dev.type == "cuda" and rows != tuple(n * c for c in per_step):
+        raise AssertionError(f"{name} train path launched (apply_rows_sr, gather_rows) "
+                             f"{rows}; {n} steps imply {tuple(n * c for c in per_step)}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite training loss: {losses}")
+    fails = sum(int(ts.insert_fails.sum()) for ts in state.tables.values())
+    if fails:
+        raise AssertionError(f"{name}: {fails} ids failed to insert")
+    _sync(dev)
+    t1 = time.perf_counter()
+    for i in range(n, n + cfg["timed"]):
+        state, m = trainer.train_step(state, staged[i])
+    _sync(dev)
+    timed_s = time.perf_counter() - t1
+    del staged
+    for _ in range(n + cfg["timed"], cfg["steps"]):
+        state, m = trainer.train_step(state, train_gen.batch())
+    losses.append(float(m["loss"]))
+    auc = trainer.evaluate(state, evals)["auc"]
+    if not np.isfinite(losses[-1]) or not auc >= cfg["auc_floor"]:
+        raise AssertionError(f"{name} after {state.step} steps: loss {losses[-1]}, "
+                             f"held-out AUC {auc} (floor {cfg['auc_floor']})")
+
+    CheckpointManager(ckdir, trainer).save(state)
+    p = Predictor(model, ckdir, device=dev)
+    serve_gen = gen(seed + 2)
+    reqs = [serve_gen.batch() for _ in range(cfg["requests"])]
+    want = [trainer.eval_step(state, b)[1].cpu().numpy() for b in reqs]
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
+    got, lat = [], []
+    for b in reqs:
+        t1 = time.perf_counter()
+        got.append(p.predict(b))
+        lat.append((time.perf_counter() - t1) * 1e3)
+    served = (_row_counts()[1], fused_gather_combine.launches)  # ... and ends here
+    per_request = _per_request(trainer)
+    if dev.type == "cuda" and served != tuple(len(reqs) * c for c in per_request):
+        raise AssertionError(f"{name} serving launched (gather_rows, "
+                             f"fused_gather_combine) {served}; {len(reqs)} requests "
+                             f"imply {tuple(len(reqs) * c for c in per_request)}")
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{name} serving: Predictor differs from eval_step")
+        if not (np.all(np.isfinite(g)) and np.all(g > 0) and np.all(g < 1)):
+            raise AssertionError(f"{name} serving: probabilities not finite in (0, 1)")
+    # #4 at this model's own serving shape: the first pooled feature of the
+    # first request, rows [U, emb] and bags [batch, 1]
+    f = next(f for f in trainer.sparse_specs if f.pooling != "none")
+    views, _ = p._trainer.forward_views(p._snap.state, p._device_batch(reqs[0]))
+    emb, inv, mask = views[f.name]
+    row_ix, w = pooled_operands(inv, mask, f.pooling)
+    err = compare_combine(emb, row_ix, w, f"{name} serving shape {f.name}: rows "
+                          f"{tuple(emb.shape)}, bags {tuple(row_ix.shape)}")
+    del views, emb, inv, mask, row_ix, w
+    stats = {"rows": rows, "per_step": per_step, "served": served, "err": err,
+             "per_request": per_request, "losses": losses, "auc0": auc0, "auc": auc,
+             "steps": state.step, "step_ms": timed_s / cfg["timed"] * 1e3,
+             "examples_per_s": cfg["timed"] * cfg["batch"] / timed_s,
+             "p50_ms": float(np.percentile(lat, 50)),
+             "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                         if dev.type == "cuda" else None)}
+    del p, trainer, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t0
+    return stats
+
+
+def zoo_phase(dev, seed, cfg, ckroot):
+    """Every model of ZOO in turn, each model's tables freed before the
+    next. Returns {model: stats}."""
+    out = {}
+    for name in cfg["models"]:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        st = zoo_run(dev, name, seed, cfg, os.path.join(ckroot, f"zoo-{name}"))
+        out[name] = st
+        print(f"modelzoo {name}: emb {cfg['emb_dim']}, capacity {cfg['capacity']}, "
+              f"batch {cfg['batch']}: {cfg['checked']} checked steps launched "
+              f"(apply_rows_sr, gather_rows) {st['rows']} ({st['per_step']} per step); "
+              f"{st['examples_per_s']:.1f} examples/s over {cfg['timed']} timed steps "
+              f"({st['step_ms']:.3f} ms/step); loss step 1 {st['losses'][0]:.6f}, step "
+              f"{st['steps']} {st['losses'][-1]:.6f}; held-out AUC {st['auc0']:.6f} at "
+              f"step 0, {st['auc']:.6f} at step {st['steps']} (floor "
+              f"{cfg['auc_floor']}); served {cfg['requests']} requests equal to "
+              f"eval_step bit for bit, (gather_rows, fused_gather_combine) launched "
+              f"{st['served']} ({st['per_request']} per request), p50 "
+              f"{st['p50_ms']:.3f} ms; peak device memory {st['peak_gb']} GB; "
+              f"{st['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------ main
 
 
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
-        fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN):
-    """Phases 3-12 on `dev`. Returns the kernel records."""
-    records = [kernel_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed),
-               scatter_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)]
+        fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
+        combine_edges=COMBINE_EDGES, multi=MULTI, zoo=ZOO):
+    """Phases 3-13 on `dev`. Returns the kernel records, in the order of
+    the TPU kernels they replace (#1-#9)."""
+    t0 = time.perf_counter()
+    PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
+    gathers = kernel_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)
+    scatters = scatter_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)
+    rec = {"gather_rows_pair": gathers[torch.bfloat16],
+           "apply_rows_sr_pair": scatters[torch.bfloat16],
+           "gather_rows": gathers[torch.float32],
+           "fused_gather_combine": combine_phase(dev, seed, combine, combine_edges),
+           "apply_rows_sr": scatters[torch.float32]}
+    gather, scatter, pooled = (rec[k] for k in ("gather_rows", "apply_rows_sr",
+                                                "fused_gather_combine"))
+    print(f"phase 3 (kernels against their plain versions) took "
+          f"{time.perf_counter() - t0:.1f} s")
 
     ckroot = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckroot, ignore_errors=True)
     try:
-        p, batch, st = serve_phase(dev, full, LIVE_KEYS,
-                                   os.path.join(ckroot, "full"), seed, batches, timed)
-        records[0]["launches"] = st["launches"]
+        p, batch, st, host = serve_phase(dev, full, LIVE_KEYS,
+                                         os.path.join(ckroot, "full"), seed, batches,
+                                         timed)
+        gather["launches"] = st["launches"]
+        pooled["launches"] = st["combine_launches"]
         print(f"serving: DLRM-DCN {full} restored in {st['restore_s']:.2f} s "
               f"(checkpoint written in {st['write_s']:.2f} s), "
               f"{st['requests']} requests, gather_rows launches {st['launches']} "
-              f"({st['launches_per_request']} per request), "
+              f"({st['launches_per_request']} per request), fused_gather_combine "
+              f"launches {st['combine_launches']} ({st['pooled']} per request), "
               f"{st['live_ids_checked']} looked-up ids checked row for row, "
               f"probe loop {st['probe_syncs']:.1f} host syncs per request")
         print(f"serving: predict latency at batch {batches[0]}: "
@@ -1621,34 +2110,61 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
                 profile_predict(p, batch, st["p50_ms"])
             except Exception as e:  # a measurement, not a phase of the contract
                 print(f"profile: not measured ({type(e).__name__}: {e})")
+
+        mh = multi_hot_phase(dev, p, host, seed, multi)
+        gather["launches"] += mh["launches"][0]
+        pooled["launches"] += mh["launches"][1]
+        pooled["max_abs_err"] = max(pooled["max_abs_err"], mh["err"])
+        print(f"multi-hot serving: {mh['requests']} requests (bags of the MLPerf "
+              f"multi-hot sizes padded to L = {max(MULTI_HOT)}; {mh['ids']} real ids in "
+              f"the L = {max(MULTI_HOT)} feature of batch {multi['batch']}) launched "
+              f"(gather_rows, fused_gather_combine) {mh['launches']} "
+              f"({mh['per_request']} per request); probabilities finite in (0, 1); "
+              f"{mh['bags_checked']} pooled bags bit-exact against numpy; p50 "
+              f"{mh['p50_ms']:.3f} ms, p90 {mh['p90_ms']:.3f} ms at batch "
+              f"{multi['batch']} over {multi['timed']}; {mh['seconds']:.1f} s")
+        if "profile" in mh:
+            wall, busy, kernels, rows, combine_us = mh["profile"]
+            print(f"profile: {multi['profiled']} multi-hot predicts of batch "
+                  f"{multi['batch']}: wall {wall / 1e3:.3f} ms/request, device busy "
+                  f"{busy / 1e3:.3f} ms/request, idle share {1 - busy / wall:.3f} (of "
+                  f"the p50 {1 - busy / 1e3 / mh['p50_ms']:.3f}), {kernels} "
+                  f"kernels/request; fused_gather_combine {combine_us / 1e3:.3f} "
+                  f"ms/request ({combine_us / busy:.3f} of the device time)")
+            for dt, key, count in rows[:12]:
+                print(f"profile:   {dt:10.1f} us/request  x{count:<4d} {key[:100]}")
         del p
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-        probs = {}
+        probs, multi_probs = {}, {}
         for d in (dev, torch.device("cpu")):
             path = os.path.join(ckroot, f"small-{d.type}")
-            q, b, _ = serve_phase(d, small, SMALL_LIVE, path, seed, [256], 0)
+            q, b, _, small_host = serve_phase(d, small, SMALL_LIVE, path, seed, [256], 0)
             probs[d.type] = q.predict(b)
+            multi_probs[d.type] = q.predict(make_multi_hot(
+                q.model, small_host, 256, np.random.default_rng(seed + 43)))
             del q
         diff = float(np.abs(probs[dev.type] - probs["cpu"]).max())
+        multi_diff = float(np.abs(multi_probs[dev.type] - multi_probs["cpu"]).max())
         print(f"agreement: capacity {small['capacity']} on {dev.type} vs cpu, "
-              f"max |prob diff| {diff:.3g} (tolerance {PROB_ATOL})")
-        if diff > PROB_ATOL:
+              f"max |prob diff| {diff:.3g} one-hot, {multi_diff:.3g} multi-hot "
+              f"(tolerance {PROB_ATOL})")
+        if diff > PROB_ATOL or multi_diff > PROB_ATOL:
             raise AssertionError("card and CPU probabilities disagree")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
         tst = run_training(dev, full, small, ckroot, seed, train)
-        records[0]["launches"] += tst["launches"][1]
-        records[1]["launches"] = tst["launches"][0]
+        gather["launches"] += tst["launches"][1]
+        scatter["launches"] = tst["launches"][0]
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
         fst, f_rec, b_rec = fused_phase(dev, seed, fused)
-        records += [f_rec, b_rec]
-        records[0]["launches"] += fst["launches"][2]
-        records[1]["launches"] += fst["launches"][3]
+        rec["fused_sparse_forward"], rec["fused_sparse_backward"] = f_rec, b_rec
+        gather["launches"] += fst["launches"][2]
+        scatter["launches"] += fst["launches"][3]
         print(f"fused bag step: {fst['groups']} bag-length groups of the MLPerf "
               f"multi-hot sizes, {fused['checked']} checked steps launched "
               f"(fused_sparse_forward, fused_sparse_backward, gather_rows, "
@@ -1672,8 +2188,8 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
             torch.cuda.empty_cache()
 
         bud = budget_phase(dev, full, seed, train)
-        records[0]["launches"] += bud["launches"][1]
-        records[1]["launches"] += bud["launches"][0]
+        gather["launches"] += bud["launches"][1]
+        scatter["launches"] += bud["launches"][0]
         fr = {b: r.get("unique_budget_fraction") for b, r in bud["report"].items()}
         print(f"budgeted training: DLRM-DCN {full}, Trainer(unique_budget='auto'), "
               f"batch {train['batch']}: unique fraction "
@@ -1687,17 +2203,34 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
             torch.cuda.empty_cache()
 
         f_rec, b_rec = flash_phase(dev, seed, bst, flash_shapes)
-        records += [f_rec, b_rec]
+        rec["flash_attention_fwd"], rec["flash_attention_bwd"] = f_rec, b_rec
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         st, sv = run_bst(dev, seed, bst, ckroot)
         f_rec["launches"] = st["flash"][0] + sv["launches"][0]
         b_rec["launches"] = st["flash"][1]
-        records[0]["launches"] += st["rows"][1] + sv["launches"][1]
-        records[1]["launches"] += st["rows"][0]
+        gather["launches"] += st["rows"][1] + sv["launches"][1]
+        scatter["launches"] += st["rows"][0]
+        pooled["launches"] += sv["launches"][2]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        for zs in zoo_phase(dev, seed, zoo, ckroot).values():
+            gather["launches"] += zs["rows"][1] + zs["served"][0]
+            scatter["launches"] += zs["rows"][0]
+            pooled["launches"] += zs["served"][1]
+            pooled["max_abs_err"] = max(pooled["max_abs_err"], zs["err"])
+        print(f"phase 13 (the modelzoo) took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
-    return records
+    # the bf16 launches of #3 and #5 on the main paths are #1's and #2's
+    for pair, k in (("gather_rows_pair", gather), ("apply_rows_sr_pair", scatter)):
+        rec[pair]["launches"] = PAIR_LAUNCHES[k["name"]]
+        k["launches"] -= PAIR_LAUNCHES[k["name"]]
+    print(f"main paths: bf16 launches (gather_rows, apply_rows_sr) "
+          f"{(PAIR_LAUNCHES['gather_rows'], PAIR_LAUNCHES['apply_rows_sr'])}")
+    return list(rec.values())
 
 
 def main(argv=None) -> int:
@@ -1716,15 +2249,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip().splitlines()[0]
         print(smi)
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         names = _build.build_all()
-        print(f"build: {names} in {time.perf_counter() - t0:.1f} s")
+        print(f"build: {names} in {time.perf_counter() - t1:.1f} s")
         kernels = run(
             dev, args.seed,
             full=FULL, small=dict(FULL, capacity=SMALL_CAPACITY),
@@ -1737,6 +2271,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,13 +33,19 @@
 // p = exp(-1e30 - lse) is exactly 0 and its terms are exactly zero: both
 // kernels skip such pairs without computing them, which changes no bit.
 //
+// Types: q, k, v, do and the gradients are all f32 or all bf16. Every
+// element is upcast to f32 on load, the computation is f32, and dq, dk and
+// dv are stored in the inputs' type (bf16 rounded to nearest even, as JAX's
+// `.astype`); lse and delta are f32 (delta from the stored, rounded o).
+//
 // Layout: q, do [BH, Lq, D]; k, v [BH, S, D]; lse, delta [BH, Lq] f32;
-// mask [B, S] bytes indexed by b = bh / H; dq [BH, Lq, D], dk, dv [BH, S, D]
-// f32, all contiguous. D is one of 8, 16, 32, 64, 128.
+// mask [B, S] bytes indexed by b = bh / H; dq [BH, Lq, D], dk, dv [BH, S, D],
+// all contiguous. D is one of 8, 16, 32, 64, 128.
 //
 // The launchers run on the caller's stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() so a refused launch is seen.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +64,13 @@ __device__ __forceinline__ int64_t keys_run(int64_t i, int64_t S, int64_t block_
 
 __device__ __forceinline__ bool dead(float lse) { return lse <= kNegInf * 0.5f; }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// n rows of D elements from device memory into f32 shared memory, 4
+// elements per step (a 16-byte f32 vector, or 8 bytes of bf16 widened).
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int n,
                                           int tid, int nthreads) {
@@ -67,12 +80,24 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int n,
 }
 
 template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, int n,
+                                          int tid, int nthreads) {
+    const uint2* s2 = reinterpret_cast<const uint2*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int t = tid; t < n * D / 4; t += nthreads) {
+        const uint2 x = s2[t];
+        d4[t] = make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xFFFF0000u),
+                            __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xFFFF0000u));
+    }
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const uint8_t* __restrict__ mask,
-            const float* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, float* __restrict__ dk,
-            float* __restrict__ dv, int64_t H, int64_t Lq, int64_t S,
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const uint8_t* __restrict__ mask,
+            const T* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ delta, T* __restrict__ dk,
+            T* __restrict__ dv, int64_t H, int64_t Lq, int64_t S,
             int64_t block_q, int64_t block_k, int causal, float scale) {
     constexpr int TQ = (4096 / D) < 128 ? (4096 / D) : 128;  // query rows per tile
     __shared__ __align__(16) float qs[TQ * D];
@@ -91,8 +116,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float kr[D], vr[D], dkr[D], dvr[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-        kr[d] = real ? k[(bh * S + j) * D + d] : 0.f;
-        vr[d] = real ? v[(bh * S + j) * D + d] : 0.f;
+        kr[d] = real ? to_f32(k[(bh * S + j) * D + d]) : 0.f;
+        vr[d] = real ? to_f32(v[(bh * S + j) * D + d]) : 0.f;
         dkr[d] = 0.f;
         dvr[d] = 0.f;
     }
@@ -135,18 +160,18 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (live) {
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-            dk[(bh * S + j) * D + d] = dkr[d];
-            dv[(bh * S + j) * D + d] = dvr[d];
+            store(dk + (bh * S + j) * D + d, dkr[d]);
+            store(dv + (bh * S + j) * D + d, dvr[d]);
         }
     }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const uint8_t* __restrict__ mask,
-          const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, float* __restrict__ dq, int64_t H,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const uint8_t* __restrict__ mask,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, T* __restrict__ dq, int64_t H,
           int64_t Lq, int64_t S, int64_t block_q, int64_t block_k, int causal,
           float scale) {
     constexpr int TK = (4096 / D) < 128 ? (4096 / D) : 128;  // keys per tile
@@ -167,8 +192,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float qr[D], dor[D], dqr[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-        qr[d] = work ? q[(bh * Lq + i) * D + d] : 0.f;
-        dor[d] = work ? dout[(bh * Lq + i) * D + d] : 0.f;
+        qr[d] = work ? to_f32(q[(bh * Lq + i) * D + d]) : 0.f;
+        dor[d] = work ? to_f32(dout[(bh * Lq + i) * D + d]) : 0.f;
         dqr[d] = 0.f;
     }
     const int64_t nrun = work ? keys_run(i, S, block_q, block_k, causal) : 0;
@@ -202,38 +227,61 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     if (live) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) dq[(bh * Lq + i) * D + d] = dqr[d];
+        for (int d = 0; d < D; ++d) store(dq + (bh * Lq + i) * D + d, dqr[d]);
     }
 }
 
 struct Args {
-    const float* q;
-    const float* k;
-    const float* v;
+    const void* q;
+    const void* k;
+    const void* v;
     const uint8_t* mask;
-    const float* dout;
+    const void* dout;
     const float* lse;
     const float* delta;
+    int bf16;
 };
 
-template <int D>
-cudaError_t launch_dkdv(const Args& a, float* dk, float* dv, int64_t blocks, int64_t H,
-                        int64_t Lq, int64_t S, int64_t block_q, int64_t block_k,
-                        int causal, float scale, cudaStream_t stream) {
-    dkdv_kernel<D><<<(unsigned int)blocks, kRows, 0, stream>>>(
-        a.q, a.k, a.v, a.mask, a.dout, a.lse, a.delta, dk, dv, H, Lq, S, block_q,
-        block_k, causal, scale);
+template <typename T, int D>
+cudaError_t launch_dkdv_t(const Args& a, void* dk, void* dv, int64_t blocks, int64_t H,
+                          int64_t Lq, int64_t S, int64_t block_q, int64_t block_k,
+                          int causal, float scale, cudaStream_t stream) {
+    dkdv_kernel<T, D><<<(unsigned int)blocks, kRows, 0, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.mask, static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), H, Lq, S, block_q, block_k, causal, scale);
     return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dq(const Args& a, float* dq, int64_t blocks, int64_t H, int64_t Lq,
+cudaError_t launch_dkdv(const Args& a, void* dk, void* dv, int64_t blocks, int64_t H,
+                        int64_t Lq, int64_t S, int64_t block_q, int64_t block_k,
+                        int causal, float scale, cudaStream_t stream) {
+    return a.bf16 ? launch_dkdv_t<__nv_bfloat16, D>(a, dk, dv, blocks, H, Lq, S, block_q,
+                                                    block_k, causal, scale, stream)
+                  : launch_dkdv_t<float, D>(a, dk, dv, blocks, H, Lq, S, block_q, block_k,
+                                            causal, scale, stream);
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_t(const Args& a, void* dq, int64_t blocks, int64_t H, int64_t Lq,
+                        int64_t S, int64_t block_q, int64_t block_k, int causal,
+                        float scale, cudaStream_t stream) {
+    dq_kernel<T, D><<<(unsigned int)blocks, kRows, 0, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.mask, static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), H, Lq,
+        S, block_q, block_k, causal, scale);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const Args& a, void* dq, int64_t blocks, int64_t H, int64_t Lq,
                       int64_t S, int64_t block_q, int64_t block_k, int causal,
                       float scale, cudaStream_t stream) {
-    dq_kernel<D><<<(unsigned int)blocks, kRows, 0, stream>>>(
-        a.q, a.k, a.v, a.mask, a.dout, a.lse, a.delta, dq, H, Lq, S, block_q,
-        block_k, causal, scale);
-    return cudaGetLastError();
+    return a.bf16 ? launch_dq_t<__nv_bfloat16, D>(a, dq, blocks, H, Lq, S, block_q, block_k,
+                                                  causal, scale, stream)
+                  : launch_dq_t<float, D>(a, dq, blocks, H, Lq, S, block_q, block_k, causal,
+                                          scale, stream);
 }
 
 int check(long long B, long long H, long long Lq, long long S, long long block_q,
@@ -247,11 +295,9 @@ int check(long long B, long long H, long long Lq, long long S, long long block_q
 }
 
 Args args(const void* q, const void* k, const void* v, const void* mask,
-          const void* dout, const void* lse, const void* delta) {
-    return Args{static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
-                static_cast<const float*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta)};
+          const void* dout, const void* lse, const void* delta, int bf16) {
+    return Args{q, k, v, static_cast<const uint8_t*>(mask), dout,
+                static_cast<const float*>(lse), static_cast<const float*>(delta), bf16};
 }
 
 }  // namespace
@@ -260,13 +306,13 @@ extern "C" int flash_attention_bwd_dkdv(
         const void* q, const void* k, const void* v, const void* mask,
         const void* dout, const void* lse, const void* delta, void* dk, void* dv,
         long long B, long long H, long long Lq, long long S, long long D,
-        long long block_q, long long block_k, int causal, float scale,
+        long long block_q, long long block_k, int causal, float scale, int bf16,
         void* stream) {
     if (int err = check(B, H, Lq, S, block_q, block_k, S)) return err;
-    const Args a = args(q, k, v, mask, dout, lse, delta);
+    const Args a = args(q, k, v, mask, dout, lse, delta, bf16);
     const int64_t blocks = (int64_t)B * H * ((S + kRows - 1) / kRows);
-    float* dkp = static_cast<float*>(dk);
-    float* dvp = static_cast<float*>(dv);
+    void* dkp = dk;
+    void* dvp = dv;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
         case 8: return (int)launch_dkdv<8>(a, dkp, dvp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
@@ -282,12 +328,12 @@ extern "C" int flash_attention_bwd_dq(
         const void* q, const void* k, const void* v, const void* mask,
         const void* dout, const void* lse, const void* delta, void* dq,
         long long B, long long H, long long Lq, long long S, long long D,
-        long long block_q, long long block_k, int causal, float scale,
+        long long block_q, long long block_k, int causal, float scale, int bf16,
         void* stream) {
     if (int err = check(B, H, Lq, S, block_q, block_k, Lq)) return err;
-    const Args a = args(q, k, v, mask, dout, lse, delta);
+    const Args a = args(q, k, v, mask, dout, lse, delta, bf16);
     const int64_t blocks = (int64_t)B * H * ((Lq + kRows - 1) / kRows);
-    float* dqp = static_cast<float*>(dq);
+    void* dqp = dq;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
         case 8: return (int)launch_dq<8>(a, dqp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);

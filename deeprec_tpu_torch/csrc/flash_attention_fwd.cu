@@ -29,13 +29,20 @@
 //    (qb = i / block_q): the Pallas grid's skip, not this kernel's tiling.
 //  - l_safe = max(l, 1e-30); o = acc / l_safe; lse = m + log(l_safe).
 //
-// Layout: q [BH, Lq, D], k and v [BH, S, D], o [BH, Lq, D] f32 contiguous;
+// Types: q, k, v and o are all f32 or all bf16, as the Pallas kernel takes
+// either. Every element is upcast to f32 on load (bf16 tiles are widened
+// into f32 shared memory), the whole computation is f32, and o is stored in
+// q's type, bf16 rounded to nearest even as JAX's `.astype` rounds; lse
+// stays f32.
+//
+// Layout: q [BH, Lq, D], k and v [BH, S, D], o [BH, Lq, D] contiguous;
 // mask [B, S] bytes (torch.bool), indexed by b = bh / H; lse [BH, Lq] f32.
 // D is one of 8, 16, 32, 64, 128 (the wrapper zero-pads other widths).
 //
 // The launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() so a refused launch is seen.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,11 +62,28 @@ __device__ __forceinline__ int64_t keys_run(int64_t i, int64_t S, int64_t block_
     return n < S ? n : S;
 }
 
-template <int D>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// The t-th group of 4 elements of src as f32: a 16-byte f32 vector, or 8
+// bytes of bf16 widened.
+__device__ __forceinline__ float4 load4(const float* src, int t) {
+    return reinterpret_cast<const float4*>(src)[t];
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src, int t) {
+    const uint2 x = reinterpret_cast<const uint2*>(src)[t];
+    return make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xFFFF0000u),
+                       __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xFFFF0000u));
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const uint8_t* __restrict__ mask,
-           float* __restrict__ o, float* __restrict__ lse, int64_t H, int64_t Lq,
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const uint8_t* __restrict__ mask,
+           T* __restrict__ o, float* __restrict__ lse, int64_t H, int64_t Lq,
            int64_t S, int64_t block_q, int64_t block_k, int causal, float scale) {
     constexpr int TK = (4096 / D) < 128 ? (4096 / D) : 128;  // keys per tile
     __shared__ __align__(16) float ks[TK * D];
@@ -71,14 +95,14 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t i0 = (blockIdx.x % ntiles) * kRows;
     const int64_t i = i0 + threadIdx.x;
     const bool live = i < Lq;
-    const float* kb = k + bh * S * D;
-    const float* vb = v + bh * S * D;
+    const T* kb = k + bh * S * D;
+    const T* vb = v + bh * S * D;
     const uint8_t* mb = mask + (bh / H) * S;
 
     float qr[D], acc[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-        qr[d] = live ? q[(bh * Lq + i) * D + d] : 0.f;
+        qr[d] = live ? to_f32(q[(bh * Lq + i) * D + d]) : 0.f;
         acc[d] = 0.f;
     }
     float m = kNegInf, l = 0.f;
@@ -89,11 +113,12 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int64_t j0 = 0; j0 < nblock; j0 += TK) {
         const int n = (int)(nblock - j0 < TK ? nblock - j0 : TK);
         __syncthreads();  // the previous tile is no longer read
-        const float4* ksrc = reinterpret_cast<const float4*>(kb + j0 * D);
-        const float4* vsrc = reinterpret_cast<const float4*>(vb + j0 * D);
+        const T* ksrc = kb + j0 * D;
+        const T* vsrc = vb + j0 * D;
+        // K and V in one loop: two separate loops took 7.7 % longer at BST's shape
         for (int t = threadIdx.x; t < n * D / 4; t += kRows) {
-            reinterpret_cast<float4*>(ks)[t] = ksrc[t];
-            reinterpret_cast<float4*>(vs)[t] = vsrc[t];
+            reinterpret_cast<float4*>(ks)[t] = load4(ksrc, t);
+            reinterpret_cast<float4*>(vs)[t] = load4(vsrc, t);
         }
         for (int t = threadIdx.x; t < n; t += kRows) ms[t] = mb[j0 + t];
         __syncthreads();
@@ -139,22 +164,33 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (live) {
         const float l_safe = fmaxf(l, 1e-30f);
 #pragma unroll
-        for (int d = 0; d < D; ++d) o[(bh * Lq + i) * D + d] = acc[d] / l_safe;
+        for (int d = 0; d < D; ++d) store(o + (bh * Lq + i) * D + d, acc[d] / l_safe);
         lse[bh * Lq + i] = m + logf(l_safe);
     }
+}
+
+template <typename T, int D>
+cudaError_t launch_t(const void* q, const void* k, const void* v, const void* mask,
+                     void* o, void* lse, int64_t blocks, int64_t H, int64_t Lq,
+                     int64_t S, int64_t block_q, int64_t block_k, int causal,
+                     float scale, cudaStream_t stream) {
+    fwd_kernel<T, D><<<(unsigned int)blocks, kRows, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
+        static_cast<T*>(o), static_cast<float*>(lse), H, Lq, S, block_q,
+        block_k, causal, scale);
+    return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
                    void* o, void* lse, int64_t blocks, int64_t H, int64_t Lq,
                    int64_t S, int64_t block_q, int64_t block_k, int causal,
-                   float scale, cudaStream_t stream) {
-    fwd_kernel<D><<<(unsigned int)blocks, kRows, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
-        static_cast<float*>(o), static_cast<float*>(lse), H, Lq, S, block_q,
-        block_k, causal, scale);
-    return cudaGetLastError();
+                   float scale, int bf16, cudaStream_t stream) {
+    return bf16 ? launch_t<__nv_bfloat16, D>(q, k, v, mask, o, lse, blocks, H, Lq, S,
+                                             block_q, block_k, causal, scale, stream)
+                : launch_t<float, D>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q,
+                                     block_k, causal, scale, stream);
 }
 
 }  // namespace
@@ -163,7 +199,7 @@ extern "C" int flash_attention_fwd_launch(
         const void* q, const void* k, const void* v, const void* mask, void* o,
         void* lse, long long B, long long H, long long Lq, long long S,
         long long D, long long block_q, long long block_k, int causal,
-        float scale, void* stream) {
+        float scale, int bf16, void* stream) {
     if (B <= 0 || H <= 0 || Lq <= 0) return 0;
     if (S <= 0 || block_q <= 0 || block_k <= 0 || Lq % block_q || S % block_k)
         return (int)cudaErrorInvalidValue;
@@ -171,11 +207,11 @@ extern "C" int flash_attention_fwd_launch(
     if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 8: return (int)launch<8>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 16: return (int)launch<16>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 32: return (int)launch<32>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 64: return (int)launch<64>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 128: return (int)launch<128>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
+        case 8: return (int)launch<8>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, bf16, s);
+        case 16: return (int)launch<16>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, bf16, s);
+        case 32: return (int)launch<32>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, bf16, s);
+        case 64: return (int)launch<64>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, bf16, s);
+        case 128: return (int)launch<128>(q, k, v, mask, o, lse, blocks, H, Lq, S, block_q, block_k, causal, scale, bf16, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

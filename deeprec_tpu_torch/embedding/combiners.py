@@ -1,9 +1,16 @@
 """Segment combiners for ragged sparse features (port of
 `deeprec_tpu/embedding/combiners.py`): the bag is a dense [B, L] padded id
-matrix and the combine is a masked reduction over L."""
+matrix and the combine is a masked reduction over L.
+
+`combine` is the differentiable form the train step uses; `combine_pooled`
+is the read-only form serving and evaluation use, one launch of the
+pooled-gather kernel (#4, `ops.fused_lookup.fused_gather_combine`) per
+feature."""
 from __future__ import annotations
 
 import torch
+
+from deeprec_tpu_torch.ops.fused_lookup import _bag_denominator, fused_gather_combine
 
 
 def combine(
@@ -25,3 +32,30 @@ def combine(
     if combiner == "sqrtn":
         return s / torch.sqrt(torch.clamp(n, min=1.0))
     raise ValueError(f"unknown combiner: {combiner}")
+
+
+def pooled_operands(
+    inverse: torch.Tensor,  # [B, L] position -> unique index
+    mask: torch.Tensor,  # [B, L] bool, True for real (non-pad) ids
+    combiner: str = "mean",
+):
+    """Kernel #4's (row_ix, w) for the bags of `combine`: row_ix [B, L]
+    int32 is inverse where the mask holds, else -1 (skipped); w [B, L] f32
+    is the combiner as a per-bag weight, 1, 1/max(n, 1) or 1/sqrt(max(n, 1)),
+    and 0 at pads."""
+    row_ix = torch.where(mask, inverse.to(torch.int32), -1)
+    w = torch.where(mask, torch.reciprocal(_bag_denominator(mask, combiner)), 0.0)
+    return row_ix, w
+
+
+def combine_pooled(
+    emb_u: torch.Tensor,  # [U, D] unique embeddings, f32 or bf16
+    inverse: torch.Tensor,  # [B, L] position -> unique index
+    mask: torch.Tensor,  # [B, L] bool, True for real (non-pad) ids
+    combiner: str = "mean",
+) -> torch.Tensor:
+    """The bags of `combine` [B, D] f32, without autograd, through kernel #4
+    on `pooled_operands`. #4 multiplies each row by its weight and then
+    sums, where `combine` sums and then divides: the two differ by f32
+    rounding only."""
+    return fused_gather_combine(emb_u, *pooled_operands(inverse, mask, combiner))

@@ -3,6 +3,9 @@ from __future__ import annotations
 
 from typing import List
 
+import torch
+from torch import nn
+
 from deeprec_tpu_torch.config import EmbeddingVariableOption, TableConfig
 from deeprec_tpu_torch.features import DenseFeature, SparseFeature
 
@@ -31,3 +34,26 @@ def criteo_features(
     ]
     feats += [DenseFeature(name=name, width=1) for name in CRITEO_DENSE[:num_dense]]
     return feats
+
+
+class CriteoModel(nn.Module):
+    """The Criteo models' shared front: `features` (num_cat pooled tables,
+    num_dense numerics), the field embeddings in feature order, and the
+    numerics under the Criteo standard transform log1p(max(x, 0))."""
+
+    def __init__(self, emb_dim: int, capacity: int, ev: EmbeddingVariableOption,
+                 num_cat: int, num_dense: int):
+        super().__init__()
+        self.emb_dim, self.capacity = emb_dim, capacity
+        self.num_cat, self.num_dense = num_cat, num_dense
+        self.features = criteo_features(emb_dim=emb_dim, capacity=capacity, ev=ev,
+                                        num_cat=num_cat, num_dense=num_dense)
+        self._cats = [f.name for f in self.features if isinstance(f, SparseFeature)]
+        self._dense = [f.name for f in self.features if isinstance(f, DenseFeature)]
+
+    def _embs(self, inputs) -> List[torch.Tensor]:
+        return [inputs.pooled[c] for c in self._cats]  # each [B, emb_dim]
+
+    def _numerics(self, inputs) -> torch.Tensor:
+        dense = torch.cat([inputs.dense[d] for d in self._dense], dim=-1)
+        return torch.log1p(torch.clamp(dense, min=0.0))

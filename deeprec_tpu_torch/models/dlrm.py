@@ -11,15 +11,13 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-from torch import nn
 
 from deeprec_tpu_torch import nn as dnn
 from deeprec_tpu_torch.config import EmbeddingVariableOption
-from deeprec_tpu_torch.features import DenseFeature, SparseFeature
-from deeprec_tpu_torch.models.criteo import CRITEO_CAT, CRITEO_DENSE, criteo_features
+from deeprec_tpu_torch.models.criteo import CRITEO_CAT, CRITEO_DENSE, CriteoModel
 
 
-class DLRM(nn.Module):
+class DLRM(CriteoModel):
     """Bottom MLP over numerics, dim-d embeddings per categorical field,
     pairwise dot interactions, top MLP."""
 
@@ -34,17 +32,9 @@ class DLRM(nn.Module):
         num_dense: int = len(CRITEO_DENSE),
         seed: int = 0,
     ):
-        super().__init__()
         if bottom[-1] != emb_dim:
             raise ValueError("bottom MLP must end at emb_dim")
-        self.emb_dim, self.capacity = emb_dim, capacity
-        self.num_cat, self.num_dense = num_cat, num_dense
-        self.features = criteo_features(
-            emb_dim=emb_dim, capacity=capacity, ev=ev,
-            num_cat=num_cat, num_dense=num_dense,
-        )
-        self._cats = [f.name for f in self.features if isinstance(f, SparseFeature)]
-        self._dense = [f.name for f in self.features if isinstance(f, DenseFeature)]
+        super().__init__(emb_dim, capacity, ev, num_cat, num_dense)
         g = torch.Generator().manual_seed(seed)
         self._build(bottom, top, g)
 
@@ -54,13 +44,11 @@ class DLRM(nn.Module):
         self.top = dnn.MLP(F * (F - 1) // 2 + self.emb_dim, list(top), g)
 
     def _bottom(self, inputs) -> torch.Tensor:
-        dense = torch.cat([inputs.dense[d] for d in self._dense], dim=-1)
-        dense = torch.log1p(torch.clamp(dense, min=0.0))
-        return self.bottom(dense, final_activation=torch.relu)
+        return self.bottom(self._numerics(inputs), final_activation=torch.relu)
 
     def forward(self, inputs) -> torch.Tensor:
         bottom = self._bottom(inputs)
-        embs = torch.stack([inputs.pooled[c] for c in self._cats], dim=1)
+        embs = torch.stack(self._embs(inputs), dim=1)
         stack = torch.cat([bottom[:, None, :], embs], dim=1)
         inter = dnn.dot_interaction(stack)
         top_in = torch.cat([bottom, inter], dim=-1)
@@ -83,5 +71,5 @@ class DLRMDCN(DLRM):
 
     def forward(self, inputs) -> torch.Tensor:
         bottom = self._bottom(inputs)
-        x0 = torch.cat([bottom] + [inputs.pooled[c] for c in self._cats], dim=-1)
+        x0 = torch.cat([bottom] + self._embs(inputs), dim=-1)
         return self.top(self.cross(x0))[:, 0]

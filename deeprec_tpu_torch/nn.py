@@ -1,5 +1,5 @@
 """NN layers for the modelzoo — the port of `deeprec_tpu/nn.py` (the layers
-DLRM, DLRM-DCN and BST use).
+DLRM, DLRM-DCN, BST, WDL, DeepFM, DCN, DCNv2, MaskNet and DIN use).
 
 Parameters keep the JAX package's layout (`w` is [in, out]) and names, so a
 module's parameter tree is the JAX param tree: `param_tree` rebuilds it and
@@ -12,7 +12,8 @@ of bf16 values are exact in f32, so rounding the operands and multiplying
 in f32 computes the same thing; `torch.matmul` on bf16 tensors would round
 the output to bf16 as well, which JAX does not. The cross network, the
 transformer block's qkv and output projections (`matmul`) multiply in plain
-f32; its attention runs through `ops/flash_attention.py`.
+f32; its attention runs through `ops/flash_attention.py`. DCN's vector
+cross net multiplies in plain f32 too, and FM sums in f32.
 """
 from __future__ import annotations
 
@@ -66,6 +67,41 @@ def crossnet_apply(layers: Sequence, x0: torch.Tensor) -> torch.Tensor:
     for layer in layers:
         x = x0 * (torch.matmul(x, layer["w"]) + layer["b"]) + x
     return x
+
+
+def crossnet_v1_apply(layers: Sequence, x0: torch.Tensor) -> torch.Tensor:
+    """Original DCN cross layer with VECTOR weights, in f32:
+    x_{l+1} = x0 * (x_l . w) + b + x_l (rank-1 feature crossing)."""
+    x = x0
+    for layer in layers:
+        x = x0 * torch.matmul(x, layer["w"])[:, None] + layer["b"] + x
+    return x
+
+
+def fm_apply(emb_stack: torch.Tensor) -> torch.Tensor:
+    """Second-order FM interaction over [B, F, D] field embeddings:
+    0.5 * ((sum v)^2 - sum v^2) summed over D -> [B, 1]. The difference is
+    taken per column before the sum over D, as in the JAX package (the
+    two terms cancel)."""
+    s = torch.sum(emb_stack, dim=1)
+    sq = torch.sum(emb_stack * emb_stack, dim=1)
+    return 0.5 * torch.sum(s * s - sq, dim=1, keepdim=True)
+
+
+def din_attention_apply(p, query: torch.Tensor, keys: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """DIN local activation unit: query [B, D] target item, keys [B, L, D]
+    behavior sequence, mask [B, L] bool. Scores of the MLP over [q, k,
+    q - k, q * k], filled with -1e9 where masked before the softmax over L
+    and zeroed there after it; returns the weighted sum of keys [B, D]."""
+    B, L, D = keys.shape
+    q = query[:, None, :].expand(B, L, D)
+    feats = torch.cat([q, keys, q - keys, q * keys], dim=-1)
+    scores = mlp_apply(p["mlp"].layers, feats.reshape(B * L, 4 * D)).reshape(B, L)
+    scores = torch.where(mask, scores, -1e9)
+    w = torch.softmax(scores, dim=1)
+    w = torch.where(mask, w, 0.0)
+    return torch.einsum("bl,bld->bd", w, keys)
 
 
 def dot_interaction(emb_stack: torch.Tensor, keep_diag: bool = False) -> torch.Tensor:
@@ -193,6 +229,45 @@ class CrossNet(nn.Module):
 
     def forward(self, x0):
         return crossnet_apply(self.layers, x0)
+
+
+class _CrossV1Layer(nn.Module):
+    """{"w" [dim] (glorot of a [dim, 1] matrix), "b" [dim] = 0}."""
+
+    def __init__(self, dim: int, generator: torch.Generator):
+        super().__init__()
+        self.w = nn.Parameter(_glorot((dim, 1), generator)[:, 0])
+        self.b = nn.Parameter(torch.zeros(dim))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+class CrossNetV1(nn.Module):
+    """{"layers": [{"w" [dim], "b" [dim]}, ...]} — DCN's vector-weight
+    cross net."""
+
+    def __init__(self, dim: int, depth: int, generator: torch.Generator):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            _CrossV1Layer(dim, generator) for _ in range(depth))
+
+    def forward(self, x0):
+        return crossnet_v1_apply(self.layers, x0)
+
+
+class DINAttention(nn.Module):
+    """{"mlp": MLP(4 dim, hidden + [1])} — DIN's local activation unit."""
+
+    def __init__(self, dim: int, hidden: Sequence[int], generator: torch.Generator):
+        super().__init__()
+        self.mlp = MLP(4 * dim, [*hidden, 1], generator)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def forward(self, query, keys, mask):
+        return din_attention_apply(self, query, keys, mask)
 
 
 # ------------------------------------------------------- JAX tree layout

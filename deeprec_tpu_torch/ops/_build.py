@@ -36,13 +36,20 @@ _SIGNATURES = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_dkdv": [ctypes.c_void_p] * 9
-        + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        + [ctypes.c_longlong] * 7
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "flash_attention_bwd_dq": [ctypes.c_void_p] * 8
-        + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        + [ctypes.c_longlong] * 7
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     },
     "flash_attention_fwd": {
         "flash_attention_fwd_launch": [ctypes.c_void_p] * 6
-        + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        + [ctypes.c_longlong] * 7
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    },
+    "fused_gather_combine": {
+        "fused_gather_combine_launch": [ctypes.c_void_p] * 4
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p],
     },
     "fused_sparse_backward": {
         "fused_sparse_backward_partials": [ctypes.c_void_p] * 7

@@ -20,8 +20,11 @@ a dead causal row averages only the keys of the blocks that were not
 skipped. The backward zeroes every dead row's probabilities
 (`_probs_from_lse`'s guard), so such rows add nothing to dq, dk or dv.
 
-The kernels take f32 q, k, v, do and return f32; bf16 inputs raise (open
-in ROADMAP.md). The math is f32 throughout.
+q, k, v (and the backward's do) are all f32 or all bf16, as the JAX
+function takes either: every element is upcast on load and the math is f32
+throughout; o, dq, dk and dv come back in the inputs' dtype (bf16 rounded
+to nearest even, as JAX's `.astype`), lse in f32, and the backward's
+`delta` is taken from the stored (rounded) o, as the JAX package takes it.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+_DTYPES = (torch.float32, torch.bfloat16)
 # Head widths the kernels are compiled for; a head of another width up to
 # 128 is zero-padded to the next one (zero columns add nothing to a dot).
 _HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -179,10 +183,10 @@ def _check(q, k, v, mask, block_q, block_k, extra=()):
     if mask.dtype != torch.bool:
         raise TypeError(f"flash_attention: mask must be bool, got {mask.dtype}")
     tensors = (q, k, v, *extra)
-    if any(t.dtype != torch.float32 for t in tensors):
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(
-            "flash_attention: the kernels take float32 q, k, v (and do); got "
-            f"{[str(t.dtype) for t in tensors]}")
+            "flash_attention: q, k, v (and do) must share one dtype, float32 "
+            f"or bfloat16; got {[str(t.dtype) for t in tensors]}")
     if any(t.device != q.device for t in (*tensors, mask)):
         raise ValueError("flash_attention: all tensors must be on one device")
     if q.device.type not in ("cpu", "cuda"):
@@ -216,7 +220,7 @@ def _launch(name: str, entry: str, device, *args) -> None:
 def flash_forward(q, k, v, mask, causal: bool, sm_scale: float,
                   block_q: int = 128, block_k: int = 128
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel #8: (o [B, H, Lq, D] f32, lse [B, H, Lq] f32)."""
+    """Kernel #8: (o [B, H, Lq, D] in q's dtype, lse [B, H, Lq] f32)."""
     _check(q, k, v, mask, block_q, block_k)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, mask, causal, sm_scale, block_q, block_k)
@@ -225,14 +229,14 @@ def flash_forward(q, k, v, mask, causal: bool, sm_scale: float,
     dp = _head_bucket(D)
     qp, kp, vp = _padded(q, dp), _padded(k, dp), _padded(v, dp)
     mask = mask.contiguous()
-    o = torch.empty((B, H, Lq, dp), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, H, Lq, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     if B * H * Lq == 0:
         return o[..., :D], lse
     _launch("flash_attention_fwd", "flash_attention_fwd_launch", q.device,
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), mask.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, H, Lq, S, dp, block_q, block_k,
-            int(causal), float(sm_scale))
+            int(causal), float(sm_scale), int(q.dtype == torch.bfloat16))
     flash_forward.launches += 1
     return (o if dp == D else o[..., :D].contiguous()), lse
 
@@ -258,14 +262,15 @@ def flash_backward(q, k, v, mask, causal: bool, sm_scale: float,
     mask = mask.contiguous()
     lse = lse.to(torch.float32).contiguous()
     delta = _delta(o, do).contiguous()
-    dq = torch.empty((B, H, Lq, dp), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, H, S, dp), dtype=torch.float32, device=q.device)
-    dv = torch.empty((B, H, S, dp), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, H, Lq, dp), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, H, S, dp), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, H, S, dp), dtype=q.dtype, device=q.device)
     if B * H * Lq * S == 0:
         return dq[..., :D].zero_(), dk[..., :D].zero_(), dv[..., :D].zero_()
     args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), mask.data_ptr(),
             dop.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    dims = (B, H, Lq, S, dp, block_q, block_k, int(causal), float(sm_scale))
+    dims = (B, H, Lq, S, dp, block_q, block_k, int(causal), float(sm_scale),
+            int(q.dtype == torch.bfloat16))
     _launch("flash_attention_bwd", "flash_attention_bwd_dkdv", q.device,
             *args, dk.data_ptr(), dv.data_ptr(), *dims)
     flash_backward.launches_dkdv += 1

@@ -1,14 +1,16 @@
-"""Row gather, row scatter and the fused sparse bag step — the port of the
-Pallas kernels of `deeprec_tpu/ops/fused_lookup.py`: `gather_rows` (#3),
-`apply_rows_sr` (#5), `fused_sparse_forward` (#6) and
-`fused_sparse_backward` (#7). The bf16 pair-granule kernels (#1
-`gather_rows_pair`, #2 `apply_rows_sr_pair`) exist only because a TPU
-cannot move one bf16 row; on Hopper they are the bf16 branches of #3 and
-#5. `fused_gather_combine` (#4) is still to port (ROADMAP.md, queue B).
+"""Row gather, pooled gather, row scatter and the fused sparse bag step —
+the port of the Pallas kernels of `deeprec_tpu/ops/fused_lookup.py`:
+`gather_rows` (#3), `fused_gather_combine` (#4), `apply_rows_sr` (#5),
+`fused_sparse_forward` (#6) and `fused_sparse_backward` (#7). The bf16
+pair-granule kernels (#1 `gather_rows_pair`, #2 `apply_rows_sr_pair`)
+exist only because a TPU cannot move one bf16 row; on Hopper they are the
+bf16 branches of #3 and #5, as the bf16 pair branch of #4 is #4's bf16
+branch.
 
 Each wrapper launches its hand-written kernel for a CUDA tensor
 (`csrc/<name>.cu`, built by `ops/_build.py` at first use) and counts the
-launch in `<wrapper>.launches`; for a CPU tensor it runs its plain PyTorch
+launch in `<wrapper>.launches` (#3 and #5 also count their bf16 branches,
+#1 and #2, in `.launches_bf16`); for a CPU tensor it runs its plain PyTorch
 version. Nothing falls back: a failed build or launch raises.
 
 Stochastic rounding: the port cannot reproduce `jax.random`'s threefry
@@ -88,10 +90,88 @@ def gather_rows(values: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
     _launch("gather_rows", values, values.data_ptr(), ix.data_ptr(),
             out.data_ptr(), T, C, n, D * values.element_size())
     gather_rows.launches += 1
+    if values.dtype == torch.bfloat16:  # the branch that stands for #1
+        gather_rows.launches_bf16 += 1
     return out
 
 
 gather_rows.launches = 0
+gather_rows.launches_bf16 = 0
+
+
+# ------------------------------------------------------- pooled gather
+
+
+def _check_combine(values, row_ix, weights):
+    if (values.dim() != 2 or row_ix.dim() != 2
+            or tuple(weights.shape) != tuple(row_ix.shape)):
+        raise ValueError(
+            f"fused_gather_combine: want values [C, D], row_ix [B, L] and "
+            f"weights [B, L], got {tuple(values.shape)}, {tuple(row_ix.shape)} "
+            f"and {tuple(weights.shape)}")
+    if values.dtype not in _DTYPES:
+        raise TypeError(f"fused_gather_combine: unsupported dtype {values.dtype}")
+
+
+def fused_gather_combine_plain(values: torch.Tensor, row_ix: torch.Tensor,
+                               weights: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: out [B, D] f32, positions added in l order,
+    out = out + w * row, where row_ix >= 0 (clipped to C - 1). The CPU
+    path and the on-card comparison use it."""
+    _check_combine(values, row_ix, weights)
+    C = values.shape[0]
+    B, L = row_ix.shape
+    ix = row_ix.long()
+    safe = ix.clamp(0, C - 1)
+    w = weights.to(torch.float32)
+    out = torch.zeros((B, values.shape[1]), dtype=torch.float32,
+                      device=values.device)
+    for pos in range(L):
+        row = values[safe[:, pos]].to(torch.float32)
+        out = torch.where((ix[:, pos] >= 0)[:, None],
+                          out + w[:, pos, None] * row, out)
+    return out
+
+
+def fused_gather_combine(values: torch.Tensor, row_ix: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """Pooled bags straight from the table: values [C, D] (f32 or bf16,
+    upcast on load), row_ix [B, L] int32 rows (< 0 = skip, >= C clipped to
+    C - 1), weights [B, L] f32 carrying the combiner. Returns [B, D] f32,
+    out[b] = sum_l weights[b, l] * values[row_ix[b, l]], each column summed
+    in l order (multiply, then add). Any B, L and D.
+
+    A skipped position reads no row, where the Pallas kernel adds
+    0 * values[0]: the same result bit for bit wherever values[0] is
+    finite (ROADMAP.md C, free divergences)."""
+    _check_combine(values, row_ix, weights)
+    if values.device.type == "cpu":
+        return fused_gather_combine_plain(values, row_ix, weights)
+    if (values.device.type != "cuda" or row_ix.device != values.device
+            or weights.device != values.device):
+        raise ValueError(
+            f"fused_gather_combine: values on {values.device}, row_ix on "
+            f"{row_ix.device}, weights on {weights.device}")
+    if row_ix.dtype != torch.int32 or weights.dtype != torch.float32:
+        raise TypeError(
+            f"fused_gather_combine: row_ix must be int32 and weights float32, "
+            f"got {row_ix.dtype} and {weights.dtype}")
+    if not values.is_contiguous():
+        raise ValueError("fused_gather_combine: values must be contiguous")
+    C, D = values.shape
+    B, L = row_ix.shape
+    out = torch.empty((B, D), dtype=torch.float32, device=values.device)
+    if B * D == 0:
+        return out
+    row_ix, weights = row_ix.contiguous(), weights.contiguous()
+    _launch("fused_gather_combine", values, values.data_ptr(), row_ix.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), B, L, C, D,
+            int(values.dtype == torch.bfloat16))
+    fused_gather_combine.launches += 1
+    return out
+
+
+fused_gather_combine.launches = 0
 
 
 # ------------------------------------------------ stochastic-rounded scatter
@@ -188,10 +268,13 @@ def apply_rows_sr(values: torch.Tensor, slot_ix: torch.Tensor,
             rows.data_ptr(), bits.data_ptr() if sr else None, T, C, U, D,
             int(sr))
     apply_rows_sr.launches += 1
+    if sr:  # the branch that stands for #2
+        apply_rows_sr.launches_bf16 += 1
     return values
 
 
 apply_rows_sr.launches = 0
+apply_rows_sr.launches_bf16 = 0
 
 
 # ------------------------------------------------------- fused sparse step

@@ -13,6 +13,11 @@ at U = N through the hash engine until `update_budgets` has measured a
 unique fraction; a changed budget takes effect at the next step (the port
 has no compiled step to rebuild).
 
+The read-only forward (`probs_from_views`, which `eval_step` and
+`Predictor.predict` both run) pools every bag through kernel #4
+`fused_gather_combine`, one launch per pooled feature; the train step pools
+through the differentiable `combiners.combine`.
+
 Features whose tables share a config and id shape are bundled: their
 states stack along the leading table axis [T] and one batched lookup serves
 all of them (the JAX package vmaps over that axis; here every table op
@@ -363,16 +368,21 @@ class Trainer:
                     bundle_res.setdefault(bname, {})[feats[0].name] = res
         return views, bundle_res
 
-    def _build_inputs(self, embs, views, batch) -> ModelInputs:
+    def _build_inputs(self, embs, views, batch, read_only: bool = False
+                      ) -> ModelInputs:
+        """The model's inputs from per-feature unique embeddings. The train
+        step pools through the differentiable `combine`; read_only=True
+        (serving and evaluation) pools every bag through kernel #4
+        (`combine_pooled`), the rows in their own dtype."""
+        pool = combiners.combine_pooled if read_only else combiners.combine
         pooled, seq = {}, {}
         for f in self.sparse_specs:
             _, inverse, mask = views[f.name]
             if f.pooling == "none":
-                e = embs[f.name][inverse.long()]  # [B, L, D]
+                e = embs[f.name].to(torch.float32)[inverse.long()]  # [B, L, D]
                 seq[f.name] = (torch.where(mask[..., None], e, 0.0), mask)
             else:
-                pooled[f.name] = combiners.combine(embs[f.name], inverse, mask,
-                                                   f.pooling)
+                pooled[f.name] = pool(embs[f.name], inverse, mask, f.pooling)
         dense = {f.name: batch[f.name] for f in self.dense_specs}
         return ModelInputs(pooled=pooled, dense=dense, seq=seq)
 
@@ -462,8 +472,9 @@ class Trainer:
 
     @torch.no_grad()
     def probs_from_views(self, state: TrainState, views, batch):
-        """Label-free forward: views -> (logits, sigmoid probabilities)."""
-        embs = {n: v[0].to(torch.float32) for n, v in views.items()}
-        inputs = self._build_inputs(embs, views, batch)
+        """Label-free forward: views -> (logits, sigmoid probabilities).
+        Every pooled feature pools through kernel #4, one launch each."""
+        embs = {n: v[0] for n, v in views.items()}
+        inputs = self._build_inputs(embs, views, batch, read_only=True)
         logits = functional_call(self.model, state.dense, (inputs,))
         return logits, torch.sigmoid(logits)

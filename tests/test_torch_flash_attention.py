@@ -4,8 +4,8 @@ CPU: the forward (o, lse) against `_pallas_forward`, the backward (dq, dk,
 dv) against `_pallas_backward` given the same o, lse and do, causal and not,
 at blocks 64 and 128, at [2, 2, 256, 32] and at the BST head width 8; dead
 rows (every visible key masked) with the Pallas kernel's semantics; the
-autograd gradient against `jax.grad`; `attention_reference`; the shape
-checks. On the CPU the port's wrappers run their plain versions, which are
+autograd gradient against `jax.grad`; bf16 q, k, v against the JAX function
+on bf16 inputs; `attention_reference`; the shape and dtype checks. On the CPU the port's wrappers run their plain versions, which are
 also what the CUDA kernels are held against on the card.
 
 JAX runs at "highest" matmul precision: in interpret mode Pallas otherwise
@@ -172,6 +172,62 @@ def test_shapes_that_are_not_block_multiples_raise():
     with pytest.raises(ValueError, match="head dimension"):
         tfa.flash_attention(wide, wide, wide, torch.ones((1, 64), dtype=torch.bool),
                             False, None, 64, 64)
-    with pytest.raises(TypeError, match="float32"):
-        tfa.flash_attention(q.to(torch.bfloat16), k.to(torch.bfloat16),
-                            v.to(torch.bfloat16), mask, False, None, 64, 64)
+    with pytest.raises(TypeError, match="one dtype"):  # neither f32 nor bf16
+        tfa.flash_attention(q.to(torch.float16), k.to(torch.float16),
+                            v.to(torch.float16), mask, False, None, 64, 64)
+    with pytest.raises(TypeError, match="one dtype"):  # mixed
+        tfa.flash_attention(q.to(torch.bfloat16), k, v, mask, False, None, 64, 64)
+
+
+# bf16 q, k, v: both sides upcast every load, compute in f32 and round o,
+# dq, dk and dv to bf16 (nearest even); lse stays f32. A difference of f32
+# summation order before that rounding can move a result by one bf16 ulp,
+# so each tolerance is the f32 one plus one bf16 ulp of the value: 2^-8
+# relative at the top of a binade, 2^-7 at its foot.
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of x (8 significant bits), 0 at 0."""
+    a = np.abs(x.astype(np.float64))
+    return np.where(a > 0, 2.0 ** (np.floor(np.log2(np.where(a > 0, a, 1.0))) - 7), 0.0)
+
+
+def _assert_bf16_close(got, want, atol, name):
+    err = np.abs(got.astype(np.float64) - want)
+    tol = atol + _bf16_ulp(want)
+    assert np.all(err <= tol), (
+        f"{name}: {int((err > tol).sum())} elements off, max err "
+        f"{err.max():.3g}, max err over tolerance {(err / tol).max():.3g}")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_run(causal, block):
+    """The JAX flash_attention (Pallas, interpret mode) on bf16 inputs:
+    o, and (dq, dk, dv) through its custom_vjp for a bf16 cotangent do."""
+    q, k, v, mask, do = (jnp.asarray(a, jnp.bfloat16) if a.dtype == np.float32
+                         else jnp.asarray(a) for a in _inputs())
+    with jax.default_matmul_precision("highest"):
+        o, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(
+            q, k, v, mask, causal, None, block, block, True), q, k, v)
+        grads = vjp(do)
+    return tuple(np.asarray(x.astype(jnp.float32)) for x in (o, *grads)), o.dtype
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_matches_jax(causal):
+    """bf16 q, k, v at [2, 2, 256, 32]: the forward and the gradients of
+    the port's flash_attention against the JAX function's, in bf16."""
+    block = 64
+    want, jdtype = _jax_bf16_run(causal, block)
+    q, k, v, mask, do = _inputs()
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+              for a in (q, k, v)]
+    out = tfa.flash_attention(*leaves, torch.from_numpy(mask), causal, None, block, block)
+    assert out.dtype == torch.bfloat16 and str(jdtype) == "bfloat16"
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do).to(torch.bfloat16))
+    _assert_bf16_close(out.detach().float().numpy(), want[0], FWD_ATOL, "o")
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want[1:]):
+        assert g.dtype == torch.bfloat16
+        _assert_bf16_close(g.float().numpy(), w, GRAD_ATOL, name)
+    # lse stays f32, and the backward's delta comes from the stored bf16 o
+    o, lse = tfa.flash_forward(*(t.detach() for t in leaves), torch.from_numpy(mask),
+                               causal, 1.0 / np.sqrt(32), block, block)
+    assert lse.dtype == torch.float32 and torch.equal(o, out.detach())

@@ -1,8 +1,9 @@
 """The PyTorch port on its own (no jax in this file, so it also runs on the
 CUDA machine): package isolation, the no-silent-CPU rule, and the CUDA
 kernels against their plain versions (marked `cuda`; skip without a card):
-the row gather and row scatter, the fused bag step's forward and backward,
-and flash attention's forward and backward."""
+the row gather, the pooled gather (#4) and the row scatter, the fused bag
+step's forward and backward, and flash attention's forward and backward
+(f32 and bf16)."""
 import os
 import subprocess
 import sys
@@ -36,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.split())
     assert len(loaded) >= 33
-    for name in ("ops.flash_attention", "models.bst", "models.taobao"):
+    for name in ("ops.flash_attention", "models.bst", "models.taobao", "models.wdl",
+                 "models.deepfm", "models.dcn", "models.masknet", "models.din"):
         assert f"deeprec_tpu_torch.{name}" in loaded, name
 
 
@@ -148,6 +150,41 @@ def test_apply_rows_sr_kernel_matches_plain(cuda_device, dtype, T, C, D, U):
                   bits=bits[1:].to(cuda_device))
     assert torch.equal(sub.cpu()[1:], apply_rows_sr_plain(
         values.clone()[1:], slot[1:], rows[1:], bits[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,D,B,L", [(4096, 128, 37, 100), (4096, 16, 2048, 1),
+                                     (1000, 16, 64, 8), (500, 12, 33, 7),
+                                     (500, 7, 33, 7), (100, 4, 5, 3), (100, 1, 9, 4),
+                                     (300, 96, 40, 33)])
+def test_fused_gather_combine_kernel_matches_plain(cuda_device, combiner, dtype, C, D,
+                                                   B, L):
+    """Kernel #4 bit-exact against its plain version on the card: 16- and
+    8-byte vectors (D % 4 == 0) and the scalar path (D 7 and 1), 1 to 32
+    lanes per bag, a bag of pads only, rows past the table clipped, pads
+    read no row; one launch counted per call; a view into a stacked table
+    (offset start) through the same kernel."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_gather_combine, fused_gather_combine_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    values = torch.randn((2, C, D), generator=g).to(dtype)
+    row_ix = torch.randint(-1, C + 3, (B, L), generator=g, dtype=torch.int32)
+    row_ix[min(1, B - 1)] = -1
+    n = (row_ix >= 0).sum(1, keepdim=True).clamp(min=1).float()
+    w = {"sum": torch.ones_like(n), "mean": 1.0 / n, "sqrtn": 1.0 / n.sqrt()}[combiner]
+    w = w.expand(B, L).contiguous()
+    values, row_ix, w = values.to(cuda_device), row_ix.to(cuda_device), w.to(cuda_device)
+    for v in (values[0], values[1]):
+        before = fused_gather_combine.launches
+        got = fused_gather_combine(v, row_ix, w)
+        torch.cuda.synchronize()
+        assert fused_gather_combine.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (B, D)
+        assert torch.equal(got, fused_gather_combine_plain(v, row_ix, w))
+        assert bool((got[min(1, B - 1)] == 0).all())
 
 
 def _bag_ids(g, T, B, L, vocab, pad=0.1):
@@ -348,3 +385,37 @@ def test_flash_attention_autograd_on_card(cuda_device):
         grads[str(dev)] = [x.cpu() for x in torch.autograd.grad((out ** 2).sum(), leaves)]
     for name, a, b in zip("qkv", grads[str(cuda_device)], grads["cpu"]):
         _assert_flash_close(a, b, f"d{name}", True)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of x (8 significant bits), 0 at 0."""
+    a = x.abs().double()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 7), torch.zeros_like(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_bf16_match_plain(cuda_device, causal):
+    """bf16 q, k, v, do at [2, 2, 256, 32]: o, dq, dk and dv come back in
+    bf16, lse in f32, each within its f32 tolerance plus one bf16 ulp of
+    the plain value (a sum in another order can round to the neighbour)."""
+    from deeprec_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cpu").manual_seed(13)
+    q, k, v, mask, do = _flash_inputs(g, 2, 2, 256, 256, 32, False, cuda_device)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    scale = 1.0 / 32 ** 0.5
+    o, lse = fa.flash_forward(q, k, v, mask, causal, scale, 64, 64)
+    po, plse = fa.flash_forward_plain(q, k, v, mask, causal, scale, 64, 64)
+    got = fa.flash_backward(q, k, v, mask, causal, scale, 64, 64, po, plse, do)
+    want = fa.flash_backward_plain(q, k, v, mask, causal, scale, 64, 64, po, plse, do)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _assert_flash_close(lse, plse, "lse", False)
+    tol = FLASH_FWD_RTOL * torch.clamp(po.double().abs(), min=1.0) + _bf16_ulp(po)
+    assert bool(((o.double() - po.double()).abs() <= tol).all()), "o"
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        tol = FLASH_GRAD_TOL * float(b.double().abs().max()) + _bf16_ulp(b)
+        assert bool(((a.double() - b.double()).abs() <= tol).all()), name

@@ -167,3 +167,57 @@ def test_predictor_matches_jax(jax_run, B):
     assert version == 0 and p.step == 3
     assert got.shape == (B,) and np.all(np.isfinite(got))
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=PROB_ATOL)
+
+
+MULTI_L = 8
+
+
+@pytest.fixture(scope="module")
+def multi_hot_run(tmp_path_factory):
+    """A DLRM-DCN at capacity 2^12: 3 JAX train steps, then a full
+    checkpoint (every feature of its stacked bundle pooled by mean)."""
+    d = str(tmp_path_factory.mktemp("jax_ckpt_multi_hot"))
+    kw = dict(KW, capacity=1 << 12)
+    tr = JaxTrainer(JaxDLRMDCN(**kw), Adagrad(lr=0.1), optax.adam(1e-3))
+    st = tr.init(0)
+    gen = SyntheticCriteo(batch_size=64, num_cat=NUM_CAT, num_dense=NUM_DENSE,
+                          vocab=2000, seed=3)
+    for _ in range(3):
+        st, _ = tr.train_step(st, {k: jnp.asarray(v) for k, v in gen.batch().items()})
+    st, _ = JaxCkpt(d, tr).save(st)
+    return kw, tr, st, d
+
+
+def _multi_hot_batch(st, tr, B, seed):
+    """[B, MULTI_L] ids per feature: each bag has its own real length in
+    [1, MULTI_L] (some bags full), its real positions 80% live, 10% never
+    seen, 10% pad, and -1 past its length."""
+    rng = np.random.default_rng(seed)
+    tables = _jax_tables(tr, st)
+    batch = {}
+    for c in range(NUM_CAT):
+        name = f"C{c + 1}"
+        live = np.asarray(sorted(tables[name]), np.int32)
+        ids = rng.choice(live, (B, MULTI_L)).astype(np.int32)
+        u = rng.random((B, MULTI_L))
+        ids[u < 0.2] = (10_000_000 + rng.integers(0, 1000, (B, MULTI_L)))[u < 0.2]
+        ids[u < 0.1] = -1
+        lengths = rng.integers(1, MULTI_L + 1, B)
+        lengths[::5] = MULTI_L
+        batch[name] = np.where(np.arange(MULTI_L)[None, :] < lengths[:, None], ids, -1)
+    for i in range(NUM_DENSE):
+        batch[f"I{i + 1}"] = rng.lognormal(0, 1, (B, 1)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("B", [64, 37])
+def test_multi_hot_predictor_matches_jax(multi_hot_run, B):
+    """Multi-hot requests ([B, L] bags of mixed real lengths, -1 pads): the
+    port pools each bag through kernel #4's path (its plain version here),
+    the JAX Predictor through `combine`; probabilities within PROB_ATOL."""
+    kw, tr, st, d = multi_hot_run
+    batch = _multi_hot_batch(st, tr, B, seed=100 + B)
+    want = JaxPredictor(JaxDLRMDCN(**kw), d).predict(batch)
+    got = Predictor(DLRMDCN(**kw), d, device="cpu").predict(batch)
+    assert got.shape == (B,) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=PROB_ATOL)
