@@ -52,10 +52,13 @@ Phases, each of which must pass:
      g = out * 0.25 + 1 and apply_bag_gradients (kernel #7). 5 checked
      steps (launch counts, finite bags and rows), 20 timed, 3 profiled;
      then on copies of the L = 100 and L = 1 groups (and a bf16 copy of one
-     table) both kernels bit for bit against their plain versions, rows
-     off the batch unchanged, and a tight budget whose overflow both count
-     alike and whose out-of-budget positions add nothing; per-step device
-     times of both kernels, their plain versions and embedding_bag;
+     table, and a head-heavy bag matrix: one row in all 2048 x 100
+     positions) both kernels bit for bit against their plain versions,
+     rows off the batch unchanged, and a tight budget whose overflow both
+     count alike and whose out-of-budget positions add nothing; the device
+     operations of one #6 and one #7 call at the L = 100 and L = 1 groups
+     (torch.profiler; at most 3 and 5); per-step device times of both
+     kernels, their plain versions and embedding_bag;
   9. DLRM-DCN training with Trainer(unique_budget="auto"): 5 steps,
      update_budgets, 5 steps at the measured budget, no overflow;
  10. the flash attention kernels (forward #8; backward #9, a dK/dV and a dQ
@@ -132,11 +135,12 @@ TRAIN = dict(batch=2048, vocab=1_000_000, checked=5, timed=30, profiled=3,
 def _ms(fn, dev, reps=50, warm=3):
     """(device ms, call ms) of fn() after `warm` calls. Device: the summed
     duration of the kernels one call launches, from torch.profiler over
-    `reps` calls. Call: CUDA events around `reps` back-to-back calls, which
-    times the host's launch interval wherever that is longer than the
-    kernels (a wrapper's Python checks and a ctypes launch take tens of
-    microseconds). (None, None) off the card: a CPU rehearsal measures
-    nothing."""
+    `reps` calls, the larger of two such windows (the profiler now and then
+    drops a window's kernels). Call: CUDA events around `reps` back-to-back
+    calls, which times the host's launch interval wherever that is longer
+    than the kernels (a wrapper's Python checks and a ctypes launch take
+    tens of microseconds). (None, None) off the card: a CPU rehearsal
+    measures nothing."""
     if dev.type != "cuda":
         return None, None
     from torch.autograd import DeviceType
@@ -152,12 +156,14 @@ def _ms(fn, dev, reps=50, warm=3):
     b.record()
     b.synchronize()
     call = a.elapsed_time(b) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if getattr(e, "device_type", None) == DeviceType.CUDA)
+    busy_us = 0.0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = max(busy_us, sum(e.self_device_time_total for e in prof.key_averages()
+                                   if getattr(e, "device_type", None) == DeviceType.CUDA))
     return busy_us / reps / 1e3, call
 
 
@@ -1242,6 +1248,59 @@ def fused_bytes(bundles, last, slot_width):
     return fwd, bwd
 
 
+# Device operations per call of #6 (the memset and two launches) and of
+# #7 under Adagrad and combiner "sum" (lr's fill, the scalar vector's
+# stack, three launches): the most each may issue.
+FUSED_OPS = (3, 5)
+
+
+def device_ops(fn, calls=20):
+    """Device operations (kernels, memsets, copies) per call of fn: the
+    events torch.profiler records over `calls` calls, divided by `calls` and
+    rounded, the larger of two windows (a window can lose an event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages()
+                             if getattr(e, "device_type", None) == DeviceType.CUDA))
+    return round(most / calls)
+
+
+def fused_ops_per_call(bundles, last, opt, step, groups):
+    """{L: (#6, #7) device operations of one call} at the groups' main-path
+    shapes (`device_ops`); fails above FUSED_OPS."""
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+    from deeprec_tpu_torch.ops.dedup import resolve_size
+
+    out = {}
+    for L in groups:
+        _, st = bundles[L]
+        row_ix, res = last[L]
+        N = row_ix.shape[1] * L
+        grad = res.out * 0.25 + 1.0
+        fwd = device_ops(lambda: fl.fused_sparse_forward(
+            st.values, row_ix, combiner="sum", unique_size=resolve_size(N, N)))
+        bwd = device_ops(lambda: fl.fused_sparse_backward(
+            st.values, st.slots, grad, row_ix, res, opt, combiner="sum", step=step,
+            seed=step))
+        out[L] = (fwd, bwd)
+        print(f"fused L={L}: device operations per call: fused_sparse_forward {fwd} "
+              f"(at most {FUSED_OPS[0]}), fused_sparse_backward {bwd} (at most "
+              f"{FUSED_OPS[1]})")
+        if fwd > FUSED_OPS[0] or bwd > FUSED_OPS[1]:
+            raise AssertionError(f"fused L={L}: {fwd} and {bwd} device operations per "
+                                 f"call, above {FUSED_OPS}")
+    return out
+
+
 def fused_phase(dev, seed, cfg):
     """The fused bag step at full width (see the module docstring). Returns
     (stats, forward record, backward record)."""
@@ -1325,6 +1384,10 @@ def fused_phase(dev, seed, cfg):
                                      st.slots["accum"][:1], row_ix[:1], opt,
                                      step + 1, f"L={L} bf16 (table 0)")
             tight_budget(st.values, row_ix, f"L={L} f32")
+            # one row in every position: a slot past the CTA's shared memory
+            head = torch.full_like(row_ix[:1], int(row_ix[row_ix >= 0][0]))
+            written += compare_fused(st.values[:1], st.slots["accum"][:1], head, opt,
+                                     step + 1, f"L={L} head-heavy (table 0)")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     stats["rows_compared"] = written
@@ -1375,6 +1438,8 @@ def fused_phase(dev, seed, cfg):
         "launches": launches[1], "max_abs_err": 0.0,
         "bound_ms": bwd_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
+    if dev.type == "cuda":
+        stats["ops_per_call"] = fused_ops_per_call(bundles, last, opt, step, cfg["compare"])
     _timed_record(f_rec, f"fused_sparse_forward ({len(items)} groups, per step)",
                   _ms(fwd(fl.fused_sparse_forward), dev, reps=10),
                   _ms(fwd(fl.fused_sparse_forward_plain), dev, reps=2, warm=1),

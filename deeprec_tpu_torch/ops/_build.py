@@ -52,23 +52,23 @@ _SIGNATURES = {
         + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p],
     },
     "fused_sparse_backward": {
-        "fused_sparse_backward_partials": [ctypes.c_void_p] * 7
-        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
-        "fused_sparse_backward_apply": [ctypes.c_void_p] * 9
-        + [ctypes.c_longlong] * 5 + [ctypes.c_int] + [ctypes.c_float] * 8
+        "fused_sparse_backward_launch": [ctypes.c_void_p] * 10
+        + [ctypes.c_longlong] * 6 + [ctypes.c_int] + [ctypes.c_float] * 8
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "fused_sparse_backward_workspace": [ctypes.c_longlong] * 5,
     },
     "fused_sparse_forward": {
-        "fused_sparse_forward_probe": [ctypes.c_void_p] * 4
-        + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p],
-        "fused_sparse_forward_finish": [ctypes.c_void_p] * 10
-        + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_void_p],
+        "fused_sparse_forward_launch": [ctypes.c_void_p] * 8
+        + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     },
     "gather_rows": {
         "gather_rows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
         + [ctypes.c_void_p],
     },
 }
+
+# Launchers return a CUDA error code (int); these host functions return a size.
+_RESTYPES = {"fused_sparse_backward_workspace": ctypes.c_longlong}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -132,6 +132,6 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = lib
         return lib

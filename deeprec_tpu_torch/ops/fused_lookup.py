@@ -35,15 +35,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _SR_SALT = 0x5EED
 
 
-def _launch(name: str, tensor: torch.Tensor, *args, entry: str = "launch") -> None:
-    """Run the launcher `<name>_<entry>` of kernel library `name` on the
+def _launch(name: str, tensor: torch.Tensor, *args) -> None:
+    """Run the launcher `<name>_launch` of kernel library `name` on the
     current stream of `tensor`'s device; raise on any CUDA error code."""
     from deeprec_tpu_torch.ops import _build
 
     lib = _build.load(name)
     with torch.cuda.device(tensor.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{name}_{entry}")(*args, stream)
+        err = getattr(lib, f"{name}_launch")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
@@ -293,9 +293,12 @@ class FusedBags(NamedTuple):
     out      [T, B, D] f32 pooled bags (rows are cast up before the
              combine, so bf16 tables pool exactly).
     uids     [T, U] int32 unique row indices; uids[:, 0] == -1 (the
-             reserved sentinel). The ORDER is path-dependent (the kernel's
-             claim race and the plain version's differ); `out` and the
-             uids-inverse correspondence are not.
+             reserved sentinel). The ORDER is path-dependent: the kernel
+             ranks ids in the order its claim race claims them (as the TPU
+             kernel ranks in first-occurrence order), the plain version in
+             scratch-slot order; under overflow so is the SET of budgeted
+             ids. `out`, the overflow count and the uids-inverse
+             correspondence are not, and neither is the backward's result.
     inverse  [T, B, L] int32 position -> unique slot (0 = pad/overflow).
     counts   [T, U] int32 occurrences per unique slot (counts[:, 0] == 0).
     overflow [T] int32 distinct ids past the budget + unresolved probes.
@@ -441,29 +444,23 @@ def fused_sparse_forward(values: torch.Tensor, ids: torch.Tensor, *,
     dev = values.device
     flat = ids.to(torch.int32).contiguous()
     i32 = dict(dtype=torch.int32, device=dev)
-    scratch = torch.empty((T, S), **i32)
-    slotpos = torch.empty((T, N), **i32)
-    overflow = torch.empty((T,), **i32)
     out = torch.empty((T, B, D), dtype=torch.float32, device=dev)
     uids = torch.empty((T, U), **i32)
     inverse = torch.empty((T, B, L), **i32)
     counts = torch.empty((T, U), **i32)
+    overflow = torch.empty((T,), **i32)
     if T * N == 0:
         bags = FusedBags(out.zero_(), uids.fill_(-1), inverse.zero_(),
                          counts.zero_(), overflow.zero_())
         return _combine_epilogue(bags, ids, combiner)
-    _launch("fused_sparse_forward", values, flat.data_ptr(), scratch.data_ptr(),
-            slotpos.data_ptr(), overflow.data_ptr(), T, N, S, int(max_probes),
-            entry="probe")
-    # the budget compaction's rank of each occupied scratch slot: a prefix
-    # sum over occupancy between the two launches (the JAX package's
-    # rank_compact is a cumsum too)
-    rank = torch.cumsum(scratch >= 0, dim=1, dtype=torch.int32)
+    # scratch keys and ranks, the two per-table counters, each position's
+    # scratch slot: one memset inside the launcher, then the probe and the
+    # bag launch (csrc/fused_sparse_forward.cu)
+    work = torch.empty((2 * T * S + T * N + 2 * T,), **i32)
     _launch("fused_sparse_forward", values, values.data_ptr(), flat.data_ptr(),
-            slotpos.data_ptr(), scratch.data_ptr(), rank.data_ptr(),
-            out.data_ptr(), uids.data_ptr(), inverse.data_ptr(),
+            work.data_ptr(), out.data_ptr(), uids.data_ptr(), inverse.data_ptr(),
             counts.data_ptr(), overflow.data_ptr(), T, B, L, C, D, S, U,
-            int(values.dtype == torch.bfloat16), entry="finish")
+            int(max_probes), int(values.dtype == torch.bfloat16))
     fused_sparse_forward.launches += 1
     return _combine_epilogue(FusedBags(out, uids, inverse, counts, overflow),
                              ids, combiner)
@@ -472,33 +469,16 @@ def fused_sparse_forward(values: torch.Tensor, ids: torch.Tensor, *,
 fused_sparse_forward.launches = 0
 
 
-# The backward's fixed summation order, in two levels: the positions of a
-# unique slot, in flat-position order, go in chunks of _CHUNK; each chunk
-# sums its positions in order, then the slot sums its chunks' partials in
-# order (both from 0). A zipf head id's thousands of positions then cost
-# one serial chain of a few hundred partials instead of one of thousands
-# of positions, and the plain version can follow the same order.
+# The backward's fixed summation order, in three levels that depend only
+# on the set of positions of a unique slot, never on the slot's number:
+# the slot's positions, in ascending flat order, go in chunks of _CHUNK,
+# each summed in order from 0; the chunk partials go in runs of _RUN, each
+# summed in order from 0; the runs' sums are summed in order from 0. A zipf
+# head id's tens of thousands of positions are then chunks and runs that
+# many warps sum side by side, and a slot of at most _CHUNK positions is
+# one chunk. The kernel and the plain version follow the same order.
 _CHUNK = 32
-
-
-def _chunk_layout(inverse: torch.Tensor, U: int):
-    """Index bookkeeping of the backward's order for inverse [T, ...]:
-    order [T, N] int64, the flat positions sorted stably by unique slot;
-    start [T, U + 1] int32, each slot's first index into order; nch [T, U]
-    int32, each slot's chunk count (slot 0, pad and overflow, has none);
-    base [T, U] int32, the index of each slot's first chunk within its
-    table."""
-    T = inverse.shape[0]
-    sinv, order = torch.sort(inverse.reshape(T, -1).to(torch.int32), dim=1,
-                             stable=True)
-    keys = torch.arange(U + 1, dtype=torch.int32, device=inverse.device)
-    start = torch.searchsorted(sinv, keys.expand(T, U + 1).contiguous(),
-                               out_int32=True)
-    cnt = start[:, 1:] - start[:, :-1]
-    cnt[:, 0] = 0
-    nch = (cnt + _CHUNK - 1) // _CHUNK
-    base = torch.cumsum(nch, 1, dtype=torch.int32) - nch
-    return order, start, nch, base
+_RUN = 8
 
 
 def _ordered_sums(rows: torch.Tensor, first: torch.Tensor, count: torch.Tensor
@@ -519,28 +499,36 @@ def _ordered_sums(rows: torch.Tensor, first: torch.Tensor, count: torch.Tensor
     return out
 
 
+def _groups(size: torch.Tensor, width: int):
+    """Cut sequences of size[i] consecutive items each into groups of
+    `width` items, groups in sequence order: (first item [G] within the
+    concatenation, items [G], groups per sequence [len(size)])."""
+    ng = (size + width - 1) // width
+    owner = torch.repeat_interleave(torch.arange(size.numel(), device=size.device), ng)
+    j = torch.arange(owner.numel(), device=size.device) - (torch.cumsum(ng, 0) - ng)[owner]
+    first = (torch.cumsum(size, 0) - size)[owner] + width * j
+    return first, torch.clamp(size[owner] - width * j, max=width), ng
+
+
 def _segment_sum_plain(gs, mask, inverse, U) -> torch.Tensor:
     """grad_u [T, U, D] f32: every position's bag gradient gs[t, b] times
-    its mask, summed per unique slot in the kernel's two-level order, so
+    its mask, summed per unique slot in the kernel's three-level order, so
     the two agree bit for bit."""
     T, B, L = inverse.shape
     D = gs.shape[-1]
     N = B * L
-    contrib = (gs[:, :, None, :] * mask.to(torch.float32)[..., None]).reshape(T, N, D)
-    order, start, nch, base = _chunk_layout(inverse, U)
-    nch = nch.reshape(-1).long()
-    gfirst = torch.cumsum(nch, 0) - nch  # each slot's first chunk, all tables
-    # level 1: the chunks of every slot in (t, u, j) order, over the
-    # positions sorted by slot
-    tu = torch.repeat_interleave(torch.arange(T * U, device=gs.device), nch)
-    t, u = tu // U, tu % U
-    j = torch.arange(tu.numel(), device=gs.device) - gfirst[tu]
-    first = start[t, u].long() + _CHUNK * j
-    count = torch.clamp(start[t, u + 1].long() - first, max=_CHUNK)
-    by_slot = contrib.gather(1, order[..., None].expand(T, N, D)).reshape(T * N, D)
-    part = _ordered_sums(by_slot, t * N + first, count)
-    # level 2: each slot's chunk partials in j order
-    return _ordered_sums(part, gfirst, nch).view(T, U, D)
+    contrib = (gs[:, :, None, :] * mask.to(torch.float32)[..., None]).reshape(T * N, D)
+    inv = inverse.reshape(T, N).long()
+    # every slot's positions in ascending flat order, slots in (t, u) order
+    key = torch.where((inv > 0) & (inv < U),
+                      torch.arange(T, device=gs.device)[:, None] * U + inv, -1).reshape(-1)
+    order = torch.sort(key, stable=True)[1][int((key < 0).sum()):]
+    size = torch.bincount(key[key >= 0], minlength=T * U)
+    first, count, nch = _groups(size, _CHUNK)
+    part = _ordered_sums(contrib[order], first, count)  # level 1: chunks
+    first, count, nrun = _groups(nch, _RUN)
+    run = _ordered_sums(part, first, count)             # level 2: runs
+    return _ordered_sums(run, torch.cumsum(nrun, 0) - nrun, nrun).view(T, U, D)
 
 
 _OPT_CODES = {"GradientDescent": 0, "Adagrad": 1, "Adam": 2, "AdamW": 3,
@@ -674,29 +662,26 @@ def fused_sparse_backward(values: torch.Tensor, slots: Dict[str, torch.Tensor],
         p, l2x2, l1 = -opt.learning_rate_power, 2.0 * opt.l2, opt.l1
     else:
         p = l2x2 = l1 = 0.0
-    # the fixed summation order's bookkeeping (a stable sort of inverse,
-    # a sorted search, a prefix sum), and the chunk partials' buffer: at
-    # most ceil(N / _CHUNK) + U chunks per table
-    order, start, nch, base = _chunk_layout(res.inverse, U)
-    M = -(-B * L // _CHUNK) + U
-    part = torch.empty((T, M, D), dtype=torch.float32, device=dev)
+    # the three launches' workspace, sized by the library
+    # (csrc/fused_sparse_backward.cu)
+    from deeprec_tpu_torch.ops import _build
+
+    size = _build.load("fused_sparse_backward").fused_sparse_backward_workspace(
+        T, B, L, D, U)
+    work = torch.empty((size,), dtype=torch.int32, device=dev)
     sl = [slots[n] for n in _OPT_SLOTS[code]]
     gs = gs.contiguous()
-    flat = ids.to(torch.int32).contiguous()
-    uids = res.uids.to(torch.int32).contiguous()
-    counts = res.counts.to(torch.int32).contiguous()
-    _launch("fused_sparse_backward", values, gs.data_ptr(), flat.data_ptr(),
-            order.data_ptr(), start.data_ptr(), nch.data_ptr(), base.data_ptr(),
-            part.data_ptr(), T, B, L, D, U, M, entry="partials")
+    flat, inverse, uids, counts = (x.to(torch.int32).contiguous() for x in (
+        ids, res.inverse, res.uids, res.counts))
     _launch("fused_sparse_backward", values, values.data_ptr(),
             sl[0].data_ptr() if sl else None,
             sl[1].data_ptr() if len(sl) > 1 else None,
-            part.data_ptr(), nch.data_ptr(), base.data_ptr(),
-            uids.data_ptr(), counts.data_ptr(), scal.data_ptr(),
-            T, C, D, U, M, code,
+            gs.data_ptr(), flat.data_ptr(), inverse.data_ptr(), uids.data_ptr(),
+            counts.data_ptr(), scal.data_ptr(),
+            work.data_ptr(), T, B, L, C, D, U, code,
             b1, 1.0 - b1, b2, 1.0 - b2, eps, p, l2x2, l1,
             int(seed) & 0xFFFFFFFF, int(bool(grad_averaging)),
-            int(values.dtype == torch.bfloat16), entry="apply")
+            int(values.dtype == torch.bfloat16))
     fused_sparse_backward.launches += 1
     return values, slots
 

@@ -184,37 +184,96 @@ def test_backward_matches_pallas_interpret():
     _backward_case("adagrad", "sum", interpret=True, seed=12)
 
 
+def _spelled_out_sum(contrib, inv, u):
+    """The fixed order, written as loops: slot u's positions in ascending
+    flat order, in chunks of 32 summed in order from 0; the chunk partials
+    in runs of 8 summed in order from 0; the runs' sums in order from 0."""
+    pos = np.flatnonzero(inv == u) if u else np.zeros(0, np.int64)
+    parts = []
+    for c0 in range(0, len(pos), 32):
+        part = np.zeros(contrib.shape[1], np.float32)
+        for n in pos[c0:c0 + 32]:
+            part = part + contrib[n]
+        parts.append(part)
+    total = np.zeros(contrib.shape[1], np.float32)
+    for r0 in range(0, len(parts), 8):
+        run = np.zeros(contrib.shape[1], np.float32)
+        for part in parts[r0:r0 + 8]:
+            run = run + part
+        total = total + run
+    return pos, total
+
+
 def test_backward_summation_order_is_two_level():
-    """The fixed order both the kernel and the plain version follow: a
-    slot's positions, in flat order, in chunks of 32 summed in order from
-    0, then the chunks' partials in order from 0 — bit for bit against a
-    loop that spells it out; within f32 rounding of the exact sum. One id
-    holds about 400 positions here (13 chunks)."""
-    rng = np.random.default_rng(9)
-    Bs, Ls, D = 64, 8, 16
-    ids = np.where(rng.random((Bs, Ls)) < 0.8, 0, rng.integers(1, 40, (Bs, Ls)))
+    """The fixed order both the kernel and the plain version follow, now in
+    three levels: a slot's positions, in flat order, in chunks of 32 summed
+    in order from 0, the chunks' partials in runs of 8 summed in order from
+    0, then the runs' sums in order from 0 — bit for bit against loops that
+    spell it out; within f32 rounding of the exact sum. One id holds about
+    400 positions (13 chunks, two runs) in the first case and about 3,300
+    (105 chunks, 14 runs: the split of a zipf head over CTAs) in the
+    second."""
+    for Bs, Ls, head, min_chunks in ((64, 8, 0.8, 13), (64, 64, 0.9, 105)):
+        rng = np.random.default_rng(9)
+        D = 16
+        ids = np.where(rng.random((Bs, Ls)) < head, 0, rng.integers(1, 40, (Bs, Ls)))
+        ids[rng.random((Bs, Ls)) < 0.1] = -1
+        ids = ids.astype(np.int32)
+        gs = rng.normal(0, 1, (Bs, D)).astype(np.float32)
+        Ub = resolve_size(Bs * Ls, Bs * Ls)
+        res = tfl.fused_sparse_forward(torch.zeros((1, 64, D)), torch.from_numpy(ids)[None],
+                                       combiner="sum", unique_size=Ub)
+        got = tfl._segment_sum_plain(torch.from_numpy(gs)[None],
+                                     torch.from_numpy(ids >= 0)[None], res.inverse, Ub)[0]
+        inv = res.inverse[0].numpy().reshape(-1)
+        contrib = np.repeat(gs, Ls, axis=0) * (ids.reshape(-1) >= 0)[:, None]
+        assert int(np.bincount(inv).max()) > (min_chunks - 1) * 32
+        for u in range(Ub):
+            pos, total = _spelled_out_sum(contrib, inv, u)
+            np.testing.assert_array_equal(got[u].numpy(), total)
+            np.testing.assert_allclose(got[u].numpy(),
+                                       contrib[pos].astype(np.float64).sum(0),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,opt_name", [("float32", "adagrad"), ("float32", "adam"),
+                                            ("bfloat16", "adagrad")])
+def test_backward_ignores_the_slot_numbering(dtype, opt_name):
+    """The backward's tables and slots are bit-identical when the forward's
+    slot numbering is permuted (uids, counts and inverse relabelled
+    together): the property that lets the kernel rank uids in claim order.
+    A head id of about 2,100 positions spans 9 runs."""
+    rng = np.random.default_rng(13)
+    Bs, Ls, C, D = 64, 48, 64, 16
+    ids = np.where(rng.random((Bs, Ls)) < 0.75, 3, rng.integers(0, C, (Bs, Ls)))
     ids[rng.random((Bs, Ls)) < 0.1] = -1
-    ids = ids.astype(np.int32)
-    gs = rng.normal(0, 1, (Bs, D)).astype(np.float32)
+    tids = torch.from_numpy(ids.astype(np.int32))[None]
+    vals = _table(rng, C, D)
+    opt = TREG[opt_name]()
     Ub = resolve_size(Bs * Ls, Bs * Ls)
-    res = tfl.fused_sparse_forward(torch.zeros((1, 64, D)), torch.from_numpy(ids)[None],
-                                   combiner="sum", unique_size=Ub)
-    got = tfl._segment_sum_plain(torch.from_numpy(gs)[None],
-                                 torch.from_numpy(ids >= 0)[None], res.inverse, Ub)[0]
-    inv = res.inverse[0].numpy().reshape(-1)
-    contrib = np.repeat(gs, Ls, axis=0) * (ids.reshape(-1) >= 0)[:, None]
-    assert int(np.bincount(inv).max()) > 12 * 32
-    for u in range(Ub):
-        pos = np.flatnonzero(inv == u) if u else np.zeros(0, np.int64)
-        total = np.zeros(D, np.float32)
-        for c0 in range(0, len(pos), 32):
-            part = np.zeros(D, np.float32)
-            for n in pos[c0:c0 + 32]:
-                part = part + contrib[n]
-            total = total + part
-        np.testing.assert_array_equal(got[u].numpy(), total)
-        np.testing.assert_allclose(got[u].numpy(), contrib[pos].astype(np.float64).sum(0),
-                                   rtol=1e-5, atol=1e-5)
+    v0 = _port_values(vals, dtype)
+    res = tfl.fused_sparse_forward(v0, tids, combiner="sum", unique_size=Ub)
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      1 + torch.from_numpy(rng.permutation(Ub - 1))])
+    uids, counts = torch.empty_like(res.uids), torch.empty_like(res.counts)
+    uids[0, perm], counts[0, perm] = res.uids[0], res.counts[0]
+    permuted = res._replace(uids=uids, counts=counts,
+                            inverse=perm[res.inverse.long()].to(torch.int32))
+    assert not torch.equal(permuted.uids, res.uids)
+    grad = torch.from_numpy(rng.normal(0, 1, (1, Bs, D)).astype(np.float32))
+    outs = []
+    for r in (res, permuted):
+        v = v0.clone()
+        s = {k: torch.full((1, C, D), init) for k, (_, init) in opt.slot_specs(D).items()}
+        tfl.fused_sparse_backward(v, s, grad, tids, r, opt, combiner="sum", step=2,
+                                  seed=5, grad_averaging=True)
+        outs.append((v, s))
+    (va, sa), (vb, sb) = outs
+    assert torch.equal(va.view(torch.int16) if dtype == "bfloat16" else va.view(torch.int32),
+                       vb.view(torch.int16) if dtype == "bfloat16" else vb.view(torch.int32))
+    for k in sa:
+        assert torch.equal(sa[k].view(torch.int32), sb[k].view(torch.int32)), k
+    assert not torch.equal(va, v0)
 
 
 def test_sr_bits_rows_match_jax():
