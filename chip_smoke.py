@@ -16,7 +16,11 @@ Phases, each of which must pass:
      compared) and `fused_gather_combine` (#4, pooled bags: one 2^20 x 128
      f32 table, batch 2048 of L = 100 zipf(1.2) ids, 5 % pads, mean
      weights, against embedding_bag; edge shapes in f32 and bf16, D 128,
-     16, 12 and 7, sum, mean and sqrtn weights);
+     16, 12 and 7, sum, mean and sqrtn weights; and, each timed beside
+     its byte bound and embedding_bag, the shapes the main paths launch it
+     at: one-hot bags of 2048 over 2^20 rows at D 128 and 16, and the
+     multi-hot request's [2048, 100] bags with the first L positions real
+     for each MLPerf bag length L over 204,800 rows at D 128);
   4. the serving main path at full width: MLPerf DLRM-DCN (emb_dim 128,
      26 x 2^20-slot tables, bottom 512-256-128, top 512-256-1, cross depth
      3) restored from a full checkpoint written with numpy from --seed
@@ -65,7 +69,7 @@ Phases, each of which must pass:
      launch) against their plain versions on the card at BST's attention
      shape [2048, 4, 256, 8] (masks of SyntheticBehaviorSequence histories
      plus the target, padded to 256) and at FLASH_SHAPES (causal, blocks 64
-     and 128, dead rows, Dh 64, a padded Dh), o and lse within 1e-5
+     and 128, dead rows, Dh 64, a padded Dh, a scattered mask), o and lse within 1e-5
      relative and the gradients within 1e-4 of their largest (bf16
      q, k, v at [2, 2, 256, 32]: one bf16 ulp more); at BST's
      shape the device times of both, their plain versions and
@@ -488,10 +492,47 @@ def combine_phase(dev, seed, cfg=COMBINE, edges=COMBINE_EDGES):
         _cycled_ms(lambda ix, w: torch.nn.functional.embedding_bag(
             ix, values, per_sample_weights=w, mode="sum"), lib, dev))
     del values, sets, lib
+    rec["max_abs_err"] = max(err, combine_launch_shapes(dev, g, cfg))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     print(f"fused_gather_combine checks and timing took {time.perf_counter() - t0:.1f} s")
     return rec
+
+
+def combine_launch_shapes(dev, g, cfg):
+    """Kernel #4 alone at the shapes the main paths launch it at, checked
+    bit for bit against its plain version and timed beside its byte bound
+    and embedding_bag: one-hot bags (L = 1) of `batch` over a
+    `capacity`-row table at D 128 (DLRM-DCN serving) and D 16 (BST and the
+    modelzoo), and the multi-hot request's bags, [batch, 100] with the
+    first L positions real for each MLPerf bag length L, over the U = N
+    rows of its read-only view at D 128. Rows are distinct, 5 % of the
+    real positions pads, mean weights. Returns the max abs error (0)."""
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+
+    B, Lp = cfg["batch"], max(MULTI_HOT)
+    shapes = [(cfg["capacity"], 128, 1, 1), (cfg["capacity"], 16, 1, 1)]
+    shapes += [(B * Lp, 128, Lp, L) for L in sorted(set(MULTI_HOT))]
+    err = 0.0
+    for C, D, width, L in shapes:
+        values = torch.randn((C, D), generator=g, device=dev)
+        rows = torch.randperm(C, generator=g, device=dev)[:B * L].view(B, L)
+        pad = torch.rand((B, L), generator=g, device=dev) < 0.05
+        row_ix = torch.full((B, width), -1, dtype=torch.int32, device=dev)
+        row_ix[:, :L] = torch.where(pad, -1, rows).to(torch.int32)
+        w = combine_weights(row_ix, "mean")
+        what = f"launch shape C={C} D={D}, {B} bags of {L} real of {width} positions"
+        err = max(err, compare_combine(values, row_ix, w, what))
+        nbytes = (int((row_ix >= 0).sum()) * D * 4 + row_ix.numel() * 8 + B * D * 4)
+        lib = row_ix.clamp(min=0)
+        kernel = _ms(lambda: fused_gather_combine(values, row_ix, w), dev, reps=20)
+        library = _ms(lambda: torch.nn.functional.embedding_bag(
+            lib, values, per_sample_weights=w, mode="sum"), dev, reps=20)
+        print(f"fused_gather_combine {what}: device ms {kernel[0]} (per call "
+              f"{kernel[1]}), byte bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
+              f"({nbytes / 1e6:.3f} MB), embedding_bag {library[0]}")
+        del values, rows, pad, row_ix, w, lib
+    return err
 
 
 # ------------------------------------------------------------ checkpoint
@@ -1513,22 +1554,26 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 # o and lse within 1e-5 * max(1, |plain|); dq, dk and dv within 1e-4 of the
 # tensor's largest |plain| gradient.
 FLASH_FWD_RTOL, FLASH_GRAD_TOL = 1e-5, 1e-4
-# (B, H, Lq, S, D, causal, block_q, block_k, dead rows), besides BST's own
+# (B, H, Lq, S, D, causal, block_q, block_k, mask), besides BST's own
 # shape: tests/test_attention.py's [2, 2, 256, 32] at blocks 64 and 128;
-# rows that see no real key; a head width of 64; a width the kernels pad.
+# rows that see no real key (mask "dead"); a head width of 64; a width the
+# kernels pad; a scattered mask (about 40 % real at random, so real keys
+# are no prefix: the kernels list each batch row's real keys). Mask None:
+# lengths in [S/2, S].
 FLASH_SHAPES = [
-    (2, 2, 256, 256, 32, False, 64, 64, False),
-    (2, 2, 256, 256, 32, True, 64, 64, False),
-    (2, 2, 256, 256, 32, False, 128, 128, False),
-    (2, 2, 256, 256, 32, True, 128, 128, False),
-    (4, 2, 256, 256, 16, False, 64, 64, True),
-    (4, 2, 256, 256, 16, True, 64, 64, True),
-    (64, 4, 256, 256, 64, False, 128, 128, False),
-    (2, 3, 128, 384, 12, True, 64, 128, False),
+    (2, 2, 256, 256, 32, False, 64, 64, None),
+    (2, 2, 256, 256, 32, True, 64, 64, None),
+    (2, 2, 256, 256, 32, False, 128, 128, None),
+    (2, 2, 256, 256, 32, True, 128, 128, None),
+    (4, 2, 256, 256, 16, False, 64, 64, "dead"),
+    (4, 2, 256, 256, 16, True, 64, 64, "dead"),
+    (64, 4, 256, 256, 64, False, 128, 128, None),
+    (2, 3, 128, 384, 12, True, 64, 128, None),
+    (4, 2, 256, 256, 8, False, 128, 128, "scattered"),
 ]
 # bf16 q, k, v, do (the JAX function takes them; the kernels upcast on load
 # and store o, dq, dk, dv in bf16): tests/test_attention.py's shape.
-FLASH_BF16_SHAPES = [(2, 2, 256, 256, 32, False, 64, 64, False)]
+FLASH_BF16_SHAPES = [(2, 2, 256, 256, 32, False, 64, 64, None)]
 # BST as modelzoo/bst/train.py runs it (emb 16, capacity 2^20, batch 2048,
 # vocab 100,000, Adagrad 0.2, Adam 1e-3; heads 4, ff 128, one block,
 # hidden 256-64) with use_flash=True and histories at max_len 200. The
@@ -1635,18 +1680,21 @@ def flash_phase(dev, seed, cfg, shapes):
         torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(seed + 23)
     errs = []
-    for B, H, Lq, S, D, causal, bq, bk, dead in shapes:
+    for B, H, Lq, S, D, causal, bq, bk, pattern in shapes:
         q = torch.randn((B, H, Lq, D), generator=g, device=dev)
         k, v = (torch.randn((B, H, S, D), generator=g, device=dev) for _ in range(2))
         do = torch.randn((B, H, Lq, D), generator=g, device=dev)
         lengths = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
         mask = torch.arange(S, device=dev)[None, :] < lengths[:, None]
-        if dead:  # batch 0 sees no key; batch 1's first 64 keys are masked
+        if pattern == "dead":  # batch 0 sees no key; batch 1's first 64 keys are masked
             mask[0] = False
             mask[1, :64] = False
+        elif pattern == "scattered":
+            mask = torch.rand((B, S), generator=g, device=dev) < 0.4
+        label = {"dead": " dead rows", "scattered": " scattered mask"}.get(pattern, "")
         errs.append(compare_flash(q, k, v, mask, do, causal, bq, bk,
                                   f"B={B} H={H} Lq={Lq} S={S} D={D} causal={causal} "
-                                  f"blocks {bq}/{bk}{' dead rows' if dead else ''}"))
+                                  f"blocks {bq}/{bk}{label}"))
     for B, H, Lq, S, D, causal, bq, bk, _ in FLASH_BF16_SHAPES:
         q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                        for shape in ((B, H, Lq, D), (B, H, S, D), (B, H, S, D),

@@ -6,230 +6,329 @@
 // Q blocks stream through the sequential grid axis, dk/dv accumulate in
 // VMEM scratch) and _fa_bwd_dq_kernel (the forward's access pattern with ds
 // in place of p). On Hopper the sequential grid axis becomes a loop inside
-// the block:
-//  - dkdv_kernel: one block owns (b*h, a tile of 128 keys), one thread one
-//    key row (k, v, dk, dv in registers); tiles of q, do, lse and delta are
-//    staged in shared memory and every row of a tile meets every key of the
-//    block;
-//  - dq_kernel: one block owns (b*h, a tile of 128 query rows), one thread
-//    one query row (q, do, dq in registers); tiles of k, v and the key mask
-//    are staged in shared memory.
+// the block, and both kernels work on the real keys only:
+//  - dq_kernel (launched first): one block owns (b*h, a tile of query
+//    rows), each thread R rows (q, do, dq in registers); the block lists
+//    its batch row's real keys (a ballot per 32 mask bytes) and stages only
+//    those rows of k and v in shared memory, as the forward does. It also
+//    computes each row's delta = rowsum(do * o) from the stored o and
+//    writes it for the second kernel;
+//  - dkdv_kernel: block g of a b*h owns its batch row's real keys of rank
+//    g*KB .. g*KB+KB-1 (listed by a ballot per 32 mask bytes), one per
+//    thread (k, v, dk, dv in registers), and streams tiles of q, do, lse
+//    and delta through shared memory, rows unrolled so that their latencies
+//    overlap. A warp past the row's last real key skips the rows, and a
+//    block past it stops at once. A masked key's dk
+//    and dv are exactly 0 (p = 0 for it in every row), so block g writes
+//    zeros for the masked keys among positions g*KB .. g*KB+KB-1, and they
+//    stream nothing.
 // Each output element is written once by one thread: no atomics, so the
 // result is deterministic.
 //
-// What bounds it: operations. The five products (s, dp recomputed in both
-// kernels; dv, dk, dq) are 10*B*H*Lq*S*D = 42.9 GFLOP at the BST shape
-// (B*H = 8192, Lq = S = 256, D = 8), 0.64 ms at the 67 TFLOP/s f32 rate of
-// the CUDA cores, against 0.15 ms to move q, k, v, do, lse, delta and the
-// three gradients (487 MB at 3.35 TB/s). Scores never leave registers.
+// What bounds it: operations, and on this card the instructions per real
+// (row, key) pair. The five products (s and dp in both kernels; dv, dk,
+// dq) over BST's real pairs (B*H = 8192, Lq = S = 256, D = 8, about 40 %
+// real) are 17 GFLOP, 0.25 ms at 67 TFLOP/s. Each pair costs FFMAs for its
+// products, one MUFU.EX2 (scale * log2(e) folded into q or k, lse taken to
+// log2 units once per row) and a few scalar operations; in dQ one broadcast
+// shared-memory load of a key feeds R rows. For wide heads a key's or
+// row's D splits over G lanes (dot products summed by shuffles) so that the
+// registers hold it.
 //
 // Semantics kept from the Pallas kernels (and the port's plain version,
 // ops/flash_attention.py flash_backward_plain):
 //  - p = exp(s - lse) with the dead-row guard of _probs_from_lse: a row
-//    whose lse <= -5e29 (all its visible keys masked) has p = 0 everywhere;
-//  - ds = p * (dp - delta) * scale, dv += p do, dk += ds q, dq += ds k;
-//  - the causal skip at the caller's block sizes, as in the forward.
-// A masked key (or a causally hidden one) of a live row has s = -1e30, so
-// p = exp(-1e30 - lse) is exactly 0 and its terms are exactly zero: both
-// kernels skip such pairs without computing them, which changes no bit.
+//    whose lse <= -5e29 (all its visible keys masked) has p = 0 everywhere,
+//    so its dq is 0 and it adds nothing to dk and dv;
+//  - ds = p * (dp - delta) * scale, dv += p do, dk += ds q, dq += ds k (the
+//    scale is applied to dk and dq once, at the end);
+//  - a masked key, or under causal a key j > i, has s = -1e30, so
+//    p = exp(-1e30 - lse) is exactly 0 for a live row: the kernels skip
+//    such pairs. The caller's causal block skip only hides keys j > i, so
+//    it needs no test of its own here.
+// The sums run in another order than the plain version's, so results agree
+// to a tolerance, not bit for bit.
 //
-// Types: q, k, v, do and the gradients are all f32 or all bf16. Every
+// Types: q, k, v, do, o and the gradients are all f32 or all bf16. Every
 // element is upcast to f32 on load, the computation is f32, and dq, dk and
 // dv are stored in the inputs' type (bf16 rounded to nearest even, as JAX's
 // `.astype`); lse and delta are f32 (delta from the stored, rounded o).
 //
-// Layout: q, do [BH, Lq, D]; k, v [BH, S, D]; lse, delta [BH, Lq] f32;
+// Layout: q, do, o [BH, Lq, D]; k, v [BH, S, D]; lse, delta [BH, Lq] f32;
 // mask [B, S] bytes indexed by b = bh / H; dq [BH, Lq, D], dk, dv [BH, S, D],
-// all contiguous. D is one of 8, 16, 32, 64, 128.
+// all contiguous. D is one of 8, 16, 32, 64, 128. Offsets inside one b*h
+// are 32-bit (the launchers check Lq*D and S*D).
 //
 // The launchers run on the caller's stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() so a refused launch is seen.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kRows = 128;  // rows (keys or queries) per block, one per thread
-
-__device__ __forceinline__ int64_t keys_run(int64_t i, int64_t S, int64_t block_q,
-                                            int64_t block_k, int causal) {
-    if (!causal) return S;
-    const int64_t last = (i / block_q + 1) * block_q - 1;
-    const int64_t n = (last / block_k + 1) * block_k;
-    return n < S ? n : S;
-}
+using namespace flash;
 
 __device__ __forceinline__ bool dead(float lse) { return lse <= kNegInf * 0.5f; }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// ------------------------------------------------------------------ dQ
 
-// n rows of D elements from device memory into f32 shared memory, 4
-// elements per step (a 16-byte f32 vector, or 8 bytes of bf16 widened).
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int n,
-                                          int tid, int nthreads) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int t = tid; t < n * D / 4; t += nthreads) d4[t] = s4[t];
-}
+// Per head width: R rows per group of G lanes, NT threads a block, W listed
+// keys per shared-memory tile. At D 32, 2 rows took 255 registers and ran
+// no faster than 1.
+template <int D> struct DqCfg;
+template <> struct DqCfg<8> { static constexpr int R = 2, G = 1, NT = 128, W = 256; };
+template <> struct DqCfg<16> { static constexpr int R = 2, G = 1, NT = 128, W = 256; };
+template <> struct DqCfg<32> { static constexpr int R = 1, G = 1, NT = 128, W = 128; };
+template <> struct DqCfg<64> { static constexpr int R = 1, G = 2, NT = 256, W = 64; };
+template <> struct DqCfg<128> { static constexpr int R = 1, G = 4, NT = 256, W = 32; };
 
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, int n,
-                                          int tid, int nthreads) {
-    const uint2* s2 = reinterpret_cast<const uint2*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int t = tid; t < n * D / 4; t += nthreads) {
-        const uint2 x = s2[t];
-        d4[t] = make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xFFFF0000u),
-                            __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xFFFF0000u));
+constexpr int kDqRowsPerBlock = DqCfg<D>::NT / DqCfg<D>::G * DqCfg<D>::R;
+
+// Tile key c into the thread's R rows' dq. kPred: row r sees only the first
+// nr[r] keys (p = 0 past them, and for dead or absent rows).
+template <bool kPred, int D, int R, int G>
+__device__ __forceinline__ void dq_key(const float* ks, const float* vs, int c, int gl,
+                                       const float (&qr)[R][D / G],
+                                       const float (&dor)[R][D / G],
+                                       float (&dqr)[R][D / G], const float (&l2)[R],
+                                       const float (&del)[R], const int (&nr)[R]) {
+    constexpr int DL = D / G;
+    float kk[DL], vv[DL];
+    load_part<DL, G>(kk, ks + c * D, gl);
+    load_part<DL, G>(vv, vs + c * D, gl);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const float s = group_sum<G>(dot<DL>(qr[r], kk));
+        const float dp = group_sum<G>(dot<DL>(dor[r], vv));
+        float p = ex2(s - l2[r]);
+        if (kPred) p = c < nr[r] ? p : 0.f;
+        const float ds = p * (dp - del[r]);
+#pragma unroll
+        for (int d = 0; d < DL; ++d) dqr[r][d] = __fmaf_rn(ds, kk[d], dqr[r][d]);
     }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const uint8_t* __restrict__ mask,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk,
-            T* __restrict__ dv, int64_t H, int64_t Lq, int64_t S,
-            int64_t block_q, int64_t block_k, int causal, float scale) {
-    constexpr int TQ = (4096 / D) < 128 ? (4096 / D) : 128;  // query rows per tile
+__global__ void __launch_bounds__(DqCfg<D>::NT)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+          const float* __restrict__ lse, const T* __restrict__ o, T* __restrict__ dq,
+          float* __restrict__ delta, int H, int Lq, int S, int causal, float scale) {
+    constexpr int R = DqCfg<D>::R, G = DqCfg<D>::G, NT = DqCfg<D>::NT,
+                  W = DqCfg<D>::W, DL = D / G, RB = kDqRowsPerBlock<D>;
+    static_assert(DL % 4 == 0, "tile shapes");
+    __shared__ __align__(16) float ks[W * D];
+    __shared__ __align__(16) float vs[W * D];
+    __shared__ int idx[W];
+    __shared__ int count;
+
+    const int ntiles = (Lq + RB - 1) / RB;
+    const int64_t bh = blockIdx.x / ntiles;
+    const int i0 = (int)(blockIdx.x % ntiles) * RB;
+    const int gl = threadIdx.x % G;
+    const int ib = i0 + (int)threadIdx.x / G * R;  // the thread's first row
+    const int64_t row0 = bh * Lq;
+    const T* kb = k + bh * S * D;
+    const T* vb = v + bh * S * D;
+    const uint8_t* mb = mask + bh / H * S;
+    const float scale2 = scale * kLog2e;
+
+    float qr[R][DL], dor[R][DL], dqr[R][DL], l2[R], del[R];
+    bool alive[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const int i = ib + r;
+        const bool live = i < Lq;
+        float orow[DL];
+        if (live) {
+            load_part<DL, G>(qr[r], q + (row0 + i) * D, gl);
+            load_part<DL, G>(dor[r], dout + (row0 + i) * D, gl);
+            load_part<DL, G>(orow, o + (row0 + i) * D, gl);
+        }
+        float dsum = 0.f;
+#pragma unroll
+        for (int d = 0; d < DL; ++d) {
+            qr[r][d] = live ? qr[r][d] * scale2 : 0.f;
+            dor[r][d] = live ? dor[r][d] : 0.f;
+            dsum = __fmaf_rn(dor[r][d], live ? orow[d] : 0.f, dsum);
+            dqr[r][d] = 0.f;
+        }
+        del[r] = group_sum<G>(dsum);
+        const float lse_i = live ? lse[row0 + i] : kNegInf;
+        alive[r] = live && !dead(lse_i);
+        l2[r] = alive[r] ? lse_i * kLog2e : 0.f;
+        if (live && gl == 0) delta[row0 + i] = del[r];
+    }
+
+    // keys past the block's last row are causally hidden from all its rows
+    const int ilast = (i0 + RB < Lq ? i0 + RB : Lq) - 1;
+    const int bound = causal ? (ilast + 1 < S ? ilast + 1 : S) : S;
+    for (int skip = 0;; skip += W) {  // tiles of W listed keys
+        __syncthreads();  // the previous tile is no longer read
+        compact<W>(mb, bound, skip, idx, &count);
+        const int n = count;
+        if (n == 0) break;
+        gather_kv<D, NT>(ks, vs, kb, vb, idx, n, n);
+        int nr[R], lo = n, hi = 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            nr[r] = !alive[r] ? 0 : causal ? count_upto(idx, n, ib + r) : n;
+            lo = min(lo, nr[r]);
+            hi = max(hi, nr[r]);
+        }
+        __syncthreads();
+        lo = __reduce_min_sync(kAll, lo);  // warp-uniform bounds (shuffles)
+        hi = __reduce_max_sync(kAll, hi);
+        int c = 0;
+        for (; c < lo; ++c) dq_key<false, D, R, G>(ks, vs, c, gl, qr, dor, dqr, l2, del, nr);
+        for (; c < hi; ++c) dq_key<true, D, R, G>(ks, vs, c, gl, qr, dor, dqr, l2, del, nr);
+        if (n < W) break;  // that was the last real key
+    }
+
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (ib + r >= Lq) continue;
+#pragma unroll
+        for (int d = 0; d < DL; ++d) dqr[r][d] = dqr[r][d] * scale;
+        store_part<DL, G>(dq + (row0 + ib + r) * D, gl, dqr[r]);
+    }
+}
+
+// ------------------------------------------------------------------ dK/dV
+
+// Per head width: one key per group of G lanes, NT threads a block (so
+// KB = NT / G keys a block), TQ query rows per shared-memory tile, U rows
+// unrolled (each unrolled row holds its q and do in registers). Two or four
+// keys per thread ran slower at BST's shape (more registers, fewer warps).
+template <int D> struct KvCfg;
+template <> struct KvCfg<8> { static constexpr int G = 1, NT = 128, TQ = 256, U = 4; };
+template <> struct KvCfg<16> { static constexpr int G = 2, NT = 128, TQ = 128, U = 4; };
+template <> struct KvCfg<32> { static constexpr int G = 2, NT = 64, TQ = 128, U = 4; };
+template <> struct KvCfg<64> { static constexpr int G = 4, NT = 128, TQ = 64, U = 2; };
+template <> struct KvCfg<128> { static constexpr int G = 8, NT = 256, TQ = 32, U = 4; };
+
+template <int D>
+constexpr int kKeysPerBlock = KvCfg<D>::NT / KvCfg<D>::G;
+
+// Tile row ii (query row i) into the thread's key's dk and dv. kPred: under
+// causal, the key (position j) gets p = 0 when j > i.
+template <bool kPred, int DL, int G>
+__device__ __forceinline__ void kv_row(const float* qs, const float* dos, int ii, int i,
+                                       float2 lse2_delta, int gl, const float (&kr)[DL],
+                                       const float (&vr)[DL], float (&dkr)[DL],
+                                       float (&dvr)[DL], int j) {
+    constexpr int D = DL * G;
+    float qv[DL], dov[DL];
+    load_part<DL, G>(qv, qs + ii * D, gl);
+    load_part<DL, G>(dov, dos + ii * D, gl);
+    const float s = group_sum<G>(dot<DL>(qv, kr));
+    const float dp = group_sum<G>(dot<DL>(dov, vr));
+    float p = ex2(s - lse2_delta.x);
+    if (kPred) p = j > i ? 0.f : p;
+    const float ds = p * (dp - lse2_delta.y);
+#pragma unroll
+    for (int d = 0; d < DL; ++d) {
+        dvr[d] = __fmaf_rn(p, dov[d], dvr[d]);
+        dkr[d] = __fmaf_rn(ds, qv[d], dkr[d]);
+    }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(KvCfg<D>::NT)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int S, int causal,
+            float scale) {
+    constexpr int G = KvCfg<D>::G, NT = KvCfg<D>::NT, TQ = KvCfg<D>::TQ, U = KvCfg<D>::U,
+                  DL = D / G, KB = kKeysPerBlock<D>;
+    static_assert(DL % 4 == 0 && NT % 32 == 0, "tile shapes");
     __shared__ __align__(16) float qs[TQ * D];
     __shared__ __align__(16) float dos[TQ * D];
-    __shared__ float lses[TQ];
-    __shared__ float dels[TQ];
-    __shared__ int64_t runs[TQ];
+    __shared__ float2 rowc[TQ];  // (lse in log2 units, delta) per row: one load
+    __shared__ int idx[KB];
+    __shared__ int count;
 
-    const int64_t ntiles = (S + kRows - 1) / kRows;
-    const int64_t bh = blockIdx.x / ntiles;
-    const int64_t j0 = (blockIdx.x % ntiles) * kRows;
-    const int64_t j = j0 + threadIdx.x;
-    const bool live = j < S;
-    const bool real = live && mask[(bh / H) * S + j];
+    const int ngroups = (S + KB - 1) / KB;
+    const int64_t bh = blockIdx.x / ngroups;
+    const int j0 = (int)(blockIdx.x % ngroups) * KB;  // first rank, and first zeroed position
+    const int jend = j0 + KB < S ? j0 + KB : S;
+    // under causal no query row (i < Lq) sees a key j >= Lq
+    const int bound = causal ? (S < Lq ? S : Lq) : S;
+    const int gl = threadIdx.x % G;
+    const int c = (int)threadIdx.x / G;  // the thread's listed key
+    const int64_t row0 = bh * Lq;
+    const uint8_t* mb = mask + bh / H * S;
+    T* dkb = dk + bh * S * D;
+    T* dvb = dv + bh * S * D;
 
-    float kr[D], vr[D], dkr[D], dvr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        kr[d] = real ? to_f32(k[(bh * S + j) * D + d]) : 0.f;
-        vr[d] = real ? to_f32(v[(bh * S + j) * D + d]) : 0.f;
-        dkr[d] = 0.f;
-        dvr[d] = 0.f;
-    }
-
-    for (int64_t i0 = 0; i0 < Lq; i0 += TQ) {
-        const int n = (int)(Lq - i0 < TQ ? Lq - i0 : TQ);
-        // rows run keys [0, keys_run(i)), non-decreasing in i: a tile whose
-        // last row runs none of this block's keys is skipped whole
-        if (keys_run(i0 + n - 1, S, block_q, block_k, causal) <= j0) continue;
-        __syncthreads();
-        load_tile<D>(qs, q + (bh * Lq + i0) * D, n, threadIdx.x, kRows);
-        load_tile<D>(dos, dout + (bh * Lq + i0) * D, n, threadIdx.x, kRows);
-        for (int t = threadIdx.x; t < n; t += kRows) {
-            lses[t] = lse[bh * Lq + i0 + t];
-            dels[t] = delta[bh * Lq + i0 + t];
-            runs[t] = keys_run(i0 + t, S, block_q, block_k, causal);
-        }
-        __syncthreads();
-        if (!real) continue;
-        for (int ii = 0; ii < n; ++ii) {
-            const float l_i = lses[ii];
-            if (j >= runs[ii] || dead(l_i) || (causal && j > i0 + ii)) continue;
-            const float* qi = qs + ii * D;
-            const float* doi = dos + ii * D;
-            float dot = 0.f, dp = 0.f;
-#pragma unroll
-            for (int d = 0; d < D; ++d) dot += qi[d] * kr[d];
-#pragma unroll
-            for (int d = 0; d < D; ++d) dp += doi[d] * vr[d];
-            const float p = expf(dot * scale - l_i);
-            const float ds = p * (dp - dels[ii]) * scale;
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-                dvr[d] = dvr[d] + p * doi[d];
-                dkr[d] = dkr[d] + ds * qi[d];
-            }
+    compact<KB>(mb, bound, j0, idx, &count);
+    const int n = count;
+    // zeros for the keys among positions j0 .. jend-1 that no row sees
+    for (int t = threadIdx.x; t < (jend - j0) * (D / 4); t += NT) {
+        const int j = j0 + t / (D / 4);
+        if (j >= bound || !mb[j]) {
+            store4(dkb + j * D, t % (D / 4), make_float4(0.f, 0.f, 0.f, 0.f));
+            store4(dvb + j * D, t % (D / 4), make_float4(0.f, 0.f, 0.f, 0.f));
         }
     }
+    if (n == 0) return;
 
-    if (live) {
+    const bool has = c < n;
+    const int j = has ? idx[c] : 0x7FFFFFFF;
+    const float scale2 = scale * kLog2e;
+    float kr[DL], vr[DL], dkr[DL], dvr[DL];
+    if (has) {
+        load_part<DL, G>(kr, k + (bh * S + j) * D, gl);
+        load_part<DL, G>(vr, v + (bh * S + j) * D, gl);
+    }
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            store(dk + (bh * S + j) * D + d, dkr[d]);
-            store(dv + (bh * S + j) * D + d, dvr[d]);
+    for (int d = 0; d < DL; ++d) {
+        kr[d] = has ? kr[d] * scale2 : 0.f;
+        vr[d] = has ? vr[d] : 0.f;
+        dkr[d] = dvr[d] = 0.f;
+    }
+    const bool busy = __any_sync(kAll, has);  // the warp holds a real key
+    // under causal, rows before the block's first real key see none of its
+    // keys, and rows i < jmax (the warp's last key) need the per-key test
+    const int jmax = causal ? __reduce_max_sync(kAll, has ? j : -1) : -1;
+    const int first = causal ? idx[0] : 0;
+
+    for (int i0 = first; i0 < Lq; i0 += TQ) {
+        const int nq = Lq - i0 < TQ ? Lq - i0 : TQ;
+        __syncthreads();  // the previous tile is no longer read
+        for (int t = threadIdx.x; t < nq * (D / 4); t += NT) {
+            store4(qs, t, load4(q + (row0 + i0) * D, t));
+            store4(dos, t, load4(dout + (row0 + i0) * D, t));
         }
+        for (int t = threadIdx.x; t < nq; t += NT) {
+            const float l = lse[row0 + i0 + t];
+            // a dead row gets +inf: p = ex2(-inf) = 0 for every key
+            rowc[t] = make_float2(dead(l) ? CUDART_INF_F : l * kLog2e, delta[row0 + i0 + t]);
+        }
+        __syncthreads();
+        if (!busy) continue;
+        // under causal, rows before jmax need the per-key test; the rest
+        // run without branches, unrolled so that rows overlap
+        const int split = min(max(jmax - i0, 0), nq);
+        int ii = 0;
+        for (; ii < split; ++ii)
+            kv_row<true, DL, G>(qs, dos, ii, i0 + ii, rowc[ii], gl, kr, vr, dkr, dvr, j);
+#pragma unroll U
+        for (; ii < nq; ++ii)
+            kv_row<false, DL, G>(qs, dos, ii, i0 + ii, rowc[ii], gl, kr, vr, dkr, dvr, j);
+    }
+
+    if (has) {
+#pragma unroll
+        for (int d = 0; d < DL; ++d) dkr[d] = dkr[d] * scale;
+        store_part<DL, G>(dkb + j * D, gl, dkr);
+        store_part<DL, G>(dvb + j * D, gl, dvr);
     }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const uint8_t* __restrict__ mask,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, int64_t H,
-          int64_t Lq, int64_t S, int64_t block_q, int64_t block_k, int causal,
-          float scale) {
-    constexpr int TK = (4096 / D) < 128 ? (4096 / D) : 128;  // keys per tile
-    __shared__ __align__(16) float ks[TK * D];
-    __shared__ __align__(16) float vs[TK * D];
-    __shared__ uint8_t ms[TK];
-
-    const int64_t ntiles = (Lq + kRows - 1) / kRows;
-    const int64_t bh = blockIdx.x / ntiles;
-    const int64_t i0 = (blockIdx.x % ntiles) * kRows;
-    const int64_t i = i0 + threadIdx.x;
-    const bool live = i < Lq;
-    const float l_i = live ? lse[bh * Lq + i] : kNegInf;
-    const float del = live ? delta[bh * Lq + i] : 0.f;
-    const bool work = live && !dead(l_i);
-    const uint8_t* mb = mask + (bh / H) * S;
-
-    float qr[D], dor[D], dqr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        qr[d] = work ? to_f32(q[(bh * Lq + i) * D + d]) : 0.f;
-        dor[d] = work ? to_f32(dout[(bh * Lq + i) * D + d]) : 0.f;
-        dqr[d] = 0.f;
-    }
-    const int64_t nrun = work ? keys_run(i, S, block_q, block_k, causal) : 0;
-    const int64_t ilast = (i0 + kRows < Lq ? i0 + kRows : Lq) - 1;
-    const int64_t nblock = keys_run(ilast, S, block_q, block_k, causal);
-
-    for (int64_t j0 = 0; j0 < nblock; j0 += TK) {
-        const int n = (int)(nblock - j0 < TK ? nblock - j0 : TK);
-        __syncthreads();
-        load_tile<D>(ks, k + (bh * S + j0) * D, n, threadIdx.x, kRows);
-        load_tile<D>(vs, v + (bh * S + j0) * D, n, threadIdx.x, kRows);
-        for (int t = threadIdx.x; t < n; t += kRows) ms[t] = mb[j0 + t];
-        __syncthreads();
-        const int64_t left = nrun - j0;
-        const int nj = (int)(left < n ? (left > 0 ? left : 0) : n);
-        for (int jj = 0; jj < nj; ++jj) {
-            if (!ms[jj] || (causal && j0 + jj > i)) continue;
-            const float* kj = ks + jj * D;
-            const float* vj = vs + jj * D;
-            float dot = 0.f, dp = 0.f;
-#pragma unroll
-            for (int d = 0; d < D; ++d) dot += qr[d] * kj[d];
-#pragma unroll
-            for (int d = 0; d < D; ++d) dp += dor[d] * vj[d];
-            const float p = expf(dot * scale - l_i);
-            const float ds = p * (dp - del) * scale;
-#pragma unroll
-            for (int d = 0; d < D; ++d) dqr[d] = dqr[d] + ds * kj[d];
-        }
-    }
-
-    if (live) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) store(dq + (bh * Lq + i) * D + d, dqr[d]);
-    }
-}
+// ------------------------------------------------------------------ launchers
 
 struct Args {
     const void* q;
@@ -238,109 +337,108 @@ struct Args {
     const uint8_t* mask;
     const void* dout;
     const float* lse;
-    const float* delta;
-    int bf16;
+    int64_t BH;
+    int H, Lq, S, causal;
+    float scale;
 };
 
 template <typename T, int D>
-cudaError_t launch_dkdv_t(const Args& a, void* dk, void* dv, int64_t blocks, int64_t H,
-                          int64_t Lq, int64_t S, int64_t block_q, int64_t block_k,
-                          int causal, float scale, cudaStream_t stream) {
-    dkdv_kernel<T, D><<<(unsigned int)blocks, kRows, 0, stream>>>(
+cudaError_t launch_dq_t(const Args& a, const void* o, void* dq, void* delta,
+                        cudaStream_t stream) {
+    constexpr int RB = kDqRowsPerBlock<D>;
+    const int64_t blocks = a.BH * ((a.Lq + RB - 1) / RB);
+    if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+    dq_kernel<T, D><<<(unsigned int)blocks, DqCfg<D>::NT, 0, stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        a.mask, static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), H, Lq, S, block_q, block_k, causal, scale);
+        a.mask, static_cast<const T*>(a.dout), a.lse, static_cast<const T*>(o),
+        static_cast<T*>(dq), static_cast<float*>(delta), a.H, a.Lq, a.S, a.causal, a.scale);
     return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkdv(const Args& a, void* dk, void* dv, int64_t blocks, int64_t H,
-                        int64_t Lq, int64_t S, int64_t block_q, int64_t block_k,
-                        int causal, float scale, cudaStream_t stream) {
-    return a.bf16 ? launch_dkdv_t<__nv_bfloat16, D>(a, dk, dv, blocks, H, Lq, S, block_q,
-                                                    block_k, causal, scale, stream)
-                  : launch_dkdv_t<float, D>(a, dk, dv, blocks, H, Lq, S, block_q, block_k,
-                                            causal, scale, stream);
 }
 
 template <typename T, int D>
-cudaError_t launch_dq_t(const Args& a, void* dq, int64_t blocks, int64_t H, int64_t Lq,
-                        int64_t S, int64_t block_q, int64_t block_k, int causal,
-                        float scale, cudaStream_t stream) {
-    dq_kernel<T, D><<<(unsigned int)blocks, kRows, 0, stream>>>(
+cudaError_t launch_dkdv_t(const Args& a, const void* delta, void* dk, void* dv,
+                          cudaStream_t stream) {
+    constexpr int KB = kKeysPerBlock<D>;
+    const int64_t blocks = a.BH * ((a.S + KB - 1) / KB);
+    if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+    dkdv_kernel<T, D><<<(unsigned int)blocks, KvCfg<D>::NT, 0, stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        a.mask, static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), H, Lq,
-        S, block_q, block_k, causal, scale);
+        a.mask, static_cast<const T*>(a.dout), a.lse, static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.Lq, a.S, a.causal, a.scale);
     return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const Args& a, void* dq, int64_t blocks, int64_t H, int64_t Lq,
-                      int64_t S, int64_t block_q, int64_t block_k, int causal,
-                      float scale, cudaStream_t stream) {
-    return a.bf16 ? launch_dq_t<__nv_bfloat16, D>(a, dq, blocks, H, Lq, S, block_q, block_k,
-                                                  causal, scale, stream)
-                  : launch_dq_t<float, D>(a, dq, blocks, H, Lq, S, block_q, block_k, causal,
-                                          scale, stream);
+template <typename T>
+cudaError_t launch_dq(const Args& a, long long D, const void* o, void* dq, void* delta,
+                      cudaStream_t s) {
+    switch (D) {
+        case 8: return launch_dq_t<T, 8>(a, o, dq, delta, s);
+        case 16: return launch_dq_t<T, 16>(a, o, dq, delta, s);
+        case 32: return launch_dq_t<T, 32>(a, o, dq, delta, s);
+        case 64: return launch_dq_t<T, 64>(a, o, dq, delta, s);
+        case 128: return launch_dq_t<T, 128>(a, o, dq, delta, s);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
-int check(long long B, long long H, long long Lq, long long S, long long block_q,
-          long long block_k, long long rows) {
+template <typename T>
+cudaError_t launch_dkdv(const Args& a, long long D, const void* delta, void* dk, void* dv,
+                        cudaStream_t s) {
+    switch (D) {
+        case 8: return launch_dkdv_t<T, 8>(a, delta, dk, dv, s);
+        case 16: return launch_dkdv_t<T, 16>(a, delta, dk, dv, s);
+        case 32: return launch_dkdv_t<T, 32>(a, delta, dk, dv, s);
+        case 64: return launch_dkdv_t<T, 64>(a, delta, dk, dv, s);
+        case 128: return launch_dkdv_t<T, 128>(a, delta, dk, dv, s);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// The shapes both kernels take; offsets inside one b*h are 32-bit.
+int check(long long B, long long H, long long Lq, long long S, long long D,
+          long long block_q, long long block_k) {
     if (B <= 0 || H <= 0 || Lq <= 0 || S <= 0 || block_q <= 0 || block_k <= 0 ||
         Lq % block_q || S % block_k)
         return (int)cudaErrorInvalidValue;
-    if ((int64_t)B * H * ((rows + kRows - 1) / kRows) > 0x7FFFFFFF)
+    if (H > 0x7FFFFFFF || Lq * D > 0x7FFFFFFF || S * D > 0x7FFFFFFF)
         return (int)cudaErrorInvalidValue;
     return 0;
 }
 
-Args args(const void* q, const void* k, const void* v, const void* mask,
-          const void* dout, const void* lse, const void* delta, int bf16) {
+Args args(const void* q, const void* k, const void* v, const void* mask, const void* dout,
+          const void* lse, long long B, long long H, long long Lq, long long S, int causal,
+          float scale) {
     return Args{q, k, v, static_cast<const uint8_t*>(mask), dout,
-                static_cast<const float*>(lse), static_cast<const float*>(delta), bf16};
+                static_cast<const float*>(lse), (int64_t)B * H, (int)H, (int)Lq, (int)S,
+                causal, scale};
 }
 
 }  // namespace
 
+// dq, and delta = rowsum(do * o) for flash_attention_bwd_dkdv: launch first.
+extern "C" int flash_attention_bwd_dq(
+        const void* q, const void* k, const void* v, const void* mask,
+        const void* dout, const void* lse, const void* o, void* dq, void* delta,
+        long long B, long long H, long long Lq, long long S, long long D,
+        long long block_q, long long block_k, int causal, float scale, int bf16,
+        void* stream) {
+    if (int err = check(B, H, Lq, S, D, block_q, block_k)) return err;
+    const Args a = args(q, k, v, mask, dout, lse, B, H, Lq, S, causal, scale);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return (int)(bf16 ? launch_dq<__nv_bfloat16>(a, D, o, dq, delta, s)
+                      : launch_dq<float>(a, D, o, dq, delta, s));
+}
+
+// dk and dv, from the delta that flash_attention_bwd_dq wrote.
 extern "C" int flash_attention_bwd_dkdv(
         const void* q, const void* k, const void* v, const void* mask,
         const void* dout, const void* lse, const void* delta, void* dk, void* dv,
         long long B, long long H, long long Lq, long long S, long long D,
         long long block_q, long long block_k, int causal, float scale, int bf16,
         void* stream) {
-    if (int err = check(B, H, Lq, S, block_q, block_k, S)) return err;
-    const Args a = args(q, k, v, mask, dout, lse, delta, bf16);
-    const int64_t blocks = (int64_t)B * H * ((S + kRows - 1) / kRows);
-    void* dkp = dk;
-    void* dvp = dv;
+    if (int err = check(B, H, Lq, S, D, block_q, block_k)) return err;
+    const Args a = args(q, k, v, mask, dout, lse, B, H, Lq, S, causal, scale);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (D) {
-        case 8: return (int)launch_dkdv<8>(a, dkp, dvp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 16: return (int)launch_dkdv<16>(a, dkp, dvp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 32: return (int)launch_dkdv<32>(a, dkp, dvp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 64: return (int)launch_dkdv<64>(a, dkp, dvp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 128: return (int)launch_dkdv<128>(a, dkp, dvp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
-extern "C" int flash_attention_bwd_dq(
-        const void* q, const void* k, const void* v, const void* mask,
-        const void* dout, const void* lse, const void* delta, void* dq,
-        long long B, long long H, long long Lq, long long S, long long D,
-        long long block_q, long long block_k, int causal, float scale, int bf16,
-        void* stream) {
-    if (int err = check(B, H, Lq, S, block_q, block_k, Lq)) return err;
-    const Args a = args(q, k, v, mask, dout, lse, delta, bf16);
-    const int64_t blocks = (int64_t)B * H * ((Lq + kRows - 1) / kRows);
-    void* dqp = dq;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (D) {
-        case 8: return (int)launch_dq<8>(a, dqp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 16: return (int)launch_dq<16>(a, dqp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 32: return (int)launch_dq<32>(a, dqp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 64: return (int)launch_dq<64>(a, dqp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        case 128: return (int)launch_dq<128>(a, dqp, blocks, H, Lq, S, block_q, block_k, causal, scale, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)(bf16 ? launch_dkdv<__nv_bfloat16>(a, D, delta, dk, dv, s)
+                      : launch_dkdv<float>(a, D, delta, dk, dv, s));
 }

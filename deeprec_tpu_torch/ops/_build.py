@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into a shared library
 under `build/deeprec_tpu_torch/` at the checkout root, named by a digest of
-its source and flags, so a changed source rebuilds and an unchanged one
+its source, the `csrc/*.cuh` headers and the flags, so a changed source rebuilds and an unchanged one
 loads as is.
 Nothing builds at import time: `load` runs at a kernel's first launch, and
 `build_all` starts one nvcc per source at once (set-up time of a run).
@@ -22,6 +22,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deeprec_tpu_torch"
 # -fmad=false: no a*b+c contraction into one FMA, so a kernel's float
 # arithmetic rounds after every operation, as its plain PyTorch version does.
+# (The flash attention kernels, held to a tolerance, write their FMAs out as
+# __fmaf_rn.)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -38,7 +40,7 @@ _SIGNATURES = {
         "flash_attention_bwd_dkdv": [ctypes.c_void_p] * 9
         + [ctypes.c_longlong] * 7
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-        "flash_attention_bwd_dq": [ctypes.c_void_p] * 8
+        "flash_attention_bwd_dq": [ctypes.c_void_p] * 9
         + [ctypes.c_longlong] * 7
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     },
@@ -82,7 +84,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # the headers every source may include count towards each digest
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    src = (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(src).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

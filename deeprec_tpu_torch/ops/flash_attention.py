@@ -125,8 +125,8 @@ def flash_forward_plain(q, k, v, mask, causal: bool, sm_scale: float,
 
 
 def _delta(o, do) -> torch.Tensor:
-    """rowsum(do * o) in f32, [B, H, Lq] — computed outside the kernels,
-    as the JAX package computes it outside its Pallas calls."""
+    """rowsum(do * o) in f32, [B, H, Lq], as the JAX package computes it
+    outside its Pallas calls (the CUDA dQ kernel computes it per row)."""
     return (do.float() * o.float()).sum(dim=-1)
 
 
@@ -247,36 +247,41 @@ flash_forward.launches = 0
 def flash_backward(q, k, v, mask, causal: bool, sm_scale: float,
                    block_q: int, block_k: int, o, lse, do
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel #9, two launches as the Pallas backward has two calls: dK/dV
-    (one K tile per block, Q tiles streamed) and dQ (one Q tile per block,
-    K tiles streamed), counted in `.launches_dkdv` and `.launches_dq`.
-    `delta = rowsum(do * o)` is a torch reduction before them."""
+    """Kernel #9, two launches as the Pallas backward has two calls: dQ (one
+    Q tile per block, real K rows streamed), which also writes `delta =
+    rowsum(do * o)` per row from the stored o, then dK/dV (a group of the
+    batch row's real keys per block, Q tiles streamed), counted in
+    `.launches_dq` and `.launches_dkdv`."""
     _check(q, k, v, mask, block_q, block_k, extra=(do,))
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, mask, causal, sm_scale, block_q,
                                     block_k, o, lse, do)
     B, H, Lq, D = q.shape
     S = k.shape[2]
+    if tuple(o.shape) != (B, H, Lq, D) or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError(
+            f"flash_backward: o {tuple(o.shape)} {o.dtype} on {o.device} must match "
+            f"q {tuple(q.shape)} {q.dtype} on {q.device}")
     dp = _head_bucket(D)
-    qp, kp, vp, dop = (_padded(t, dp) for t in (q, k, v, do))
+    qp, kp, vp, dop, op = (_padded(t, dp) for t in (q, k, v, do, o))
     mask = mask.contiguous()
     lse = lse.to(torch.float32).contiguous()
-    delta = _delta(o, do).contiguous()
+    delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, H, Lq, dp), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, H, S, dp), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, H, S, dp), dtype=q.dtype, device=q.device)
     if B * H * Lq * S == 0:
         return dq[..., :D].zero_(), dk[..., :D].zero_(), dv[..., :D].zero_()
     args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), mask.data_ptr(),
-            dop.data_ptr(), lse.data_ptr(), delta.data_ptr())
+            dop.data_ptr(), lse.data_ptr())
     dims = (B, H, Lq, S, dp, block_q, block_k, int(causal), float(sm_scale),
             int(q.dtype == torch.bfloat16))
-    _launch("flash_attention_bwd", "flash_attention_bwd_dkdv", q.device,
-            *args, dk.data_ptr(), dv.data_ptr(), *dims)
-    flash_backward.launches_dkdv += 1
     _launch("flash_attention_bwd", "flash_attention_bwd_dq", q.device,
-            *args, dq.data_ptr(), *dims)
+            *args, op.data_ptr(), dq.data_ptr(), delta.data_ptr(), *dims)
     flash_backward.launches_dq += 1
+    _launch("flash_attention_bwd", "flash_attention_bwd_dkdv", q.device,
+            *args, delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
+    flash_backward.launches_dkdv += 1
     if dp != D:
         dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

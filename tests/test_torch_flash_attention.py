@@ -2,8 +2,10 @@
 held against the JAX package's Pallas kernels run in interpret mode on the
 CPU: the forward (o, lse) against `_pallas_forward`, the backward (dq, dk,
 dv) against `_pallas_backward` given the same o, lse and do, causal and not,
-at blocks 64 and 128, at [2, 2, 256, 32] and at the BST head width 8; dead
-rows (every visible key masked) with the Pallas kernel's semantics; the
+at blocks 64 and 128, at [2, 2, 256, 32] and at the BST head width 8, with
+length-prefix masks and with masks whose real keys are not a prefix (BST's,
+scattered, a late first key); dead rows (every visible key masked) with the
+Pallas kernel's semantics; the
 autograd gradient against `jax.grad`; bf16 q, k, v against the JAX function
 on bf16 inputs; `attention_reference`; the shape and dtype checks. On the CPU the port's wrappers run their plain versions, which are
 also what the CUDA kernels are held against on the card.
@@ -37,27 +39,43 @@ def _f32_matmuls():
         yield
 
 
-def _inputs(B=2, H=2, L=256, D=32, seed=0, dead=None):
-    """q, k, v, do normal; mask from lengths in [L/2, L]. dead="all" masks
-    every key of batch element 1; dead="head" masks its first 64 keys (so
-    under causal its rows 0-63 see no real key)."""
+def _inputs(B=2, H=2, L=256, D=32, seed=0, pattern=None):
+    """q, k, v, do normal; mask from lengths in [L/2, L]. pattern="all"
+    masks every key of batch element 1; pattern="head" masks its first 64
+    keys (so under causal its rows 0-63 see no real key). Masks whose real
+    keys are not a prefix (the CUDA kernels list each batch row's real
+    keys): pattern="bst" is BST's encoder mask at L = 256, a history prefix
+    of 1-199 keys, the target key alone at 200, then pads;
+    pattern="scattered" has about 40 % of the keys real at random, masked
+    keys between real ones inside every 16-key chunk; pattern="late" gives
+    batch element 1 its first real key at 150 (not a block edge), so under
+    causal its rows 0-149 see none although it has real keys later."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (rng.standard_normal((B, H, L, D)).astype(np.float32)
                    for _ in range(4))
     lengths = rng.integers(L // 2, L + 1, B)
     mask = np.arange(L)[None, :] < lengths[:, None]
-    if dead == "all":
+    if pattern == "all":
         mask[1] = False
-    elif dead == "head":
+    elif pattern == "head":
         mask[1] = True
         mask[1, :64] = False
+    elif pattern == "bst":
+        mask = np.arange(L)[None, :] < rng.integers(1, 200, B)[:, None]
+        mask[:, 200] = True
+    elif pattern == "scattered":
+        mask = rng.random((B, L)) < 0.4
+    elif pattern == "late":
+        mask[1] = False
+        mask[1, 150:] = rng.random(L - 150) < 0.5
+        mask[1, 150] = True
     return q, k, v, mask, do
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(D, causal, block, dead=None):
+def _jax_run(D, causal, block, pattern=None):
     """JAX Pallas forward and backward (interpret mode) on _inputs(D=D)."""
-    q, k, v, mask, do = _inputs(D=D, dead=dead)
+    q, k, v, mask, do = _inputs(D=D, pattern=pattern)
     scale = 1.0 / np.sqrt(D)
     with jax.default_matmul_precision("highest"):
         o, lse = jfa._pallas_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -73,49 +91,64 @@ def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 
 
-CASES = [(D, causal, block) for D in (32, 8) for causal in (False, True)
-         for block in (64, 128)]
+# (D, causal, block, mask pattern): length prefixes, then the masks whose
+# real keys are not a prefix (see _inputs)
+CASES = [pytest.param(D, causal, block, None, id=f"{D}-{causal}-{block}")
+         for D in (32, 8) for causal in (False, True) for block in (64, 128)] + [
+    pytest.param(8, False, 128, "bst", id="8-False-128-bst"),
+    pytest.param(8, True, 64, "bst", id="8-True-64-bst"),
+    pytest.param(8, False, 64, "scattered", id="8-False-64-scattered"),
+    pytest.param(32, True, 128, "scattered", id="32-True-128-scattered"),
+    pytest.param(16, True, 64, "late", id="16-True-64-late"),
+    pytest.param(16, True, 128, "late", id="16-True-128-late"),
+]
 
 
-@pytest.mark.parametrize("D,causal,block", CASES)
-def test_forward_matches_pallas_interpret(D, causal, block):
-    q, k, v, mask, _ = _inputs(D=D)
+@pytest.mark.parametrize("D,causal,block,pattern", CASES)
+def test_forward_matches_pallas_interpret(D, causal, block, pattern):
+    q, k, v, mask, _ = _inputs(D=D, pattern=pattern)
     o, lse = tfa.flash_forward(*_t(q, k, v, mask), causal, 1.0 / np.sqrt(D),
                                block, block)
-    want_o, want_lse = _jax_run(D, causal, block)[:2]
+    want_o, want_lse = _jax_run(D, causal, block, pattern)[:2]
     assert o.dtype == torch.float32 and lse.shape == (2, 2, 256)
     np.testing.assert_allclose(o.numpy(), want_o, atol=FWD_ATOL)
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=FWD_ATOL, rtol=1e-6)
 
 
-@pytest.mark.parametrize("D,causal,block", CASES)
-def test_backward_matches_pallas_interpret(D, causal, block):
+@pytest.mark.parametrize("D,causal,block,pattern", CASES)
+def test_backward_matches_pallas_interpret(D, causal, block, pattern):
     """The same o, lse and do into both backwards."""
-    q, k, v, mask, do = _inputs(D=D)
-    o, lse, *want = _jax_run(D, causal, block)
+    q, k, v, mask, do = _inputs(D=D, pattern=pattern)
+    o, lse, *want = _jax_run(D, causal, block, pattern)
     got = tfa.flash_backward(*_t(q, k, v, mask), causal, 1.0 / np.sqrt(D), block,
                              block, *_t(o, lse, do))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), w, atol=GRAD_ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_dead_rows_follow_the_pallas_kernel(causal):
+@pytest.mark.parametrize("causal,dead", [pytest.param(False, "all", id="False"),
+                                          pytest.param(True, "head", id="True"),
+                                          pytest.param(True, "late", id="True-late")])
+def test_dead_rows_follow_the_pallas_kernel(causal, dead):
     """A row whose visible keys are all masked: the forward gives the Pallas
     kernel's output, the mean of v over the keys of the K blocks that run
     (all of them when not causal; under causal the blocks up to the
     diagonal), with lse -1e30; every gradient of that row is exactly 0, and
-    so is every masked key's dk and dv."""
+    so is every masked key's dk and dv. "late": batch element 1's first
+    real key is 150, so its causal rows 0-149 are dead though it has real
+    keys, and rows 128-149 average the keys of two K blocks."""
     D, block = 16, 64
-    q, k, v, mask, do = _inputs(D=D, dead="head" if causal else "all")
-    o, lse, *want = _jax_run(D, causal, block, "head" if causal else "all")
+    q, k, v, mask, do = _inputs(D=D, pattern=dead)
+    o, lse, *want = _jax_run(D, causal, block, dead)
     got_o, got_lse = tfa.flash_forward(*_t(q, k, v, mask), causal, 1.0 / np.sqrt(D),
                                        block, block)
     np.testing.assert_allclose(got_o.numpy(), o, atol=FWD_ATOL)
     np.testing.assert_allclose(got_lse.numpy(), lse, atol=FWD_ATOL, rtol=1e-6)
-    dead_rows = slice(0, 64) if causal else slice(None)
-    if causal:  # rows 0-63 run K block 0 only
-        expect = v[1, :, :64].mean(axis=1, keepdims=True)
+    first = 150 if dead == "late" else 64
+    dead_rows = slice(0, first) if causal else slice(None)
+    if causal:  # row i runs the K blocks up to its own: keys [0, 64 (i // 64 + 1))
+        expect = np.stack([v[1, :, :(i // block + 1) * block].mean(axis=1)
+                           for i in range(first)], axis=1)
     else:
         expect = v[1].mean(axis=1, keepdims=True)
     np.testing.assert_allclose(got_o.numpy()[1, :, dead_rows],

@@ -394,43 +394,71 @@ def test_fused_step_device_ops_per_call(cuda_device, T, L):
 FLASH_FWD_RTOL, FLASH_GRAD_TOL = 1e-5, 1e-4
 
 
-def _flash_inputs(g, B, H, Lq, S, D, dead, device):
+def _flash_inputs(g, B, H, Lq, S, D, pattern, device):
+    """q, k, v, do normal; the mask by `pattern`: None — lengths in
+    [S/2, S]; "dead" — those lengths, but batch 0 sees no key and batch 1's
+    first 64 keys are masked; masks whose real keys are not a prefix (the
+    kernels list each batch row's real keys): "bst" — BST's encoder mask, a
+    history prefix of 1-199 keys, the target alone at 200, pads to 256;
+    "scattered" — about 40 % real at random, masked keys inside every
+    16-key chunk; "late" — batch 1's first real key at 150, so its causal
+    rows 0-149 see none."""
     q = torch.randn((B, H, Lq, D), generator=g)
     k, v = (torch.randn((B, H, S, D), generator=g) for _ in range(2))
     do = torch.randn((B, H, Lq, D), generator=g)
     lengths = torch.randint(S // 2, S + 1, (B,), generator=g)
     mask = torch.arange(S)[None, :] < lengths[:, None]
-    if dead:  # batch 0 sees no key; batch 1's first 64 keys are masked
+    if pattern == "dead":
         mask[0] = False
         if B > 1:
             mask[1, :64] = False
+    elif pattern == "bst":
+        mask = torch.arange(S)[None, :] < torch.randint(1, 200, (B, 1), generator=g)
+        mask[:, 200] = True
+    elif pattern == "scattered":
+        mask = torch.rand((B, S), generator=g) < 0.4
+    elif pattern == "late":
+        mask[1] = False
+        mask[1, 150:] = torch.rand(S - 150, generator=g) < 0.5
+        mask[1, 150] = True
     return [t.to(device) for t in (q, k, v, mask, do)]
 
 
 def _assert_flash_close(got, want, name, grad):
+    """Within the flash tolerances; a bf16 tensor may also differ by one
+    bf16 ulp of the plain value (a sum in another order can round to the
+    neighbour)."""
+    ulp = _bf16_ulp(want) if want.dtype == torch.bfloat16 else 0.0
+    got, want = got.double(), want.double()
     if grad:
-        tol = FLASH_GRAD_TOL * max(float(want.abs().max()), 1e-30)
-        err = float((got - want).abs().max())
-        assert err <= tol, f"{name}: max err {err} above {tol}"
+        bound = FLASH_GRAD_TOL * max(float(want.abs().max()), 1e-30) + ulp
     else:
-        bound = FLASH_FWD_RTOL * torch.clamp(want.abs(), min=1.0)
-        assert bool(((got - want).abs() <= bound).all()), (
-            f"{name}: max err {float((got - want).abs().max())}")
+        bound = FLASH_FWD_RTOL * torch.clamp(want.abs(), min=1.0) + ulp
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), (
+        f"{name}: max err {float(err.max())}, max err over its bound "
+        f"{float((err / bound).max())}")
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("B,H,Lq,S,D,block_q,block_k,dead", [
-    (4, 4, 256, 256, 8, 128, 128, False),   # BST's head width, two tiles
-    (2, 2, 256, 256, 32, 64, 64, False),    # tests/test_attention.py
-    (2, 2, 256, 256, 32, 128, 128, False),
-    (3, 2, 256, 256, 16, 64, 64, True),     # dead rows
-    (2, 1, 128, 256, 64, 64, 128, False),   # Lq != S, mixed blocks
-    (1, 3, 64, 192, 3, 32, 64, True),       # a padded head width, 64 rows
-    (1, 2, 128, 128, 128, 128, 32, False),  # the widest head
+@pytest.mark.parametrize("B,H,Lq,S,D,block_q,block_k,pattern,dtype", [
+    (4, 4, 256, 256, 8, 128, 128, None, _F32),      # BST's head width, two tiles
+    (2, 2, 256, 256, 32, 64, 64, None, _F32),       # tests/test_attention.py
+    (2, 2, 256, 256, 32, 128, 128, None, _F32),
+    (3, 2, 256, 256, 16, 64, 64, "dead", _F32),     # dead rows
+    (2, 1, 128, 256, 64, 64, 128, None, _F32),      # Lq != S, mixed blocks
+    (1, 3, 64, 192, 3, 32, 64, "dead", _F32),       # a padded head width, 64 rows
+    (1, 2, 128, 128, 128, 128, 32, None, _F32),     # the widest head
+    # masks whose real keys are not a prefix, at D 8 and 32, f32 and bf16
+    *[(4, 2, 256, 256, D, 128, 128, m, t) for m in ("bst", "scattered", "late")
+      for D in (8, 32) for t in (_F32, _BF16)],
 ])
 def test_flash_kernels_match_plain(cuda_device, causal, B, H, Lq, S, D, block_q,
-                                   block_k, dead):
+                                   block_k, pattern, dtype):
     """Kernel #8 (o, lse) and kernel #9 (dq, dk, dv, from the plain
     forward's o and lse) against their plain versions on the card; dead
     rows' gradients exactly 0; one launch of each counted per call."""
@@ -438,7 +466,8 @@ def test_flash_kernels_match_plain(cuda_device, causal, B, H, Lq, S, D, block_q,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cpu").manual_seed(11)
-    q, k, v, mask, do = _flash_inputs(g, B, H, Lq, S, D, dead, cuda_device)
+    q, k, v, mask, do = _flash_inputs(g, B, H, Lq, S, D, pattern, cuda_device)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
     scale = 1.0 / D ** 0.5
     before = (fa.flash_forward.launches, fa.flash_backward.launches_dkdv,
               fa.flash_backward.launches_dq)
@@ -453,14 +482,20 @@ def test_flash_kernels_match_plain(cuda_device, causal, B, H, Lq, S, D, block_q,
                                    po, plse, do)
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        assert a.shape == b.shape and a.dtype == torch.float32
+        assert a.shape == b.shape and a.dtype == dtype
         _assert_flash_close(a, b, name, True)
     assert (fa.flash_forward.launches, fa.flash_backward.launches_dkdv,
             fa.flash_backward.launches_dq) == tuple(n + 1 for n in before)
-    if dead:
+    # a masked key's dk and dv are exactly 0
+    masked = ~mask[:, None, :, None].expand_as(got[1])
+    assert bool((got[1][masked] == 0).all() and (got[2][masked] == 0).all())
+    if pattern == "dead":
         assert bool((got[0][0] == 0).all() and (got[1][0] == 0).all()
                     and (got[2][0] == 0).all())
         assert bool((lse[0] == -1e30).all())
+    if pattern == "late" and causal:  # batch 1's rows 0-149 see no real key
+        assert bool((got[0][1, :, :150] == 0).all())
+        assert bool((lse[1, :, :150] == -1e30).all())
 
 
 @pytest.mark.cuda
@@ -470,7 +505,7 @@ def test_flash_attention_autograd_on_card(cuda_device):
     from deeprec_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cpu").manual_seed(12)
-    q, k, v, mask, _ = _flash_inputs(g, 2, 2, 128, 128, 16, False, "cpu")
+    q, k, v, mask, _ = _flash_inputs(g, 2, 2, 128, 128, 16, None, "cpu")
     grads = {}
     for dev in ("cpu", cuda_device):
         leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
@@ -496,7 +531,7 @@ def test_flash_kernels_bf16_match_plain(cuda_device, causal):
     from deeprec_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cpu").manual_seed(13)
-    q, k, v, mask, do = _flash_inputs(g, 2, 2, 256, 256, 32, False, cuda_device)
+    q, k, v, mask, do = _flash_inputs(g, 2, 2, 256, 256, 32, None, cuda_device)
     q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
     scale = 1.0 / 32 ** 0.5
     o, lse = fa.flash_forward(q, k, v, mask, causal, scale, 64, 64)
