@@ -20,7 +20,15 @@ Phases, each of which must pass:
      its byte bound and embedding_bag, the shapes the main paths launch it
      at: one-hot bags of 2048 over 2^20 rows at D 128 and 16, and the
      multi-hot request's [2048, 100] bags with the first L positions real
-     for each MLPerf bag length L over 204,800 rows at D 128);
+     for each MLPerf bag length L over 204,800 rows at D 128; then each
+     main path's group, one grouped launch per request (26 one-hot
+     features at D 128, 26 at D 16, BST's 3 at D 16, the 26 multi-hot
+     features at the MLPerf lengths), bit-exact against the grouped plain
+     version and timed as one grouped launch, as 26 single-feature
+     launches and as embedding_bag per feature, beside its byte bound and
+     the device time of one empty launch; and grouped edge cases in f32
+     and bf16: mixed L and C, D 7 and 12, a bag of pads only, a head-heavy
+     bag, a slice of a stacked table, a group past the launch's capacity);
   4. the serving main path at full width: MLPerf DLRM-DCN (emb_dim 128,
      26 x 2^20-slot tables, bottom 512-256-128, top 512-256-1, cross depth
      3) restored from a full checkpoint written with numpy from --seed
@@ -28,10 +36,11 @@ Phases, each of which must pass:
      each of batch 1 and 37 (ids 90% live, 5% unseen, 5% pad). Live ids must
      return their checkpoint row bit for bit, unseen ids the blocked default,
      probabilities must be finite in (0, 1), and every kernel of the path
-     must have launched during those requests (one gather and 26 #4
-     launches per request); then multi-hot requests to the same Predictor:
-     bags of the MLPerf multi-hot sizes padded with -1 to L = 100 (5 of
-     batch 2048, one of 1, one of 37), 26 #4 launches per request, 64 bags
+     must have launched during those requests (one gather and one #4
+     launch, its 26 pooled features in one group, per request); then
+     multi-hot requests to the same Predictor: bags of the MLPerf
+     multi-hot sizes padded with -1 to L = 100 (5 of batch 2048, one of 1,
+     one of 37), one #4 launch per request, 64 bags
      of every feature bit-exact against a numpy recomputation, #4 against
      its plain version at the L = 100 feature's own rows and bags, p50,
      p90 and a profile;
@@ -87,14 +96,15 @@ Phases, each of which must pass:
  12. the phase-11 state saved and served by Predictor: 30 requests of
      batch 2048 and one each of batch 1 and 37, every answer equal to
      Trainer.eval_step's on the trained state bit for bit, one flash
-     forward and three #4 launches per request; p50 and p90;
+     forward and one #4 launch (user, target_item, target_cat) per
+     request; p50 and p90;
  13. WDL, DeepFM, DCN, DCNv2, MaskNet and DIN at the modelzoo's widths
      (emb 16, 2^20 slots per table, batch 2048; Criteo vocab 10^6, DIN
      histories of 50 over vocab 10^5): 5 checked steps (finite losses, no
      failed insert, the gather and scatter launches the bundles imply), 20
      timed, on to 300; held-out AUC at least 0.60; the state saved and
      served by Predictor, 5 requests equal to eval_step bit for bit with
-     26 (DIN: 3) #4 launches per request.
+     one #4 launch per request.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -103,6 +113,7 @@ phase fails, when CUDA is absent, or when the package is missing.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import itertools
 import json
@@ -396,6 +407,21 @@ COMBINE_EDGES = [(4096, 128, 37, 100, torch.float32), (4096, 128, 2048, 1, torch
                  (4096, 16, 2048, 20, torch.float32), (1000, 12, 37, 9, torch.float32),
                  (1000, 7, 37, 9, torch.float32)]
 
+# Grouped edge cases, each in f32 and bf16 under sum, mean and sqrtn
+# weights: (D, B, [(C, L, kind)] per feature), kind "rand" (rows in
+# [-1, C + 3): pads and rows past the table), "head" (one row in every
+# position) or "stacked" ("rand" over a slice of a stacked [3, C, D]
+# table); the first feature's bag 1 is pads only. The last group is larger
+# than one launch's capacity (GROUP_CAPACITY).
+COMBINE_GROUP_EDGES = [
+    (128, 2048, [(4096, 100, "rand"), (50, 1, "rand"), (100_000, 100, "head"),
+                 (300, 7, "stacked")]),
+    (16, 2048, [(4096, 1, "rand"), (1000, 100, "stacked"), (4096, 100, "head")]),
+    (12, 37, [(1000, 9, "rand"), (50, 1, "stacked"), (1000, 100, "head")]),
+    (7, 37, [(1000, 9, "rand"), (50, 100, "stacked"), (1000, 1, "head")]),
+    (16, 64, [(64 + k, 1 + k % 5, "rand") for k in range(70)]),
+]
+
 
 def combine_weights(row_ix, combiner):
     """The combiner's per-position weights [B, L] of the read-only path
@@ -433,7 +459,8 @@ def _zipf_rows(rng, cfg, perm, dev):
     return torch.where(pad, -1, rows)
 
 
-def combine_phase(dev, seed, cfg=COMBINE, edges=COMBINE_EDGES):
+def combine_phase(dev, seed, cfg=COMBINE, edges=COMBINE_EDGES,
+                  group_edges=COMBINE_GROUP_EDGES):
     """Kernel #4 against its plain version at the edge shapes and at the
     main shape; at the main shape the device times of the kernel, its plain
     version and embedding_bag (clamped rows, the weights as
@@ -492,7 +519,8 @@ def combine_phase(dev, seed, cfg=COMBINE, edges=COMBINE_EDGES):
         _cycled_ms(lambda ix, w: torch.nn.functional.embedding_bag(
             ix, values, per_sample_weights=w, mode="sum"), lib, dev))
     del values, sets, lib
-    rec["max_abs_err"] = max(err, combine_launch_shapes(dev, g, cfg))
+    rec["max_abs_err"] = max(err, combine_launch_shapes(dev, g, cfg),
+                             combine_group_phase(dev, g, cfg, group_edges))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     print(f"fused_gather_combine checks and timing took {time.perf_counter() - t0:.1f} s")
@@ -532,6 +560,116 @@ def combine_launch_shapes(dev, g, cfg):
               f"{kernel[1]}), byte bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
               f"({nbytes / 1e6:.3f} MB), embedding_bag {library[0]}")
         del values, rows, pad, row_ix, w, lib
+    return err
+
+
+def combine_groups():
+    """Kernel #4's groups on the main paths, one grouped launch per request
+    each: (name, D, [(real L, padded L)] per feature)."""
+    return [("DLRM-DCN one-hot", 128, [(1, 1)] * 26),
+            ("modelzoo one-hot", 16, [(1, 1)] * 26),
+            ("BST", 16, [(1, 1)] * 3),
+            ("multi-hot", 128, [(L, max(MULTI_HOT)) for L in MULTI_HOT])]
+
+
+def combine_group(g, dtype, D, B, specs, combiner, dev):
+    """The (values, row_ix, weights) lists of one grouped edge case on `dev`
+    (see COMBINE_GROUP_EDGES), drawn from the generator `g` on its own
+    device: per (C, L, kind) a feature of C rows and [B, L] bags; bag 1 of
+    the first feature is pads only; the combiner's weights."""
+    values, row_ix, weights = [], [], []
+    for k, (C, L, kind) in enumerate(specs):
+        v = torch.randn((3 if kind == "stacked" else 1, C, D), generator=g,
+                        device=g.device)
+        ix = torch.randint(-1, C + 3, (B, L), generator=g, device=g.device,
+                           dtype=torch.int32)
+        if kind == "head":
+            ix.fill_(C // 2)
+        if k == 0:
+            ix[min(1, B - 1)] = -1
+        values.append(v.to(dev, dtype)[1 if kind == "stacked" else 0])
+        row_ix.append(ix.to(dev))
+        weights.append(combine_weights(row_ix[-1], combiner))
+    return values, row_ix, weights
+
+
+def compare_group(values, row_ix, w, what):
+    """One grouped #4 launch against the grouped plain version, feature by
+    feature, bit for bit; the launch count must rise by one per
+    GROUP_CAPACITY features. Returns the max abs error (0)."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        GROUP_CAPACITY, fused_gather_combine, fused_gather_combine_grouped,
+        fused_gather_combine_grouped_plain)
+
+    before = fused_gather_combine.launches
+    got = fused_gather_combine_grouped(values, row_ix, w)
+    launched = fused_gather_combine.launches - before
+    want = fused_gather_combine_grouped_plain(values, row_ix, w)
+    _sync(values[0].device)
+    if values[0].device.type == "cuda" and launched != -(-len(values) // GROUP_CAPACITY):
+        raise AssertionError(f"fused_gather_combine_grouped {what}: {launched} launches "
+                             f"for {len(values)} features")
+    for f, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"fused_gather_combine_grouped {what}: feature {f} "
+                                 "differs from the plain version")
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(got, want))
+    print(f"fused_gather_combine_grouped {what}: {len(values)} features in {launched} "
+          f"launch(es), bit-exact (max_abs_err {err})")
+    return err
+
+
+def combine_group_phase(dev, g, cfg, edges=COMBINE_GROUP_EDGES):
+    """Kernel #4's grouped launch: the edge groups, then each main path's
+    group over the rows of its read-only view (a stacked [F, U, D] f32
+    table, U = batch x padded L: the U = N view; rows distinct, 5 % of the
+    real positions pads, mean weights), checked bit for bit and timed as one
+    grouped launch, as one single-feature launch per feature and as
+    embedding_bag per feature, beside its byte bound and the device time of
+    one empty launch (torch.cuda._sleep(0)). Returns the max abs error (0)."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_gather_combine, fused_gather_combine_grouped)
+
+    err = 0.0
+    for D, B, specs in edges:
+        for dtype in (torch.float32, torch.bfloat16):
+            for combiner in ("sum", "mean", "sqrtn"):
+                err = max(err, compare_group(
+                    *combine_group(g, dtype, D, B, specs, combiner, dev),
+                    f"D={D} B={B} L={sorted({L for _, L, _ in specs})} "
+                    f"{sorted({k for _, _, k in specs})} {str(dtype)[6:]} {combiner}"))
+    floor = _ms(lambda: torch.cuda._sleep(0), dev, reps=20)[0]
+    print(f"empty launch (torch.cuda._sleep(0)): device ms {floor}")
+    B = cfg["batch"]
+    for name, D, lengths in combine_groups():
+        U = B * lengths[0][1]
+        table = torch.randn((len(lengths), U, D), generator=g, device=dev)
+        values, row_ix, w = list(table.unbind(0)), [], []
+        for L, width in lengths:
+            rows = torch.randperm(U, generator=g, device=dev)[:B * L].view(B, L)
+            pad = torch.rand((B, L), generator=g, device=dev) < 0.05
+            ix = torch.full((B, width), -1, dtype=torch.int32, device=dev)
+            ix[:, :L] = torch.where(pad, -1, rows).to(torch.int32)
+            row_ix.append(ix)
+            w.append(combine_weights(ix, "mean"))
+        what = f"{name} group: {len(lengths)} features, D {D}, batch {B}"
+        err = max(err, compare_group(values, row_ix, w, what))
+        nbytes = sum(int((ix >= 0).sum()) * D * 4 + ix.numel() * 8 + B * D * 4
+                     for ix in row_ix)
+        lib = [ix.clamp(min=0) for ix in row_ix]
+        grouped = _ms(lambda: fused_gather_combine_grouped(values, row_ix, w), dev,
+                      reps=20)
+        single = _ms(lambda: [fused_gather_combine(v, ix, x)
+                              for v, ix, x in zip(values, row_ix, w)], dev, reps=20)
+        library = _ms(lambda: [torch.nn.functional.embedding_bag(
+            ix, v, per_sample_weights=x, mode="sum") for v, ix, x in zip(values, lib, w)],
+            dev, reps=20)
+        print(f"fused_gather_combine_grouped {what}: device ms per request: grouped "
+              f"{grouped[0]} (per call {grouped[1]}), {len(lengths)} single launches "
+              f"{single[0]} (per call {single[1]}), embedding_bag {library[0]}; byte "
+              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes / 1e6:.3f} MB), "
+              f"empty launch {floor}")
+        del table, values, row_ix, w, lib
     return err
 
 
@@ -608,9 +746,15 @@ def check_rows(p, host, batch):
 def _per_request(trainer):
     """Launches of (gather_rows, fused_gather_combine) one read-only forward
     implies: a gather per lookup group (a stacked bundle at once, a shared
-    table per feature) and a #4 launch per pooled feature."""
+    table per feature) and a #4 launch per group of pooled features whose
+    rows share dtype and width (GROUP_CAPACITY features a launch)."""
+    from deeprec_tpu_torch.ops.fused_lookup import GROUP_CAPACITY
+
+    groups = collections.Counter((b.table.cfg.value_dtype, b.table.cfg.dim)
+                                 for b in trainer.bundles.values()
+                                 for f in b.features if f.pooling != "none")
     return (sum(1 if b.stacked else len(b.features) for b in trainer.bundles.values()),
-            sum(1 for f in trainer.sparse_specs if f.pooling != "none"))
+            sum(-(-n // GROUP_CAPACITY) for n in groups.values()))
 
 
 def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
@@ -649,13 +793,13 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
     launches = _row_counts()[1]  # ... and ends here
     combines = fused_gather_combine.launches
     probe_syncs = sum(t.probe_syncs for t in tables) / len(reqs)
-    per_request, pooled = _per_request(p._trainer)
+    per_request, groups_per_request = _per_request(p._trainer)
     if dev.type == "cuda" and (launches, combines) != (per_request * len(reqs),
-                                                       pooled * len(reqs)):
+                                                       groups_per_request * len(reqs)):
         raise AssertionError(
             f"(gather_rows, fused_gather_combine) launched {(launches, combines)} "
             f"times on the main path, the path implies "
-            f"{(per_request * len(reqs), pooled * len(reqs))}")
+            f"{(per_request * len(reqs), groups_per_request * len(reqs))}")
     live_checked = check_rows(p, host, reqs[0])
 
     lat = []
@@ -665,7 +809,7 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
         lat.append((time.perf_counter() - t0) * 1e3)
     stats = {
         "write_s": write_s, "restore_s": restore_s, "launches": launches,
-        "combine_launches": combines, "pooled": pooled,
+        "combine_launches": combines, "combine_per_request": groups_per_request,
         "requests": len(reqs), "launches_per_request": per_request,
         "live_ids_checked": live_checked, "probe_syncs": probe_syncs,
         "p50_ms": float(np.percentile(lat, 50)) if lat else None,
@@ -1872,8 +2016,8 @@ def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
     """Phase 12: the trained state saved and served by Predictor: `requests`
     requests of the full batch and one each of batch 1 and 37, every
     answer equal to Trainer.eval_step's on the trained state bit for bit,
-    one flash forward and three #4 launches (user, target_item, target_cat)
-    per request. Returns stats."""
+    one flash forward and one #4 launch (user, target_item and target_cat in
+    one group) per request. Returns stats."""
     from deeprec_tpu_torch.data import SyntheticBehaviorSequence
     from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
     from deeprec_tpu_torch.serving import Predictor
@@ -1902,8 +2046,8 @@ def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
         lat.append((time.perf_counter() - t0) * 1e3)
     launches = (_flash_counts()[0], _row_counts()[1],
                 fused_gather_combine.launches)  # ... and ends here
-    per_request, pooled = _per_request(p._trainer)
-    want_launches = tuple(len(reqs) * c for c in (1, per_request, pooled))
+    per_request, groups_per_request = _per_request(p._trainer)
+    want_launches = tuple(len(reqs) * c for c in (1, per_request, groups_per_request))
     if dev.type == "cuda" and launches != want_launches:
         raise AssertionError(
             f"BST serving launched (flash fwd, gather_rows, fused_gather_combine) "
@@ -2183,7 +2327,8 @@ def zoo_phase(dev, seed, cfg, ckroot):
 
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
-        combine_edges=COMBINE_EDGES, multi=MULTI, zoo=ZOO):
+        combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
+        multi=MULTI, zoo=ZOO):
     """Phases 3-13 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
@@ -2193,7 +2338,8 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
     rec = {"gather_rows_pair": gathers[torch.bfloat16],
            "apply_rows_sr_pair": scatters[torch.bfloat16],
            "gather_rows": gathers[torch.float32],
-           "fused_gather_combine": combine_phase(dev, seed, combine, combine_edges),
+           "fused_gather_combine": combine_phase(dev, seed, combine, combine_edges,
+                                                 combine_group_edges),
            "apply_rows_sr": scatters[torch.float32]}
     gather, scatter, pooled = (rec[k] for k in ("gather_rows", "apply_rows_sr",
                                                 "fused_gather_combine"))
@@ -2212,7 +2358,8 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
               f"(checkpoint written in {st['write_s']:.2f} s), "
               f"{st['requests']} requests, gather_rows launches {st['launches']} "
               f"({st['launches_per_request']} per request), fused_gather_combine "
-              f"launches {st['combine_launches']} ({st['pooled']} per request), "
+              f"launches {st['combine_launches']} ({st['combine_per_request']} per "
+              f"request), "
               f"{st['live_ids_checked']} looked-up ids checked row for row, "
               f"probe loop {st['probe_syncs']:.1f} host syncs per request")
         print(f"serving: predict latency at batch {batches[0]}: "

@@ -50,8 +50,12 @@ _SIGNATURES = {
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     },
     "fused_gather_combine": {
-        "fused_gather_combine_launch": [ctypes.c_void_p] * 4
-        + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p],
+        # per-feature arrays of pointers (values, row_ix, w, out) and of
+        # sizes (L, C), then F, B, D, bf16 and the stream
+        "fused_gather_combine_grouped_launch": [ctypes.POINTER(ctypes.c_void_p)] * 4
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_void_p],
     },
     "fused_sparse_backward": {
         "fused_sparse_backward_launch": [ctypes.c_void_p] * 10

@@ -1,6 +1,7 @@
 """Row gather, pooled gather, row scatter and the fused sparse bag step —
 the port of the Pallas kernels of `deeprec_tpu/ops/fused_lookup.py`:
-`gather_rows` (#3), `fused_gather_combine` (#4), `apply_rows_sr` (#5),
+`gather_rows` (#3), `fused_gather_combine` (#4, one launch for a group of
+features through `fused_gather_combine_grouped`), `apply_rows_sr` (#5),
 `fused_sparse_forward` (#6) and `fused_sparse_backward` (#7). The bf16
 pair-granule kernels (#1 `gather_rows_pair`, #2 `apply_rows_sr_pair`)
 exist only because a TPU cannot move one bf16 row; on Hopper they are the
@@ -24,8 +25,9 @@ trained through it rounds bit for bit as the JAX package rounds it.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -35,15 +37,16 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _SR_SALT = 0x5EED
 
 
-def _launch(name: str, tensor: torch.Tensor, *args) -> None:
-    """Run the launcher `<name>_launch` of kernel library `name` on the
-    current stream of `tensor`'s device; raise on any CUDA error code."""
+def _launch(name: str, tensor: torch.Tensor, *args, launcher: str = "") -> None:
+    """Run the launcher `launcher` (default `<name>_launch`) of kernel
+    library `name` on the current stream of `tensor`'s device; raise on any
+    CUDA error code."""
     from deeprec_tpu_torch.ops import _build
 
     lib = _build.load(name)
     with torch.cuda.device(tensor.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args, stream)
+        err = getattr(lib, launcher or f"{name}_launch")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
@@ -139,7 +142,8 @@ def fused_gather_combine(values: torch.Tensor, row_ix: torch.Tensor,
     upcast on load), row_ix [B, L] int32 rows (< 0 = skip, >= C clipped to
     C - 1), weights [B, L] f32 carrying the combiner. Returns [B, D] f32,
     out[b] = sum_l weights[b, l] * values[row_ix[b, l]], each column summed
-    in l order (multiply, then add). Any B, L and D.
+    in l order (multiply, then add). Any B, L and D. On the card, a group
+    of one of `fused_gather_combine_grouped`.
 
     A skipped position reads no row, where the Pallas kernel adds
     0 * values[0]: the same result bit for bit wherever values[0] is
@@ -147,28 +151,93 @@ def fused_gather_combine(values: torch.Tensor, row_ix: torch.Tensor,
     _check_combine(values, row_ix, weights)
     if values.device.type == "cpu":
         return fused_gather_combine_plain(values, row_ix, weights)
-    if (values.device.type != "cuda" or row_ix.device != values.device
-            or weights.device != values.device):
+    return fused_gather_combine_grouped([values], [row_ix], [weights])[0]
+
+
+# Features per launch of the grouped kernel: kMaxFeatures of
+# csrc/fused_gather_combine.cu, the capacity of the parameter struct that
+# carries their pointers. A larger group takes several launches.
+GROUP_CAPACITY = 64
+
+
+def _check_group(values, row_ix, weights):
+    if not len(values) == len(row_ix) == len(weights):
         raise ValueError(
-            f"fused_gather_combine: values on {values.device}, row_ix on "
-            f"{row_ix.device}, weights on {weights.device}")
-    if row_ix.dtype != torch.int32 or weights.dtype != torch.float32:
-        raise TypeError(
-            f"fused_gather_combine: row_ix must be int32 and weights float32, "
-            f"got {row_ix.dtype} and {weights.dtype}")
-    if not values.is_contiguous():
-        raise ValueError("fused_gather_combine: values must be contiguous")
-    C, D = values.shape
-    B, L = row_ix.shape
-    out = torch.empty((B, D), dtype=torch.float32, device=values.device)
+            f"fused_gather_combine_grouped: {len(values)} values, {len(row_ix)} "
+            f"row_ix and {len(weights)} weights")
+    for v, ix, w in zip(values, row_ix, weights):
+        _check_combine(v, ix, w)
+    if not values:
+        return
+    v0, ix0 = values[0], row_ix[0]
+    for f, (v, ix, w) in enumerate(zip(values, row_ix, weights)):
+        if not v.device == ix.device == w.device == v0.device:
+            raise ValueError(
+                f"fused_gather_combine_grouped: feature {f} has values on "
+                f"{v.device}, row_ix on {ix.device}, weights on {w.device}; "
+                f"feature 0's values on {v0.device}")
+        if v.dtype != v0.dtype or v.shape[1] != v0.shape[1]:
+            raise ValueError(
+                f"fused_gather_combine_grouped: feature {f} has {v.dtype} rows "
+                f"of D {v.shape[1]}, feature 0 {v0.dtype} rows of D {v0.shape[1]}")
+        if ix.shape[0] != ix0.shape[0]:
+            raise ValueError(
+                f"fused_gather_combine_grouped: feature {f} has B {ix.shape[0]}, "
+                f"feature 0 B {ix0.shape[0]}")
+
+
+def fused_gather_combine_grouped_plain(values, row_ix, weights):
+    """Plain PyTorch version of the grouped launch:
+    `fused_gather_combine_plain` feature by feature."""
+    _check_group(values, row_ix, weights)
+    return [fused_gather_combine_plain(v, ix, w)
+            for v, ix, w in zip(values, row_ix, weights)]
+
+
+def fused_gather_combine_grouped(values: Sequence[torch.Tensor],
+                                 row_ix: Sequence[torch.Tensor],
+                                 weights: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """`fused_gather_combine` of F features in one launch (one per
+    GROUP_CAPACITY features): values[f] [C_f, D], row_ix[f] and weights[f]
+    [B, L_f]. The features share device, row dtype, D and B, and may differ
+    in C and L. Returns F tensors [B, D] f32, views of one [F, B, D]
+    buffer."""
+    values, row_ix, weights = list(values), list(row_ix), list(weights)
+    _check_group(values, row_ix, weights)
+    if not values:
+        return []
+    v0 = values[0]
+    if v0.device.type == "cpu":
+        return fused_gather_combine_grouped_plain(values, row_ix, weights)
+    if v0.device.type != "cuda":
+        raise ValueError(f"fused_gather_combine_grouped: values on {v0.device}")
+    if any(ix.dtype != torch.int32 or w.dtype != torch.float32
+           for ix, w in zip(row_ix, weights)):
+        raise TypeError("fused_gather_combine_grouped: row_ix must be int32 and "
+                        "weights float32")
+    if not all(v.is_contiguous() for v in values):
+        raise ValueError("fused_gather_combine_grouped: values must be contiguous")
+    F, (B, D) = len(values), (row_ix[0].shape[0], v0.shape[1])
+    out = torch.empty((F, B, D), dtype=torch.float32, device=v0.device)
     if B * D == 0:
-        return out
-    row_ix, weights = row_ix.contiguous(), weights.contiguous()
-    _launch("fused_gather_combine", values, values.data_ptr(), row_ix.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), B, L, C, D,
-            int(values.dtype == torch.bfloat16))
-    fused_gather_combine.launches += 1
-    return out
+        return list(out.unbind(0))
+    row_ix = [ix.contiguous() for ix in row_ix]
+    weights = [w.contiguous() for w in weights]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * F)(*[t.data_ptr() for t in ts])
+
+    def sizes(xs):
+        return (ctypes.c_longlong * F)(*xs)
+
+    outs = out.unbind(0)
+    _launch("fused_gather_combine", v0, ptrs(values), ptrs(row_ix), ptrs(weights),
+            ptrs(outs), sizes(ix.shape[1] for ix in row_ix),
+            sizes(v.shape[0] for v in values), F, B, D,
+            int(v0.dtype == torch.bfloat16),
+            launcher="fused_gather_combine_grouped_launch")
+    fused_gather_combine.launches += -(-F // GROUP_CAPACITY)
+    return list(outs)
 
 
 fused_gather_combine.launches = 0

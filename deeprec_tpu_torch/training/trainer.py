@@ -15,8 +15,9 @@ has no compiled step to rebuild).
 
 The read-only forward (`probs_from_views`, which `eval_step` and
 `Predictor.predict` both run) pools every bag through kernel #4
-`fused_gather_combine`, one launch per pooled feature; the train step pools
-through the differentiable `combiners.combine`.
+`fused_gather_combine_grouped`, one launch per group of pooled features
+that share row dtype and width; the train step pools through the
+differentiable `combiners.combine`.
 
 Features whose tables share a config and id shape are bundled: their
 states stack along the leading table axis [T] and one batched lookup serves
@@ -372,17 +373,26 @@ class Trainer:
                       ) -> ModelInputs:
         """The model's inputs from per-feature unique embeddings. The train
         step pools through the differentiable `combine`; read_only=True
-        (serving and evaluation) pools every bag through kernel #4
-        (`combine_pooled`), the rows in their own dtype."""
-        pool = combiners.combine_pooled if read_only else combiners.combine
-        pooled, seq = {}, {}
+        (serving and evaluation) pools the bags through kernel #4, one
+        launch per group of features whose rows share dtype and width
+        (`combine_pooled_group`), the rows in their own dtype."""
+        pooled, seq, groups = {}, {}, {}
         for f in self.sparse_specs:
             _, inverse, mask = views[f.name]
             if f.pooling == "none":
                 e = embs[f.name].to(torch.float32)[inverse.long()]  # [B, L, D]
                 seq[f.name] = (torch.where(mask[..., None], e, 0.0), mask)
+            elif read_only:
+                e = embs[f.name]
+                groups.setdefault((e.dtype, e.shape[-1]), []).append(f)
+                pooled[f.name] = None  # filled below, in feature order
             else:
-                pooled[f.name] = pool(embs[f.name], inverse, mask, f.pooling)
+                pooled[f.name] = combiners.combine(embs[f.name], inverse, mask,
+                                                   f.pooling)
+        for feats in groups.values():
+            pooled.update(zip((f.name for f in feats), combiners.combine_pooled_group(
+                [embs[f.name] for f in feats], [views[f.name][1] for f in feats],
+                [views[f.name][2] for f in feats], [f.pooling for f in feats])))
         dense = {f.name: batch[f.name] for f in self.dense_specs}
         return ModelInputs(pooled=pooled, dense=dense, seq=seq)
 
@@ -473,7 +483,8 @@ class Trainer:
     @torch.no_grad()
     def probs_from_views(self, state: TrainState, views, batch):
         """Label-free forward: views -> (logits, sigmoid probabilities).
-        Every pooled feature pools through kernel #4, one launch each."""
+        The pooled features pool through kernel #4, one launch per group of
+        features whose rows share dtype and width."""
         embs = {n: v[0] for n, v in views.items()}
         inputs = self._build_inputs(embs, views, batch, read_only=True)
         logits = functional_call(self.model, state.dense, (inputs,))

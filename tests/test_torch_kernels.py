@@ -1,9 +1,9 @@
 """The PyTorch port on its own (no jax in this file, so it also runs on the
 CUDA machine): package isolation, the no-silent-CPU rule, and the CUDA
 kernels against their plain versions (marked `cuda`; skip without a card):
-the row gather, the pooled gather (#4) and the row scatter, the fused bag
-step's forward and backward, and flash attention's forward and backward
-(f32 and bf16)."""
+the row gather, the pooled gather (#4, one feature and grouped) and the
+row scatter, the fused bag step's forward and backward, and flash
+attention's forward and backward (f32 and bf16)."""
 import os
 import subprocess
 import sys
@@ -185,6 +185,69 @@ def test_fused_gather_combine_kernel_matches_plain(cuda_device, combiner, dtype,
         assert got.dtype == torch.float32 and got.shape == (B, D)
         assert torch.equal(got, fused_gather_combine_plain(v, row_ix, w))
         assert bool((got[min(1, B - 1)] == 0).all())
+
+
+def _combine_group(*args):
+    """chip_smoke.combine_group: a #4 group of mixed C, L and kinds
+    ("rand", "head", "stacked"), bag 1 of the first feature pads only."""
+    sys.path.insert(0, ROOT)
+    try:
+        from chip_smoke import combine_group
+    finally:
+        sys.path.pop(0)
+    return combine_group(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", ["sum", "sqrtn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [128, 16, 12, 7])
+def test_fused_gather_combine_grouped_kernel_matches_plain(cuda_device, combiner, dtype,
+                                                           D):
+    """The grouped #4 launch bit-exact against its plain version, feature by
+    feature, and against the single-feature entry: mixed L (1, 100, 7) and
+    C in one group, rows past the table, a bag of pads only, a head-heavy
+    feature (one row in every position), a feature over a slice of a
+    stacked table; 16- and 8-byte vectors (D 128, 16, 12) and the scalar
+    path (D 7); one launch counted for the group."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_gather_combine, fused_gather_combine_grouped,
+        fused_gather_combine_grouped_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    specs = [(4096, 100, "rand"), (50, 1, "rand"), (1000, 7, "head"),
+             (300, 100, "stacked"), (4096, 1, "stacked")]
+    group = _combine_group(g, dtype, D, 37, specs, combiner, cuda_device)
+    before = fused_gather_combine.launches
+    got = fused_gather_combine_grouped(*group)
+    torch.cuda.synchronize()
+    assert fused_gather_combine.launches == before + 1
+    want = fused_gather_combine_grouped_plain(*group)
+    for f, (out, ref) in enumerate(zip(got, want)):
+        assert out.dtype == torch.float32 and out.shape == (37, D)
+        assert torch.equal(out, ref), f
+        assert torch.equal(out, fused_gather_combine(*(x[f] for x in group))), f
+    assert bool((got[0][1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_fused_gather_combine_group_past_capacity(cuda_device):
+    """A group of more features than the kernel's parameter struct holds
+    takes ceil(F / GROUP_CAPACITY) launches, each feature still bit-exact."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        GROUP_CAPACITY, fused_gather_combine, fused_gather_combine_grouped,
+        fused_gather_combine_grouped_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(10)
+    F = GROUP_CAPACITY + 6
+    specs = [(64 + k, 1 + k % 5, "rand") for k in range(F)]
+    group = _combine_group(g, torch.float32, 16, 33, specs, "mean", cuda_device)
+    before = fused_gather_combine.launches
+    got = fused_gather_combine_grouped(*group)
+    torch.cuda.synchronize()
+    assert fused_gather_combine.launches == before + 2
+    for out, ref in zip(got, fused_gather_combine_grouped_plain(*group)):
+        assert torch.equal(out, ref)
 
 
 def _bag_ids(g, T, B, L, vocab, pad=0.1, head=False):
