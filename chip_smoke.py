@@ -98,13 +98,18 @@ Phases, each of which must pass:
      Trainer.eval_step's on the trained state bit for bit, one flash
      forward and one #4 launch (user, target_item, target_cat) per
      request; p50 and p90;
- 13. WDL, DeepFM, DCN, DCNv2, MaskNet and DIN at the modelzoo's widths
-     (emb 16, 2^20 slots per table, batch 2048; Criteo vocab 10^6, DIN
-     histories of 50 over vocab 10^5): 5 checked steps (finite losses, no
-     failed insert, the gather and scatter launches the bundles imply), 20
-     timed, on to 300; held-out AUC at least 0.60; the state saved and
-     served by Predictor, 5 requests equal to eval_step bit for bit with
-     one #4 launch per request.
+ 13. the thirteen modelzoo models at the modelzoo's widths (emb 16, 2^20
+     slots per table, batch 2048): WDL, DeepFM, DCN, DCNv2 and MaskNet
+     (Criteo vocab 10^6), DIN and DIEN (histories of 50 over vocab 10^5;
+     DIEN's GRU and AUGRU), DSSM (4 user and 4 item features over vocab
+     10^5) and the multi-task SimpleMultiTask, ESMM, MMoE, PLE and DBMTL
+     (8 categorical and 4 numeric features, vocab 10^6, a ctr and a cvr or
+     ctcvr label): 5 checked steps (finite losses, no failed insert, the
+     gather and scatter launches the bundles imply), 20 timed (DIEN, DSSM
+     and MMoE then 3 profiled), on to 300; held-out AUC (`auc_ctr` for the
+     multi-task models, every other task's printed) at least 0.60; the
+     state saved and served by Predictor, 5 requests equal to eval_step bit
+     for bit, task by task, with one #4 launch per request.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -864,6 +869,22 @@ def profile_device(fn, reps):
     return wall_us / reps, busy, sum(r[2] for r in rows), rows, phases
 
 
+def print_train_profile(what, reps, prof, step_ms):
+    """The `profile:` lines of `reps` profiled train steps (profile_device's
+    result): the step's wall and device-busy time, its idle share, kernels
+    per step, each phase range's host and device time and the kernels that
+    take the most device time."""
+    wall, busy, kernels, rows, phases = prof
+    print(f"profile: {reps} {what}: wall {wall / 1e3:.3f} ms/step, device busy "
+          f"{busy / 1e3:.3f} ms/step, idle share {1 - busy / wall:.3f} (of the timed "
+          f"step {1 - busy / 1e3 / step_ms:.3f}), {kernels} kernels/step")
+    for name, (host_us, dev_us) in phases.items():
+        print(f"profile:   {name:24s} host {host_us / 1e3:8.3f} ms/step, "
+              f"device {dev_us / 1e3:8.3f} ms/step")
+    for dt, key, count in rows[:14]:
+        print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
+
+
 def profile_predict(p, batch, p50_ms, reps=5):
     """The share of wall time the device was idle over `reps` predicts: of
     the profiled wall time, and of the unprofiled p50 latency (the
@@ -1246,16 +1267,8 @@ def run_training(dev, full, small, ckroot, seed, cfg):
           f"{st['peak_gb']} GB; probe loop {st['probe_syncs_per_step']:.1f} host "
           f"syncs per step")
     if "profile" in st:
-        wall, busy, kernels, rows, phases = st["profile"]
-        print(f"profile: {cfg['profiled']} train steps of batch {cfg['batch']}: "
-              f"wall {wall / 1e3:.3f} ms/step, device busy {busy / 1e3:.3f} ms/step, "
-              f"idle share {1 - busy / wall:.3f} (of the timed step "
-              f"{1 - busy / 1e3 / st['step_ms']:.3f}), {kernels} kernels/step")
-        for name, (host_us, dev_us) in phases.items():
-            print(f"profile:   {name:22s} host {host_us / 1e3:8.3f} ms/step, "
-                  f"device {dev_us / 1e3:8.3f} ms/step")
-        for dt, key, count in rows[:14]:
-            print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
+        print_train_profile(f"train steps of batch {cfg['batch']}", cfg["profiled"],
+                            st["profile"], st["step_ms"])
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     from deeprec_tpu_torch.data import SyntheticCriteo
@@ -2139,16 +2152,8 @@ def run_bst(dev, seed, cfg, ckroot):
           f"device memory {st.get('peak_gb')} GB; steps {st['rest_from'] + 1}-"
           f"{st['steps']} (batches made on the host) took {st['rest_s']:.1f} s")
     if "profile" in st:
-        wall, busy, kernels, rows, phases = st["profile"]
-        print(f"profile: {cfg['profiled']} BST train steps: wall {wall / 1e3:.3f} "
-              f"ms/step, device busy {busy / 1e3:.3f} ms/step, idle share "
-              f"{1 - busy / wall:.3f} (of the timed step "
-              f"{1 - busy / 1e3 / st['step_ms']:.3f}), {kernels} kernels/step")
-        for name, (host_us, dev_us) in phases.items():
-            print(f"profile:   {name:24s} host {host_us / 1e3:8.3f} ms/step, "
-                  f"device {dev_us / 1e3:8.3f} ms/step")
-        for dt, key, count in rows[:14]:
-            print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
+        print_train_profile("BST train steps", cfg["profiled"], st["profile"],
+                            st["step_ms"])
     sv = bst_serve_phase(dev, trainer, state, os.path.join(ckroot, "bst"), seed, cfg)
     print(f"BST serving: restored in {sv['restore_s']:.2f} s (saved in "
           f"{sv['save_s']:.2f} s); {sv['requests']} requests launched (flash fwd, "
@@ -2167,37 +2172,58 @@ def run_bst(dev, seed, cfg, ckroot):
 
 # ------------------------------------------------------------ the modelzoo
 
-# WDL, DeepFM, DCN, DCNv2, MaskNet and DIN at the modelzoo's widths
-# (modelzoo/common.py: emb 16, capacity 2^20 per table, batch 2048, Adagrad
-# 0.05, Adam 1e-3; modelzoo/din/train.py: vocab 100,000, Adagrad 0.2) and
-# their own default architectures: the five Criteo models on
-# SyntheticCriteo(vocab=1_000_000), DIN on SyntheticBehaviorSequence at its
-# default seq_len of 50. Each: 5 checked steps, 20 timed, on to 300;
-# held-out AUC over 8 batches of another seed at step 0 and step 300; the
+# The modelzoo at its widths (modelzoo/common.py: emb 16, capacity 2^20 per
+# table, batch 2048, Adagrad 0.05, Adam 1e-3) and each model's own default
+# architecture: WDL, DeepFM, DCN, DCNv2 and MaskNet on
+# SyntheticCriteo(vocab=1_000_000); DIN and DIEN on SyntheticBehaviorSequence
+# at its default seq_len of 50 over vocab 100,000 with Adagrad 0.2
+# (modelzoo/din/train.py, modelzoo/dien/train.py); DSSM on SyntheticTwoTower
+# (4 user and 4 item features, vocab 100,000, Adagrad 0.2,
+# modelzoo/dssm/train.py); SimpleMultiTask, ESMM, MMoE, PLE and DBMTL on
+# SyntheticMultiTask(num_cat=8, num_dense=4, vocab=1_000_000). Each: 5
+# checked steps, 20 timed (DIEN, DSSM and MMoE then 3 profiled), on to 300;
+# held-out AUC over 8 batches of another seed at step 0 and step 300
+# (`auc`, or `auc_ctr` for the multi-task models, against the floor); the
 # state saved, restored by Predictor and asked 5 requests of batch 2048.
+MULTI_TASK = ("SimpleMultiTask", "ESMM", "MMoE", "PLE", "DBMTL")
 ZOO = dict(emb_dim=16, capacity=1 << 20, batch=2048, dense_lr=1e-3, checked=5,
            timed=20, steps=300, eval_batches=8, auc_floor=0.60, requests=5,
-           criteo=dict(vocab=1_000_000, lr=0.05), din=dict(vocab=100_000, lr=0.2,
-                                                          seq_len=50),
-           models=("WDL", "DeepFM", "DCN", "DCNv2", "MaskNet", "DIN"))
+           profiled=3, profile=("DIEN", "DSSM", "MMoE"),
+           criteo=dict(vocab=1_000_000, lr=0.05),
+           behavior=dict(vocab=100_000, lr=0.2, seq_len=50),
+           two_tower=dict(vocab=100_000, lr=0.2),
+           multitask=dict(vocab=1_000_000, lr=0.05),
+           models=("WDL", "DeepFM", "DCN", "DCNv2", "MaskNet", "DIN", "DIEN", "DSSM",
+                   *MULTI_TASK))
 
 
 def zoo_model(name, seed, cfg):
     """(model, data generator factory seed -> generator, sparse lr)."""
-    from deeprec_tpu_torch import models
-    from deeprec_tpu_torch.data import SyntheticBehaviorSequence, SyntheticCriteo
+    from deeprec_tpu_torch import data, models
 
     model = getattr(models, name)(emb_dim=cfg["emb_dim"], capacity=cfg["capacity"],
                                   seed=seed)
-    if name == "DIN":
-        d = cfg["din"]
-        return model, (lambda s: SyntheticBehaviorSequence(
-            batch_size=cfg["batch"], vocab=d["vocab"], seq_len=d["seq_len"], seed=s)), \
-            d["lr"]
-    d = cfg["criteo"]
-    return model, (lambda s: SyntheticCriteo(
-        batch_size=cfg["batch"], vocab=d["vocab"], seed=s, num_cat=model.num_cat,
-        num_dense=model.num_dense)), d["lr"]
+    B = cfg["batch"]
+    if name in ("DIN", "DIEN"):
+        d = cfg["behavior"]
+        return model, (lambda s: data.SyntheticBehaviorSequence(
+            batch_size=B, vocab=d["vocab"], seq_len=d["seq_len"], seed=s)), d["lr"]
+    if name == "DSSM":
+        d = cfg["two_tower"]
+        return model, (lambda s: data.SyntheticTwoTower(
+            batch_size=B, num_user=len(model.user_feats),
+            num_item=len(model.item_feats), vocab=d["vocab"], seed=s)), d["lr"]
+    d, cls = ((cfg["multitask"], data.SyntheticMultiTask) if name in MULTI_TASK
+              else (cfg["criteo"], data.SyntheticCriteo))
+    return model, (lambda s: cls(batch_size=B, vocab=d["vocab"], seed=s,
+                                 num_cat=model.num_cat, num_dense=model.num_dense)), \
+        d["lr"]
+
+
+def _by_task(probs):
+    """{task: probabilities} of an answer; a single-task model's under the
+    task ""."""
+    return probs if isinstance(probs, dict) else {"": probs}
 
 
 def zoo_run(dev, name, seed, cfg, ckdir):
@@ -2212,14 +2238,17 @@ def zoo_run(dev, name, seed, cfg, ckdir):
 
     t0 = time.perf_counter()
     model, gen, lr = zoo_model(name, seed, cfg)
+    auc_key = "auc_ctr" if name in MULTI_TASK else "auc"  # the one held to the floor
     trainer = Trainer(model, Adagrad(lr=lr), adam(cfg["dense_lr"]), device=dev)
     state = trainer.init()
     held = gen(seed + 1)
     evals = [trainer.device_batch(held.batch()) for _ in range(cfg["eval_batches"])]
-    auc0 = trainer.evaluate(state, evals)["auc"]
+    aucs0 = trainer.evaluate(state, evals)
     train_gen = gen(seed)
     n = cfg["checked"]
-    staged = [trainer.device_batch(train_gen.batch()) for _ in range(n + cfg["timed"])]
+    profiled = cfg["profiled"] if dev.type == "cuda" and name in cfg["profile"] else 0
+    staged = [trainer.device_batch(train_gen.batch())
+              for _ in range(n + cfg["timed"] + (profiled + 1 if profiled else 0))]
     _sync(dev)
 
     _zero_row_counts()  # the main path starts here
@@ -2243,20 +2272,34 @@ def zoo_run(dev, name, seed, cfg, ckdir):
         state, m = trainer.train_step(state, staged[i])
     _sync(dev)
     timed_s = time.perf_counter() - t1
+    done = n + cfg["timed"]
+    prof = None
+    if profiled:
+        box, nxt = [state], iter(staged[done:])
+
+        def step():
+            box[0] = trainer.train_step(box[0], next(nxt))[0]
+
+        prof = profile_device(step, profiled)
+        state = box.pop()
+        done += profiled + 1
     del staged
-    for _ in range(n + cfg["timed"], cfg["steps"]):
+    for _ in range(done, cfg["steps"]):
         state, m = trainer.train_step(state, train_gen.batch())
     losses.append(float(m["loss"]))
-    auc = trainer.evaluate(state, evals)["auc"]
-    if not np.isfinite(losses[-1]) or not auc >= cfg["auc_floor"]:
+    aucs = trainer.evaluate(state, evals)
+    if not np.isfinite(losses[-1]) or not aucs[auc_key] >= cfg["auc_floor"]:
         raise AssertionError(f"{name} after {state.step} steps: loss {losses[-1]}, "
-                             f"held-out AUC {auc} (floor {cfg['auc_floor']})")
+                             f"held-out {auc_key} {aucs[auc_key]} (floor "
+                             f"{cfg['auc_floor']})")
 
     CheckpointManager(ckdir, trainer).save(state)
     p = Predictor(model, ckdir, device=dev)
     serve_gen = gen(seed + 2)
     reqs = [serve_gen.batch() for _ in range(cfg["requests"])]
-    want = [trainer.eval_step(state, b)[1].cpu().numpy() for b in reqs]
+    want = [{t: v.cpu().numpy()
+             for t, v in _by_task(trainer.eval_step(state, b)[1]).items()}
+            for b in reqs]
     _zero_row_counts()  # the main path starts here
     fused_gather_combine.launches = 0
     got, lat = [], []
@@ -2270,11 +2313,18 @@ def zoo_run(dev, name, seed, cfg, ckdir):
         raise AssertionError(f"{name} serving launched (gather_rows, "
                              f"fused_gather_combine) {served}; {len(reqs)} requests "
                              f"imply {tuple(len(reqs) * c for c in per_request)}")
-    for g, w in zip(got, want):
-        if g.shape != w.shape or not np.array_equal(g, w):
-            raise AssertionError(f"{name} serving: Predictor differs from eval_step")
-        if not (np.all(np.isfinite(g)) and np.all(g > 0) and np.all(g < 1)):
-            raise AssertionError(f"{name} serving: probabilities not finite in (0, 1)")
+    for g, w in zip(map(_by_task, got), want):
+        if g.keys() != w.keys():
+            raise AssertionError(f"{name} serving: tasks {sorted(g)}, eval_step's "
+                                 f"{sorted(w)}")
+        for t, wt in w.items():
+            gt = g[t]
+            if gt.shape != wt.shape or not np.array_equal(gt, wt):
+                raise AssertionError(f"{name} serving {t!r}: Predictor differs from "
+                                     f"eval_step")
+            if not (np.all(np.isfinite(gt)) and np.all(gt > 0) and np.all(gt < 1)):
+                raise AssertionError(f"{name} serving {t!r}: probabilities not finite "
+                                     f"in (0, 1)")
     # #4 at this model's own serving shape: the first pooled feature of the
     # first request, rows [U, emb] and bags [batch, 1]
     f = next(f for f in trainer.sparse_specs if f.pooling != "none")
@@ -2285,8 +2335,12 @@ def zoo_run(dev, name, seed, cfg, ckdir):
                           f"{tuple(emb.shape)}, bags {tuple(row_ix.shape)}")
     del views, emb, inv, mask, row_ix, w
     stats = {"rows": rows, "per_step": per_step, "served": served, "err": err,
-             "per_request": per_request, "losses": losses, "auc0": auc0, "auc": auc,
-             "steps": state.step, "step_ms": timed_s / cfg["timed"] * 1e3,
+             "per_request": per_request, "losses": losses, "auc_key": auc_key,
+             "auc0": aucs0[auc_key], "auc": aucs[auc_key],
+             "other_aucs": {k: v for k, v in aucs.items()
+                            if k.startswith("auc") and k != auc_key},
+             "profile": prof, "steps": state.step,
+             "step_ms": timed_s / cfg["timed"] * 1e3,
              "examples_per_s": cfg["timed"] * cfg["batch"] / timed_s,
              "p50_ms": float(np.percentile(lat, 50)),
              "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
@@ -2312,13 +2366,18 @@ def zoo_phase(dev, seed, cfg, ckroot):
               f"(apply_rows_sr, gather_rows) {st['rows']} ({st['per_step']} per step); "
               f"{st['examples_per_s']:.1f} examples/s over {cfg['timed']} timed steps "
               f"({st['step_ms']:.3f} ms/step); loss step 1 {st['losses'][0]:.6f}, step "
-              f"{st['steps']} {st['losses'][-1]:.6f}; held-out AUC {st['auc0']:.6f} at "
-              f"step 0, {st['auc']:.6f} at step {st['steps']} (floor "
-              f"{cfg['auc_floor']}); served {cfg['requests']} requests equal to "
-              f"eval_step bit for bit, (gather_rows, fused_gather_combine) launched "
-              f"{st['served']} ({st['per_request']} per request), p50 "
-              f"{st['p50_ms']:.3f} ms; peak device memory {st['peak_gb']} GB; "
-              f"{st['seconds']:.1f} s")
+              f"{st['steps']} {st['losses'][-1]:.6f}; held-out {st['auc_key']} "
+              f"{st['auc0']:.6f} at step 0, {st['auc']:.6f} at step {st['steps']} "
+              f"(floor {cfg['auc_floor']})"
+              + "".join(f", {k} {v:.6f}" for k, v in st["other_aucs"].items())
+              + f"; served {cfg['requests']} requests equal to eval_step bit for bit"
+              f"{' task by task' if name in MULTI_TASK else ''}, (gather_rows, "
+              f"fused_gather_combine) launched {st['served']} ({st['per_request']} per "
+              f"request), p50 {st['p50_ms']:.3f} ms; peak device memory "
+              f"{st['peak_gb']} GB; {st['seconds']:.1f} s")
+        if st["profile"] is not None:
+            print_train_profile(f"{name} train steps of batch {cfg['batch']}",
+                                cfg["profiled"], st["profile"], st["step_ms"])
     return out
 
 

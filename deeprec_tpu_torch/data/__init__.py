@@ -1,4 +1,6 @@
 from deeprec_tpu_torch.data.synthetic import (
-    SyntheticBehaviorSequence, SyntheticCriteo, zipf_ids)
+    SyntheticBehaviorSequence, SyntheticCriteo, SyntheticMultiTask, SyntheticTwoTower,
+    zipf_ids)
 
-__all__ = ["SyntheticBehaviorSequence", "SyntheticCriteo", "zipf_ids"]
+__all__ = ["SyntheticBehaviorSequence", "SyntheticCriteo", "SyntheticMultiTask",
+           "SyntheticTwoTower", "zipf_ids"]

@@ -1,6 +1,7 @@
 """Synthetic click logs — the port's copy of `deeprec_tpu/data/synthetic.py`
-(`zipf_ids`, `SyntheticCriteo`, `SyntheticBehaviorSequence`), numpy only:
-batches are bit-identical to the JAX package's for a seed.
+(`zipf_ids`, `SyntheticCriteo`, `SyntheticMultiTask`, `SyntheticTwoTower`,
+`SyntheticBehaviorSequence`), numpy only: batches are bit-identical to the
+JAX package's for a seed.
 
 Ids are zipf-distributed (recommendation workloads are heavy-tailed), and
 the label is a noisy logistic function of hidden per-id weights, so a
@@ -153,6 +154,71 @@ class SyntheticCriteo:
             # (offset_ids=False: shared raw space, correlated zipf heads)
             off = c * self.vocab if self.offset_ids else 0
             out[f"C{c+1}"] = (cats[c] + off).astype(self.dtype)
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.batch()
+
+
+class SyntheticMultiTask(SyntheticCriteo):
+    """SyntheticCriteo with correlated ctr/cvr/ctcvr labels (and no
+    `label`) for the multi-task models. A conversion is observable only
+    given a click: the entire-space structure ESMM exploits."""
+
+    def batch(self) -> Dict[str, np.ndarray]:
+        out = super().batch()
+        click = out.pop("label")
+        conv_given_click = (self.rng.random(self.B) < 0.3).astype(np.float32)
+        out["label_ctr"] = click
+        out["label_cvr"] = click * conv_given_click
+        out["label_ctcvr"] = click * conv_given_click
+        return out
+
+
+class SyntheticTwoTower:
+    """User and item id features U0.. and V0.. (each item feature in its own
+    id range) with a label from a hidden user-item affinity plus per-id
+    propensities, for DSSM."""
+
+    def __init__(self, batch_size=512, num_user=4, num_item=4, vocab=10_000,
+                 zipf_a: float = 1.2, seed=0, dtype=np.int32):
+        self.B = batch_size
+        self.num_user = num_user
+        self.num_item = num_item
+        self.vocab = vocab
+        self.zipf_a = zipf_a
+        self.rng = np.random.default_rng(seed)
+        self.dtype = dtype
+        wrng = np.random.default_rng(4242)
+        self.vec = wrng.normal(0, 1, size=(num_user + num_item, vocab, 4)).astype(
+            np.float32
+        )
+        self.bias = wrng.normal(0, 1.0, size=(num_user + num_item, vocab)).astype(
+            np.float32
+        )
+
+    def batch(self) -> Dict[str, np.ndarray]:
+        ids = zipf_ids(self.rng, self.vocab, self.zipf_a,
+                       (self.num_user + self.num_item, self.B))
+        u = sum(self.vec[i, ids[i]] for i in range(self.num_user))
+        v = sum(
+            self.vec[self.num_user + i, ids[self.num_user + i]]
+            for i in range(self.num_item)
+        )
+        pop = sum(
+            self.bias[i, ids[i]] for i in range(self.num_user + self.num_item)
+        )
+        logit = (u * v).sum(1) * 0.5 + pop * 0.5
+        prob = 1.0 / (1.0 + np.exp(-(logit - logit.mean())))
+        label = (self.rng.random(self.B) < prob).astype(np.float32)
+        out = {"label": label}
+        for i in range(self.num_user):
+            out[f"U{i}"] = ids[i].astype(self.dtype)
+        for i in range(self.num_item):
+            out[f"V{i}"] = (ids[self.num_user + i] + (i + 1) * self.vocab).astype(
+                self.dtype
+            )
         return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

@@ -1,5 +1,6 @@
 """NN layers for the modelzoo — the port of `deeprec_tpu/nn.py` (the layers
-DLRM, DLRM-DCN, BST, WDL, DeepFM, DCN, DCNv2, MaskNet and DIN use).
+DLRM, DLRM-DCN, BST, WDL, DeepFM, DCN, DCNv2, MaskNet, DIN, DIEN, DSSM and
+the multi-task models use).
 
 Parameters keep the JAX package's layout (`w` is [in, out]) and names, so a
 module's parameter tree is the JAX param tree: `param_tree` rebuilds it and
@@ -13,12 +14,13 @@ in f32 computes the same thing; `torch.matmul` on bf16 tensors would round
 the output to bf16 as well, which JAX does not. The cross network, the
 transformer block's qkv and output projections (`matmul`) multiply in plain
 f32; its attention runs through `ops/flash_attention.py`. DCN's vector
-cross net multiplies in plain f32 too, and FM sums in f32.
+cross net multiplies in plain f32 too, FM sums in f32, and the GRU's gates
+(`gru_apply`, DIEN) are plain f32 products.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -120,6 +122,53 @@ def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+
+
+# ----------------------------------------------------------------- GRU / AUGRU
+
+
+def gru_init(in_dim: int, hid: int, generator: torch.Generator
+             ) -> Dict[str, torch.Tensor]:
+    """The JAX `gru_init` tree: wz, wr, wh [in + hid, hid] (glorot) and bz,
+    br, bh [hid] = 0."""
+    return {
+        "wz": _glorot((in_dim + hid, hid), generator),
+        "wr": _glorot((in_dim + hid, hid), generator),
+        "wh": _glorot((in_dim + hid, hid), generator),
+        "bz": torch.zeros(hid), "br": torch.zeros(hid), "bh": torch.zeros(hid),
+    }
+
+
+def gru_cell(p, h: torch.Tensor, x: torch.Tensor,
+             att: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One step of the JAX package's GRU: the reset gate scales h BEFORE the
+    candidate's one product over [x, r * h] (torch.nn.GRU and cuDNN scale
+    `W_hn h + b_hn` instead, another cell). With `att` [B] (the AUGRU of
+    DIEN) the attention score scales the update gate."""
+    xh = torch.cat([x, h], dim=-1)
+    z = torch.sigmoid(matmul(xh, p["wz"]) + p["bz"])
+    r = torch.sigmoid(matmul(xh, p["wr"]) + p["br"])
+    hh = torch.tanh(matmul(torch.cat([x, r * h], dim=-1), p["wh"]) + p["bh"])
+    if att is not None:
+        z = att[:, None] * z
+    return (1.0 - z) * h + z * hh
+
+
+def gru_apply(p, xs: torch.Tensor, mask: torch.Tensor,
+              att: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a GRU (an AUGRU when `att` [B, L] is given) over xs [B, L, D]
+    with mask [B, L] bool, from h0 = 0: the JAX `lax.scan` as an eager loop
+    over L, one autograd graph, no host sync. A masked step carries the
+    previous state. Returns (final state [B, H], every state [B, L, H])."""
+    B, L, _ = xs.shape
+    h = xs.new_zeros((B, p["bz"].shape[0]))
+    hs = []
+    for t in range(L):
+        h_new = gru_cell(p, h, xs[:, t], None if att is None else att[:, t])
+        h = torch.where(mask[:, t, None], h_new, h)
+        hs.append(h)
+    return h, torch.stack(hs, dim=1)
 
 
 # ------------------------------------------------------------ transformer (BST)
@@ -268,6 +317,21 @@ class DINAttention(nn.Module):
 
     def forward(self, query, keys, mask):
         return din_attention_apply(self, query, keys, mask)
+
+
+class GRU(nn.Module):
+    """`gru_init`'s tree as parameters; `forward` is `gru_apply`."""
+
+    def __init__(self, in_dim: int, hid: int, generator: torch.Generator):
+        super().__init__()
+        for name, t in gru_init(in_dim, hid, generator).items():
+            setattr(self, name, nn.Parameter(t))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+    def forward(self, xs, mask, att=None):
+        return gru_apply(self, xs, mask, att)
 
 
 # ------------------------------------------------------- JAX tree layout

@@ -67,7 +67,8 @@ class Predictor:
         }
 
     def predict(self, batch: Dict[str, np.ndarray]):
-        """Probabilities [B] for one batch (numpy, on the host)."""
+        """Probabilities [B] for one batch (numpy, on the host); a {task:
+        probabilities} dict for a multi-task model."""
         return self.predict_versioned(batch)[0]
 
     def predict_versioned(self, batch: Dict[str, np.ndarray]):
@@ -77,4 +78,6 @@ class Predictor:
         batch = self._device_batch(batch)
         views, _ = self._trainer.forward_views(snap.state, batch)
         probs = self._trainer.probs_from_views(snap.state, views, batch)[1]
+        if isinstance(probs, dict):
+            return {t: p.cpu().numpy() for t, p in probs.items()}, snap.version
         return probs.cpu().numpy(), snap.version

@@ -4,6 +4,10 @@ the port of `deeprec_tpu/training/trainer.py` (`Trainer.init`,
 `probs_from_views`, the unique-budget engine's `update_budgets` and
 `dedup_stats`), single device, `pipeline_mode="off"`.
 
+A multi-task model returns {task: logits}: the loss sums one BCE per task
+over `batch["label_<task>"]`, the train step reports accuracy 0, and
+`eval_step`, `probs_from_views` and `evaluate` answer per task (`auc_<task>`).
+
 Unique budgets: a bundle whose budget mode (the trainer's
 `unique_budget`, else its features', else its table config's) is an int or
 "auto" dedups its TRAIN lookups through the hash engine at a static budget
@@ -421,7 +425,7 @@ class Trainer:
             dense = {n: p.detach().requires_grad_(True) for n, p in state.dense.items()}
             logits = functional_call(self.model, dense,
                                      (self._build_inputs(embs, views, batch),))
-            loss = M.bce_loss(logits, batch["label"])
+            loss = _loss_from_logits(logits, batch)
             grads = torch.autograd.grad(loss, [*dense.values(), *leaves],
                                         allow_unused=True)
             grads = [torch.zeros_like(x) if g is None else g
@@ -446,31 +450,41 @@ class Trainer:
                                                        state.dense)
             dense_optim.apply_updates(state.dense, updates)
         with torch.no_grad():
-            probs = torch.sigmoid(logits.detach())
-            mets = {"loss": loss.detach(),
-                    "accuracy": M.accuracy(probs, batch["label"])}
+            mets = {"loss": loss.detach(), "accuracy": (
+                loss.new_zeros(()) if isinstance(logits, dict)
+                else M.accuracy(torch.sigmoid(logits.detach()), batch["label"]))}
         return TrainState(step=step + 1, tables=state.tables, dense=state.dense,
                           opt_state=opt_state), mets
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
-        """Read-only forward of a labelled batch: (loss, probabilities)."""
+        """Read-only forward of a labelled batch: (loss, probabilities; a
+        {task: probabilities} dict for a multi-task model)."""
         batch = self.device_batch(batch)
         views, _ = self._lookup_all(state.tables, batch)
         logits, probs = self.probs_from_views(state, views, batch)
-        return M.bce_loss(logits, batch["label"]), probs
+        return _loss_from_logits(logits, batch), probs
 
     def evaluate(self, state: TrainState, batches) -> Dict[str, float]:
-        """Streamed loss and histogram AUC over an iterable of batches."""
-        auc = M.AucState.create(self.device)
+        """Streamed loss and histogram AUC over an iterable of batches:
+        `auc`, or one `auc_<task>` per task of a multi-task model."""
+        aucs: Dict[str, M.AucState] = {}
         total, n = 0.0, 0
         for batch in batches:
             batch = self.device_batch(batch)
             loss, probs = self.eval_step(state, batch)
-            auc = M.auc_update(auc, probs, batch["label"])
+            for task, p in (probs.items() if isinstance(probs, dict)
+                            else [("", probs)]):
+                label = batch[f"label_{task}" if task else "label"]
+                if task not in aucs:
+                    aucs[task] = M.AucState.create(self.device)
+                aucs[task] = M.auc_update(aucs[task], p, label)
             total += float(loss)
             n += 1
-        return {"loss": total / max(n, 1), "auc": float(M.auc_compute(auc))}
+        out = {"loss": total / max(n, 1)}
+        for task, auc in aucs.items():
+            out[f"auc_{task}" if task else "auc"] = float(M.auc_compute(auc))
+        return out
 
     # ------------------------------------------------------------- serving
 
@@ -482,10 +496,21 @@ class Trainer:
 
     @torch.no_grad()
     def probs_from_views(self, state: TrainState, views, batch):
-        """Label-free forward: views -> (logits, sigmoid probabilities).
-        The pooled features pool through kernel #4, one launch per group of
-        features whose rows share dtype and width."""
+        """Label-free forward: views -> (logits, sigmoid probabilities),
+        both {task: [B]} dicts for a multi-task model. The pooled features
+        pool through kernel #4, one launch per group of features whose rows
+        share dtype and width."""
         embs = {n: v[0] for n, v in views.items()}
         inputs = self._build_inputs(embs, views, batch, read_only=True)
         logits = functional_call(self.model, state.dense, (inputs,))
+        if isinstance(logits, dict):
+            return logits, {t: torch.sigmoid(v) for t, v in logits.items()}
         return logits, torch.sigmoid(logits)
+
+
+def _loss_from_logits(logits, batch) -> torch.Tensor:
+    """BCE against `label`, or for {task: logits} the sum over tasks of the
+    BCE against `label_<task>`."""
+    if isinstance(logits, dict):
+        return sum(M.bce_loss(v, batch[f"label_{t}"]) for t, v in logits.items())
+    return M.bce_loss(logits, batch["label"])
