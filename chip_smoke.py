@@ -110,6 +110,25 @@ Phases, each of which must pass:
      multi-task models, every other task's printed) at least 0.60; the
      state saved and served by Predictor, 5 requests equal to eval_step bit
      for bit, task by task, with one #4 launch per request.
+ 14. the training loop of modelzoo/common.py `run()`: (a) at the full
+     widths and 2^12 slots on the card, bit for bit, K = 4 windows of
+     train_steps in "off" and "lookahead" and 4 train_step calls (f32
+     tables, then bf16), off against lookahead on a 40-id vocabulary and
+     under unique_budget 64, remat against none, stage="auto" against
+     "off" (batch 2048); train_step_accum(A=4) card vs CPU within
+     TRAIN_RTOL and ROW_ATOL; a counting-Bloom-filter table's sketch and
+     keys equal to the CPU's, evict_tables (TTL and L2) and maintain's
+     growth keeping every survivor's rows per key, and a checkpoint that
+     restores the sketch and the grown capacity; (b) the loop at MLPerf
+     DLRM-DCN widths with bf16 tables, CounterFilter(2) and
+     GlobalStepEvict(200), each table starting at the power of two below
+     half its distinct ids: stage(depth=2) feeding 40 windows of
+     train_steps(K=8) (lookahead; 5 in "off", 5 fed host batches, 2
+     profiled), evict_tables and maintain(max_capacity=2^20) after every
+     5th window, train_step_accum(A=4) over 2 windows' batches, evaluate on
+     8 held-out batches: finite losses, no failed insert after the last
+     maintain, every table grown, keys evicted, the launches of #1-#5 and
+     #4 the path implies, held-out AUC >= 0.60.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -1192,7 +1211,7 @@ def _copy_state(state, dev):
     out.tables = {
         b: type(ts)(**{
             k: ({n: a.to(dev, copy=True) for n, a in v.items()}
-                if isinstance(v, dict) else v.to(dev, copy=True))
+                if isinstance(v, dict) else None if v is None else v.to(dev, copy=True))
             for k, v in vars(ts).items()})
         for b, ts in state.tables.items()
     }
@@ -1205,9 +1224,10 @@ def _copy_state(state, dev):
     return out
 
 
-def train_agreement(dev, model, gen, cfg, steps=3):
+def train_agreement(dev, model, gen, cfg, steps=3, step=None):
     """One initial state of `model` made on the CPU and copied to `dev`;
-    `steps` train steps on each, on batches of `gen`; returns (max loss
+    `steps` train steps on each, on batches of `gen` (`step(trainer, state,
+    batch)` -> (state, metrics), default `train_step`); returns (max loss
     relative difference, max row difference, max dense difference, rows
     compared)."""
     from deeprec_tpu_torch.optim import Adagrad, adam
@@ -1222,7 +1242,7 @@ def train_agreement(dev, model, gen, cfg, steps=3):
         b = gen.batch()
         ls = {}
         for d in ("cpu", dev):
-            states[d], m = trainers[d].train_step(states[d], b)
+            states[d], m = (step or Trainer.train_step)(trainers[d], states[d], b)
             ls[d] = float(m["loss"])
         loss_diff = max(loss_diff, abs(ls[dev] - ls["cpu"]) / abs(ls["cpu"]))
     row_diff, compared = 0.0, 0
@@ -2384,11 +2404,465 @@ def zoo_phase(dev, seed, cfg, ckroot):
 # ------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ the training loop
+
+# Phase 14: the loop of modelzoo/common.py `run()` on the port. (a) agreement
+# on the card at the full widths and 2^12 slots; (b) the loop at MLPerf
+# DLRM-DCN widths with bf16 tables, CounterFilter(2) and GlobalStepEvict(200)
+# (the options `ev_option` builds from --filter_freq 2 --steps_to_live 200),
+# Adagrad 0.05 + Adam 1e-3, batch 2048 of SyntheticCriteo(vocab=10^6): the
+# ring of `stage(depth=2)` feeds 40 windows of train_steps(K=8) in
+# "lookahead" (20-21 under the profiler; 25-29 in "off" and 35-39 from host
+# batches with no staging, each against 30-34: the tables reach their last
+# capacity at window 25 in this run, and a fuller table takes more probe
+# rounds, each a host sync); evict_tables and maintain(max_capacity 2^20)
+# after every 5th window; then train_step_accum(A=4) over 2 windows'
+# batches and evaluate on 8 held-out batches. Each table starts at the power
+# of two below half the distinct ids it sees in the run, so it has to grow.
+LOOP = dict(batch=2048, vocab=1_000_000, K=8, windows=40, every=5, accum_windows=2,
+            accum=4, eval_batches=8, filter_freq=2, steps_to_live=200, lr=0.05,
+            dense_lr=1e-3, max_capacity=1 << 20, auc_floor=0.60, off_windows=(25, 30),
+            raw_windows=(35, 40), profiled=20, agree_batch=256, agree_K=4,
+            tiny_vocab=40, budget=64, stage_batch=2048, stage_windows=2,
+            cbf=dict(filter_freq=2, max_element_size=1 << 14), cbf_steps=3,
+            ttl=1, l2_per_dim=0.0025)
+
+
+def _retable(model, **cfg):
+    """Every table config of `model` with `cfg` replaced (modelzoo/common.py
+    `_retable`: bf16 values, options)."""
+    import dataclasses
+
+    from deeprec_tpu_torch.features import SparseFeature
+
+    model.features = [
+        dataclasses.replace(f, table=dataclasses.replace(f.table, **cfg))
+        if isinstance(f, SparseFeature) and f.table is not None else f
+        for f in model.features]
+    return model
+
+
+def _state_diff(a, b):
+    """The tensors of two TrainStates that differ in any bit (empty when
+    they are the same state)."""
+    out = [] if a.step == b.step else ["step"]
+    for bname, x in a.tables.items():
+        y = b.tables[bname]
+        for f in ("keys", "values", "meta", "insert_fails", "dedup_unique", "dedup_ids",
+                  "dedup_overflow", "bloom"):
+            u, v = getattr(x, f), getattr(y, f)
+            if (u is None) != (v is None) or (u is not None and not torch.equal(u, v)):
+                out.append(f"{bname}.{f}")
+        out += [f"{bname}.{k}" for k in x.slots if not torch.equal(x.slots[k], y.slots[k])]
+    out += [n for n in a.dense if not torch.equal(a.dense[n], b.dense[n])]
+    oa, ob = a.opt_state, b.opt_state
+    out += [] if torch.equal(oa.count, ob.count) else ["count"]
+    out += [f"mu.{n}" for n in oa.mu if not torch.equal(oa.mu[n], ob.mu[n])]
+    out += [f"nu.{n}" for n in oa.nu if not torch.equal(oa.nu[n], ob.nu[n])]
+    return out
+
+
+def _rows_by_key(ts, t):
+    """{key: (value row, accum row, meta column)} of table t, on the host."""
+    keys = ts.keys[t].cpu().numpy()
+    live = np.nonzero(keys != np.iinfo(keys.dtype).min)[0]
+    v = ts.values[t].float().cpu().numpy()[live]
+    a = ts.slots["accum"][t].cpu().numpy()[live]
+    m = ts.meta[t].cpu().numpy()[:, live].T
+    return {int(k): (v[i], a[i], tuple(m[i])) for i, k in enumerate(keys[live])}
+
+
+def _same_rows(got, want, what):
+    """Every key of `want` in `got` with the same rows and metadata, bit
+    for bit."""
+    if got.keys() != set(want):
+        raise AssertionError(f"{what}: {len(got)} keys, want {len(want)}")
+    for k, (v, a, m) in want.items():
+        gv, ga, gm = got[k]
+        if not (np.array_equal(gv, v) and np.array_equal(ga, a) and gm == m):
+            raise AssertionError(f"{what}: key {k} changed")
+    return len(want)
+
+
+def loop_agreement(dev, seed, small, cfg, ckdir):
+    """Phase 14 (a): the loop's entry points held bit for bit on the card
+    (and, for the micro-batched step and the CBF sketch, against the CPU
+    port) at the full widths and 2^12 slots. Returns the printed lines."""
+    from deeprec_tpu_torch.config import (
+        CBFFilter, EmbeddingVariableOption, GlobalStepEvict, L2WeightEvict)
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    lines = []
+
+    def trainer(model, device=dev, **kw):
+        return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]),
+                       device=device, **kw)
+
+    def model(dtype="float32", ev=EmbeddingVariableOption()):
+        return _retable(DLRMDCN(**small, ev=ev, seed=seed), value_dtype=dtype)
+
+    def window(vocab, batch=cfg["agree_batch"], n=cfg["agree_K"], s=0):
+        gen = SyntheticCriteo(batch_size=batch, vocab=vocab, seed=seed + 60 + s)
+        return [gen.batch() for _ in range(n)]
+
+    def check(what, diff):
+        if diff:
+            raise AssertionError(f"{what}: differ in {diff[:8]}")
+        lines.append(f"{what}: bit for bit")
+
+    def modes(m, batches, **kw):
+        """(off window, lookahead window) from one initial state."""
+        out = []
+        for mode in ("off", "lookahead"):
+            t = trainer(m, pipeline_mode=mode, **kw)
+            st, mets = t.train_steps(t.init(), batches)
+            out.append((st, mets))
+        return out
+
+    for dtype in ("float32", "bfloat16"):
+        m, batches = model(dtype), window(cfg["vocab"])
+        (s_off, m_off), (s_la, m_la) = modes(m, batches)
+        t = trainer(m)
+        s_seq, seq = t.init(), []
+        for b in batches:
+            s_seq, mm = t.train_step(s_seq, b)
+            seq.append(mm["loss"])
+        same_loss = (torch.equal(m_off["loss"], m_la["loss"])
+                     and torch.equal(m_off["loss"], torch.stack(seq)))
+        check(f"{dtype} tables, K = {cfg['agree_K']}: off, lookahead and "
+              f"{cfg['agree_K']} x train_step (losses {m_off['loss'].tolist()})",
+              ([] if same_loss else ["loss"]) + _state_diff(s_off, s_la)
+              + _state_diff(s_off, s_seq))
+    (s_off, m_off), (s_la, m_la) = modes(model(), window(cfg["tiny_vocab"]))
+    check(f"tiny vocabulary ({cfg['tiny_vocab']} ids): off and lookahead",
+          ([] if torch.equal(m_off["loss"], m_la["loss"]) else ["loss"])
+          + _state_diff(s_off, s_la))
+    (s_off, m_off), (s_la, m_la) = modes(model(), window(cfg["vocab"], s=1),
+                                         unique_budget=cfg["budget"])
+    ovf = sum(int(ts.dedup_overflow.sum()) for ts in s_off.tables.values())
+    check(f"unique_budget={cfg['budget']} (overflow {ovf}): off and lookahead",
+          ([] if torch.equal(m_off["loss"], m_la["loss"]) else ["loss"])
+          + _state_diff(s_off, s_la))
+    m, batches = model(), window(cfg["vocab"], s=2)
+    runs = []
+    for remat in (False, True):
+        t = trainer(m, remat=remat)
+        runs.append(t.train_steps(t.init(), batches))
+    check("remat=True and remat=False",
+          ([] if torch.equal(runs[0][1]["loss"], runs[1][1]["loss"]) else ["loss"])
+          + _state_diff(runs[0][0], runs[1][0]))
+    host = window(cfg["vocab"], batch=cfg["stage_batch"],
+                  n=cfg["agree_K"] * cfg["stage_windows"], s=3)
+    runs = []
+    for stage in ("auto", "off"):
+        t = trainer(m, stage=stage, pipeline_mode="lookahead")
+        st, data, losses = t.init(), iter(t.stage(iter(host))), []
+        for _ in range(cfg["stage_windows"]):
+            st, mets = t.train_steps(st, [next(data) for _ in range(cfg["agree_K"])])
+            losses.append(mets["loss"])
+        runs.append((st, torch.cat(losses)))
+    check(f"stage='auto' and stage='off', {cfg['stage_windows']} windows of batch "
+          f"{cfg['stage_batch']}", ([] if torch.equal(runs[0][1], runs[1][1]) else ["loss"])
+          + _state_diff(runs[0][0], runs[1][0]))
+    del runs, s_off, s_la, s_seq
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    A = cfg["accum"]
+    loss_d, row_d, dense_d, n = train_agreement(
+        dev, model(), SyntheticCriteo(batch_size=cfg["agree_batch"], vocab=cfg["vocab"],
+                                      seed=seed + 64), cfg, steps=2,
+        step=lambda t, st, b: t.train_step_accum(st, b, A))
+    lines.append(f"train_step_accum(A={A}), 2 steps of batch {cfg['agree_batch']}, "
+                 f"{dev.type} vs cpu: loss rel diff {loss_d:.3g} (tolerance {TRAIN_RTOL}), "
+                 f"max row diff {row_d:.3g} over {n} keys (tolerance {ROW_ATOL}), max "
+                 f"dense diff {dense_d:.3g} (bound {4 * cfg['dense_lr']:.3g})")
+    if loss_d > TRAIN_RTOL or row_d > ROW_ATOL or dense_d > 4 * cfg["dense_lr"]:
+        raise AssertionError("micro-batched steps: card and CPU disagree")
+
+    # a CBF table (with TTL and L2 eviction): the sketch, admission and
+    # sizes on the card equal the CPU port's; eviction and growth keep every
+    # survivor's rows; a checkpoint carries the sketch and the capacity
+    ev = EmbeddingVariableOption(cbf_filter=CBFFilter(**cfg["cbf"]),
+                                 global_step_evict=GlobalStepEvict(cfg["ttl"]),
+                                 l2_weight_evict=L2WeightEvict(
+                                     cfg["l2_per_dim"] * small["emb_dim"]))
+    m = model(ev=ev)
+    tr = {d: trainer(m, device=d) for d in ("cpu", dev)}
+    states = {"cpu": tr["cpu"].init()}
+    states[dev] = _copy_state(states["cpu"], dev)
+    gen = SyntheticCriteo(batch_size=cfg["agree_batch"], vocab=cfg["vocab"], seed=seed + 65)
+    for _ in range(cfg["cbf_steps"]):
+        b = gen.batch()
+        for d in ("cpu", dev):
+            states[d], _ = tr[d].train_step(states[d], b)
+    st = states[dev]
+    (bname, b), = tr[dev].bundles.items()
+    ts, tc = st.tables[bname], states["cpu"].tables[bname]
+    sizes = b.table.size(ts).cpu()
+    if not (torch.equal(ts.bloom.cpu(), tc.bloom) and torch.equal(sizes, b.table.size(tc))
+            and all(torch.equal(ts.keys[t].cpu().sort().values, tc.keys[t].sort().values)
+                    for t in range(ts.keys.shape[0]))):
+        raise AssertionError("CBF table: card and CPU hold other sketches or keys")
+    lines.append(f"CBF table ({cfg['cbf_steps']} steps of batch {cfg['agree_batch']}): "
+                 f"sketch [{ts.bloom.shape[0]}, {ts.bloom.shape[1]}] "
+                 f"(sum {int(ts.bloom.sum())}), admitted keys per table "
+                 f"{sizes.min().item()}-{sizes.max().item()}, equal to the CPU's bit for bit")
+    T = ts.keys.shape[0]
+    before = [_rows_by_key(ts, t) for t in range(T)]
+    drop = b.table.evict_mask(ts, st.step)
+    dropped = [set(ts.keys[t][drop[t]].tolist()) for t in range(T)]
+    st = tr[dev].evict_tables(st)
+    survivors = [{k: r for k, r in before[t].items() if k not in dropped[t]}
+                 for t in range(T)]
+    kept = sum(_same_rows(_rows_by_key(st.tables[bname], t), survivors[t],
+                          f"evict_tables, table {t}") for t in range(T))
+    n_drop = sum(map(len, dropped))
+    if not n_drop or not kept:
+        raise AssertionError(f"eviction dropped {n_drop} keys and kept {kept}")
+    C = b.table.cfg.capacity
+    st, rep = tr[dev].maintain(st, grow_threshold=0.0, max_capacity=4 * C)
+    grew = rep[bname].get("grew_to")
+    ts = st.tables[bname]
+    if grew != 2 * C or ts.keys.shape[1] != grew or b.table.cfg.capacity != grew:
+        raise AssertionError(f"maintain did not grow {C} to {2 * C}: {rep}")
+    for t in range(T):
+        _same_rows(_rows_by_key(ts, t), survivors[t], f"maintain, table {t}")
+    CheckpointManager(ckdir, tr[dev]).save(st)
+    back = CheckpointManager(ckdir, tr[dev]).restore().tables[bname]
+    if not (torch.equal(back.bloom, ts.bloom) and back.keys.shape == ts.keys.shape):
+        raise AssertionError("the checkpoint lost the sketch or the capacity")
+    for t in range(T):  # a restore stamps no dirty flag
+        _same_rows({k: (v, a, m[:2]) for k, (v, a, m) in _rows_by_key(back, t).items()},
+                   {k: (v, a, m[:2]) for k, (v, a, m) in survivors[t].items()},
+                   f"restore, table {t}")
+    lines.append(f"CBF table, TTL {cfg['ttl']} and L2 "
+                 f"{cfg['l2_per_dim'] * small['emb_dim']}: evict_tables dropped "
+                 f"{n_drop} keys and kept {kept} with their rows, slots and metadata bit "
+                 f"for bit; maintain grew {C} to {grew} slots keeping them; a checkpoint "
+                 f"restored the sketch and the {grew} slots")
+    return lines
+
+
+def _loop_launches(trainer):
+    """Launches per train step of (#1 bf16 gathers, #3 f32 gathers, #2 bf16
+    scatters, #5 f32 scatters) on bf16 tables: per lookup group the forward
+    gather (and a re-gather where the apply cannot reuse it), the
+    initializer scatter and the value write-back in bf16; a gather and a
+    write-back per per-row optimizer slot, which is f32."""
+    from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
+
+    nslots = sum(1 for name in trainer.sparse_opt.slot_specs(1)
+                 if not name.startswith(SCALAR_PREFIX))
+    out = np.zeros(4, np.int64)
+    for b in trainer.bundles.values():
+        groups = 1 if b.stacked else len(b.features)
+        reuse = b.stacked or len(b.features) == 1
+        out += groups * np.array([1 + (0 if reuse else 1), nslots, 2, nslots])
+    return out
+
+
+def _launch_counts():
+    """(#1, #3, #2, #5, #4) launches since the counts were zeroed."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        apply_rows_sr, fused_gather_combine, gather_rows)
+
+    return np.array([gather_rows.launches_bf16,
+                     gather_rows.launches - gather_rows.launches_bf16,
+                     apply_rows_sr.launches_bf16,
+                     apply_rows_sr.launches - apply_rows_sr.launches_bf16,
+                     fused_gather_combine.launches])
+
+
+def loop_phase(dev, seed, full, cfg):
+    """Phase 14 (b): the loop at full width (see LOOP). Returns stats."""
+    from deeprec_tpu_torch.config import CounterFilter, EmbeddingVariableOption, GlobalStepEvict
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    K, W, B = cfg["K"], cfg["windows"], cfg["batch"]
+    gen = SyntheticCriteo(batch_size=B, vocab=cfg["vocab"], seed=seed + 70)
+    t0 = time.perf_counter()
+    host = [gen.batch() for _ in range((W + cfg["accum_windows"]) * K)]
+    held_out = SyntheticCriteo(batch_size=B, vocab=cfg["vocab"], seed=seed + 71)
+    evals = [held_out.batch() for _ in range(cfg["eval_batches"])]
+    cats = [k for k in host[0] if k.startswith("C")]
+    distinct = [len(np.unique(np.concatenate([h[c] for h in host]))) for c in cats]
+    C0 = 1 << ((min(distinct) // 2).bit_length() - 1)
+    data_s = time.perf_counter() - t0
+    ev = EmbeddingVariableOption(counter_filter=CounterFilter(cfg["filter_freq"]),
+                                 global_step_evict=GlobalStepEvict(cfg["steps_to_live"]))
+    model = _retable(DLRMDCN(**dict(full, capacity=C0), ev=ev, seed=seed),
+                     value_dtype="bfloat16")
+    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev,
+                      pipeline_mode="lookahead")
+    state = trainer.init()
+    staged = trainer.stage(iter(host[:cfg["raw_windows"][0] * K]), depth=2)
+    windows, maint, losses, evicted, reports = [], [], [], [], []
+    prof, fails_after = None, None
+
+    def one_window(w, profiled=False):
+        nonlocal state
+        raw = cfg["raw_windows"][0] <= w < cfg["raw_windows"][1]
+        trainer.pipeline_mode = ("off" if cfg["off_windows"][0] <= w < cfg["off_windows"][1]
+                                 else "lookahead")
+        syncs = sum(b.table.probe_syncs for b in trainer.bundles.values())
+        _sync(dev)
+        t0 = time.perf_counter()
+        src = iter(host[w * K:(w + 1) * K]) if raw else staged
+        state, mets = trainer.train_steps(state, [next(src) for _ in range(K)])
+        _sync(dev)
+        windows.append((w, "profiled" if profiled else trainer.pipeline_mode,
+                        "off" if raw else "auto", time.perf_counter() - t0,
+                        sum(b.table.probe_syncs for b in trainer.bundles.values()) - syncs))
+        losses.extend(mets["loss"].tolist())
+
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
+    w = 0
+    while w < W:
+        if dev.type == "cuda" and w == cfg["profiled"]:
+            ws = iter((w, w + 1))
+            prof = profile_device(lambda: one_window(next(ws), True), 1)
+            w += 2
+        else:
+            one_window(w)
+            w += 1
+        if w % cfg["every"]:
+            continue
+        (bname, b), = trainer.bundles.items()
+        size0 = int(b.table.size(state.tables[bname]).sum())
+        _sync(dev)
+        t0 = time.perf_counter()
+        state = trainer.evict_tables(state)
+        size1 = int(b.table.size(state.tables[bname]).sum())
+        # the rebuild's insert_fails: survivors it could not re-insert
+        lost = int(state.tables[bname].insert_fails.sum())
+        t1 = time.perf_counter()
+        state, rep = trainer.maintain(state, max_capacity=cfg["max_capacity"])
+        _sync(dev)
+        maint.append((w, t1 - t0, time.perf_counter() - t1))
+        evicted.append((w, size0, size1, lost))
+        reports.append((w, rep[bname]))
+        fails_after = sum(int(ts.insert_fails.sum()) for ts in state.tables.values())
+    A = cfg["accum"]
+    t0 = time.perf_counter()
+    for i in range(cfg["accum_windows"] * K // A):
+        part = host[(W * K) + i * A:(W * K) + (i + 1) * A]
+        state, mets = trainer.train_step_accum(
+            state, {k: np.concatenate([h[k] for h in part]) for k in part[0]}, A)
+        losses.append(float(mets["loss"]))
+    _sync(dev)
+    accum_s = time.perf_counter() - t0
+    fails_end = sum(int(ts.insert_fails.sum()) for ts in state.tables.values())
+    auc = trainer.evaluate(state, evals)["auc"]
+    launches = _launch_counts()
+    _row_counts()  # ... and ends here (adds the bf16 launches to PAIR_LAUNCHES)
+    staged.close()
+    steps = W * K + cfg["accum_windows"] * K
+    per_req = _per_request(trainer)
+    want = np.concatenate([steps * _loop_launches(trainer), [0]])
+    want[0] += cfg["eval_batches"] * per_req[0]
+    want[4] = cfg["eval_batches"] * per_req[1]
+    (bname, b), = trainer.bundles.items()
+    caps = [ts.keys.shape[1] for ts in state.tables.values()]
+    grew = [r["grew_to"] for _, r in reports if "grew_to" in r]
+    removed = sum(s0 - s1 - lost for _, s0, s1, lost in evicted)
+    stats = dict(distinct=distinct, C0=C0, data_s=data_s, windows=windows, maint=maint,
+                 losses=losses, evicted=evicted, reports=reports, accum_s=accum_s,
+                 fails=(fails_after, fails_end), auc=auc, launches=launches, want=want,
+                 profile=prof, grew=grew, caps=caps, removed=removed,
+                 bundle_tables=b.num_tables)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss in the loop: {losses}")
+    if fails_end != fails_after:
+        raise AssertionError(f"{fails_end - fails_after} inserts failed after the last maintain")
+    if not grew or min(caps) <= C0:
+        raise AssertionError(f"a table never grew: capacities {caps}, start {C0}")
+    if removed <= 0:
+        raise AssertionError(f"the TTL eviction removed no key: {evicted}")
+    if dev.type == "cuda" and not np.array_equal(launches, want):
+        raise AssertionError(f"the loop launched (#1, #3, #2, #5, #4) {launches.tolist()}, "
+                             f"the path implies {want.tolist()}")
+    if not auc >= cfg["auc_floor"]:
+        raise AssertionError(f"held-out AUC {auc} (floor {cfg['auc_floor']})")
+    return stats
+
+
+def run_loop(dev, seed, full, small, cfg, ckroot):
+    """Phase 14: (a) then (b), printed. Returns (b)'s stats."""
+    t0 = time.perf_counter()
+    for line in loop_agreement(dev, seed, small, cfg, os.path.join(ckroot, "loop")):
+        print(f"loop agreement at capacity {small['capacity']} on {dev.type}: {line}")
+    a_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    st = loop_phase(dev, seed, full, cfg)
+    K, B = cfg["K"], cfg["batch"]
+    print(f"loop: DLRM-DCN {full} with bf16 tables, CounterFilter({cfg['filter_freq']}), "
+          f"GlobalStepEvict({cfg['steps_to_live']}); distinct ids per table over the run "
+          f"{min(st['distinct'])}-{max(st['distinct'])}, so every table starts at "
+          f"{st['C0']} slots ({st['bundle_tables']} tables in one stacked bundle; data made "
+          f"in {st['data_s']:.1f} s)")
+    rate = {}
+    maint_after = {w for w, _, _ in st["maint"]}
+    for w, mode, stage, sec, syncs in st["windows"]:
+        key = ("before maintain" if w + 1 in maint_after else mode, stage)
+        rate.setdefault(key, []).append((K * B / sec, syncs / K))
+    for (kind, stage), r in sorted(rate.items()):
+        ex, syncs = zip(*r)
+        print(f"loop: {len(r)} windows ({kind}, stage={stage}) examples/s: median "
+              f"{np.median(ex):.1f}, min {min(ex):.1f}, max {max(ex):.1f}; probe-loop "
+              f"host syncs per step {min(syncs):.1f}-{max(syncs):.1f}")
+    ex = {w: (round(K * B / sec, 1), syncs / K) for w, _, _, sec, syncs in st["windows"]}
+    base = range(cfg["off_windows"][1], cfg["raw_windows"][0])
+    for what, (lo, hi) in (("in 'off'", cfg["off_windows"]),
+                           ("fed host batches (stage='off')", cfg["raw_windows"])):
+        print(f"loop: windows {lo}-{hi - 1} {what} {[ex[w] for w in range(lo, hi)]} against "
+              f"{base[0]}-{base[-1]} (lookahead, staged) {[ex[w] for w in base]} "
+              f"(examples/s, probe syncs per step)")
+    for (w, ev_s, m_s), (_, s0, s1, lost), (_, rep) in zip(st["maint"], st["evicted"],
+                                                           st["reports"]):
+        print(f"loop: after window {w - 1}: evict_tables {ev_s:.3f} s ({s0} -> {s1} live "
+              f"keys, {lost} of them lost by the rebuild), maintain {m_s:.3f} s: occupancy {rep['occupancy']:.4f} of "
+              f"{rep['capacity']} (max live {round(rep['occupancy'] * rep['capacity'])}), "
+              f"insert_fails {rep['insert_fails']}, grew_to {rep.get('grew_to')}")
+    print(f"loop: every table grew ({st['C0']} -> {sorted(set(st['caps']))}), the TTL "
+          f"eviction removed {st['removed']} keys; inserts failed (after the last "
+          f"maintain, at the end) {st['fails']}; train_step_accum(A={cfg['accum']}) over "
+          f"{cfg['accum_windows']} windows' batches in {st['accum_s']:.2f} s; losses "
+          f"{st['losses'][0]:.6f} .. {st['losses'][-1]:.6f}; held-out AUC over "
+          f"{cfg['eval_batches']} batches {st['auc']:.6f} (floor {cfg['auc_floor']})")
+    print(f"loop: launched (#1 gather bf16, #3 gather f32, #2 scatter bf16, #5 scatter "
+          f"f32, #4) {st['launches'].tolist()}, the path implies {st['want'].tolist()} "
+          f"(the Adagrad slot rows are f32)")
+    if st["profile"] is not None:
+        # one profiled window, shown per step
+        wall, busy, kernels, rows, phases = st["profile"]
+        per_step = (wall / K, busy / K, round(kernels / K),
+                    [(dt / K, key, count // K) for dt, key, count in rows],
+                    {k: (h / K, d / K) for k, (h, d) in phases.items()})
+        la = [sec for w, mode, stage, sec, _ in st["windows"]
+              if mode == "lookahead" and stage == "auto" and w + 1 not in maint_after]
+        print_train_profile(f"loop steps (one profiled window of K = {K})", K, per_step,
+                            float(np.median(la)) / K * 1e3)
+    print(f"phase 14 (the training loop) took {time.perf_counter() - t0:.1f} s "
+          f"(agreement {a_s:.1f} s)")
+    return st
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
-        multi=MULTI, zoo=ZOO):
-    """Phases 3-13 on `dev`. Returns the kernel records, in the order of
+        multi=MULTI, zoo=ZOO, loop=LOOP):
+    """Phases 3-14 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
@@ -2541,6 +3015,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
             pooled["launches"] += zs["served"][1]
             pooled["max_abs_err"] = max(pooled["max_abs_err"], zs["err"])
         print(f"phase 13 (the modelzoo) took {time.perf_counter() - t0:.1f} s")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        lst = run_loop(dev, seed, full, small, loop, ckroot)
+        # #1 and #2 reach the records through PAIR_LAUNCHES below
+        gather["launches"] += int(lst["launches"][:2].sum())
+        scatter["launches"] += int(lst["launches"][2:4].sum())
+        pooled["launches"] += int(lst["launches"][4])
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's

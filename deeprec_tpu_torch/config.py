@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Optional
 
 
@@ -51,7 +52,19 @@ class CBFFilter:
     filter_freq: int = 0
     max_element_size: int = 1 << 20
     false_positive_probability: float = 0.01
-    counter_bits: int = 16
+    counter_bits: int = 16  # sketch counters saturate at 2^bits - 1
+
+    def num_cells(self) -> int:
+        """Sketch cells: the Bloom sizing m = -n ln p / (ln 2)^2, rounded
+        up to a power of two, at least 1024."""
+        m = -self.max_element_size * math.log(self.false_positive_probability) / (
+            math.log(2.0) ** 2)
+        return max(1024, 1 << int(math.ceil(math.log2(max(m, 1.0)))))
+
+    def num_hashes(self) -> int:
+        """Hash functions per key: (m / n) ln 2, clamped to [1, 8]."""
+        k = (self.num_cells() / max(self.max_element_size, 1)) * math.log(2.0)
+        return max(1, min(8, int(round(k))))
 
 
 @dataclasses.dataclass(frozen=True)

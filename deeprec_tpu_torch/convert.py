@@ -27,8 +27,9 @@ def table_state_from_arrays(cfg, arrays: Dict[str, np.ndarray], num_tables: int,
                             device) -> TableState:
     """TableState from one JAX bundle's arrays (stacked [T, ...] or
     unstacked): `keys`, `values`, `meta`, and optionally `slots` ({name:
-    array}) and the int32 counters `insert_fails`, `dedup_unique`,
-    `dedup_ids`, `dedup_overflow` (zero when absent). Packed small-dim arrays ([C // P,
+    array}), a CBF table's sketch `bloom` and the int32 counters
+    `insert_fails`, `dedup_unique`, `dedup_ids`, `dedup_overflow` (zero
+    when absent). Packed small-dim arrays ([C // P,
     P * w]) unpack by a reshape: the rows are row-major."""
     T = num_tables
     keys = np.asarray(arrays["keys"]).reshape(T, -1)
@@ -52,6 +53,8 @@ def table_state_from_arrays(cfg, arrays: Dict[str, np.ndarray], num_tables: int,
         meta=torch.tensor(meta, device=device),
         slots=slots,
         **counters,
+        bloom=(None if arrays.get("bloom") is None else torch.tensor(
+            np.asarray(arrays["bloom"], np.int32).reshape(T, -1), device=device)),
     )
 
 

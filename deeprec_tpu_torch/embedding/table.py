@@ -1,6 +1,7 @@
 """Hash-embedding table — the port of `deeprec_tpu/embedding/table.py`
-(create, probe/insert, train and read-only lookups, initializer rows,
-scatter_update).
+(create, probe/insert, the split-phase train and read-only lookups with
+counter and counting-Bloom admission, initializer rows, scatter_update,
+and the life cycle: eviction by TTL and L2 norm, rebuild, growth).
 
 The table is a set of dense tensors in device memory: `keys [T, C]`,
 `values [T, C, D]`, the fused per-slot metadata `meta [T, 3, C]`
@@ -16,7 +17,8 @@ slot; inserts claim empty slots by a batched scatter whose losers advance to
 the next offset. Unlike JAX, the port updates every tensor of a state IN
 PLACE (keys on insert, values through the row-scatter kernel, meta, the
 counters): a train step owns the state it is given, as the JAX step owns
-its donated state.
+its donated state. `rebuild` (eviction, growth) is the exception: it
+returns a new state, at the new capacity, and leaves its input alone.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from deeprec_tpu_torch import resolve_device
 from deeprec_tpu_torch.config import TableConfig
+from deeprec_tpu_torch.embedding import filters
 from deeprec_tpu_torch.ops import dedup
 from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
 from deeprec_tpu_torch.utils import hashing
@@ -64,6 +67,8 @@ class TableState:
     dedup_unique: torch.Tensor
     dedup_ids: torch.Tensor
     dedup_overflow: torch.Tensor
+    # [T, M] int32 counting-Bloom sketch of a CBF-filtered table, else None
+    bloom: Optional[torch.Tensor] = None
 
 
 COUNTERS = ("insert_fails", "dedup_unique", "dedup_ids", "dedup_overflow")
@@ -116,6 +121,7 @@ class EmbeddingTable:
         device = resolve_device(device)
         T, C, D = num_tables, cfg.capacity, cfg.dim
         fill = torch.tensor(_META_FILL, dtype=torch.int32, device=device)
+        cbf = cfg.ev.cbf_filter
         return TableState(
             keys=torch.full((T, C), empty_key(cfg),
                             dtype=KEY_DTYPES[cfg.key_dtype], device=device),
@@ -124,11 +130,17 @@ class EmbeddingTable:
             meta=fill[None, :, None].expand(T, 3, C).contiguous(),
             slots={},
             **zero_counters(T, device),
+            bloom=(None if cbf is None else torch.zeros(
+                (T, cbf.num_cells()), dtype=torch.int32, device=device)),
         )
+
+    def occupied(self, state: TableState) -> torch.Tensor:
+        """[T, C] bool: slots holding a key."""
+        return state.keys != empty_key(self.cfg)
 
     def size(self, state: TableState) -> torch.Tensor:
         """Live key count per table, [T] int64."""
-        return (state.keys != empty_key(self.cfg)).sum(-1)
+        return self.occupied(state).sum(-1)
 
     # ------------------------------------------------------------ initializer
 
@@ -248,7 +260,8 @@ class EmbeddingTable:
                       step: int = 0, train: bool = True, pad_value: int = -1,
                       salt=None, unique_size: Optional[int] = None
                       ) -> UniqueLookup:
-        """Deduplicate ids [T, ...] per table, resolve them, gather rows.
+        """Deduplicate ids [T, ...] per table, resolve them, gather rows:
+        `_route_ids` -> `_resolve_routed` -> `_finish_resolved`.
 
         `unique_size=None` dedups at U = N (sort); an int engages the hash
         dedup engine at that static budget: ids past it serve the blocked
@@ -256,12 +269,35 @@ class EmbeddingTable:
 
         train=True inserts new keys (initializer rows written through the
         row-scatter kernel, bf16 tables rounding stochastically with seed
-        `step`), stamps freq/version/dirty and moves the counters, all IN
-        PLACE; train=False changes nothing."""
-        uids, inverse, counts, valid, overflow = dedup.route_ids(
-            ids, pad_value=pad_value, sentinel=empty_key(self.cfg), lead=1,
-            unique_size=unique_size,
-        )
+        `step`), stamps freq/version/dirty, bumps a CBF sketch and moves the
+        counters, all IN PLACE; train=False changes nothing."""
+        route = self._route_ids(ids, pad_value, unique_size)
+        return self._finish_resolved(state, self._resolve_routed(
+            state, route, step=step, train=train, salt=salt))
+
+    # The three phases of a lookup, which the pipelined trainer schedules
+    # around the dense compute:
+    #   route   - id dedup: ids only, no table state;
+    #   resolve - probe/insert, metadata stamp, initializer rows of created
+    #             keys, admission: reads and writes keys, meta and the
+    #             sketch, writes only value rows of slots that were empty,
+    #             so it commutes with the previous step's apply;
+    #   finish  - the value gather: reads the CURRENT values.
+
+    def _route_ids(self, ids: torch.Tensor, pad_value: int,
+                   unique_size: Optional[int]):
+        """Route ids [T, ...] (`ops.dedup.route_ids`): (uids, inverse,
+        counts, valid, overflow)."""
+        return dedup.route_ids(ids, pad_value=pad_value,
+                               sentinel=empty_key(self.cfg), lead=1,
+                               unique_size=unique_size)
+
+    def _resolve_routed(self, state: TableState, route, *, step: int = 0,
+                        train: bool = False, salt=None) -> UniqueLookup:
+        """Key half of a lookup on a route: `_resolve`, then (train) the
+        dedup counters. Embeddings stay placeholders until
+        `_finish_resolved`."""
+        uids, inverse, counts, valid, overflow = route
         res = self._resolve(state, uids, counts, valid, step=step,
                             train=train, salt=salt)
         if train:
@@ -269,8 +305,7 @@ class EmbeddingTable:
             state.dedup_ids += counts.sum(-1, dtype=torch.int32)
             if overflow is not None:
                 state.dedup_overflow += overflow
-        return self._finish_resolved(
-            state, dataclasses.replace(res, inverse=inverse))
+        return dataclasses.replace(res, inverse=inverse)
 
     def _resolve(self, state: TableState, uids: torch.Tensor,
                  counts: torch.Tensor, valid: torch.Tensor, *, step: int = 0,
@@ -278,17 +313,19 @@ class EmbeddingTable:
         """Key half of a lookup: probe (and, in train mode, insert, write
         the initializer rows of created keys and stamp the fused metadata),
         then the admission decision (the counter filter, on the
-        post-update frequency). Embeddings stay an empty placeholder until
+        post-update frequency). A CBF table's train lookup first bumps the
+        sketch, and only keys whose estimate has reached `filter_freq` may
+        claim a slot. Embeddings stay an empty placeholder until
         `_finish_resolved`."""
         cfg = self.cfg
         cf = cfg.ev.counter_filter
         need_filter = cf is not None and cf.filter_freq > 0
-        if train and cfg.ev.cbf_filter is not None:
-            raise NotImplementedError(
-                f"table {cfg.name}: the counting-Bloom-filter admission "
-                "(embedding/filters.py) waits for slice 5 of the port")
-        slot_ix, created, failed = self._probe(
-            state.keys, uids, valid if train else None)
+        want_create = valid if train else None
+        cbf = cfg.ev.cbf_filter
+        if train and cbf is not None:
+            est = filters.cbf_add(cbf, state.bloom, uids, counts)
+            want_create = valid & (est >= cbf.filter_freq)
+        slot_ix, created, failed = self._probe(state.keys, uids, want_create)
         present = slot_ix >= 0
         f_cur = None
         if train:
@@ -375,3 +412,117 @@ class EmbeddingTable:
         dirty = state.meta[:, META_DIRTY, :]
         dirty.scatter_add_(1, idx, torch.where(ok, 1 - dirty.gather(1, idx), 0))
         return state
+
+    # ------------------------------------------------------ evict & rebuild
+
+    def evict_mask(self, state: TableState, step: int) -> torch.Tensor:
+        """[T, C] bool: the occupied slots the eviction policies drop —
+        TTL (`step - version > steps_to_live`) and L2 (row norm^2 below the
+        threshold)."""
+        ev = self.cfg.ev
+        drop = torch.zeros_like(state.keys, dtype=torch.bool)
+        gse = ev.global_step_evict
+        if gse is not None and gse.steps_to_live > 0:
+            drop |= int(step) - state.meta[:, META_VERSION] > gse.steps_to_live
+        l2e = ev.l2_weight_evict
+        if l2e is not None and l2e.l2_weight_threshold >= 0:
+            norm2 = (state.values.to(torch.float32) ** 2).sum(-1)
+            drop |= norm2 < l2e.l2_weight_threshold
+        return self.occupied(state) & drop
+
+    def rebuild(self, state: TableState, keep: Optional[torch.Tensor] = None,
+                new_capacity: Optional[int] = None,
+                slot_fills: Optional[Tuple[Tuple[str, float], ...]] = None
+                ) -> TableState:
+        """A fresh state of capacity `new_capacity` (default: the same)
+        holding the occupied slots where `keep` [T, C] holds, re-inserted by
+        the probe: eviction (linear probing cannot delete in place) and
+        growth, which also heal the probe chains.
+
+        Rows move in their own dtype (a bf16 row is not rounded again),
+        by plain indexing: no kernel. The metadata moves with its row;
+        vacated slots take the empty fills, per-row optimizer slots their
+        init value from `slot_fills` ((name, value) pairs; 0 when absent),
+        and per-table scalar slots and the sketch pass through. The
+        counters restart: `insert_fails` counts survivors that found no
+        slot, the dedup counters are zero."""
+        from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
+
+        T, C = state.keys.shape
+        C_new = new_capacity or C
+        if C_new & (C_new - 1):
+            raise ValueError("new_capacity must be a power of two")
+        device = state.keys.device
+        occ = self.occupied(state)
+        if keep is not None:
+            occ = occ & keep
+        sentinel = empty_key(self.cfg)
+        uids = torch.where(occ, state.keys, sentinel)
+        keys = torch.full((T, C_new), sentinel, dtype=state.keys.dtype,
+                          device=device)
+        slot_ix, _, failed = self._probe(keys, uids, occ)
+        moved = slot_ix >= 0
+        src = torch.nonzero(moved.flatten()).flatten()
+        dst = ((torch.arange(T, device=device) * C_new)[:, None]
+               + slot_ix).flatten()[src]
+
+        def move(arr, fill):
+            """arr [T, C, ...] -> [T, C_new, ...] with moved rows placed."""
+            out = torch.full((T * C_new, *arr.shape[2:]), fill, dtype=arr.dtype,
+                             device=device)
+            out[dst] = arr.reshape(T * C, *arr.shape[2:])[src]
+            return out.view(T, C_new, *arr.shape[2:])
+
+        fills = dict(slot_fills or ())
+        meta = move(state.meta.transpose(1, 2), 0)  # [T, C_new, 3]
+        meta[keys == sentinel] = torch.tensor(_META_FILL, dtype=torch.int32,
+                                              device=device)
+        counters = zero_counters(T, device)
+        counters["insert_fails"] = failed.sum(-1, dtype=torch.int32)
+        return TableState(
+            keys=keys,
+            values=move(state.values, 0),
+            meta=meta.transpose(1, 2).contiguous(),
+            slots={name: (arr if name.startswith(SCALAR_PREFIX)
+                          else move(arr, fills.get(name, 0.0)))
+                   for name, arr in state.slots.items()},
+            **counters,
+            bloom=state.bloom,
+        )
+
+    def evict(self, state: TableState, step: int,
+              slot_fills: Optional[Tuple[Tuple[str, float], ...]] = None
+              ) -> TableState:
+        """`rebuild` without the slots `evict_mask(state, step)` drops."""
+        return self.rebuild(state, keep=~self.evict_mask(state, step),
+                            slot_fills=slot_fills)
+
+    def grow(self, state: TableState, new_capacity: int,
+             slot_fills: Optional[Tuple[Tuple[str, float], ...]] = None
+             ) -> TableState:
+        """`rebuild` at `new_capacity`. Pass the optimizer's slot_fills so
+        rows later created in the new slots start from the slot's init
+        value, not 0."""
+        return self.rebuild(state, new_capacity=new_capacity,
+                            slot_fills=slot_fills)
+
+    # ---------------------------------------------------------- serving
+
+    @torch.no_grad()
+    def lookup_readonly(self, state: TableState, ids: torch.Tensor,
+                        pad_value: int = -1, salt=None) -> torch.Tensor:
+        """Serving lookup of ids [T, ...] -> [T, ..., D] rows in the value
+        dtype, no insertion and no counter: a resident key reads its row
+        (through the row-gather kernel), a missing key its initializer row
+        (pass a stacked bundle's per-member `salt` to match training), a
+        pad zeros."""
+        T = ids.shape[0]
+        flat = ids.reshape(T, -1).to(state.keys.dtype)
+        is_pad = flat == pad_value
+        flat = torch.where(is_pad, empty_key(self.cfg), flat)
+        slot_ix, _, _ = self._probe(state.keys, flat)
+        present = slot_ix >= 0
+        emb = gather_rows(state.values, torch.where(present, slot_ix, 0))
+        emb = torch.where(present[..., None], emb, self._init_rows(flat, salt))
+        emb = torch.where(is_pad[..., None], 0.0, emb)
+        return emb.reshape(*ids.shape, self.cfg.dim)

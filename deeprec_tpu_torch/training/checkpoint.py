@@ -6,7 +6,8 @@ Layout of one save, `<dir>/full-<step>/`:
     (`table_<bundle>_t.npz` for an unstacked one): the live rows, compacted,
     as `keys`, `values` (f32 logical rows), `freqs`, `versions`, and the
     optimizer's `slot:<name>` arrays (per-row rows, compacted like the
-    values; per-table scalars `slot:scalar/...` whole);
+    values; per-table scalars `slot:scalar/...` whole) and a CBF table's
+    counting-Bloom sketch `bloom`, whole;
   * `dense.npz`: the dense parameters as `leaf_<i>` in `jax.tree_util`
     flatten order of the JAX param tree (nn.jax_leaf_names);
   * `opt.npz` (training states): the dense optimizer's state as `leaf_<i>`
@@ -15,7 +16,9 @@ Layout of one save, `<dir>/full-<step>/`:
     complete save — with a crc32 digest of every array, checked on read.
 
 Restore inserts each key by probing (so a checkpoint restores onto any
-capacity) and writes its rows in place through the row-scatter kernel:
+capacity: a table grown by `Trainer.maintain` restores at its new capacity
+into the trainer that grew it) and writes its rows in place through the
+row-scatter kernel:
 exact into f32, stochastically rounded (seed 0, as the JAX package does)
 into bf16 — rows that came out of a bf16 table are representable and stay
 bit-identical. A serving trainer (no sparse optimizer) skips the slot rows
@@ -87,6 +90,8 @@ def export_table_arrays(table: EmbeddingTable, state: TableState,
     for name, arr in state.slots.items():
         sub = arr[member] if name.startswith(SCALAR_PREFIX) else arr[member, idx]
         out[_SLOT + name] = sub.cpu().numpy()
+    if state.bloom is not None:
+        out["bloom"] = state.bloom[member].cpu().numpy()
     return out
 
 
@@ -94,15 +99,18 @@ def import_rows(table: EmbeddingTable, state: TableState, member: int,
                 rows: Dict[str, np.ndarray]) -> None:
     """Insert checkpointed rows into table `member` of `state`, IN PLACE:
     probe-insert the keys, then write values, freqs, versions and the
-    `slot:*` rows present in `rows` at the slots they landed in. Values and
+    `slot:*` rows present in `rows` at the slots they landed in, and a
+    `bloom` sketch into a CBF table whole. Values and
     per-row slots go through the row-scatter kernel with seed 0 (bf16
     tables round stochastically, as the JAX package's restore does). Which
     slot a key wins in a claim race is free; the row a key reads back is
     not."""
+    device = state.keys.device
+    if "bloom" in rows and state.bloom is not None:
+        state.bloom[member].copy_(torch.as_tensor(np.asarray(rows["bloom"], np.int32)))
     n = rows["keys"].shape[0]
     if n == 0:
         return
-    device = state.keys.device
     keys = torch.as_tensor(rows["keys"]).to(device, KEY_DTYPES[table.cfg.key_dtype])
     slot_ix, _, failed = table._probe(
         state.keys[member:member + 1], keys[None],
@@ -271,7 +279,7 @@ class CheckpointManager:
             slots = state.tables[bname].slots
             with np.load(fpath) as z:
                 rows = {name: z[name] for name in z.files
-                        if name in _ROW_ARRAYS
+                        if name in _ROW_ARRAYS or name == "bloom"
                         or (name.startswith(_SLOT) and name[len(_SLOT):] in slots)}
             import_rows(b.table, state.tables[bname], k, rows)
         self._load_dense(state, os.path.join(path, "dense.npz"))

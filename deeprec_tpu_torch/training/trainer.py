@@ -1,8 +1,20 @@
 """Training and the read-only forward over (hash tables + dense params) —
-the port of `deeprec_tpu/training/trainer.py` (`Trainer.init`,
-`train_step`, `eval_step`, `evaluate`, `forward_views`,
-`probs_from_views`, the unique-budget engine's `update_budgets` and
-`dedup_stats`), single device, `pipeline_mode="off"`.
+the port of `deeprec_tpu/training/trainer.py`, single device: `init`,
+`train_step`, the K-step window `train_steps` (every `pipeline_mode`),
+`train_step_accum`, the staged input (`stage`, `stage_batch`), `eval_step`,
+`evaluate`, `forward_views`, `probs_from_views`, the unique-budget engine's
+`update_budgets` and `dedup_stats`, and the tables' life cycle
+(`evict_tables`, `maintain`).
+
+A K-step window is exactly K `train_step` calls: the same inserts,
+admission, counters and version stamps, the step advancing by one per
+inner step. PyTorch runs eagerly, so the JAX package's `lax.scan` becomes a
+loop; the window's gain is the lookahead. `pipeline_mode="lookahead"`
+routes and resolves batch t+1 (dedup, probe, insert, metadata, initializer
+rows) before batch t's dense forward and backward, and gathers its value
+rows after batch t's sparse apply, so it is bit for bit the same as "off".
+On one device "chunked" and "nested" run as "lookahead" (their chunked
+exchanges exist only across devices).
 
 A multi-task model returns {task: logits}: the loss sums one BCE per task
 over `batch["label_<task>"]`, the train step reports accuracy 0, and
@@ -46,6 +58,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from deeprec_tpu_torch import features as fcol
 from deeprec_tpu_torch import resolve_device
@@ -57,6 +70,34 @@ from deeprec_tpu_torch.optim import dense as dense_optim
 from deeprec_tpu_torch.optim.apply import apply_gradients, ensure_slots
 from deeprec_tpu_torch.training import metrics as M
 from deeprec_tpu_torch.utils.hashing import name_salt
+
+# `pipeline_mode`: how a K-step window schedules the lookups of its batches
+# (see the module docstring); every mode is exact.
+PIPELINE_MODES = ("off", "lookahead", "chunked", "nested")
+
+
+def validate_pipeline_mode(mode: str, where: str) -> None:
+    if mode not in PIPELINE_MODES:
+        raise ValueError(
+            f"{where}: pipeline_mode must be one of {PIPELINE_MODES}, "
+            f"got {mode!r}")
+
+
+def stack_batches(batches) -> Dict[str, Any]:
+    """K same-shape batch dicts as one dict with a leading [K, ...] axis,
+    the stacked input of `Trainer.train_steps` (numpy arrays stack on the
+    host, tensors where they lie)."""
+    batches = list(batches)
+    return {k: (torch.stack([b[k] for b in batches]) if torch.is_tensor(v)
+                else np.stack([np.asarray(b[k]) for b in batches]))
+            for k, v in batches[0].items()}
+
+
+class StagedBatch(dict):
+    """A batch whose tensors `Trainer.stage_batch` is copying to the card
+    on its copy stream; `ready` is the event recorded after the copies."""
+
+    ready: Optional[torch.cuda.Event] = None
 
 
 @dataclasses.dataclass
@@ -151,15 +192,28 @@ class Trainer:
     trains the tables and `dense_opt` (default `optim.dense.adam(1e-3)`, as
     the JAX package's `optax.adam(1e-3)`) the dense parameters; a Trainer
     without a sparse optimizer only serves (lookups and forward) and its
-    `init()` carries no optimizer state."""
+    `init()` carries no optimizer state. `remat` recomputes the model's
+    forward in the backward; `stage` ("auto" | "off") is what `stage()`
+    does; `pipeline_mode` (PIPELINE_MODES) schedules `train_steps`."""
 
     def __init__(self, model, sparse_opt=None, dense_opt=None,
                  grad_averaging: bool = False, device=None,
-                 unique_budget=None):
+                 unique_budget=None, remat: bool = False, stage: str = "auto",
+                 pipeline_mode: str = "off", pipeline_chunks: int = 4):
         self.model = model
         self.sparse_opt = sparse_opt
         self.dense_opt = dense_opt or dense_optim.adam(1e-3)
         self.grad_averaging = grad_averaging
+        # remat=True recomputes the model's forward in the backward
+        # (torch.utils.checkpoint): activation memory for compute
+        self.remat = remat
+        if stage not in ("auto", "off"):
+            raise ValueError(f"unknown stage mode {stage!r}")
+        self.stage_mode = stage
+        validate_pipeline_mode(pipeline_mode, type(self).__name__)
+        self.pipeline_mode = pipeline_mode
+        # the chunk count of a sharded table's exchanges; one device has none
+        self.pipeline_chunks = max(1, int(pipeline_chunks))
         # trainer-wide budget override: None (the configs decide) | "auto"
         # | "off" | a positive int, checked like the configs'
         fcol.validate_unique_budget(unique_budget, "Trainer(unique_budget=)")
@@ -176,6 +230,7 @@ class Trainer:
             bname: torch.tensor(b.salts, dtype=torch.int64, device=self.device)
             for bname, b in self.bundles.items() if b.stacked
         }
+        self._copy_stream = None  # stage_batch's, made at its first use
 
     def init(self) -> TrainState:
         """Empty tables (with the sparse optimizer's slots), the model's own
@@ -202,7 +257,14 @@ class Trainer:
     def device_batch(self, batch) -> Dict[str, torch.Tensor]:
         """The batch's input features and labels as tensors on the device:
         numpy arrays are copied once, tensors already there pass as they
-        are."""
+        are. A `StagedBatch` makes the current stream wait for its copies
+        and hands its tensors to that stream."""
+        ready = getattr(batch, "ready", None)
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for v in batch.values():
+                v.record_stream(stream)
         keep = self.input_keys()
         return {
             k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)
@@ -348,30 +410,155 @@ class Trainer:
             report[bname] = rep
         return state, report
 
-    # ------------------------------------------------------------- lookups
+    # ----------------------------------------------------- table life cycle
 
-    def _lookup_all(self, tables, batch, step: int = 0, train: bool = False):
-        """Every bundle's lookup (train mode inserts and stamps IN PLACE;
-        budgeted bundles dedup at their unique size). Returns (per-feature
-        views (embeddings [U, D], inverse [B, L], mask [B, L]), per-bundle
-        results)."""
-        views, bundle_res = {}, {}
+    def _slot_fills(self, b: Bundle) -> Tuple[Tuple[str, float], ...]:
+        """(slot name, init value) of the sparse optimizer's slots: the
+        value a freed or new slot row takes."""
+        return tuple((name, init) for name, (_, init)
+                     in self.sparse_opt.slot_specs(b.table.cfg.dim).items())
+
+    def evict_tables(self, state: TrainState, step: Optional[int] = None
+                     ) -> TrainState:
+        """Apply each table's eviction policies (TTL, L2) at `step`
+        (default: the state's) and rebuild it; tables without one are left
+        alone. Run it at checkpoint cadence, between windows."""
+        step = int(state.step) if step is None else int(step)
+        tables = dict(state.tables)
+        for bname, b in self.bundles.items():
+            ev = b.table.cfg.ev
+            if ev.global_step_evict is None and ev.l2_weight_evict is None:
+                continue
+            tables[bname] = b.table.evict(tables[bname], step,
+                                          slot_fills=self._slot_fills(b))
+        return TrainState(step=state.step, tables=tables, dense=state.dense,
+                          opt_state=state.opt_state)
+
+    def maintain(self, state: TrainState, *, grow_threshold: float = 0.85,
+                 max_capacity: Optional[int] = None,
+                 hbm_budget_bytes: Optional[int] = None,
+                 step: Optional[int] = None, tier_async: bool = False
+                 ) -> Tuple[TrainState, Dict[str, Dict[str, float]]]:
+        """The capacity loop for device-resident tables, between windows:
+        `update_budgets`, then per bundle a report of `occupancy` (the
+        fullest member's live keys over the capacity), `insert_fails`,
+        `capacity` and the dedup fields; a bundle with failed inserts or
+        occupancy above `grow_threshold` grows to the next power of two
+        that holds twice its worst member's demand, at most `max_capacity`
+        (rounded down to a power of two), and reports `grew_to`. Growth
+        rebuilds the tables and points the bundle at the new capacity.
+
+        The multi-tier paths (`hbm_budget_bytes`, `tier_async`, storage
+        types hbm_dram and hbm_dram_ssd), the placement plan and the
+        sentinel's row hygiene raise NotImplementedError: later slices
+        port them."""
+        self._check_maintain_ported(hbm_budget_bytes, tier_async)
+        del step  # read by the multi-tier sync only
+        state, dedup_report = self.update_budgets(state)
+        if max_capacity:
+            max_capacity = 1 << (int(max_capacity).bit_length() - 1)
+        tables = dict(state.tables)
+        report: Dict[str, Dict[str, float]] = {}
+        for bname, b in self.bundles.items():
+            ts = tables[bname]
+            C = b.table.cfg.capacity
+            occ = int(b.table.size(ts).max()) / C
+            fails_each = ts.insert_fails.tolist()
+            rep = {"occupancy": occ, "insert_fails": sum(fails_each), "capacity": C}
+            rep.update(dedup_report.get(bname, {}))
+            if sum(fails_each) > 0 or occ > grow_threshold:
+                worst = max(fails_each)
+                new_c = C * 2
+                while worst > 0 and new_c < (worst + occ * C) * 2:
+                    new_c *= 2
+                if max_capacity:
+                    new_c = min(new_c, max_capacity)
+                if new_c > C:
+                    tables[bname] = b.table.grow(ts, new_c,
+                                                 slot_fills=self._slot_fills(b))
+                    self._set_bundle_capacity(b, new_c)
+                    rep["grew_to"] = new_c
+            report[bname] = rep
+        return (TrainState(step=state.step, tables=tables, dense=state.dense,
+                           opt_state=state.opt_state), report)
+
+    def _check_maintain_ported(self, hbm_budget_bytes, tier_async) -> None:
+        """Raise for the parts of `maintain` a later slice ports."""
+        tiered = [b.name for b in self.bundles.values()
+                  if b.table.cfg.ev.storage.storage_type.value
+                  in ("hbm_dram", "hbm_dram_ssd")]
+        if hbm_budget_bytes or tier_async or tiered:
+            raise NotImplementedError(
+                "maintain: the multi-tier paths (hbm_budget_bytes, tier_async, "
+                f"storage hbm_dram / hbm_dram_ssd: {tiered}) wait for ROADMAP "
+                "queue A item 4 (multi-tier and host KV)")
+        if getattr(self, "placement", "uniform") == "plan":
+            raise NotImplementedError(
+                "maintain: placement='plan' waits for ROADMAP queue A item 6 "
+                "(multi-GPU)")
+        if getattr(self, "sentinel", None) is not None:
+            raise NotImplementedError(
+                "maintain: the sentinel's row hygiene waits for ROADMAP queue "
+                "A item 8 (operations)")
+
+    def _set_bundle_capacity(self, b: Bundle, new_c: int) -> None:
+        """Point bundle `b` at a grown capacity (a new EmbeddingTable; its
+        probe-sync count carries over). Nothing else is cached per table:
+        the salts are the features', the auto budget's clamp reads the
+        bundle's table."""
+        table = EmbeddingTable(dataclasses.replace(b.table.cfg, capacity=new_c))
+        table.probe_syncs = b.table.probe_syncs
+        b.table = table
+
+    # ------------------------------------------------------------- lookups
+    #
+    # A lookup runs in three phases (`EmbeddingTable._route_ids`,
+    # `_resolve_routed`, `_finish_resolved`) over every lookup group: a
+    # stacked bundle at once, a shared table's features one after another.
+
+    def _route_all(self, batch, train: bool = True) -> list:
+        """Route every lookup group of `batch`: [(bundle, features, masks
+        [T, B, L], route)], in bundle and feature order."""
+        out = []
         for bname, b in self.bundles.items():
             for feats in self._members(b):
                 ids = self._ids(b, batch, feats)
                 pad = feats[0].pad_value
-                res = b.table.lookup_unique(
-                    tables[bname], ids, step=step, train=train, pad_value=pad,
-                    salt=self._salts.get(bname),
-                    unique_size=self._budget_for_lookup(b, ids, train))
-                masks = ids != pad
-                for k, f in enumerate(feats):
-                    views[f.name] = (res.embeddings[k], res.inverse[k], masks[k])
-                if b.stacked:
-                    bundle_res[bname] = res
-                else:
-                    bundle_res.setdefault(bname, {})[feats[0].name] = res
+                out.append((bname, feats, ids != pad, b.table._route_ids(
+                    ids, pad, self._budget_for_lookup(b, ids, train))))
+        return out
+
+    def _resolve_all(self, tables, routes: list, step: int = 0,
+                     train: bool = True) -> list:
+        """Resolve each routed group in order (train mode inserts and
+        stamps IN PLACE): [(bundle, features, masks, pending result)]."""
+        return [(bname, feats, masks, self.bundles[bname].table._resolve_routed(
+                    tables[bname], route, step=step, train=train,
+                    salt=self._salts.get(bname)))
+                for bname, feats, masks, route in routes]
+
+    def _finish_all(self, tables, pending: list):
+        """Gather each resolved group's rows from the CURRENT tables.
+        Returns (per-feature views (embeddings [U, D], inverse [B, L],
+        mask [B, L]), per-bundle results: a stacked bundle's result, or
+        {feature: result} for the rest)."""
+        views, bundle_res = {}, {}
+        for bname, feats, masks, res in pending:
+            b = self.bundles[bname]
+            res = b.table._finish_resolved(tables[bname], res)
+            for k, f in enumerate(feats):
+                views[f.name] = (res.embeddings[k], res.inverse[k], masks[k])
+            if b.stacked:
+                bundle_res[bname] = res
+            else:
+                bundle_res.setdefault(bname, {})[feats[0].name] = res
         return views, bundle_res
+
+    def _lookup_all(self, tables, batch, step: int = 0, train: bool = False):
+        """Every group's lookup, route -> resolve -> finish. Returns
+        (views, bundle_res) as `_finish_all`."""
+        return self._finish_all(tables, self._resolve_all(
+            tables, self._route_all(batch, train), step, train))
 
     def _build_inputs(self, embs, views, batch, read_only: bool = False
                       ) -> ModelInputs:
@@ -402,18 +589,15 @@ class Trainer:
 
     # ---------------------------------------------------------------- training
 
-    def train_step(self, state: TrainState, batch, lr: Optional[float] = None):
-        """One step: train lookups (insert, initializer rows, metadata),
-        forward and backward, the sparse applies and the dense optimizer,
-        all IN PLACE on `state`'s tensors. Returns (the next TrainState,
-        {"loss", "accuracy"} as 0-d device tensors)."""
-        if self.sparse_opt is None:
-            raise ValueError("train_step needs a Trainer with a sparse optimizer")
-        lr = self.sparse_opt.lr if lr is None else float(lr)
-        step = int(state.step)
-        batch = self.device_batch(batch)
-        with _phase("lookup"), torch.no_grad():
-            views, bundle_res = self._lookup_all(state.tables, batch, step, True)
+    def _model_call(self, dense, inputs):
+        return functional_call(self.model, dense, (inputs,))
+
+    def _fwd_bwd(self, params, views, bundle_res, batch):
+        """Dense forward and backward of one batch on its finished lookups:
+        the unique embeddings [T, U, D] of each lookup group are the leaves
+        that take gradients, with the dense parameters. Returns (loss,
+        logits, {name: dense gradient}, [group gradients in lookup
+        order])."""
         with _phase("dense_fwd_bwd"):
             leaves, embs = [], {}
             for bname, b in self.bundles.items():
@@ -422,17 +606,26 @@ class Trainer:
                     leaves.append(e)
                     for k, f in enumerate(feats):
                         embs[f.name] = e[k]
-            dense = {n: p.detach().requires_grad_(True) for n, p in state.dense.items()}
-            logits = functional_call(self.model, dense,
-                                     (self._build_inputs(embs, views, batch),))
+            dense = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+            inputs = self._build_inputs(embs, views, batch)
+            if self.remat:
+                logits = checkpoint(self._model_call, dense, inputs,
+                                    use_reentrant=False)
+            else:
+                logits = self._model_call(dense, inputs)
             loss = _loss_from_logits(logits, batch)
-            grads = torch.autograd.grad(loss, [*dense.values(), *leaves],
-                                        allow_unused=True)
+            wrt = [*dense.values(), *leaves]
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
             grads = [torch.zeros_like(x) if g is None else g
-                     for x, g in zip([*dense.values(), *leaves], grads)]
-        g_dense = dict(zip(dense, grads[:len(dense)]))
-        g_embs = iter(grads[len(dense):])
-        with _phase("sparse_apply"), torch.no_grad():
+                     for x, g in zip(wrt, grads)]
+        return (loss.detach(), logits, dict(zip(dense, grads[:len(dense)])),
+                grads[len(dense):])
+
+    @torch.no_grad()
+    def _apply_all(self, tables, bundle_res, g_embs, step: int, lr: float):
+        """Every lookup group's sparse apply, IN PLACE."""
+        with _phase("sparse_apply"):
+            g_embs = iter(g_embs)
             for bname, b in self.bundles.items():
                 # A shared table's features apply one after another, so each
                 # gathers its rows again (an earlier apply may have moved
@@ -440,21 +633,192 @@ class Trainer:
                 reuse = b.stacked or len(b.features) == 1
                 for _, res in self._results(b, bundle_res[bname]):
                     apply_gradients(
-                        b.table, state.tables[bname], self.sparse_opt, res,
+                        b.table, tables[bname], self.sparse_opt, res,
                         next(g_embs), step=step, lr=lr,
                         grad_averaging=self.grad_averaging,
                         reuse_rows=reuse, stamp_meta=False,
                     )
-        with _phase("dense_apply"), torch.no_grad():
-            updates, opt_state = self.dense_opt.update(g_dense, state.opt_state,
-                                                       state.dense)
-            dense_optim.apply_updates(state.dense, updates)
-        with torch.no_grad():
-            mets = {"loss": loss.detach(), "accuracy": (
-                loss.new_zeros(()) if isinstance(logits, dict)
-                else M.accuracy(torch.sigmoid(logits.detach()), batch["label"]))}
-        return TrainState(step=step + 1, tables=state.tables, dense=state.dense,
+
+    @torch.no_grad()
+    def _dense_apply(self, params, opt_state, g_dense):
+        """The dense optimizer's update, IN PLACE on `params`; returns the
+        new optimizer state."""
+        with _phase("dense_apply"):
+            updates, opt_state = self.dense_opt.update(g_dense, opt_state, params)
+            dense_optim.apply_updates(params, updates)
+        return opt_state
+
+    @staticmethod
+    @torch.no_grad()
+    def _metrics(loss, logits, batch) -> Dict[str, torch.Tensor]:
+        return {"loss": loss, "accuracy": (
+            loss.new_zeros(()) if isinstance(logits, dict)
+            else M.accuracy(torch.sigmoid(logits.detach()), batch["label"]))}
+
+    def _train_lr(self, what: str, lr) -> float:
+        if self.sparse_opt is None:
+            raise ValueError(f"{what} needs a Trainer with a sparse optimizer")
+        return self.sparse_opt.lr if lr is None else float(lr)
+
+    def _step(self, state: TrainState, batch, lr: float):
+        """One train step on a device batch (see `train_step`)."""
+        step = int(state.step)
+        with _phase("lookup"), torch.no_grad():
+            views, bundle_res = self._lookup_all(state.tables, batch, step, True)
+        loss, logits, g_dense, g_embs = self._fwd_bwd(state.dense, views,
+                                                      bundle_res, batch)
+        self._apply_all(state.tables, bundle_res, g_embs, step, lr)
+        opt_state = self._dense_apply(state.dense, state.opt_state, g_dense)
+        return (TrainState(step=step + 1, tables=state.tables, dense=state.dense,
+                           opt_state=opt_state),
+                self._metrics(loss, logits, batch))
+
+    def train_step(self, state: TrainState, batch, lr: Optional[float] = None):
+        """One step: train lookups (insert, initializer rows, metadata),
+        forward and backward, the sparse applies and the dense optimizer,
+        all IN PLACE on `state`'s tensors. Returns (the next TrainState,
+        {"loss", "accuracy"} as 0-d device tensors)."""
+        lr = self._train_lr("train_step", lr)
+        return self._step(state, self.device_batch(batch), lr)
+
+    def _window(self, batches) -> List[Dict[str, torch.Tensor]]:
+        """A window's K device batches from a list of K batches or one
+        stacked [K, ...] dict."""
+        if isinstance(batches, dict):
+            batches = self.device_batch(batches)
+            K = next(iter(batches.values())).shape[0]
+            return [{k: v[i] for k, v in batches.items()} for i in range(K)]
+        return [self.device_batch(b) for b in batches]
+
+    def train_steps(self, state: TrainState, batches, lr: Optional[float] = None):
+        """K train steps in one call: `batches` is a list of K same-shape
+        batches or one stacked [K, ...] dict (`stack_batches`). Exactly K
+        `train_step` calls in every `pipeline_mode`, IN PLACE. Returns (the
+        state after K steps, metrics as [K] device tensors, one entry per
+        inner step). Evict, maintain, save and evaluate between windows."""
+        lr = self._train_lr("train_steps", lr)
+        batches = self._window(batches)
+        if self.pipeline_mode == "off":
+            mets = []
+            for b in batches:
+                state, m = self._step(state, b, lr)
+                mets.append(m)
+        else:
+            state, mets = self._steps_pipelined(state, batches, lr)
+        return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+
+    def _steps_pipelined(self, state: TrainState, batches, lr: float):
+        """The window with a one-batch lookahead: the first batch's full
+        lookup, then for each batch t: route and resolve batch t+1 (under
+        step t+1), the dense forward and backward and the sparse apply of
+        batch t, the value gather of batch t+1 (after that apply, so it
+        reads the rows batch t wrote), the dense update. resolve(t+1)
+        touches keys, metadata, the sketch and value rows of slots that
+        were empty, never a row apply(t) writes: the order is exact."""
+        step = int(state.step)
+        tables, params, opt_state = state.tables, state.dense, state.opt_state
+        with _phase("lookup"), torch.no_grad():
+            views, res = self._lookup_all(tables, batches[0], step, True)
+        mets = []
+        for t, batch in enumerate(batches):
+            nxt = batches[t + 1] if t + 1 < len(batches) else None
+            if nxt is not None:
+                with _phase("route_next"), torch.no_grad():
+                    pending = self._resolve_all(tables, self._route_all(nxt),
+                                                step + 1)
+            loss, logits, g_dense, g_embs = self._fwd_bwd(params, views, res, batch)
+            self._apply_all(tables, res, g_embs, step, lr)
+            if nxt is not None:
+                with _phase("finish_next"), torch.no_grad():
+                    views, res = self._finish_all(tables, pending)
+            opt_state = self._dense_apply(params, opt_state, g_dense)
+            mets.append(self._metrics(loss, logits, batch))
+            step += 1
+        return TrainState(step=step, tables=tables, dense=params,
                           opt_state=opt_state), mets
+
+    def train_step_accum(self, state: TrainState, batch, accum_steps: int,
+                         lr: Optional[float] = None):
+        """One step over a batch of A x B rows in A micro-batches of B: each
+        micro-batch looks up and applies its sparse gradients (all under
+        the same step, with the dense parameters as they were), the dense
+        gradients are summed, divided by A and applied once. Returns (the
+        next TrainState, the mean loss and accuracy over the
+        micro-batches)."""
+        lr = self._train_lr("train_step_accum", lr)
+        batch = self.device_batch(batch)
+        A = int(accum_steps)
+        n = next(iter(batch.values())).shape[0]
+        if A < 1 or n % A:
+            raise ValueError(f"batch of {n} rows does not split into {A} micro-batches")
+        step = int(state.step)
+        g_acc = {name: torch.zeros_like(p) for name, p in state.dense.items()}
+        mets = []
+        for a in range(A):
+            mb = {k: v.reshape(A, n // A, *v.shape[1:])[a] for k, v in batch.items()}
+            with _phase("lookup"), torch.no_grad():
+                views, res = self._lookup_all(state.tables, mb, step, True)
+            loss, logits, g_dense, g_embs = self._fwd_bwd(state.dense, views, res, mb)
+            self._apply_all(state.tables, res, g_embs, step, lr)
+            for name, g in g_dense.items():
+                g_acc[name] += g
+            mets.append(self._metrics(loss, logits, mb))
+        g_mean = {name: g / float(A) for name, g in g_acc.items()}
+        opt_state = self._dense_apply(state.dense, state.opt_state, g_mean)
+        return (TrainState(step=step + 1, tables=state.tables, dense=state.dense,
+                           opt_state=opt_state),
+                {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]})
+
+    # ----------------------------------------------------------- staged input
+
+    def stage_batch(self, batch):
+        """Trim a host batch to the model's inputs and labels and start its
+        copy to the device. On CUDA each array goes through pinned host
+        memory onto the card with `non_blocking=True` on the trainer's copy
+        stream; the result is a `StagedBatch` whose `ready` event the
+        consuming stream waits on when the batch reaches a train or eval
+        call. Tensors already on the device pass as they are."""
+        keep = self.input_keys()
+        batch = {k: v for k, v in batch.items() if k in keep or k.startswith("label")}
+        if self.device.type != "cuda":
+            return self.device_batch(batch)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        out = StagedBatch()
+        with torch.cuda.stream(self._copy_stream):
+            for k, v in batch.items():
+                if torch.is_tensor(v) and v.device == self.device:
+                    out[k] = v
+                    continue
+                host = torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v))
+                out[k] = host.pin_memory().to(self.device, non_blocking=True)
+            out.ready = torch.cuda.Event()
+            out.ready.record(self._copy_stream)
+        return out
+
+    def stage(self, source, depth: int = 2, on_consume=None):
+        """The staged input pipeline: a `Prefetcher` over `source` that
+        runs `stage_batch` on each batch in its own thread, `depth` batches
+        ahead of the train loop. Returns `source` unchanged under
+        stage="off".
+
+        `on_consume` is called once per batch DELIVERED to the loop; when
+        it is omitted and `source` carries `mark_consumed` (and
+        `attach_consumer`), those are wired in, so a stream position
+        checkpoints what the loop received, not what the ring read ahead."""
+        if self.stage_mode != "auto":
+            return source
+        from deeprec_tpu_torch.data.prefetch import Prefetcher
+
+        if on_consume is None:
+            mark = getattr(source, "mark_consumed", None)
+            if callable(mark):
+                attach = getattr(source, "attach_consumer", None)
+                if callable(attach):
+                    attach()
+                on_consume = mark
+        return Prefetcher(iter(source), depth=depth, transform=self.stage_batch,
+                          on_consume=on_consume)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):

@@ -49,6 +49,16 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def hash_to_bucket(ids: torch.Tensor, num_buckets: int, salt: int = 0
+                   ) -> torch.Tensor:
+    """Hash ids into [0, num_buckets) as int32; num_buckets must be a power
+    of two."""
+    if num_buckets <= 0 or num_buckets & (num_buckets - 1):
+        raise ValueError(f"num_buckets must be a power of two, got {num_buckets}")
+    h = mix32(fold64(ids) ^ (int(salt) & _M32))
+    return (h & (num_buckets - 1)).to(torch.int32)
+
+
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 values wrapped to int32 two's complement, as int32 arithmetic
     overflows in JAX (`uids * D + iota` on int32 keys)."""

@@ -2,8 +2,9 @@
 CUDA machine): package isolation, the no-silent-CPU rule, and the CUDA
 kernels against their plain versions (marked `cuda`; skip without a card):
 the row gather, the pooled gather (#4, one feature and grouped) and the
-row scatter, the fused bag step's forward and backward, and flash
-attention's forward and backward (f32 and bf16)."""
+row scatter, the fused bag step's forward and backward, flash
+attention's forward and backward (f32 and bf16), and the trainer's staged
+input copies on the card."""
 import os
 import subprocess
 import sys
@@ -610,3 +611,46 @@ def test_flash_kernels_bf16_match_plain(cuda_device, causal):
         assert a.dtype == torch.bfloat16, name
         tol = FLASH_GRAD_TOL * float(b.double().abs().max()) + _bf16_ulp(b)
         assert bool(((a.double() - b.double()).abs() <= tol).all()), name
+
+
+@pytest.mark.cuda
+def test_stage_batch_on_card_equals_unstaged(cuda_device):
+    """Batches staged on the copy stream (pinned host memory,
+    non_blocking copies, an event the consuming stream waits on) arrive
+    bit for bit as the unstaged copies, ids and numerics alike, through the
+    Prefetcher's thread, while the default stream is busy; a window trained
+    on them equals one trained on the host batches."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import WDL
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import StagedBatch, Trainer
+
+    gen = SyntheticCriteo(batch_size=2048, num_cat=4, num_dense=2, vocab=100_000, seed=3)
+    host = [gen.batch() for _ in range(8)]
+    trainers = {m: Trainer(WDL(emb_dim=16, capacity=1 << 14, hidden=(32,), num_cat=4,
+                               num_dense=2), Adagrad(lr=0.1), adam(1e-3),
+                           device=cuda_device, stage=m) for m in ("auto", "off")}
+    tr = trainers["auto"]
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    staged = []
+    for b in tr.stage(iter(host), depth=3):
+        assert isinstance(b, StagedBatch) and b.ready is not None
+        busy = busy @ busy.T / 4096  # the consumer's stream keeps working
+        staged.append(tr.device_batch(b))
+    assert len(staged) == 8
+    for s, h in zip(staged, host):
+        want = trainers["off"].device_batch(h)
+        assert s.keys() == want.keys()
+        for k in want:
+            assert s[k].device.type == "cuda" and torch.equal(s[k], want[k]), k
+    states = {}
+    for m, t in trainers.items():
+        st = t.init()
+        data = iter(t.stage(iter(host)))
+        for _ in range(2):
+            st, mets = t.train_steps(st, [next(data) for _ in range(4)])
+        states[m] = (st, mets["loss"])
+    assert torch.equal(states["auto"][1], states["off"][1])
+    for bname, ts in states["auto"][0].tables.items():
+        other = states["off"][0].tables[bname]
+        assert torch.equal(ts.keys, other.keys) and torch.equal(ts.values, other.values)
