@@ -129,6 +129,35 @@ Phases, each of which must pass:
      8 held-out batches: finite losses, no failed insert after the last
      maintain, every table grown, keys evicted, the launches of #1-#5 and
      #4 the path implies, held-out AUC >= 0.60.
+ 15. multi-tier storage: (a) card against CPU at D 128 and 2^12 slots, from
+     one state made on the CPU: the tier operations (train-mode inserts over
+     5 x 2^12 ids, deterministic row writes, freqs stamped from a
+     permutation, sync, sync_async + drain, probe_rows, fold_candidates,
+     lookup_with_fallback over every id) on hbm_dram f32, hbm_dram bf16
+     (#1 and #2 on the card) and hbm_dram_ssd (a host_capacity that spills)
+     bit for bit per key: reports, device rows, host store, disk log, fold
+     outcomes and retry keys, fallback rows; maintain(hbm_budget_bytes=) on
+     an HBM DLRM-DCN filled past its growth threshold (a budget that grows,
+     one that auto-tiers) with equal reports and rows per key; 3 rounds of
+     pager observe + fold_tier_prefetch + train_steps(K=4) + maintain() on
+     a tiered DLRM-DCN, losses within TRAIN_RTOL, demoted counts and folds
+     equal, every key in one tier, value rows in the same tier within
+     steps x lr x TRAIN_RTOL and Adagrad accumulators within TRAIN_RTOL;
+     (b) the tiered loop at MLPerf DLRM-DCN widths: hbm_dram tables of
+     TIER["capacity"] slots (LFU, watermarks 0.8 / 0.6), enable_tier_paging
+     + warm_tier_folds, stage(depth=2) feeding 40 windows of
+     train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
+     and maintain(tier_async=True) (every 5th a synchronous maintain(); 2
+     windows profiled), a final maintain(), evaluate on 8 held-out batches:
+     finite losses, rows demoted and brought back, occupancy at most the
+     high watermark after every synchronous maintain, every key in one
+     tier and no key lost but failed inserts (per table, the keys in no
+     tier at most the failed inserts counted; both printed), lookup_with_fallback over every distinct id bit for bit against
+     the table and the host store, the #3 / #5 / #4 launches the path and
+     its tier events imply, AUC >= 0.60; (c) the modelzoo's budget path
+     (maintain every window of 8 steps with hbm_budget_bytes) on HBM tables
+     from TIER["budget"]["capacity"] slots: one growth, then auto-tiering
+     that demotes.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -139,6 +168,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -1201,6 +1231,13 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
     return stats
 
 
+def _copy_table_state(ts, dev):
+    """A deep copy of a TableState on `dev`."""
+    return type(ts)(**{k: ({n: a.to(dev, copy=True) for n, a in v.items()}
+                           if isinstance(v, dict) else None if v is None
+                           else v.to(dev, copy=True)) for k, v in vars(ts).items()})
+
+
 def _copy_state(state, dev):
     """A deep copy of a TrainState on `dev`."""
     import copy
@@ -1208,13 +1245,7 @@ def _copy_state(state, dev):
     from deeprec_tpu_torch.optim.dense import AdamState
 
     out = copy.copy(state)
-    out.tables = {
-        b: type(ts)(**{
-            k: ({n: a.to(dev, copy=True) for n, a in v.items()}
-                if isinstance(v, dict) else None if v is None else v.to(dev, copy=True))
-            for k, v in vars(ts).items()})
-        for b, ts in state.tables.items()
-    }
+    out.tables = {b: _copy_table_state(ts, dev) for b, ts in state.tables.items()}
     out.dense = {n: p.to(dev, copy=True) for n, p in state.dense.items()}
     o = state.opt_state
     out.opt_state = AdamState(
@@ -2858,11 +2889,734 @@ def run_loop(dev, seed, full, small, cfg, ckroot):
     return st
 
 
+# ------------------------------------------------------------ phase 15
+
+# Phase 15, multi-tier storage. (b) trains MLPerf DLRM-DCN with a device
+# tier of `capacity` slots per table: the run sees about 64,000 distinct ids
+# per table (SyntheticCriteo, vocab 10^6), so 2^15 slots pass the high
+# watermark about a third of the way in and the later windows demote,
+# promote and fold. (c) starts the modelzoo's budget path at `capacity`
+# slots with a budget of 3 tables' worth of bytes: one growth fits, the
+# next does not.
+TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=40, capacity=1 << 15, every=5,
+            strategy="lfu", high=0.8, depth=4, chunk=256, lr=0.05, dense_lr=1e-3, eval_batches=8,
+            auc_floor=0.60, profiled=20,
+            # (a)'s tier sequence: per round the boundary, the ids looked up
+            # and the share of them drawn from the tier stores' keys
+            ops=dict(capacity=1 << 12, vocab_mult=5, host_capacity=1024, picks=600,
+                     rounds=(("sync", 3000, 0.0), ("sync", 3000, 0.0), ("sync", 1200, 0.5),
+                             ("async", 600, 0.5), ("async", 700, 0.5))),
+            train=dict(batch=512, K=4, rounds=3, prefill=6, depth=8),
+            budget=dict(capacity=1 << 14, windows=18, budget_tables=3))
+FILLS = (("accum", 0.1),)
+
+
+def _tier_launches():
+    """(#3 f32 gathers, #5 f32 scatters, #1 bf16 gathers, #2 bf16 scatters)
+    since the counts were zeroed."""
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+
+    return np.array([gather_rows.launches - gather_rows.launches_bf16,
+                     apply_rows_sr.launches - apply_rows_sr.launches_bf16,
+                     gather_rows.launches_bf16, apply_rows_sr.launches_bf16])
+
+
+def _member_rows(ts, t):
+    """{key: (value row f32, accum row, meta column)} of member t."""
+    keys = ts.keys[t].cpu().numpy()
+    live = np.nonzero(keys != np.iinfo(keys.dtype).min)[0]
+    v = ts.values[t].float().cpu().numpy()[live]
+    a = ts.slots["accum"][t].cpu().numpy()[live]
+    m = ts.meta[t].cpu().numpy()[:, live].T
+    return {int(k): (v[i], a[i], tuple(m[i])) for i, k in enumerate(keys[live])}
+
+
+def _store_rows(kv):
+    """{key: (packed row, freq, version)} of a HostKV (or None)."""
+    if kv is None:
+        return {}
+    k, v, f, ver = kv.export()
+    return {int(k[i]): (v[i], int(f[i]), int(ver[i])) for i in range(len(k))}
+
+
+def _disk_rows(disk):
+    if disk is None:
+        return {}
+    keys = np.fromiter(disk.index, np.int64, len(disk.index))
+    v, f, ver, _ = disk.get(keys)
+    return {int(keys[i]): (v[i], int(f[i]), int(ver[i])) for i in range(len(keys))}
+
+
+def _same_map(a, b, what):
+    """Two {key: tuple of arrays / ints} maps equal bit for bit."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: {len(a)} keys against {len(b)} "
+                             f"({len(a.keys() ^ b.keys())} differ)")
+    for k, row in a.items():
+        for x, y in zip(row, b[k]):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                raise AssertionError(f"{what}: key {k} differs")
+    return len(a)
+
+
+def tier_ops(dev, table, state0, cfg, seed, path):
+    """Phase 15 (a), the tier operations on `dev` from a copy of the CPU
+    state `state0` (one [1, C] table with an Adagrad slot): rounds of
+    train-mode inserts over a vocabulary vocab_mult x C, deterministic value
+    and accumulator writes (scatter_update; apply_rows_sr on the slot) and
+    freqs stamped from a permutation (no ties in the demote order); `sync`
+    in the first two rounds, `sync_async` + `drain` in the rest; then
+    probe_rows over tier-resident, device and absent ids, a third of them
+    looked up again first (some stamped past their tier copy), and
+    fold_candidates; then lookup_with_fallback over every id. Returns the
+    outcomes on the host."""
+    from deeprec_tpu_torch.embedding import MultiTierTable
+    from deeprec_tpu_torch.embedding.table import META_FREQ, empty_key
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr
+
+    mt = MultiTierTable(table, slot_fills=FILLS, storage_path=path)
+    st = _copy_table_state(state0, dev)
+    C, D = table.cfg.capacity, table.cfg.dim
+    vocab = cfg["vocab_mult"] * C
+    rng = np.random.default_rng(seed + 90)
+    perm = torch.as_tensor(rng.permutation(vocab).astype(np.int32) + 1, device=dev)
+    col = torch.arange(D, device=dev, dtype=torch.float32)
+    sent = empty_key(table.cfg)
+
+    def write(res, r):
+        """Deterministic value and accumulator rows of the looked-up keys."""
+        u = res.uids.to(torch.float32)[..., None]
+        table.scatter_update(st, res.slot_ix, (u % 997) * 1e-3 + col * 1e-4 + r,
+                             mask=res.valid, seed=r)
+        ok = (res.slot_ix >= 0) & res.valid
+        apply_rows_sr(st.slots["accum"], torch.where(ok, res.slot_ix, -1),
+                      (u % 89) * 1e-2 + 0.1 + col * 0.0)
+
+    def stamp():
+        occ = st.keys[0] != sent
+        st.meta[0, META_FREQ] = torch.where(
+            occ, perm[st.keys[0].clamp(0, vocab - 1).long()], 0)
+
+    def tier_keys():
+        return np.sort(np.asarray(list(_store_rows(mt.host)) + list(_disk_rows(mt.disk)),
+                                  np.int64))
+
+    reports, trace = [], []  # per round the device keys and tier keys
+    for r, (kind, n, back) in enumerate(cfg["rounds"]):
+        tk = tier_keys()
+        n_back = min(int(n * back), len(tk))
+        ids = np.concatenate([rng.choice(tk, n_back, replace=False),
+                              rng.choice(vocab, n - n_back, replace=False)])
+        ids = torch.as_tensor(np.unique(ids).astype(np.int32), device=dev)
+        write(table.lookup_unique(st, ids[None], step=r), r)
+        stamp()
+        trace.append((r, "looked up", st.keys[0][st.keys[0] != sent].cpu().numpy(),
+                      int(st.insert_fails.sum())))
+        if kind == "sync":
+            st, s = mt.sync(st, step=r)
+            reports.append(("sync", dataclasses.asdict(s)))
+        else:
+            st, s = mt.sync_async(st, step=r)
+            reports.append(("sync_async", dataclasses.asdict(s)))
+            st, s = mt.drain(st)
+            reports.append(("drain", dataclasses.asdict(s)))
+        trace.append((r, kind, st.keys[0][st.keys[0] != sent].cpu().numpy(), tier_keys()))
+    dev_keys = np.sort(st.keys[0][st.keys[0] != sent].cpu().numpy().astype(np.int64))
+    picks = np.concatenate([tier_keys()[:cfg["picks"]], dev_keys[:50],
+                            np.arange(vocab, vocab + 50)])
+    cand = mt.probe_rows(picks)
+    again = torch.as_tensor(cand["keys"][::3].astype(np.int32), device=dev)
+    res = table.lookup_unique(st, again[None], step=len(cfg["rounds"]))
+    write(res, len(cfg["rounds"]))
+    past = res.slot_ix[0, ::4].long()  # trained past their tier copy
+    st.meta[0, META_FREQ, past[past >= 0]] = vocab + 100
+    st, folded, dropped = mt.fold_candidates(st, cand, chunk=256)
+    everything = torch.arange(-1, vocab + 50, device=dev, dtype=torch.int32)
+    lfb = mt.lookup_with_fallback(st, everything).float().cpu().numpy()
+    out = dict(reports=reports, fold=(folded, dropped, sorted(mt._retry_keys)),
+               probe=(cand["keys"].tolist(), cand["rows"], cand["freqs"], cand["vers"],
+                      cand["from_disk"]),
+               rows=_member_rows(st, 0), host=_store_rows(mt.host), disk=_disk_rows(mt.disk),
+               lfb=lfb, vocab=vocab, trace=trace)
+    if mt.disk is not None:
+        mt.disk.close()
+    return out
+
+
+def tier_ops_agreement(dev, seed, dim, cfg, tmp):
+    """Phase 15 (a), the tier operations card against CPU, bit for bit per
+    key, on hbm_dram f32, hbm_dram bf16 and hbm_dram_ssd (host_capacity
+    small enough to spill). Returns (lines, the card's launches of #3, #5,
+    #1, #2)."""
+    from deeprec_tpu_torch.config import EmbeddingVariableOption, StorageOption, TableConfig
+    from deeprec_tpu_torch.embedding.table import EmbeddingTable
+    from deeprec_tpu_torch.optim import Adagrad
+    from deeprec_tpu_torch.optim.apply import ensure_slots
+
+    lines, launches = [], np.zeros(4, np.int64)
+    for kind, dtype in (("hbm_dram", "float32"), ("hbm_dram", "bfloat16"),
+                        ("hbm_dram_ssd", "float32")):
+        storage = StorageOption(storage_type=kind, host_capacity=(
+            cfg["host_capacity"] if kind == "hbm_dram_ssd" else 0))
+        table = EmbeddingTable(TableConfig(name="tier", dim=dim, capacity=cfg["capacity"],
+                                           value_dtype=dtype,
+                                           ev=EmbeddingVariableOption(storage=storage)))
+        state0 = ensure_slots(table, table.create(1, "cpu"), Adagrad(lr=0.05))
+        outs = {}
+        for d in ("cpu", dev):
+            _zero_row_counts()
+            path = os.path.join(tmp, f"{kind}_{dtype}_{torch.device(d).type}")
+            outs[torch.device(d).type] = tier_ops(torch.device(d), table, state0, cfg, seed,
+                                                  path if kind == "hbm_dram_ssd" else None)
+            if torch.device(d).type == "cuda":
+                launches += _tier_launches()
+                _row_counts()
+        a, b = outs["cpu"], outs[dev.type]
+        for (r, what, dk, extra), (_, _, dk2, extra2) in zip(a["trace"], b["trace"]):
+            # the first step where the device keys, the tier keys or the
+            # failed inserts part
+            parts = [set(dk.tolist()) ^ set(dk2.tolist())]
+            if isinstance(extra, np.ndarray):
+                parts.append(set(extra.tolist()) ^ set(extra2.tolist()))
+            if any(parts) or (not isinstance(extra, np.ndarray) and extra != extra2):
+                raise AssertionError(
+                    f"{kind} {dtype}: after round {r} ({what}) cpu and {dev.type} part: "
+                    f"{[sorted(d)[:8] for d in parts]} ({[len(d) for d in parts]} keys), "
+                    f"{'' if isinstance(extra, np.ndarray) else (extra, extra2)}")
+        if a["reports"] != b["reports"]:
+            raise AssertionError(f"{kind} {dtype}: reports differ: {a['reports']} vs "
+                                 f"{b['reports']}")
+        if a["fold"] != b["fold"]:
+            raise AssertionError(f"{kind} {dtype}: fold outcomes differ")
+        for x, y in zip(a["probe"], b["probe"]):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                raise AssertionError(f"{kind} {dtype}: probe_rows packages differ")
+        n_dev = _same_map(b["rows"], a["rows"], f"{kind} {dtype} device rows")
+        n_host = _same_map(b["host"], a["host"], f"{kind} {dtype} host store")
+        n_disk = _same_map(b["disk"], a["disk"], f"{kind} {dtype} disk log")
+        resident = np.zeros(len(a["lfb"]), bool)
+        ix = np.asarray(sorted(set(a["rows"]) | set(a["host"]) | set(a["disk"]))) + 1
+        resident[ix] = True
+        resident[0] = True  # the pad id -1 serves zeros
+        if not np.array_equal(a["lfb"][resident], b["lfb"][resident]):
+            raise AssertionError(f"{kind} {dtype}: lookup_with_fallback rows differ")
+        # initializer rows of absent ids: torch.erfinv differs by a few f32
+        # ulps between the devices, so within 1e-5; a bf16 row's rounding
+        # can then fall either side, so within one bf16 ulp (2^-7 relative)
+        x, y = a["lfb"][~resident], b["lfb"][~resident]
+        init_diff = float(np.abs(x - y).max())
+        tol = 1e-5 if dtype == "float32" else np.maximum(1e-5, np.abs(x) * 2.0 ** -7)
+        if not np.all(np.abs(x - y) <= tol):
+            raise AssertionError(f"{kind} {dtype}: initializer rows differ by {init_diff}")
+        demoted = sum(r["demoted"] for _, r in a["reports"])
+        promoted = sum(r["promoted"] for _, r in a["reports"])
+        spilled = sum(r["spilled"] for _, r in a["reports"])
+        if not (demoted and promoted and a["fold"][0] and a["fold"][1]) or (
+                kind == "hbm_dram_ssd" and not spilled):
+            raise AssertionError(f"{kind} {dtype}: the sequence missed a path: {a['reports']}"
+                                 f", fold {a['fold'][:2]}")
+        lines.append(
+            f"{kind} {dtype}: {len(a['reports'])} reports equal (demoted {demoted}, promoted "
+            f"{promoted}, spilled {spilled}); probe_rows packages, fold (folded "
+            f"{a['fold'][0]}, dropped {a['fold'][1]}, {len(a['fold'][2])} retry keys) equal; "
+            f"{n_dev} device rows, {n_host} host rows, {n_disk} disk rows and "
+            f"{int(resident.sum())} lookup_with_fallback rows bit for bit per key "
+            f"(initializer rows of {int((~resident).sum())} absent ids within {init_diff:.3g})")
+    return lines, launches
+
+
+def _prefill(trainer, state, host):
+    """Train-mode table lookups (no dense step) of the ids of `host`
+    batches, into every bundle of `state`."""
+    for b in host:
+        batch = trainer.device_batch(b)
+        trainer._resolve_all(state.tables, trainer._route_all(batch), 0)
+    return state
+
+
+def tier_budget_agreement(dev, seed, small, cfg):
+    """Phase 15 (a), maintain(hbm_budget_bytes=) on HBM storage card
+    against CPU: one state filled past the growth threshold on the CPU,
+    copied to the card; a budget that admits the growth (grew_to) and one
+    that does not (auto_tiered: a forced sync per member); the reports,
+    every member's rows and host store per key bit for bit."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    def trainer(d):
+        return Trainer(DLRMDCN(**small, seed=seed), Adagrad(lr=cfg["lr"]),
+                       adam(cfg["dense_lr"]), device=d)
+
+    gen = SyntheticCriteo(batch_size=2048, vocab=cfg["vocab"], seed=seed + 85)
+    cpu = trainer("cpu")
+    state0 = _prefill(cpu, cpu.init(), [gen.batch() for _ in range(7)])
+    (bname, b), = cpu.bundles.items()
+    total = cpu._state_bytes(state0.tables[bname])
+    lines = []
+    for label, budget in (("grows", 10 * total), ("auto-tiers", total + 1)):
+        out = {}
+        for d in ("cpu", dev):
+            t = trainer(d)
+            st = _copy_state(state0, torch.device(d))
+            st, rep = t.maintain(st, hbm_budget_bytes=budget)
+            ts = st.tables[bname]
+            out[torch.device(d).type] = (
+                rep, [_member_rows(ts, k) for k in range(ts.keys.shape[0])],
+                [_store_rows(t._tiers[(bname, (k,))].host) if t._tiers else {}
+                 for k in range(ts.keys.shape[0])])
+        (ra, ma, ha), (rb, mb, hb) = out["cpu"], out[dev.type]
+        if ra != rb:
+            raise AssertionError(f"maintain(hbm_budget_bytes) {label}: reports differ: "
+                                 f"{ra} vs {rb}")
+        want = "grew_to" if label == "grows" else "auto_tiered"
+        if want not in ra[bname] or (label != "grows" and not ra[bname]["demoted"]):
+            raise AssertionError(f"maintain(hbm_budget_bytes={budget}) did not act: {ra}")
+        n = sum(_same_map(x, y, f"budget {label} member {k}")
+                for k, (x, y) in enumerate(zip(mb, ma)))
+        n += sum(_same_map(x, y, f"budget {label} host {k}")
+                 for k, (x, y) in enumerate(zip(hb, ha)))
+        lines.append(f"maintain(hbm_budget_bytes={budget}) {label}: report "
+                     f"{ {k: v for k, v in ra[bname].items() if k in ('occupancy', 'insert_fails', 'grew_to', 'auto_tiered', 'demoted', 'promoted')} } "
+                     f"equal; {n} device and host rows bit for bit per key")
+    return lines
+
+
+def _tiers_by_key(trainer, state, bname, t):
+    """(device rows, host rows) of member t of a tiered bundle."""
+    mt = trainer._tiers.get((bname, (t,)))
+    return _member_rows(state.tables[bname], t), _store_rows(mt.host if mt else None)
+
+
+def tier_train_agreement(dev, seed, small, cfg):
+    """Phase 15 (a), training: one state (tables filled by lookups of the
+    prefill batches) made on the CPU and copied to the card; on each,
+    `rounds` rounds of: the pager observes the window's batches, drain,
+    fold_tier_prefetch, train_steps(K), maintain(). Losses within
+    TRAIN_RTOL, the demoted counts and folds equal, every key in exactly
+    one tier on each device, value rows of keys in the same tier within
+    steps x lr x TRAIN_RTOL (ROW_ATOL's per-step reasoning over 12 steps),
+    accumulators within TRAIN_RTOL relative."""
+    from deeprec_tpu_torch.config import EmbeddingVariableOption, StorageOption
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    tc = cfg["train"]
+    ev = EmbeddingVariableOption(storage=StorageOption(storage_type="hbm_dram"))
+    trainers = {d: Trainer(DLRMDCN(**small, ev=ev, seed=seed), Adagrad(lr=cfg["lr"]),
+                           adam(cfg["dense_lr"]), device=d) for d in ("cpu", dev)}
+    pre = SyntheticCriteo(batch_size=2048, vocab=cfg["vocab"], seed=seed + 86)
+    state0 = _prefill(trainers["cpu"], trainers["cpu"].init(),
+                      [pre.batch() for _ in range(tc["prefill"])])
+    gen = SyntheticCriteo(batch_size=tc["batch"], vocab=cfg["vocab"], seed=seed + 87)
+    host = [gen.batch() for _ in range(tc["rounds"] * tc["K"])]
+    runs = {}
+    for d, t in trainers.items():
+        st = _copy_state(state0, torch.device(d))
+        pager = t.enable_tier_paging(depth=tc["depth"], chunk=cfg["chunk"])
+        losses, reps, folds = [], [], []
+        try:
+            for r in range(tc["rounds"]):
+                window = host[r * tc["K"]:(r + 1) * tc["K"]]
+                for b in window:
+                    pager.observe(b)
+                if not pager.drain(30.0):
+                    raise AssertionError("the tier pager did not drain in 30 s")
+                st, frep = t.fold_tier_prefetch(st)
+                folds.append(sum(v["folded"] for v in frep.values()))
+                st, mets = t.train_steps(st, window)
+                losses.extend(mets["loss"].tolist())
+                st, rep = t.maintain(st)
+                reps.append({k: (v["demoted"], v["promoted"]) for k, v in rep.items()})
+        finally:
+            t.close_tier_paging()
+        runs[torch.device(d).type] = (st, losses, reps, folds)
+    (sa, la, ra, fa), (sb, lb, rb, fb) = runs["cpu"], runs[dev.type]
+    loss_d = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
+    if loss_d > TRAIN_RTOL:
+        raise AssertionError(f"tiered training: losses differ by {loss_d} relative")
+    if [{k: v[0] for k, v in r.items()} for r in ra] != [{k: v[0] for k, v in r.items()}
+                                                          for r in rb]:
+        raise AssertionError(f"tiered training: demoted counts differ: {ra} vs {rb}")
+    if not sum(v[0] for r in ra for v in r.values()) or not sum(fa):
+        raise AssertionError(f"tiered training demoted or folded nothing: {ra}, {fa}")
+    (bname, b), = trainers["cpu"].bundles.items()
+    row_d, acc_d, same, moved = 0.0, 0.0, 0, 0
+    for t in range(b.num_tables):
+        tiers = {}
+        for d, st in (("cpu", sa), (dev.type, sb)):
+            dev_rows, host_rows = _tiers_by_key(trainers[d if d == "cpu" else dev], st,
+                                                bname, t)
+            if dev_rows.keys() & host_rows.keys():
+                raise AssertionError(f"{d} member {t}: keys in both tiers")
+            tiers[d] = (dev_rows, host_rows)
+        for i in range(2):
+            x, y = tiers["cpu"][i], tiers[dev.type][i]
+            moved += len(x.keys() ^ y.keys())
+            for k in x.keys() & y.keys():
+                same += 1
+                p, q = x[k], y[k]
+                D = len(q[0]) if i == 0 else small["emb_dim"]
+                v, w = np.asarray(p[0])[:D], np.asarray(q[0])[:D]
+                # the accumulator (a device slot row, or the host row's tail)
+                a, c = (p[1], q[1]) if i == 0 else (np.asarray(p[0])[D:], np.asarray(q[0])[D:])
+                row_d = max(row_d, float(np.abs(v - w).max()))
+                acc_d = max(acc_d, float((np.abs(a - c) / np.abs(a)).max()))
+    # ROW_ATOL is phase 7's bound for 3 steps, from the reasoning beside
+    # it: a step moves a row by at most lr per element, so a 1e-3 relative
+    # gradient difference moves it by at most lr x TRAIN_RTOL. Over this
+    # check's rounds x K steps the same reasoning gives that bound summed
+    # over the steps. An Adagrad accumulator sums squared gradients:
+    # within TRAIN_RTOL relative.
+    steps = tc["rounds"] * tc["K"]
+    row_tol = steps * cfg["lr"] * TRAIN_RTOL
+    if row_d > row_tol or acc_d > TRAIN_RTOL:
+        raise AssertionError(f"tiered training: value rows differ by {row_d} (bound "
+                             f"{row_tol}), accumulators by {acc_d} relative")
+    return [f"tiered training, {tc['rounds']} rounds of train_steps(K={tc['K']}) at batch "
+            f"{tc['batch']} + fold_tier_prefetch + maintain(), {dev.type} vs cpu: losses "
+            f"{la[0]:.6f} .. {la[-1]:.6f} within {loss_d:.3g} relative (tolerance "
+            f"{TRAIN_RTOL}); demoted per maintain {[sum(v[0] for v in r.values()) for r in ra]}"
+            f" equal, promoted {[sum(v[1] for v in r.values()) for r in ra]} / "
+            f"{[sum(v[1] for v in r.values()) for r in rb]}, folded {fa} / {fb}; every key "
+            f"in one tier on each device; {same} keys in the same tier, value rows within "
+            f"{row_d:.3g} (bound {row_tol:.3g} = {steps} steps x lr x {TRAIN_RTOL}; phase 7's "
+            f"3-step ROW_ATOL {ROW_ATOL}), accumulators within {acc_d:.3g} relative "
+            f"(tolerance {TRAIN_RTOL}); {moved} keys in another tier"]
+
+
+def _member_events(trainer, before):
+    """Per-member tier events since `before` (a snapshot of this function's
+    counts): members that demoted, that promoted through a sync, and fold
+    chunks that wrote rows. Returns (events, new snapshot)."""
+    now = {k: (mt.demoted_rows, mt.promoted_rows - mt.folded_rows, mt.fold_writes)
+           for k, mt in trainer._tiers.items()}
+    ev = np.zeros(3, np.int64)
+    for k, (d, p, w) in now.items():
+        d0, p0, w0 = before.get(k, (0, 0, 0))
+        ev += [d > d0, p > p0, w - w0]
+    return ev, now
+
+
+def tier_phase(dev, seed, full, cfg):
+    """Phase 15 (b): the tiered loop at MLPerf DLRM-DCN widths (see TIER).
+    Returns stats."""
+    from deeprec_tpu_torch.config import EmbeddingVariableOption, StorageOption
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.embedding.table import member_view
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    K, W, B, C = cfg["K"], cfg["windows"], cfg["batch"], cfg["capacity"]
+    t0 = time.perf_counter()
+    gen = SyntheticCriteo(batch_size=B, vocab=cfg["vocab"], seed=seed + 80)
+    host = [gen.batch() for _ in range(W * K)]
+    held_out = SyntheticCriteo(batch_size=B, vocab=cfg["vocab"], seed=seed + 81)
+    evals = [held_out.batch() for _ in range(cfg["eval_batches"])]
+    cats = [k for k in host[0] if k.startswith("C")]
+    distinct = [np.unique(np.concatenate([h[c] for h in host])) for c in cats]
+    data_s = time.perf_counter() - t0
+    ev = EmbeddingVariableOption(storage=StorageOption(storage_type="hbm_dram",
+                                                       cache_strategy=cfg["strategy"]))
+    trainer = Trainer(DLRMDCN(**dict(full, capacity=C), ev=ev, seed=seed),
+                      Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev,
+                      pipeline_mode="lookahead")
+    state = trainer.init()
+    (bname, b), = trainer.bundles.items()
+    T = b.num_tables
+    nslots = sum(1 for n in trainer.sparse_opt.slot_specs(1) if not n.startswith("scalar/"))
+    pager = trainer.enable_tier_paging(depth=cfg["depth"], chunk=cfg["chunk"])
+    trainer.warm_tier_folds(state)
+    staged = trainer.stage(iter(host), depth=2)
+    windows, maint, losses, events, occ_after = [], [], [], np.zeros(3, np.int64), []
+    lost = np.zeros(T, np.int64)  # failed inserts counted per member
+    prof, snap = None, {}
+    W_row = full["emb_dim"] * (1 + nslots) * 4  # bytes of one packed tier row
+
+    def do_maintain(w, sync):
+        nonlocal state, snap, events
+        fails = state.tables[bname].insert_fails.tolist()
+        before = {k: mt.demoted_rows for k, mt in trainer._tiers.items()}
+        _sync(dev)
+        t1 = time.perf_counter()
+        state, rep = trainer.maintain(state, tier_async=not sync)
+        _sync(dev)
+        sec = time.perf_counter() - t1
+        ev_, snap = _member_events(trainer, snap)
+        events += ev_
+        for k in range(T):  # insert_fails of the members this maintain rebuilt
+            mt = trainer._tiers.get((bname, (k,)))
+            if mt is not None and mt.demoted_rows > before.get((bname, (k,)), 0):
+                lost[k] += fails[k]
+        r = rep[bname]
+        if sync:
+            occ_after.append(int(b.table.size(state.tables[bname]).max()))
+        maint.append((w, "sync" if sync else "async", sec, r["demoted"], r["promoted"],
+                      r["occupancy"]))
+
+    def one_window(w, profiled=False):
+        nonlocal state, events, snap
+        _sync(dev)
+        t1 = time.perf_counter()
+        state, mets = trainer.train_steps(state, [next(staged) for _ in range(K)])
+        _sync(dev)
+        t2 = time.perf_counter()
+        state, frep = trainer.fold_tier_prefetch(state)
+        _sync(dev)
+        t3 = time.perf_counter()
+        ev_, snap = _member_events(trainer, snap)
+        events += ev_
+        folded = sum(v["folded"] for v in frep.values())
+        windows.append((w, "profiled" if profiled else "lookahead", t2 - t1, t3 - t2, folded,
+                        sum(v["dropped"] for v in frep.values())))
+        losses.extend(mets["loss"].tolist())
+        do_maintain(w, (w + 1) % cfg["every"] == 0)
+
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
+    w = 0
+    while w < W:
+        if dev.type == "cuda" and w == cfg["profiled"]:
+            ws = iter((w, w + 1))
+            prof = profile_device(lambda: one_window(next(ws), True), 1)
+            w += 2
+        else:
+            one_window(w)
+            w += 1
+    do_maintain(W, True)  # settles the last round
+    ts = state.tables[bname]
+    lost += np.asarray(ts.insert_fails.tolist())
+    # every key in one tier; the union is what was trained, less failed inserts
+    tiers, n_lost, lfb_rows = [], [], 0
+    for k in range(T):
+        mt = trainer._tiers[(bname, (k,))]
+        keys = ts.keys[k].cpu().numpy()
+        dev_keys = set(keys[keys != np.iinfo(keys.dtype).min].tolist())
+        hk, hv, _, _ = mt.host.export()
+        host_keys = set(hk.tolist())
+        if dev_keys & host_keys:
+            raise AssertionError(f"member {k}: {len(dev_keys & host_keys)} keys in both tiers")
+        trained = set(distinct[k].tolist())
+        if not (dev_keys | host_keys) <= trained:
+            raise AssertionError(f"member {k}: tiers hold keys never trained")
+        n_lost.append(len(trained - dev_keys - host_keys))
+        ids = torch.as_tensor(distinct[k].astype(np.int32), device=dev)
+        got = mt.lookup_with_fallback(member_view(ts, k), ids).float().cpu().numpy()
+        # the rows each id must read: the table's, else the host store's
+        live = keys != np.iinfo(keys.dtype).min
+        have = np.concatenate([keys[live].astype(np.int64), hk])
+        rows = np.concatenate([ts.values[k].float().cpu().numpy()[live],
+                               hv[:, :full["emb_dim"]]])
+        order = np.argsort(have)
+        at = np.clip(np.searchsorted(have[order], distinct[k]), 0, len(have) - 1)
+        hit = have[order][at] == distinct[k]
+        if not np.array_equal(got[hit], rows[order][at[hit]]):
+            raise AssertionError(f"member {k}: lookup_with_fallback rows differ")
+        lfb_rows += int(hit.sum())
+        tiers.append((len(dev_keys), len(host_keys), len(trained)))
+    _sync(dev)
+    t1 = time.perf_counter()
+    auc = trainer.evaluate(state, evals)["auc"]
+    eval_s = time.perf_counter() - t1
+    launches = _tier_launches()
+    fused = fused_gather_combine.launches
+    _row_counts()  # ... and ends here
+    stats_pager = trainer.tier_paging_stats()
+    trainer.close_tier_paging()
+    staged.close()
+    # the launches the path implies: per train step a forward gather and a
+    # gather per per-row slot, an initializer scatter, a value write and a
+    # write per slot (f32 tables: all #3 / #5); per demoting member the
+    # packed gather (values + slots), per promoting member and per fold
+    # chunk that wrote the packed write; a gather per lookup_with_fallback
+    # and per evaluate batch, #4 per evaluate batch
+    steps = W * K
+    per_req = _per_request(trainer)
+    step_g, step_s = 1 + nslots, 2 + nslots
+    want = np.array([steps * step_g + events[0] * (1 + nslots) + T
+                     + cfg["eval_batches"] * per_req[0],
+                     steps * step_s + (events[1] + events[2]) * (1 + nslots), 0, 0])
+    st = dict(distinct=[len(x) for x in distinct], data_s=data_s, windows=windows,
+              maint=maint, losses=losses, tiers=tiers, n_lost=n_lost, lost=lost.tolist(),
+              auc=auc, eval_s=eval_s, launches=launches, want=want, fused=fused,
+              want_fused=cfg["eval_batches"] * per_req[1], profile=prof, events=events,
+              occ_after=occ_after, stall_ms=trainer.tier_stall_ms(), pager=stats_pager,
+              lfb_rows=lfb_rows, row_bytes=W_row, T=T, C=C)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss in the tiered loop: {losses}")
+    demoted = sum(m[3] for m in maint)
+    promoted = sum(m[4] for m in maint) + stats_pager["folded_rows"]
+    if not demoted or not promoted:
+        raise AssertionError(f"the tiered loop demoted {demoted} and brought back {promoted}")
+    if max(occ_after) > int(cfg["high"] * C):
+        raise AssertionError(f"occupancy {max(occ_after)} after a synchronous maintain, "
+                             f"high watermark {int(cfg['high'] * C)}")
+    if any(n > c for n, c in zip(n_lost, lost)):
+        raise AssertionError(f"keys lost {n_lost}, more than the failed inserts counted "
+                             f"{lost.tolist()}")
+    if dev.type == "cuda" and not (np.array_equal(launches, want) and fused == st["want_fused"]):
+        raise AssertionError(f"the tiered loop launched (#3, #5, #1, #2) {launches.tolist()}, "
+                             f"#4 {fused}; the path implies {want.tolist()}, "
+                             f"#4 {st['want_fused']}")
+    if not auc >= cfg["auc_floor"]:
+        raise AssertionError(f"held-out AUC {auc} (floor {cfg['auc_floor']})")
+    return st
+
+
+def budget_path_phase(dev, seed, full, cfg):
+    """Phase 15 (c): modelzoo/common.py `run()` with --maintain_every K
+    --hbm_budget_mb B on HBM storage at full widths from cfg capacity
+    slots: B holds `budget_tables` x the starting tables' bytes, so one
+    growth is admitted and the next is refused, which auto-tiers (a forced
+    sync per member, demoted > 0). Returns stats."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    bc = cfg["budget"]
+    K = cfg["K"]
+    gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed + 82)
+    trainer = Trainer(DLRMDCN(**dict(full, capacity=bc["capacity"]), seed=seed),
+                      Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+    state = trainer.init()
+    (bname, b), = trainer.bundles.items()
+    T = b.num_tables
+    nslots = sum(1 for n in trainer.sparse_opt.slot_specs(1) if not n.startswith("scalar/"))
+    start = trainer._state_bytes(state.tables[bname])
+    budget_mb = -(-bc["budget_tables"] * start // (1 << 20))
+    host = [gen.batch() for _ in range(bc["windows"] * K)]
+    reports, snap, events = [], {}, np.zeros(3, np.int64)
+    _zero_row_counts()
+    t0 = time.perf_counter()
+    for w in range(bc["windows"]):
+        state, mets = trainer.train_steps(state, host[w * K:(w + 1) * K])
+        _sync(dev)
+        t1 = time.perf_counter()
+        state, rep = trainer.maintain(state, hbm_budget_bytes=budget_mb << 20)
+        _sync(dev)
+        ev_, snap = _member_events(trainer, snap)
+        events += ev_
+        r = rep[bname]
+        reports.append((w, time.perf_counter() - t1, r))
+    seconds = time.perf_counter() - t0
+    launches = _tier_launches()
+    _row_counts()
+    steps = bc["windows"] * K
+    want = np.array([steps * (1 + nslots) + events[0] * (1 + nslots),
+                     steps * (2 + nslots) + (events[1] + events[2]) * (1 + nslots), 0, 0])
+    grew = [w for w, _, r in reports if "grew_to" in r]
+    tiered = [(w, r["demoted"]) for w, _, r in reports if r.get("auto_tiered")]
+    st = dict(budget_mb=budget_mb, start=start, reports=reports, grew=grew, tiered=tiered,
+              launches=launches, want=want, seconds=seconds,
+              caps=state.tables[bname].keys.shape[1], losses=mets["loss"].tolist(), T=T)
+    if len(grew) != 1 or not tiered or min(w for w, _ in tiered) <= grew[0] \
+            or not all(d > 0 for _, d in tiered):
+        raise AssertionError(f"the budget path grew at windows {grew} and auto-tiered "
+                             f"{tiered}: want one growth, then auto-tiering that demotes")
+    if dev.type == "cuda" and not np.array_equal(launches, want):
+        raise AssertionError(f"the budget path launched (#3, #5, #1, #2) {launches.tolist()}, "
+                             f"the path implies {want.tolist()}")
+    return st
+
+
+def run_tier(dev, seed, full, small, cfg, ckroot):
+    """Phase 15: (a), (b) and (c), printed. Returns the launches of (#3, #5,
+    #1, #2, #4) over the phase's paths."""
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+
+    t0 = time.perf_counter()
+    tmp = os.path.join(ckroot, "tier")
+    os.makedirs(tmp, exist_ok=True)
+    lines, a_launches = tier_ops_agreement(dev, seed, full["emb_dim"], cfg["ops"], tmp)
+    for line in lines:
+        print(f"tier agreement at capacity {cfg['ops']['capacity']}, D {full['emb_dim']}, "
+              f"{dev.type} vs cpu: {line}")
+    if dev.type == "cuda" and not a_launches[2:].all():
+        raise AssertionError(f"the bf16 tiered table launched #1 / #2 {a_launches[2:]}")
+    print(f"tier agreement: the card's tier operations launched (#3, #5, #1, #2) "
+          f"{a_launches.tolist()}")
+    for line in tier_budget_agreement(dev, seed, small, cfg):
+        print(f"tier agreement at capacity {small['capacity']}, {dev.type} vs cpu: {line}")
+    for line in tier_train_agreement(dev, seed, small, cfg):
+        print(f"tier agreement at capacity {small['capacity']}: {line}")
+    a_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    st = tier_phase(dev, seed, full, cfg)
+    K, B = cfg["K"], cfg["batch"]
+    print(f"tier loop: DLRM-DCN {dict(full, capacity=st['C'])} hbm_dram (LFU, watermarks "
+          f"0.8 / 0.6), {st['T']} tables; distinct ids per table over the run "
+          f"{min(st['distinct'])}-{max(st['distinct'])} (data made in {st['data_s']:.1f} s)")
+    ex = [K * B / sec for _, mode, sec, _, _, _ in st["windows"] if mode == "lookahead"]
+    print(f"tier loop: {len(ex)} lookahead windows examples/s: median {np.median(ex):.1f}, "
+          f"min {min(ex):.1f}, max {max(ex):.1f}")
+    print(f"tier loop: per window (examples/s, fold ms, folded, dropped): "
+          f"{[(w, round(K * B / s, 1), round(f * 1e3, 3), n, d) for w, _, s, f, n, d in st['windows']]}")
+    rb = st["row_bytes"]
+    for w, kind, sec, dem, pro, occ in st["maint"]:
+        print(f"tier loop: maintain after window {w - 1} ({kind}) {sec:.3f} s: demoted {dem} "
+              f"rows ({dem * rb / 1e6:.1f} MB to the host), promoted {pro} "
+              f"({pro * rb / 1e6:.1f} MB back), occupancy {occ:.4f} of {st['C']}")
+    pg = st["pager"]
+    print(f"tier loop: tier_stall_ms {st['stall_ms']:.1f}; tier_paging_stats "
+          f"{ {k: (round(v, 3) if isinstance(v, float) else v) for k, v in pg.items()} }; "
+          f"folded rows {pg['folded_rows']} ({pg['fold_bytes'] / 1e6:.1f} MB back)")
+    share = [n / d for n, d in zip(st["n_lost"], st["distinct"])]
+    print(f"tier loop: after the final maintain, per table (device keys, host keys, distinct "
+          f"trained) {st['tiers']}; keys in no tier {st['n_lost']} (share of the distinct ids "
+          f"{min(share):.5f}-{max(share):.5f}), failed inserts counted {st['lost']}; "
+          f"{st['lfb_rows']} lookup_with_fallback rows bit for bit; "
+          f"occupancy after every synchronous maintain at most {max(st['occ_after'])} "
+          f"(high watermark {int(cfg['high'] * st['C'])})")
+    print(f"tier loop: losses {st['losses'][0]:.6f} .. {st['losses'][-1]:.6f}; held-out AUC "
+          f"over {cfg['eval_batches']} batches {st['auc']:.6f} (floor {cfg['auc_floor']}) in "
+          f"{st['eval_s']:.2f} s")
+    print(f"tier loop: launched (#3, #5, #1, #2) {st['launches'].tolist()}, #4 {st['fused']}; "
+          f"the path implies {st['want'].tolist()}, #4 {st['want_fused']} (tier events: "
+          f"demoting members {st['events'][0]}, promoting members {st['events'][1]}, fold "
+          f"chunks written {st['events'][2]})")
+    if st["profile"] is not None:
+        # one profiled window (of the two profile_device runs), per step
+        wall, busy, kernels, rows, phases = st["profile"]
+        print_train_profile(f"tiered loop steps (one profiled window of K = {K}, with its "
+                            f"fold and maintain)", K,
+                            (wall / K, busy / K, round(kernels / K),
+                             [(dt / K, key, count // K) for dt, key, count in rows],
+                             {k: (h / K, d / K) for k, (h, d) in phases.items()}),
+                            float(np.median([s for _, m, s, _, _, _ in st["windows"]
+                                             if m == "lookahead"])) / K * 1e3)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    bp = budget_path_phase(dev, seed, full, cfg)
+    for w, sec, r in bp["reports"]:
+        acted = {k: r[k] for k in ("grew_to", "auto_tiered", "demoted", "promoted") if k in r}
+        print(f"budget path: maintain after window {w} ({sec:.3f} s): occupancy "
+              f"{r['occupancy']:.4f} of {r['capacity']}, insert_fails {r['insert_fails']}"
+              + (f", {acted}" if acted else ""))
+    print(f"budget path: --hbm_budget_mb {bp['budget_mb']} (the start's tables take "
+          f"{bp['start'] / 2 ** 20:.1f} MB): grew once (window {bp['grew'][0]}, to "
+          f"{bp['caps']} slots), then auto-tiered {bp['tiered']} (window, demoted); "
+          f"launched (#3, #5, #1, #2) {bp['launches'].tolist()}, the path implies "
+          f"{bp['want'].tolist()}; {bp['seconds']:.1f} s")
+    print(f"phase 15 (multi-tier storage) took {time.perf_counter() - t0:.1f} s "
+          f"(agreement {a_s:.1f} s)")
+    total = a_launches + st["launches"] + bp["launches"]
+    return np.concatenate([total, [st["fused"]]])
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
-        multi=MULTI, zoo=ZOO, loop=LOOP):
-    """Phases 3-14 on `dev`. Returns the kernel records, in the order of
+        multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER):
+    """Phases 3-15 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
@@ -3023,6 +3777,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         gather["launches"] += int(lst["launches"][:2].sum())
         scatter["launches"] += int(lst["launches"][2:4].sum())
         pooled["launches"] += int(lst["launches"][4])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        tl = run_tier(dev, seed, full, small, tier, ckroot)
+        # (#3, #5, #1, #2, #4); #1 and #2 reach the records through PAIR_LAUNCHES
+        gather["launches"] += int(tl[0] + tl[2])
+        scatter["launches"] += int(tl[1] + tl[3])
+        pooled["launches"] += int(tl[4])
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's

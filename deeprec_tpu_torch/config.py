@@ -2,9 +2,6 @@
 
 Same fields, defaults and validation as the JAX package, so one set of
 arguments builds equal configs in both packages. Frozen and hashable.
-The storage-tier mapping of reference StorageType names
-(`StorageType.from_reference`) waits for the tier slice; here the storage
-type accepts this package's own values.
 """
 from __future__ import annotations
 
@@ -21,7 +18,49 @@ class StorageType(enum.Enum):
     HBM = "hbm"
     DRAM = "dram"
     HBM_DRAM = "hbm_dram"
+    # device working set, bounded host DRAM tier, log-structured disk tier
     HBM_DRAM_SSD = "hbm_dram_ssd"
+
+    @classmethod
+    def from_reference(cls, name) -> "StorageType":
+        """Map any of the reference's 13 StorageType values — proto names or
+        field numbers (DeepRec embedding/config.proto) — onto these tiers:
+        PMEM tiers are host DRAM, SSDHASH and LEVELDB the disk log, and a
+        multi-level combination keeps its levels. This package's own values
+        ("hbm_dram", ...) pass too."""
+        if isinstance(name, cls):
+            return name
+        by_number = {
+            0: "DEFAULT", 1: "DRAM", 2: "PMEM_MEMKIND", 3: "PMEM_LIBPMEM",
+            4: "SSDHASH", 5: "LEVELDB", 6: "HBM", 11: "DRAM_PMEM",
+            12: "DRAM_SSDHASH", 13: "HBM_DRAM", 14: "DRAM_LEVELDB",
+            101: "DRAM_PMEM_SSDHASH", 102: "HBM_DRAM_SSDHASH",
+        }
+        if isinstance(name, int) and not isinstance(name, bool):
+            if name not in by_number:
+                raise ValueError(
+                    f"unknown reference StorageType number {name}; known "
+                    f"field numbers: {sorted(by_number)}")
+            name = by_number[name]
+        table = {
+            "DEFAULT": cls.HBM, "HBM": cls.HBM, "DRAM": cls.DRAM,
+            "PMEM_MEMKIND": cls.DRAM, "PMEM_LIBPMEM": cls.DRAM,
+            "SSDHASH": cls.HBM_DRAM_SSD, "LEVELDB": cls.HBM_DRAM_SSD,
+            "DRAM_PMEM": cls.HBM_DRAM, "DRAM_SSDHASH": cls.HBM_DRAM_SSD,
+            "HBM_DRAM": cls.HBM_DRAM, "DRAM_LEVELDB": cls.HBM_DRAM_SSD,
+            "DRAM_PMEM_SSDHASH": cls.HBM_DRAM_SSD,
+            "HBM_DRAM_SSDHASH": cls.HBM_DRAM_SSD,
+        }
+        key = str(name).strip().upper()
+        if key in table:
+            return table[key]
+        try:
+            return cls(str(name).lower())
+        except ValueError:
+            raise ValueError(
+                f"unknown storage type {name!r}; reference names "
+                f"{sorted(table)} and native values "
+                f"{[m.value for m in cls]} are accepted") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,18 +122,21 @@ class L2WeightEvict:
 
 @dataclasses.dataclass(frozen=True)
 class StorageOption:
-    """Multi-tier storage placement for one table."""
+    """Multi-tier storage placement for one table. `storage_type` also
+    takes a reference StorageType name or field number."""
 
     storage_type: StorageType = StorageType.HBM
     storage_path: Optional[str] = None
     cache_strategy: str = "lfu"  # lfu | lru
+    # HBM_DRAM_SSD: rows the host tier holds before the coldest spill to
+    # the disk tier (0 = unbounded, disk tier unused)
     host_capacity: int = 0
 
     def __post_init__(self):
         if not isinstance(self.storage_type, StorageType):
             object.__setattr__(
                 self, "storage_type",
-                StorageType(str(self.storage_type).lower()),
+                StorageType.from_reference(self.storage_type),
             )
 
 

@@ -37,7 +37,13 @@ class Prefetcher:
 
     transform: applied in the producer thread to each raw batch; the
     default copies every array to `device` (the card unless asked for the
-    CPU)."""
+    CPU).
+
+    peek: called in the PRODUCER thread on each raw host batch before
+    `transform`, while the batch still waits in the host queue — the tier
+    paging tap (`TierPrefetcher.observe`). It must be cheap; an exception
+    it raises reaches the consumer as a reader error and ends the
+    stream."""
 
     def __init__(
         self,
@@ -46,6 +52,7 @@ class Prefetcher:
         transform: Optional[Callable] = None,
         on_consume: Optional[Callable] = None,
         device=None,
+        peek: Optional[Callable] = None,
     ):
         self.source = iter(source)
         self.depth = max(1, depth)
@@ -54,6 +61,7 @@ class Prefetcher:
             transform = lambda b: _to_device(b, dev)  # noqa: E731
         self.transform = transform
         self.on_consume = on_consume
+        self.peek = peek
         self.q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         self.stall_seconds = 0.0  # consumer wait on an empty ring (total)
         self.stalls = 0  # deliveries that had to wait
@@ -77,6 +85,8 @@ class Prefetcher:
             for batch in self.source:
                 if self._stop.is_set():
                     return
+                if self.peek is not None:
+                    self.peek(batch)
                 if not self._put(self.transform(batch)):
                     return
             self._put(None)
@@ -123,7 +133,7 @@ class Prefetcher:
 
 
 def staged(source, depth: int = 2, transform=None, on_consume=None,
-           device=None) -> Prefetcher:
+           device=None, peek=None) -> Prefetcher:
     """`for batch in staged(reader): ...`."""
     return Prefetcher(source, depth=depth, transform=transform,
-                      on_consume=on_consume, device=device)
+                      on_consume=on_consume, device=device, peek=peek)

@@ -80,6 +80,19 @@ def zero_counters(T: int, device) -> Dict[str, torch.Tensor]:
             for name in COUNTERS}
 
 
+def member_view(ts: TableState, k: int) -> TableState:
+    """Member k of a stacked state as a [1, ...] state of views (writes go
+    through to the stacked tensors); a one-table state is its own member."""
+    if ts.keys.shape[0] == 1:
+        return ts
+    cut = slice(k, k + 1)
+    return TableState(
+        keys=ts.keys[cut], values=ts.values[cut], meta=ts.meta[cut],
+        slots={n: a[cut] for n, a in ts.slots.items()},
+        **{n: getattr(ts, n)[cut] for n in COUNTERS},
+        bloom=None if ts.bloom is None else ts.bloom[cut])
+
+
 @dataclasses.dataclass
 class UniqueLookup:
     """Result of a deduplicated lookup over T tables."""

@@ -21,7 +21,7 @@ from deeprec_tpu_torch.config import EmbeddingVariableOption
 from deeprec_tpu_torch.models.taobao import behavior_features
 
 
-class BST(nn.Module):
+class BST(dnn.SeededModule):
     """use_flash=True runs attention through the flash kernels (#8, #9),
     the sequence padded to a multiple of 128."""
 

@@ -6,6 +6,7 @@ from typing import List
 import torch
 from torch import nn
 
+from deeprec_tpu_torch import nn as dnn
 from deeprec_tpu_torch.config import EmbeddingVariableOption, TableConfig
 from deeprec_tpu_torch.features import DenseFeature, SparseFeature
 
@@ -36,7 +37,7 @@ def criteo_features(
     return feats
 
 
-class CriteoModel(nn.Module):
+class CriteoModel(dnn.SeededModule):
     """The Criteo models' shared front: `features` (num_cat pooled tables,
     num_dense numerics), the field embeddings in feature order, and the
     numerics under the Criteo standard transform log1p(max(x, 0))."""

@@ -25,7 +25,7 @@ from deeprec_tpu_torch.config import EmbeddingVariableOption
 from deeprec_tpu_torch.models.taobao import behavior_features
 
 
-class DIEN(nn.Module):
+class DIEN(dnn.SeededModule):
 
     def __init__(
         self,

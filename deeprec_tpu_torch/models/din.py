@@ -20,7 +20,7 @@ from deeprec_tpu_torch.config import EmbeddingVariableOption
 from deeprec_tpu_torch.models.taobao import behavior_features
 
 
-class DIN(nn.Module):
+class DIN(dnn.SeededModule):
 
     def __init__(
         self,

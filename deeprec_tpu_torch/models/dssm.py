@@ -22,7 +22,7 @@ from deeprec_tpu_torch.config import EmbeddingVariableOption, TableConfig
 from deeprec_tpu_torch.features import SparseFeature
 
 
-class DSSM(nn.Module):
+class DSSM(dnn.SeededModule):
 
     def __init__(
         self,

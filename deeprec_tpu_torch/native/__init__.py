@@ -1,0 +1,237 @@
+"""The host-DRAM key-value store of the multi-tier tables (`HostKV`) — the
+port's copy of `deeprec_tpu/native/__init__.py`'s `HostKV`, over its own
+copy of the C++ source (`host_kv.cpp`).
+
+The library builds at first use with `g++ -O3 -std=c++17 -fPIC -shared
+-pthread` into `build/deeprec_tpu_torch/` at the checkout root, named by a
+digest of the source and the flags (as `ops/_build.py` names the CUDA
+libraries), and loads with ctypes. A failed build or load raises: there is
+no silent fallback on the main path. `PlainHostKV` is a numpy dict with the
+same interface, the reference the tests hold the native store against;
+nothing else uses it.
+
+Neither store is thread-safe: `MultiTierTable` serializes every access
+(its background rounds own the store while they run).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Tuple
+
+import numpy as np
+
+from deeprec_tpu_torch.ops._build import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().parent / "host_kv.cpp"
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _lib_path() -> Path:
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libhost_kv-{digest}.so"
+
+
+def _build(out: Path) -> None:
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("host_kv: no C++ compiler (g++) to build the host store")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host_kv: g++ failed (exit {proc.returncode}):\n"
+                           + proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    """The JAX package's ctypes signatures, one for one."""
+    u64, i64p, f32p, i32p, u8p = (
+        ctypes.c_uint64,
+        np.ctypeslib.ndpointer(np.int64, flags="C"),
+        np.ctypeslib.ndpointer(np.float32, flags="C"),
+        np.ctypeslib.ndpointer(np.int32, flags="C"),
+        np.ctypeslib.ndpointer(np.uint8, flags="C"),
+    )
+    lib.hkv_create.restype = ctypes.c_void_p
+    lib.hkv_create.argtypes = [ctypes.c_int, u64]
+    lib.hkv_destroy.argtypes = [ctypes.c_void_p]
+    lib.hkv_size.restype = u64
+    lib.hkv_size.argtypes = [ctypes.c_void_p]
+    lib.hkv_put_batch.argtypes = [ctypes.c_void_p, u64, i64p, f32p, i32p, i32p]
+    lib.hkv_get_batch.argtypes = [ctypes.c_void_p, u64, i64p, f32p, i32p, i32p, u8p]
+    lib.hkv_erase_batch.argtypes = [ctypes.c_void_p, u64, i64p]
+    lib.hkv_export.argtypes = [ctypes.c_void_p, i64p, f32p, i32p, i32p]
+    lib.hkv_save.restype = ctypes.c_int
+    lib.hkv_save.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.hkv_load.restype = ctypes.c_int
+    lib.hkv_load.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded host-store library, building it first if needed. Raises
+    when the build or the load fails."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = _lib_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            _configure(lib)
+            _lib = lib
+        return _lib
+
+
+class HostKV:
+    """int64 key -> (float32[dim] row, freq, version) host store, native
+    (`host_kv.cpp`). Not thread-safe."""
+
+    def __init__(self, dim: int, initial_capacity: int = 1 << 16):
+        self.dim = dim
+        self._lib = load_library()
+        self._h = self._lib.hkv_create(dim, initial_capacity)
+
+    def __len__(self) -> int:
+        return int(self._lib.hkv_size(self._h))
+
+    def put(self, keys, values, freqs=None, versions=None) -> None:
+        """Insert or overwrite rows (freq 0 and version -1 by default)."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        values = np.ascontiguousarray(values, np.float32).reshape(len(keys), self.dim)
+        freqs = np.ascontiguousarray(
+            freqs if freqs is not None else np.zeros(len(keys)), np.int32)
+        versions = np.ascontiguousarray(
+            versions if versions is not None else np.full(len(keys), -1), np.int32)
+        self._lib.hkv_put_batch(self._h, len(keys), keys, values, freqs, versions)
+
+    def get(self, keys) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """-> (values [n, dim], freqs [n], versions [n], found [n] bool); a
+        missing key reads zeros, freq 0 and version -1."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        n = len(keys)
+        values = np.zeros((n, self.dim), np.float32)
+        freqs = np.zeros(n, np.int32)
+        versions = np.full(n, -1, np.int32)
+        found = np.zeros(n, np.uint8)
+        self._lib.hkv_get_batch(self._h, n, keys, values, freqs, versions, found)
+        return values, freqs, versions, found.astype(bool)
+
+    def erase(self, keys) -> None:
+        keys = np.ascontiguousarray(keys, np.int64)
+        self._lib.hkv_erase_batch(self._h, len(keys), keys)
+
+    def export(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Every row in the store's slot order: (keys, values, freqs,
+        versions)."""
+        n = len(self)
+        keys = np.zeros(n, np.int64)
+        values = np.zeros((n, self.dim), np.float32)
+        freqs = np.zeros(n, np.int32)
+        versions = np.zeros(n, np.int32)
+        self._lib.hkv_export(self._h, keys, values, freqs, versions)
+        return keys, values, freqs, versions
+
+    def save(self, path: str) -> None:
+        """Spill file: magic 0xDEE99EC0011, dim and n (u64 each), then per
+        row key i64, values f32[dim], freq i32, version i32."""
+        rc = self._lib.hkv_save(self._h, path.encode())
+        if rc != 0:
+            raise IOError(f"hkv_save({path}) failed rc={rc}")
+
+    def load(self, path: str) -> None:
+        rc = self._lib.hkv_load(self._h, path.encode())
+        if rc != 0:
+            raise IOError(f"hkv_load({path}) failed rc={rc}")
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            try:
+                self._lib.hkv_destroy(self._h)
+            except Exception:
+                pass
+            self._h = None
+
+
+class PlainHostKV:
+    """The plain reference of `HostKV`: a dict with the same interface and
+    the same spill format (its export runs in insertion order, not the
+    native slot order). Used by the tests only."""
+
+    MAGIC = 0xDEE99EC0011
+
+    def __init__(self, dim: int, initial_capacity: int = 1 << 16):
+        del initial_capacity
+        self.dim = dim
+        self._rows = {}
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+    def put(self, keys, values, freqs=None, versions=None) -> None:
+        keys = np.asarray(keys, np.int64)
+        values = np.asarray(values, np.float32).reshape(len(keys), self.dim)
+        freqs = np.zeros(len(keys), np.int32) if freqs is None else np.asarray(freqs, np.int32)
+        versions = (np.full(len(keys), -1, np.int32) if versions is None
+                    else np.asarray(versions, np.int32))
+        for i, k in enumerate(keys):
+            self._rows[int(k)] = (values[i].copy(), int(freqs[i]), int(versions[i]))
+
+    def get(self, keys):
+        keys = np.asarray(keys, np.int64)
+        n = len(keys)
+        values = np.zeros((n, self.dim), np.float32)
+        freqs = np.zeros(n, np.int32)
+        versions = np.full(n, -1, np.int32)
+        found = np.zeros(n, bool)
+        for i, k in enumerate(keys):
+            hit = self._rows.get(int(k))
+            if hit is not None:
+                values[i], freqs[i], versions[i] = hit
+                found[i] = True
+        return values, freqs, versions, found
+
+    def erase(self, keys) -> None:
+        for k in np.asarray(keys, np.int64):
+            self._rows.pop(int(k), None)
+
+    def export(self):
+        n = len(self._rows)
+        keys = np.zeros(n, np.int64)
+        values = np.zeros((n, self.dim), np.float32)
+        freqs = np.zeros(n, np.int32)
+        versions = np.zeros(n, np.int32)
+        for i, (k, (v, f, ver)) in enumerate(self._rows.items()):
+            keys[i], values[i], freqs[i], versions[i] = k, v, f, ver
+        return keys, values, freqs, versions
+
+    def _records(self) -> np.dtype:
+        return np.dtype([("key", "<i8"), ("val", "<f4", (self.dim,)),
+                         ("freq", "<i4"), ("ver", "<i4")])
+
+    def save(self, path: str) -> None:
+        k, v, f, ver = self.export()
+        recs = np.zeros(len(k), self._records())
+        recs["key"], recs["val"], recs["freq"], recs["ver"] = k, v, f, ver
+        with open(path, "wb") as out:
+            np.asarray([self.MAGIC, self.dim, len(k)], "<u8").tofile(out)
+            recs.tofile(out)
+
+    def load(self, path: str) -> None:
+        with open(path, "rb") as f:
+            magic, dim, n = np.fromfile(f, "<u8", 3)
+            if int(magic) != self.MAGIC or int(dim) != self.dim:
+                raise IOError(f"{path}: not a host-store spill of dim {self.dim}")
+            recs = np.fromfile(f, self._records(), int(n))
+        self.put(recs["key"], recs["val"], recs["freq"], recs["ver"])

@@ -19,6 +19,7 @@ cross net multiplies in plain f32 too, FM sums in f32, and the GRU's gates
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -26,6 +27,34 @@ import torch
 from torch import nn
 
 from deeprec_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+
+
+class SeededModule(nn.Module):
+    """Base of the modelzoo models, whose constructors draw every weight
+    from a `torch.Generator` seeded with their `seed` argument. It records
+    the keyword and positional arguments each instance was built with, so
+    `reseeded(seed)` builds the same architecture with weights drawn from
+    another seed (`Trainer.init(seed)`)."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        init = cls.__dict__.get("__init__")
+        if init is None:
+            return
+
+        @functools.wraps(init)
+        def recorded(self, *args, **kw):
+            if "_init_args" not in self.__dict__:  # the outermost class's call
+                object.__setattr__(self, "_init_args", (args, kw))
+            init(self, *args, **kw)
+
+        cls.__init__ = recorded
+
+    def reseeded(self, seed: int) -> "SeededModule":
+        """A new instance of this model's class, built with the arguments
+        this one was built with and `seed` in place of its seed."""
+        args, kw = self._init_args
+        return type(self)(*args, **{**kw, "seed": int(seed)})
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,13 @@ the port of `deeprec_tpu/training/trainer.py`, single device: `init`,
 `train_step`, the K-step window `train_steps` (every `pipeline_mode`),
 `train_step_accum`, the staged input (`stage`, `stage_batch`), `eval_step`,
 `evaluate`, `forward_views`, `probs_from_views`, the unique-budget engine's
-`update_budgets` and `dedup_stats`, and the tables' life cycle
-(`evict_tables`, `maintain`).
+`update_budgets` and `dedup_stats`, the tables' life cycle
+(`evict_tables`, `maintain`), and the storage tiers: `maintain` syncs each
+member of an hbm_dram / hbm_dram_ssd bundle with its own `MultiTierTable`
+(synchronously, or overlapped with `tier_async`), auto-tiers a bundle whose
+growth would pass `hbm_budget_bytes`, and tier paging
+(`enable_tier_paging`, `fold_tier_prefetch`) folds demoted rows back ahead
+of the lookups that need them.
 
 A K-step window is exactly K `train_step` calls: the same inserts,
 admission, counters and version stamps, the step advancing by one per
@@ -63,7 +68,9 @@ from torch.utils.checkpoint import checkpoint
 from deeprec_tpu_torch import features as fcol
 from deeprec_tpu_torch import resolve_device
 from deeprec_tpu_torch.embedding import combiners
-from deeprec_tpu_torch.embedding.table import KEY_DTYPES, EmbeddingTable, TableState
+from deeprec_tpu_torch.embedding.table import (
+    COUNTERS, KEY_DTYPES, EmbeddingTable, TableState)
+from deeprec_tpu_torch.embedding.table import member_view as _member
 from deeprec_tpu_torch.features import SparseFeature
 from deeprec_tpu_torch.ops import dedup
 from deeprec_tpu_torch.optim import dense as dense_optim
@@ -177,6 +184,33 @@ def _prep_ids(ids: torch.Tensor) -> torch.Tensor:
     return ids[:, None] if ids.dim() == 1 else ids
 
 
+TIERED = ("hbm_dram", "hbm_dram_ssd")
+_NP_KEYS = {"int32": np.int32, "int64": np.int64}
+
+
+def _tiered(b: "Bundle") -> bool:
+    return b.table.cfg.ev.storage.storage_type.value in TIERED
+
+
+def _put_member(ts: TableState, k: int, m: TableState) -> TableState:
+    """Write member state m back as member k of ts (the member's tensors
+    only: the other members' rows, counters and sketch stay as they are).
+    Returns the bundle's state."""
+    if ts.keys.shape[0] == 1:
+        return m
+    cut = slice(k, k + 1)
+    pairs = [(ts.keys, m.keys), (ts.values, m.values), (ts.meta, m.meta)]
+    pairs += [(ts.slots[n], m.slots[n]) for n in ts.slots]
+    pairs += [(getattr(ts, n), getattr(m, n)) for n in COUNTERS]
+    if ts.bloom is not None:
+        pairs.append((ts.bloom, m.bloom))
+    for dst, src in pairs:
+        dst = dst[cut]
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+    return ts
+
+
 def _phase(name: str):
     """A `phase_<name>` range of the train step for torch.profiler (the
     JAX package's `jax.named_scope("phase_<name>")`): a profile attributes
@@ -231,20 +265,34 @@ class Trainer:
             for bname, b in self.bundles.items() if b.stacked
         }
         self._copy_stream = None  # stage_batch's, made at its first use
+        # (bundle, member index) -> MultiTierTable, made at a member's first
+        # tier sync; the tier-paging pump and its fold chunk
+        self._tiers: Dict[tuple, Any] = {}
+        self._tier_pager = None
+        self._tier_chunk = 256
 
-    def init(self) -> TrainState:
-        """Empty tables (with the sparse optimizer's slots), the model's own
-        parameters and the dense optimizer's state, on the device."""
+    def init(self, seed: Optional[int] = None) -> TrainState:
+        """Empty tables (with the sparse optimizer's slots), the dense
+        parameters and the dense optimizer's state, on the device. seed=None
+        takes the model's own parameters; an int draws them again through
+        the model's own initialiser from a torch.Generator seeded with it
+        (`nn.SeededModule.reseeded`). The values are not the JAX package's
+        `init(seed)`: jax.random streams are out of reach."""
+        src = self.model
+        if seed is not None:
+            if not hasattr(self.model, "reseeded"):
+                raise TypeError(
+                    f"init(seed={seed}): {type(self.model).__name__} cannot draw "
+                    "its weights again (build it on nn.SeededModule)")
+            src = self.model.reseeded(seed)
         tables = {}
         for bname, b in self.bundles.items():
             ts = b.table.create(b.num_tables, self.device)
             if self.sparse_opt is not None:
                 ensure_slots(b.table, ts, self.sparse_opt)
             tables[bname] = ts
-        dense = {
-            n: p.detach().to(self.device, copy=True)
-            for n, p in self.model.named_parameters()
-        }
+        dense = {n: p.detach().to(self.device, copy=True)
+                 for n, p in src.named_parameters()}
         opt_state = (self.dense_opt.init(dense)
                      if self.sparse_opt is not None else None)
         return TrainState(step=0, tables=tables, dense=dense, opt_state=opt_state)
@@ -439,22 +487,29 @@ class Trainer:
                  hbm_budget_bytes: Optional[int] = None,
                  step: Optional[int] = None, tier_async: bool = False
                  ) -> Tuple[TrainState, Dict[str, Dict[str, float]]]:
-        """The capacity loop for device-resident tables, between windows:
-        `update_budgets`, then per bundle a report of `occupancy` (the
-        fullest member's live keys over the capacity), `insert_fails`,
-        `capacity` and the dedup fields; a bundle with failed inserts or
-        occupancy above `grow_threshold` grows to the next power of two
-        that holds twice its worst member's demand, at most `max_capacity`
-        (rounded down to a power of two), and reports `grew_to`. Growth
-        rebuilds the tables and points the bundle at the new capacity.
+        """The capacity loop, between windows: `update_budgets`, then per
+        bundle a report of `occupancy` (the fullest member's live keys over
+        the capacity), `insert_fails`, `capacity` and the dedup fields.
 
-        The multi-tier paths (`hbm_budget_bytes`, `tier_async`, storage
-        types hbm_dram and hbm_dram_ssd), the placement plan and the
-        sentinel's row hygiene raise NotImplementedError: later slices
-        port them."""
-        self._check_maintain_ported(hbm_budget_bytes, tier_async)
-        del step  # read by the multi-tier sync only
+        A tiered bundle (storage hbm_dram / hbm_dram_ssd) syncs each member
+        with its MultiTierTable at `step` (default: the state's) and reports
+        `demoted` and `promoted`; `tier_async=True` runs `sync_async`
+        instead, whose store IO overlaps the next windows. Any other bundle
+        with failed inserts or occupancy above `grow_threshold` grows to the
+        next power of two that holds twice its worst member's demand, at
+        most `max_capacity` (rounded down to a power of two), and reports
+        `grew_to` — unless the growth would take the table bytes of all
+        bundles past `hbm_budget_bytes`: then it is auto-tiered instead
+        (a synchronous forced sync, `auto_tiered`, `demoted`, `promoted`).
+        Bytes are counted as `_state_bytes` counts them.
+
+        The placement plan and the sentinel's row hygiene raise
+        NotImplementedError: later slices port them."""
+        self._check_maintain_ported()
+        step = int(state.step) if step is None else int(step)
         state, dedup_report = self.update_budgets(state)
+        total_bytes = (sum(self._state_bytes(ts) for ts in state.tables.values())
+                       if hbm_budget_bytes else 0)
         if max_capacity:
             max_capacity = 1 << (int(max_capacity).bit_length() - 1)
         tables = dict(state.tables)
@@ -466,32 +521,42 @@ class Trainer:
             fails_each = ts.insert_fails.tolist()
             rep = {"occupancy": occ, "insert_fails": sum(fails_each), "capacity": C}
             rep.update(dedup_report.get(bname, {}))
-            if sum(fails_each) > 0 or occ > grow_threshold:
+            if _tiered(b):
+                with _phase("tier_sync"):
+                    ts, demoted, promoted = self._tier_sync(b, ts, step,
+                                                            tier_async=tier_async)
+                rep.update(demoted=demoted, promoted=promoted)
+            elif sum(fails_each) > 0 or occ > grow_threshold:
                 worst = max(fails_each)
                 new_c = C * 2
                 while worst > 0 and new_c < (worst + occ * C) * 2:
                     new_c *= 2
                 if max_capacity:
                     new_c = min(new_c, max_capacity)
-                if new_c > C:
-                    tables[bname] = b.table.grow(ts, new_c,
-                                                 slot_fills=self._slot_fills(b))
+                growth_bytes = self._state_bytes(ts) * (new_c // C - 1)
+                if hbm_budget_bytes and total_bytes + growth_bytes > hbm_budget_bytes:
+                    # over the budget: demote cold rows to the host tier and
+                    # keep the capacity; forced, since the pressure may come
+                    # from probe clustering below the high watermark
+                    with _phase("tier_sync"):
+                        ts, demoted, promoted = self._tier_sync(b, ts, step, force=True)
+                    rep.update(auto_tiered=True, demoted=demoted, promoted=promoted)
+                elif new_c > C:
+                    ts = b.table.grow(ts, new_c, slot_fills=self._slot_fills(b))
                     self._set_bundle_capacity(b, new_c)
                     rep["grew_to"] = new_c
+                    total_bytes += growth_bytes
+            tables[bname] = ts
             report[bname] = rep
+        if self._tier_pager is not None:
+            # the demotes retired the pump's gathers and may have demoted
+            # rows the staged batches are about to look up: probe them again
+            self._tier_pager.requeue_recent()
         return (TrainState(step=state.step, tables=tables, dense=state.dense,
                            opt_state=state.opt_state), report)
 
-    def _check_maintain_ported(self, hbm_budget_bytes, tier_async) -> None:
+    def _check_maintain_ported(self) -> None:
         """Raise for the parts of `maintain` a later slice ports."""
-        tiered = [b.name for b in self.bundles.values()
-                  if b.table.cfg.ev.storage.storage_type.value
-                  in ("hbm_dram", "hbm_dram_ssd")]
-        if hbm_budget_bytes or tier_async or tiered:
-            raise NotImplementedError(
-                "maintain: the multi-tier paths (hbm_budget_bytes, tier_async, "
-                f"storage hbm_dram / hbm_dram_ssd: {tiered}) wait for ROADMAP "
-                "queue A item 4 (multi-tier and host KV)")
         if getattr(self, "placement", "uniform") == "plan":
             raise NotImplementedError(
                 "maintain: placement='plan' waits for ROADMAP queue A item 6 "
@@ -500,6 +565,178 @@ class Trainer:
             raise NotImplementedError(
                 "maintain: the sentinel's row hygiene waits for ROADMAP queue "
                 "A item 8 (operations)")
+
+    @staticmethod
+    def _state_bytes(ts: TableState) -> int:
+        """Bytes of one bundle's table state, counted as the JAX package
+        counts the leaves of its TableState: keys, values, meta, every
+        optimizer slot and the sketch, plus seven int32 counters per member
+        (the JAX TableState's insert_fails, a2a_overflow, three dedup and
+        two owner-load counters; the port keeps four of them). So one
+        `hbm_budget_bytes` grows or auto-tiers the same bundles in both
+        packages."""
+        leaves = [ts.keys, ts.values, ts.meta, *ts.slots.values()]
+        if ts.bloom is not None:
+            leaves.append(ts.bloom)
+        return (sum(t.numel() * t.element_size() for t in leaves)
+                + 7 * 4 * ts.keys.shape[0])
+
+    def _multi_tier_for(self, b: Bundle, idx: Tuple[int, ...]):
+        """The MultiTierTable of one member ((k,) of a stacked bundle, ()
+        otherwise), made at first use with its own host store and, under a
+        storage path, its own disk log `<path>_m<k>`."""
+        from deeprec_tpu_torch.embedding.multi_tier import MultiTierTable
+
+        key = (b.name, idx)
+        mt = self._tiers.get(key)
+        if mt is None:
+            base = b.table.cfg.ev.storage.storage_path
+            path = base + "_m" + "_".join(map(str, idx)) if base and idx else base
+            mt = MultiTierTable(b.table, slot_fills=self._slot_fills(b),
+                                storage_path=path)
+            self._tiers[key] = mt
+        mt.table = b.table  # follows a grown capacity
+        return mt
+
+    def _tier_sync(self, b: Bundle, ts: TableState, step: int, force: bool = False,
+                   tier_async: bool = False):
+        """Sync every member of bundle `b` with its MultiTierTable (sync, or
+        sync_async when tier_async and not force). Returns (the bundle's
+        state, demoted, promoted)."""
+        from deeprec_tpu_torch.embedding.multi_tier import probe_members
+
+        demoted = promoted = 0
+        tiers = [self._multi_tier_for(b, (k,) if b.stacked else ())
+                 for k in range(b.num_tables)]
+        overlapped = tier_async and not force
+        # the last rounds' candidates of every member, probed in one loop
+        slots = probe_members(b.table, ts, tiers) if overlapped else None
+        for k, mt in enumerate(tiers):
+            m = _member(ts, k)
+            if overlapped:
+                m, stats = mt.sync_async(m, step, pending_slots=slots[k])
+            else:
+                m, stats = mt.sync(m, step, force=force)
+            ts = _put_member(ts, k, m)
+            demoted += stats.demoted
+            promoted += stats.promoted
+        return ts, demoted, promoted
+
+    def tier_stall_ms(self) -> float:
+        """Caller-side tier sync stall summed over every member tier."""
+        return sum(mt.sync_stall_ms for mt in self._tiers.values())
+
+    # ------------------------------------------------ overlapped tier paging
+
+    def enable_tier_paging(self, *, depth: int = 4, chunk: int = 256,
+                           max_pending: int = 8192):
+        """Turn on tier paging: a background `TierPrefetcher` probes each
+        staged batch's ids (the Prefetcher's `peek`, before the copy to the
+        device) against every tiered member's host and disk stores, and
+        `fold_tier_prefetch` folds the gathered rows into the device tables
+        at dispatch boundaries. Call before `stage()`. Returns the pager
+        (`close_tier_paging()` stops it). Raises ValueError without a tiered
+        bundle."""
+        from deeprec_tpu_torch.embedding.tier_prefetch import TierPrefetcher
+
+        specs = []
+        for bname, b in self.bundles.items():
+            if not _tiered(b):
+                continue
+            kd = _NP_KEYS[b.table.cfg.key_dtype]
+            if b.stacked:
+                specs.extend(((bname, (k,)), (f.name,), kd)
+                             for k, f in enumerate(b.features))
+            else:
+                specs.append(((bname, ()), tuple(f.name for f in b.features), kd))
+        if not specs:
+            raise ValueError("no multi-tier bundle (storage_type hbm_dram / "
+                             "hbm_dram_ssd) — nothing to page")
+
+        def extract(batch, specs=tuple(specs)):
+            # the ids as the table stores them: cast to its key dtype
+            out = {}
+            for key, names, kd in specs:
+                arrs = [np.asarray(batch[n].cpu() if torch.is_tensor(batch[n])
+                                   else batch[n]).reshape(-1).astype(kd)
+                        for n in names if n in batch]
+                if arrs:
+                    out[key] = np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
+            return out
+
+        self._tier_chunk = int(chunk)
+        # resolve through the dict, never _multi_tier_for: the pump must not
+        # make tiers (a member that never demoted has nothing to page)
+        self._tier_pager = TierPrefetcher(resolve=self._tiers.get, extract=extract,
+                                          depth=depth, max_pending=max_pending)
+        return self._tier_pager
+
+    def warm_tier_folds(self, state: TrainState) -> None:
+        """Make every tiered member's stores and run an empty fold through
+        it (a no-op on the state), so the first real fold pays no set-up."""
+        for bname, b in self.bundles.items():
+            if not _tiered(b):
+                continue
+            for k in range(b.num_tables):
+                self._multi_tier_for(b, (k,) if b.stacked else ()).warm_fold(
+                    _member(state.tables[bname], k), chunk=self._tier_chunk)
+
+    def fold_tier_prefetch(self, state: TrainState):
+        """Dispatch-boundary half of tier paging: fold every buffered
+        package into its member's table, IN PLACE (a row that trained past
+        its tier copy is dropped to the retry set, never clobbered), the
+        members of a bundle together (`multi_tier.fold_members`). Returns
+        (state, {bundle: {"folded", "dropped"}})."""
+        from deeprec_tpu_torch.embedding.multi_tier import fold_members
+
+        pager = self._tier_pager
+        if pager is None:
+            return state, {}
+        by_bundle: Dict[str, list] = {}
+        for key in pager.pending_keys():
+            by_bundle.setdefault(key[0], []).append(key)
+        report: Dict[str, Dict[str, int]] = {}
+        for bname, bkeys in by_bundle.items():
+            b = self.bundles.get(bname)
+            if b is None:
+                continue
+            folds = []
+            for key in bkeys:
+                idx = key[1]
+                k = idx[0] if idx else 0
+                if idx != ((k,) if b.stacked else ()) or k >= b.num_tables:
+                    continue
+                cand = pager.take(key)
+                if cand is not None:
+                    mt = self._multi_tier_for(b, idx)
+                    mt._ensure_tiers(_member(state.tables[bname], k))
+                    folds.append((k, mt, cand))
+            if not folds:
+                continue
+            # every member's fold, one insert probe per chunk
+            with _phase("tier_fold"):
+                counts = fold_members(b.table, state.tables[bname], folds, self._tier_chunk)
+            folded, dropped = (sum(c[i] for c in counts) for i in (0, 1))
+            if folded or dropped:
+                report[bname] = {"folded": folded, "dropped": dropped}
+        return state, report
+
+    def tier_paging_stats(self) -> Dict[str, float]:
+        """The pump's drop and error counters, the fold totals (rows,
+        bytes, training-thread stall ms) and the probe counters."""
+        out: Dict[str, float] = (dict(self._tier_pager.stats())
+                                 if self._tier_pager is not None else {})
+        tiers = self._tiers.values()
+        for name in ("folded_rows", "fold_bytes", "fold_stall_ms", "prefetch_probed",
+                     "prefetch_hits", "prefetch_stale_dropped"):
+            out[name] = sum(getattr(mt, name) for mt in tiers)
+        return out
+
+    def close_tier_paging(self) -> None:
+        """Stop the pager's pump (safe mid-gather: probes are read-only)."""
+        if self._tier_pager is not None:
+            self._tier_pager.close()
+            self._tier_pager = None
 
     def _set_bundle_capacity(self, b: Bundle, new_c: int) -> None:
         """Point bundle `b` at a grown capacity (a new EmbeddingTable; its
@@ -805,7 +1042,8 @@ class Trainer:
         `on_consume` is called once per batch DELIVERED to the loop; when
         it is omitted and `source` carries `mark_consumed` (and
         `attach_consumer`), those are wired in, so a stream position
-        checkpoints what the loop received, not what the ring read ahead."""
+        checkpoints what the loop received, not what the ring read ahead.
+        With tier paging on, the pager observes each raw batch (`peek`)."""
         if self.stage_mode != "auto":
             return source
         from deeprec_tpu_torch.data.prefetch import Prefetcher
@@ -817,8 +1055,10 @@ class Trainer:
                 if callable(attach):
                     attach()
                 on_consume = mark
+        pager = self._tier_pager
         return Prefetcher(iter(source), depth=depth, transform=self.stage_batch,
-                          on_consume=on_consume)
+                          on_consume=on_consume,
+                          peek=pager.observe if pager is not None else None)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):

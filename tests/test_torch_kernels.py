@@ -3,8 +3,9 @@ CUDA machine): package isolation, the no-silent-CPU rule, and the CUDA
 kernels against their plain versions (marked `cuda`; skip without a card):
 the row gather, the pooled gather (#4, one feature and grouped) and the
 row scatter, the fused bag step's forward and backward, flash
-attention's forward and backward (f32 and bf16), and the trainer's staged
-input copies on the card."""
+attention's forward and backward (f32 and bf16), the trainer's staged
+input copies on the card, and an overlapped tier round that stores the
+boundary's rows while train steps rewrite the table in place."""
 import os
 import subprocess
 import sys
@@ -654,3 +655,61 @@ def test_stage_batch_on_card_equals_unstaged(cuda_device):
     for bname, ts in states["auto"][0].tables.items():
         other = states["off"][0].tables[bname]
         assert torch.equal(ts.keys, other.keys) and torch.equal(ts.values, other.values)
+
+
+@pytest.mark.cuda
+def test_tier_round_overlapped_by_train_steps_stores_the_boundary_rows(cuda_device):
+    """maintain(tier_async=True) on the card: the demoted rows and the
+    promote scan's snapshot are copies taken at the boundary, so while the
+    background rounds wait, train steps that rewrite the freed slots in
+    place (new keys, the Adagrad apply) do not reach the host store: every
+    demoted key's packed row (value, accumulator), freq and version are
+    the boundary's, bit for bit."""
+    import threading
+
+    from deeprec_tpu_torch.config import EmbeddingVariableOption, StorageOption
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import WDL
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    ev = EmbeddingVariableOption(storage=StorageOption(storage_type="hbm_dram"))
+    tr = Trainer(WDL(emb_dim=16, capacity=1 << 12, hidden=(32,), num_cat=4, num_dense=2,
+                     ev=ev), Adagrad(lr=0.1), adam(1e-3), device=cuda_device)
+    gen = SyntheticCriteo(batch_size=2048, num_cat=4, num_dense=2, vocab=20_000, seed=5)
+    st = tr.init()
+    (bname, b), = tr.bundles.items()
+    while float(b.table.size(st.tables[bname]).max()) <= 0.8 * (1 << 12):
+        st, _ = tr.train_step(st, gen.batch())
+    ts = st.tables[bname]
+    keys = ts.keys.cpu().numpy()
+    before = []
+    for k in range(b.num_tables):
+        live = np.nonzero(keys[k] != np.iinfo(np.int32).min)[0]
+        rows = torch.cat([ts.values[k], ts.slots["accum"][k]], 1).cpu().numpy()[live]
+        meta = ts.meta[k].cpu().numpy()[:, live]
+        before.append({int(key): (rows[i], int(meta[0, i]), int(meta[1, i]))
+                       for i, key in enumerate(keys[k][live])})
+    gate = threading.Event()
+    tiers = [tr._multi_tier_for(b, (k,)) for k in range(b.num_tables)]
+    for mt in tiers:
+        mt.on_io = lambda: gate.wait(60)
+    try:
+        st, rep = tr.maintain(st, tier_async=True)
+        assert rep[bname]["demoted"] > 0
+        for _ in range(3):  # in place, while every round waits
+            st, _ = tr.train_step(st, gen.batch())
+        torch.cuda.synchronize()
+    finally:
+        gate.set()
+    stored = 0
+    for k, mt in enumerate(tiers):
+        mt._worker.join(60)
+        assert not mt._worker.is_alive()
+        mt._settle()
+        hk, hv, hf, hver = mt.host.export()
+        for i, key in enumerate(hk.tolist()):
+            row, f, v = before[k][key]
+            assert np.array_equal(hv[i], row) and (hf[i], hver[i]) == (f, v), (k, key)
+        stored += len(hk)
+    assert stored == rep[bname]["demoted"]

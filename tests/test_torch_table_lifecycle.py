@@ -393,8 +393,15 @@ def test_maintain_grows_on_overfill_like_jax():
 @pytest.mark.parametrize("case", ["hbm_budget_bytes", "tier_async", "storage",
                                   "placement", "sentinel"])
 def test_maintain_unported_paths_raise(case):
+    """placement='plan' and a sentinel still raise, naming their ROADMAP
+    items. The multi-tier paths, ported since (tests/test_torch_multi_tier.py
+    and tests/test_torch_tier_paging.py hold them against the JAX package),
+    now run: a tiered table's maintain reports `demoted` and `promoted` and
+    makes one MultiTierTable per member (tier_async too), and a budget the
+    empty tables fit in changes nothing."""
+    tiered = case in ("storage", "tier_async")
     ev = tcfg.EmbeddingVariableOption(storage=tcfg.StorageOption(
-        storage_type="hbm_dram")) if case == "storage" else tcfg.EmbeddingVariableOption()
+        storage_type="hbm_dram")) if tiered else tcfg.EmbeddingVariableOption()
     trainer = Trainer(_wdl(WDL, 64, ev), Adagrad(lr=0.1), device="cpu")
     st = trainer.init()
     kw = {"hbm_budget_bytes": dict(hbm_budget_bytes=1 << 20),
@@ -403,9 +410,19 @@ def test_maintain_unported_paths_raise(case):
         trainer.placement = "plan"
     if case == "sentinel":
         trainer.sentinel = object()
-    item = {"placement": "item 6", "sentinel": "item 8"}.get(case, "item 4")
-    with pytest.raises(NotImplementedError, match=item):
-        trainer.maintain(st, **kw)
+    if case in ("placement", "sentinel"):
+        item = {"placement": "item 6", "sentinel": "item 8"}[case]
+        with pytest.raises(NotImplementedError, match=item):
+            trainer.maintain(st, **kw)
+        return
+    st, rep = trainer.maintain(st, **kw)
+    for bname, r in rep.items():
+        assert r["capacity"] == 64 and "grew_to" not in r and "auto_tiered" not in r
+        if tiered:
+            assert (r["demoted"], r["promoted"]) == (0, 0)
+    members = sum(b.num_tables for b in trainer.bundles.values())
+    assert len(trainer._tiers) == (members if tiered else 0)
+    st, _ = trainer.maintain(st)  # settles an overlapped round
 
 
 # -------------------------------------------------------------- checkpoints

@@ -384,3 +384,50 @@ def test_new_entry_points_raise_without_cuda(monkeypatch):
         Trainer(WDL(**KW), Adagrad(lr=LR), pipeline_mode="lookahead", remat=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Prefetcher(iter([]))
+
+
+def test_init_seed_draws_the_dense_leaves_again():
+    """`Trainer.init(seed)`, as the JAX `init(seed)` the modelzoo calls:
+    init(0) twice gives equal leaves, init(0) and init(1) different ones,
+    init() the model's own parameters; the tables start empty either way.
+    (The port's draws are not jax.random's: parity tests carry state.)"""
+    tr = _trainer()
+    a, b, c, own = tr.init(0), tr.init(0), tr.init(1), tr.init()
+    assert a.dense.keys() == c.dense.keys() == own.dense.keys()
+    assert all(torch.equal(a.dense[n], b.dense[n]) for n in a.dense)
+    assert all(not torch.equal(a.dense[n], c.dense[n]) for n in a.dense
+               if a.dense[n].abs().sum() > 0)
+    assert any(not torch.equal(a.dense[n], c.dense[n]) for n in a.dense)
+    assert all(torch.equal(own.dense[n], p) for n, p in tr.model.named_parameters())
+    assert all(a.dense[n].shape == own.dense[n].shape for n in a.dense)
+    for st in (a, c):
+        assert all(int(tr.bundles[bn].table.size(ts).sum()) == 0 for bn, ts in st.tables.items())
+        assert torch.equal(st.opt_state.count, own.opt_state.count)
+    tr.init(1)
+    assert all(torch.equal(own.dense[n], p) for n, p in tr.model.named_parameters())
+
+
+def test_prefetcher_peek_runs_on_raw_batches_in_the_producer():
+    """`Prefetcher(peek=)`: the hook sees each raw host batch, before
+    `transform`, in the producer thread; a peek that raises ends the stream
+    with its error, as in the JAX package."""
+    import threading
+
+    seen = []
+    ring = Prefetcher(iter([{"x": np.arange(3)}, {"x": np.arange(4)}]), depth=1,
+                      transform=lambda b: {"x": torch.as_tensor(b["x"]) * 2},
+                      peek=lambda b: seen.append((threading.current_thread().name,
+                                                  type(b["x"]), len(b["x"]))))
+    out = list(ring)
+    assert [o["x"].tolist() for o in out] == [[0, 2, 4], [0, 2, 4, 6]]
+    assert [s[1:] for s in seen] == [(np.ndarray, 3), (np.ndarray, 4)]
+    assert all(name != threading.current_thread().name for name, _, _ in seen)
+
+    def bad_peek(b):
+        raise ValueError("peek failed")
+
+    ring = staged(iter([{"x": np.arange(3)}] * 3), device="cpu", peek=bad_peek)
+    with pytest.raises(ValueError, match="peek failed"):
+        next(ring)
+    ring.close()
+    assert not ring._thread.is_alive()
