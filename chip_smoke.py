@@ -106,7 +106,8 @@ Phases, each of which must pass:
      (8 categorical and 4 numeric features, vocab 10^6, a ctr and a cvr or
      ctcvr label): 5 checked steps (finite losses, no failed insert, the
      gather and scatter launches the bundles imply), 20 timed (DIEN, DSSM
-     and MMoE then 3 profiled), on to 300; held-out AUC (`auc_ctr` for the
+     and MMoE then 3 profiled), on to 150 steps (the depth cut in half to
+     make room for phase 16); held-out AUC (`auc_ctr` for the
      multi-task models, every other task's printed) at least 0.60; the
      state saved and served by Predictor, 5 requests equal to eval_step bit
      for bit, task by task, with one #4 launch per request.
@@ -158,6 +159,35 @@ Phases, each of which must pass:
      (maintain every window of 8 steps with hbm_budget_bytes) on HBM tables
      from TIER["budget"]["capacity"] slots: one growth, then auto-tiering
      that demotes.
+
+ 16. the checkpoint lifecycle of modelzoo/common.py `run()`: (a) at the
+     full widths and 2^12 slots, one state trained on the card: a full
+     save, 3 steps, a TTL eviction, a synchronous delta, 3 steps,
+     save_incremental_async with 3 more steps issued before wait(); the
+     chain restored on the card and on the CPU equal per key bit for bit
+     (rows, accumulators, freq, version, dirty; dense and Adam) and to the
+     live state at the last delta; the async delta's files equal to a
+     synchronous delta's of a copy; a flipped byte in the middle delta
+     quarantined alike on both devices and the next save a full one; (b)
+     `run()` with --data criteo_stats --bf16 --filter_freq 2
+     --steps_to_live 32 --evict_every 16 --save_steps 32
+     --incremental_save_steps 8 --steps 64 at MLPerf DLRM-DCN widths (26
+     bf16 tables of 2^20 slots, Adagrad 0.05, Adam 1e-3, batch 2048 of
+     CriteoStats staged with mark_consumed), CheckpointManager(keep=3,
+     datasets=), deltas synchronous to step 32 and async after it,
+     StepWindowTracer on steps 10-19 and MetricsLogger every 8 steps; after
+     the delta at step 56 Predictor on the chain answers as eval_step on
+     the live state bit for bit, a second trainer, manager and CriteoStats
+     restore full-32 + incr-40, 48, 56 equal to the live state per key bit
+     for bit with the stream at index 56, and both trainers take steps
+     57-64 (losses within TRAIN_RTOL, rows within one bf16 ulp and
+     accumulators within TRAIN_RTOL relative per step); retention leaves
+     what the JAX _gc leaves; the trace holds phase_lookup ranges and the
+     metrics file one line per log; #1 / #3 launched once per member per
+     save and #2 / #5 once per member with rows per restored link; held-out
+     AUC >= 0.55; the save, stall, write, transfer, disk and restore
+     figures and the examples/s of windows with and without an async delta
+     in flight printed.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -1215,7 +1245,7 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
             served[f.name] = (ts.keys[t, pick].cpu().numpy(),
                               ts.values[t, pick].float().cpu().numpy())
     t0 = time.perf_counter()
-    CheckpointManager(ckdir, trainer).save(state)
+    state, _ = CheckpointManager(ckdir, trainer).save(state)
     stats["save_s"] = time.perf_counter() - t0
     del state, staged, trainer
     if dev.type == "cuda":
@@ -2088,7 +2118,7 @@ def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
     from deeprec_tpu_torch.training.checkpoint import CheckpointManager
 
     t0 = time.perf_counter()
-    CheckpointManager(ckdir, trainer).save(state)
+    state, _ = CheckpointManager(ckdir, trainer).save(state)
     save_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     p = Predictor(trainer.model, ckdir, device=dev)
@@ -2232,13 +2262,15 @@ def run_bst(dev, seed, cfg, ckroot):
 # (4 user and 4 item features, vocab 100,000, Adagrad 0.2,
 # modelzoo/dssm/train.py); SimpleMultiTask, ESMM, MMoE, PLE and DBMTL on
 # SyntheticMultiTask(num_cat=8, num_dense=4, vocab=1_000_000). Each: 5
-# checked steps, 20 timed (DIEN, DSSM and MMoE then 3 profiled), on to 300;
-# held-out AUC over 8 batches of another seed at step 0 and step 300
-# (`auc`, or `auc_ctr` for the multi-task models, against the floor); the
+# checked steps, 20 timed (DIEN, DSSM and MMoE then 3 profiled), on to
+# `steps` (150, half the modelzoo's 300, so the script keeps to half its time
+# limit with phase 16); held-out AUC over 8 batches of another seed at step 0
+# and at the end (`auc`, or `auc_ctr` for the multi-task models, against the
+# floor); the
 # state saved, restored by Predictor and asked 5 requests of batch 2048.
 MULTI_TASK = ("SimpleMultiTask", "ESMM", "MMoE", "PLE", "DBMTL")
 ZOO = dict(emb_dim=16, capacity=1 << 20, batch=2048, dense_lr=1e-3, checked=5,
-           timed=20, steps=300, eval_batches=8, auc_floor=0.60, requests=5,
+           timed=20, steps=150, eval_batches=8, auc_floor=0.60, requests=5,
            profiled=3, profile=("DIEN", "DSSM", "MMoE"),
            criteo=dict(vocab=1_000_000, lr=0.05),
            behavior=dict(vocab=100_000, lr=0.2, seq_len=50),
@@ -2344,7 +2376,7 @@ def zoo_run(dev, name, seed, cfg, ckdir):
                              f"held-out {auc_key} {aucs[auc_key]} (floor "
                              f"{cfg['auc_floor']})")
 
-    CheckpointManager(ckdir, trainer).save(state)
+    state, _ = CheckpointManager(ckdir, trainer).save(state)
     p = Predictor(model, ckdir, device=dev)
     serve_gen = gen(seed + 2)
     reqs = [serve_gen.batch() for _ in range(cfg["requests"])]
@@ -2663,7 +2695,7 @@ def loop_agreement(dev, seed, small, cfg, ckdir):
         raise AssertionError(f"maintain did not grow {C} to {2 * C}: {rep}")
     for t in range(T):
         _same_rows(_rows_by_key(ts, t), survivors[t], f"maintain, table {t}")
-    CheckpointManager(ckdir, tr[dev]).save(st)
+    st, _ = CheckpointManager(ckdir, tr[dev]).save(st)
     back = CheckpointManager(ckdir, tr[dev]).restore().tables[bname]
     if not (torch.equal(back.bloom, ts.bloom) and back.keys.shape == ts.keys.shape):
         raise AssertionError("the checkpoint lost the sketch or the capacity")
@@ -3612,11 +3644,536 @@ def run_tier(dev, seed, full, small, cfg, ckroot):
     return np.concatenate([total, [st["fused"]]])
 
 
+# ------------------------------------------------------------ phase 16
+
+# Phase 16, the checkpoint lifecycle of modelzoo/common.py `run()` with
+# --data criteo_stats --bf16 --filter_freq 2 --steps_to_live 32
+# --evict_every 16 --save_steps 32 --incremental_save_steps 8 --steps 64:
+# deltas synchronous up to `async_after` and save_incremental_async after
+# it; after the delta at `restore_at` a second trainer restores the chain.
+# (a) holds the same operations card vs CPU at `small` capacity.
+CKPT = dict(batch=2048, steps=64, save_steps=32, incr_steps=8, evict_every=16,
+            steps_to_live=32, filter_freq=2, lr=0.05, dense_lr=1e-3, eval_batches=8,
+            requests=2, async_after=32, timeline=(10, 20), log_every=8, keep=3,
+            restore_at=56, auc_floor=0.55,
+            agree=dict(batch=256, cardinality_cap=1500, steps_to_live=2))
+
+
+def _jax_gc_listing(saves, keep):
+    """What the JAX package's retention (`_gc` after every save) leaves of
+    `saves` [(kind, step)]: the newest `keep` full saves and the deltas
+    newer than the oldest of them."""
+    fulls, incrs = set(), set()
+    for kind, step in saves:
+        (fulls if kind == "full" else incrs).add(step)
+        fulls = set(sorted(fulls)[-keep:])
+        if fulls:
+            incrs = {i for i in incrs if i > min(fulls)}
+    return sorted([f"full-{s}" for s in fulls] + [f"incr-{s}" for s in incrs])
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _flip_byte(path):
+    """XOR one bit of the byte in the middle of `path` (inside an array's
+    payload, past the zip headers)."""
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0x10]))
+
+
+def _member_arrays(ts, t):
+    """(keys, value rows as f32, accumulator rows, meta [3, n]) of member t's
+    live slots, sorted by key, on the host."""
+    keys = ts.keys[t]
+    live = torch.nonzero(keys != torch.iinfo(keys.dtype).min).flatten()
+    sel = live[torch.argsort(keys[live])]  # keys are unique: the order is total
+    return (keys[sel].cpu().numpy(), ts.values[t, sel].float().cpu().numpy(),
+            ts.slots["accum"][t, sel].cpu().numpy(), ts.meta[t][:, sel].cpu().numpy())
+
+
+def _same_state(a, b, what, meta=3):
+    """Per key bit for bit: every member's rows (bf16 values as f32),
+    accumulators and first `meta` metadata rows; the dense leaves, the Adam
+    state and the step. Returns the keys compared."""
+    n = 0
+    for bname, x in a.tables.items():
+        y = b.tables[bname]
+        for t in range(x.keys.shape[0]):
+            (ka, va, aa, ma), (kb, vb, ab, mb) = _member_arrays(x, t), _member_arrays(y, t)
+            if not np.array_equal(ka, kb):
+                raise AssertionError(f"{what}, {bname}[{t}]: {len(ka)} keys, want {len(kb)}")
+            if not (np.array_equal(va, vb) and np.array_equal(aa, ab)
+                    and np.array_equal(ma[:meta], mb[:meta])):
+                raise AssertionError(f"{what}, {bname}[{t}]: rows differ")
+            n += len(ka)
+    eq = lambda u, v: torch.equal(u.cpu(), v.cpu())  # noqa: E731
+    oa, ob = a.opt_state, b.opt_state
+    bad = [k for k in a.dense if not eq(a.dense[k], b.dense[k])]
+    bad += [] if eq(oa.count, ob.count) else ["count"]
+    bad += [f"mu.{k}" for k in oa.mu if not eq(oa.mu[k], ob.mu[k])]
+    bad += [f"nu.{k}" for k in oa.nu if not eq(oa.nu[k], ob.nu[k])]
+    if bad or a.step != b.step:
+        raise AssertionError(f"{what}: steps {a.step} / {b.step}, differing {bad[:8]}")
+    return n
+
+
+def _link_members(path):
+    """Members with rows in one checkpoint directory: a restore writes each
+    of them through #2 (bf16 values) and #5 (the accumulators) once."""
+    n = 0
+    for f in os.listdir(path):
+        if f.startswith("table_"):
+            with np.load(os.path.join(path, f)) as z:
+                n += int(z["keys"].shape[0] > 0)
+    return n
+
+
+def _ckpt_model(full, seed, cfg, steps_to_live):
+    """DLRM-DCN at `full` with bf16 tables, CounterFilter and a TTL, as
+    run() builds it under --bf16 --filter_freq --steps_to_live."""
+    from deeprec_tpu_torch.config import CounterFilter, EmbeddingVariableOption, GlobalStepEvict
+    from deeprec_tpu_torch.models import DLRMDCN
+
+    ev = EmbeddingVariableOption(counter_filter=CounterFilter(cfg["filter_freq"]),
+                                 global_step_evict=GlobalStepEvict(steps_to_live))
+    return _retable(DLRMDCN(**full, ev=ev, seed=seed), value_dtype="bfloat16")
+
+
+def _files_equal(a, b, what):
+    """The npz files of two checkpoint directories hold the same arrays."""
+    names = sorted(f for f in os.listdir(a) if f.endswith(".npz"))
+    if names != sorted(f for f in os.listdir(b) if f.endswith(".npz")):
+        raise AssertionError(f"{what}: other files")
+    n = 0
+    for f in names:
+        with np.load(os.path.join(a, f)) as za, np.load(os.path.join(b, f)) as zb:
+            if za.files != zb.files:
+                raise AssertionError(f"{what}: {f} holds other arrays")
+            for k in za.files:
+                if za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k]):
+                    raise AssertionError(f"{what}: {f}:{k} differs")
+                n += za[k].size if k == "keys" else 0
+    return n
+
+
+def ckpt_agreement(dev, seed, small, cfg, tmp):
+    """Phase 16 (a): one state at the full widths and `small` capacity made
+    on the CPU and trained on `dev`: a full save, 3 steps, a TTL eviction, a
+    synchronous delta, 3 steps, save_incremental_async with 3 more steps
+    issued before wait(); the chain restored on `dev` and on the CPU, equal
+    per key to each other and to the live state at the last delta; the async
+    delta's files equal to a synchronous delta's of a copy; a flipped byte in
+    the middle delta quarantined alike on both devices and the next save a
+    full one. Returns report lines."""
+    from deeprec_tpu_torch.data import CriteoStats
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    a = cfg["agree"]
+    model = _ckpt_model(small, seed, cfg, a["steps_to_live"])
+    cpu = torch.device("cpu")
+
+    def trainer(d):
+        return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=d)
+
+    t0 = time.perf_counter()
+    tr = trainer(dev)
+    st = _copy_state(trainer(cpu).init(), dev)
+    gen = CriteoStats(batch_size=a["batch"], seed=seed + 91,
+                      cardinality_cap=a["cardinality_cap"])
+    d_chain, d_sync = os.path.join(tmp, "chain"), os.path.join(tmp, "sync")
+    ck = CheckpointManager(d_chain, tr, keep=cfg["keep"])
+
+    def steps(n):
+        nonlocal st
+        for _ in range(n):
+            st, _ = tr.train_step(st, gen.batch())
+
+    steps(2)
+    st, _ = ck.save(st)                                  # full-2
+    steps(3)
+    size0 = int(sum(b.table.size(st.tables[n]).sum() for n, b in tr.bundles.items()))
+    st = tr.evict_tables(st)
+    size1 = int(sum(b.table.size(st.tables[n]).sum() for n, b in tr.bundles.items()))
+    if size1 >= size0:
+        raise AssertionError(f"the TTL eviction dropped no key ({size0} -> {size1})")
+    st, _ = ck.save_incremental(st)                      # incr-5
+    steps(3)
+    live = _copy_state(st, dev)                          # the state at the last delta
+    st, apath = ck.save_incremental_async(st)            # incr-8
+    steps(3)                                             # in place, before wait()
+    ck.wait()
+    shutil.copytree(d_chain, d_sync)
+    shutil.rmtree(os.path.join(d_sync, "incr-8"))
+    ck_sync = CheckpointManager(d_sync, tr, keep=cfg["keep"])
+    _, spath = ck_sync.save_incremental(live)
+    n_files = _files_equal(spath, apath, "async delta against a synchronous one")
+    t_chain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines = [f"full save, 3 steps, evict_tables ({size0} -> {size1} keys), a delta, 3 steps, "
+             f"save_incremental_async + 3 steps before wait(): the async delta's files equal "
+             f"a synchronous delta's of a copy ({n_files} rows)"]
+
+    r_dev, r_cpu = (CheckpointManager(d_chain, trainer(d)).restore() for d in (dev, cpu))
+    n = _same_state(r_dev, r_cpu, f"chain restored on {dev.type} vs cpu")
+    _same_state(r_dev, live, "restored chain vs the live state at the last delta", meta=2)
+    lines.append(f"the chain full-2 + incr-5 + incr-8 restored on {dev.type} and on the cpu: "
+                 f"{n} keys bit for bit (rows, accumulators, freq, version, dirty), dense and "
+                 f"Adam equal, and equal to the live state at step 8")
+    del r_dev, r_cpu
+    t_restore = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    out = []
+    for i, d in enumerate((dev, cpu)):
+        dd = os.path.join(tmp, f"corrupt-{i}")
+        shutil.copytree(d_chain, dd)
+        link = os.path.join(dd, "incr-5")
+        _flip_byte(os.path.join(link, sorted(f for f in os.listdir(link)
+                                             if f.startswith("table_"))[0]))
+        c = CheckpointManager(dd, trainer(d))
+        out.append((c.restore(), sorted(os.listdir(dd)), c.chain_dirs()))
+    (ra, la, ca), (rb, lb, cb) = out
+    if not (la == lb and ca == cb == ["full-2"] and "incr-5.quarantined" in la
+            and ra.step == rb.step == 2):
+        raise AssertionError(f"corrupt middle delta: {dev.type} {la} {ca} step {ra.step}, "
+                             f"cpu {lb} {cb} step {rb.step}")
+    _same_state(ra, rb, "the prefix restored on both devices")
+    _, nxt = CheckpointManager(os.path.join(tmp, "corrupt-0"), tr).save_incremental(st)
+    if not os.path.basename(nxt).startswith("full-"):
+        raise AssertionError(f"the save after a quarantine was {nxt}, not a full one")
+    lines.append(f"a flipped byte in incr-5: both devices restored full-2 and listed {la}; "
+                 f"the next save_incremental wrote {os.path.basename(nxt)}")
+    lines.append(f"seconds: the chain and the sync copy {t_chain:.2f}, the restores on both "
+                 f"devices {t_restore:.2f}, the corruption {time.perf_counter() - t0:.2f}")
+    return lines
+
+
+def ckpt_loop_phase(dev, seed, full, cfg, ckdir):
+    """Phase 16 (b): the loop (see CKPT) at `full` widths. Returns stats."""
+    from deeprec_tpu_torch.data import CriteoStats
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        apply_rows_sr, fused_gather_combine, gather_rows)
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.logging import MetricsLogger
+    from deeprec_tpu_torch.training.profiler import TRACE_FILE, StepWindowTracer
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    B, S = cfg["batch"], cfg["steps"]
+    model = _ckpt_model(full, seed, cfg, cfg["steps_to_live"])
+
+    def make():
+        return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+
+    def counts():
+        return np.array([gather_rows.launches_bf16,
+                         gather_rows.launches - gather_rows.launches_bf16,
+                         apply_rows_sr.launches_bf16,
+                         apply_rows_sr.launches - apply_rows_sr.launches_bf16])
+
+    spent = collections.Counter()  # seconds by part, printed
+    t_setup = time.perf_counter()
+    trainer = make()
+    state = trainer.init()
+    gen = CriteoStats(batch_size=B, seed=seed + 90, split="train")
+    evals = CriteoStats(batch_size=B, seed=seed + 90, split="eval")
+    ck = CheckpointManager(ckdir, trainer, keep=cfg["keep"], datasets={"criteo_stats": gen})
+    try:
+        state = ck.restore()
+    except FileNotFoundError:
+        pass
+    data = trainer.stage(gen, depth=2)  # wires attach_consumer / mark_consumed
+    eval_batches = [trainer.stage_batch(evals.batch_at(i)) for i in range(cfg["eval_batches"])]
+    trace_dir = os.path.join(os.path.dirname(ckdir), "timeline")
+    mfile = os.path.join(os.path.dirname(ckdir), "metrics.jsonl")
+    tracer = StepWindowTracer(*cfg["timeline"], trace_dir)
+    mlog = MetricsLogger(mfile)
+    saves, step_s, losses, logged = [], {}, {}, 0
+    launch_save, launch_restore = np.zeros(4, np.int64), np.zeros(4, np.int64)
+    want_save, want_restore = 0, 0
+    members = sum(b.num_tables for b in trainer.bundles.values())
+    written = []  # (kind, step) in order, for the retention gate
+    rs, twin, twin_losses, resumed = {}, None, {}, None
+    spent["set-up"] = time.perf_counter() - t_setup
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
+
+    def save(kind, asynchronous):
+        nonlocal state, want_save
+        c0 = counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn = {("full", False): ck.save, ("incr", False): ck.save_incremental,
+              ("incr", True): ck.save_incremental_async}[(kind, asynchronous)]
+        state, path = fn(state)
+        _sync(dev)
+        sec = time.perf_counter() - t0
+        launch_save[:] += counts() - c0
+        want_save += members
+        spent["saves"] += sec
+        rec = ck.last_save  # an async writer stamps write_ms into it when done
+        rec.update(seconds=sec, step=int(state.step))
+        written.append((rec["kind"], int(state.step)))
+        saves.append(rec)
+
+    t_loop = time.perf_counter()
+    t_mark = t_next = time.perf_counter()
+    for batch in data:
+        spent["waiting for a batch"] += time.perf_counter() - t_next
+        step = int(state.step)
+        if step >= S:
+            break
+        t0 = time.perf_counter()
+        tracer.on_step(step)
+        spent["tracer start / stop"] += time.perf_counter() - t0
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, mets = trainer.train_step(state, batch)
+        _sync(dev)
+        step_s[step + 1] = time.perf_counter() - t0
+        spent["train steps"] += step_s[step + 1]
+        losses[step + 1] = float(mets["loss"])
+        step += 1
+        if twin is not None:  # the restored trainer takes the same step
+            tr2, st2, gen2 = twin
+            st2, m2 = tr2.train_step(st2, gen2.batch())
+            twin = (tr2, st2, gen2)
+            twin_losses[step] = float(m2["loss"])
+            if step == S:
+                t0 = time.perf_counter()
+                resumed = _compare_resumed(state, st2, losses, twin_losses,
+                                           S - cfg["restore_at"])
+                spent["resumed comparison"] += time.perf_counter() - t0
+                twin = None
+                del tr2, st2, gen2
+        if step % cfg["log_every"] == 0:
+            mlog.log(step, loss=mets["loss"],
+                     steps_per_sec=cfg["log_every"] / (time.perf_counter() - t_mark))
+            logged += 1
+            t_mark = time.perf_counter()
+        if step % cfg["evict_every"] == 0:
+            state = trainer.evict_tables(state)
+        if step % cfg["save_steps"] == 0:
+            state = trainer.evict_tables(state)  # evict at checkpoint time, as run() does
+            save("full", False)
+        elif step % cfg["incr_steps"] == 0:
+            save("incr", step > cfg["async_after"])
+        if step == cfg["restore_at"]:
+            t0 = time.perf_counter()
+            rs = _ckpt_restore_gates(dev, cfg, trainer, state, ck, make, model, gen, evals,
+                                     ckdir, counts, eval_batches)
+            launch_restore[:] += rs.pop("launches")
+            want_restore += rs.pop("want")
+            twin = rs.pop("twin")
+            spent["restore gates"] += time.perf_counter() - t0
+        t_next = time.perf_counter()
+    tracer.close()
+    loop_s = time.perf_counter() - t_loop
+    t0 = time.perf_counter()
+    auc = trainer.evaluate(state, eval_batches)["auc"]
+    spent["evaluate"] = time.perf_counter() - t0
+    save("full", False)  # the final save, as run() does
+    ck.close()
+    mlog.close()
+    data.close()
+    launches = _launch_counts()
+    _row_counts()  # ... and ends here (adds the bf16 launches to PAIR_LAUNCHES)
+    for s in saves:  # what is still on disk after the final save
+        s["disk_mb"] = _dir_bytes(s["path"]) / 1e6 if os.path.isdir(s["path"]) else None
+    listing = sorted(d for d in os.listdir(ckdir))
+    want_listing = _jax_gc_listing(written, cfg["keep"])
+    with open(mfile) as f:
+        mlines = [json.loads(line) for line in f]
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    n_lookup = sum(1 for n in names if n == "phase_lookup")
+    stats = dict(saves=saves, step_s=step_s, losses=losses, auc=auc, launches=launches,
+                 launch_save=launch_save, want_save=want_save, launch_restore=launch_restore,
+                 want_restore=want_restore, listing=listing, want_listing=want_listing,
+                 metrics_lines=len(mlines), logged=logged, trace_lookups=n_lookup,
+                 members=members, loop_s=loop_s, resumed=resumed,
+                 spent={k: round(v, 2) for k, v in spent.items()}, **rs)
+    if not np.all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if resumed is None:
+        raise AssertionError("the restored trainer never resumed")
+    if listing != want_listing:
+        raise AssertionError(f"retention left {listing}; the JAX _gc leaves {want_listing}")
+    if len(mlines) != logged or [r["step"] for r in mlines] != list(
+            range(cfg["log_every"], S + 1, cfg["log_every"])):
+        raise AssertionError(f"metrics file: {mlines}")
+    if n_lookup < 1:
+        raise AssertionError("the timeline holds no phase_lookup range")
+    if dev.type == "cuda":
+        # #1 (values) and #3 (accumulators) once per member per save; #2 and
+        # #5 once per member with rows per restored link
+        wsave = np.array([want_save, want_save, 0, 0])
+        wrest = np.array([0, 0, want_restore, want_restore])
+        if not (np.array_equal(launch_save, wsave) and np.array_equal(launch_restore, wrest)):
+            raise AssertionError(f"checkpoint launches: saves {launch_save.tolist()} (want "
+                                 f"{wsave.tolist()}), restores {launch_restore.tolist()} "
+                                 f"(want {wrest.tolist()})")
+    if not auc >= cfg["auc_floor"]:
+        raise AssertionError(f"held-out AUC {auc} (floor {cfg['auc_floor']})")
+    return stats
+
+
+def _ckpt_restore_gates(dev, cfg, trainer, state, ck, make, model, gen, evals, ckdir,
+                        counts, eval_batches):
+    """Phase 16 (b) at `restore_at`, right after its delta: Predictor on the
+    chain answers as eval_step on the live state; a second trainer, manager
+    and CriteoStats restore the chain (equal to the live state per key bit
+    for bit, the stream at the consumed index); then both trainers take the
+    next steps (the first on its own loop's batches, this one here, each
+    from its own stream) and are compared after each. Returns stats with
+    the restore launches and the launches the restored links imply."""
+    from deeprec_tpu_torch.data import CriteoStats
+    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+
+    ck.wait()
+    batches = [evals.batch_at(100 + i) for i in range(cfg["requests"])]
+    want_probs = [trainer.eval_step(state, b)[1].cpu().numpy() for b in batches]
+    _sync(dev)
+    t0 = time.perf_counter()
+    p = Predictor(model, ckdir, device=dev)
+    _sync(dev)
+    reload_s = time.perf_counter() - t0
+    for b, w in zip(batches, want_probs):
+        got = p.predict(b)
+        if got.shape != w.shape or not np.array_equal(got, w):
+            raise AssertionError("Predictor on the chain differs from eval_step on the live "
+                                 f"state by {np.abs(got - w).max()}")
+    del p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    gen2 = CriteoStats(batch_size=gen.B, seed=gen.seed, split="train")
+    tr2 = make()
+    c0 = counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    ck2 = CheckpointManager(ckdir, tr2, keep=cfg["keep"], datasets={"criteo_stats": gen2})
+    st2 = ck2.restore()
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    launches = counts() - c0
+    chain = ck2.chain_dirs()  # verified already: no file is read again
+    paths = [os.path.join(ckdir, c) for c in chain]
+    t0 = time.perf_counter()
+    n_keys = _same_state(st2, state, f"the chain {chain} against the live state")
+    compare_s = time.perf_counter() - t0
+    if gen2.save() != {"index": cfg["restore_at"]}:
+        raise AssertionError(f"the restored stream is at {gen2.save()}")
+    return dict(chain=chain, chain_mb=sum(_dir_bytes(p) for p in paths) / 1e6,
+                reload_s=reload_s, restore_s=restore_s, compare_s=compare_s, restored_keys=n_keys, launches=launches,
+                want=sum(_link_members(p) for p in paths), twin=(tr2, st2, gen2))
+
+
+def _compare_resumed(a, b, losses, twin_losses, steps):
+    """Two trainers that took the same `steps` steps from one state (the
+    live one and its restored twin): losses within TRAIN_RTOL, accumulators
+    within TRAIN_RTOL relative per step, bf16 rows within one bf16 ulp per
+    step, per key. Returns (bit for bit, max loss difference, max row
+    difference in ulps, max accumulator difference relative, keys)."""
+    dl = max(abs(twin_losses[s] - losses[s]) / abs(losses[s]) for s in twin_losses)
+    if dl > TRAIN_RTOL:
+        raise AssertionError(f"resumed losses differ by {dl} relative")
+    ulps, rel, n, exact = 0.0, 0.0, 0, True
+    for bname, x in a.tables.items():
+        y = b.tables[bname]
+        for t in range(x.keys.shape[0]):
+            (ka, va, aa, ma), (kb, vb, ab, mb) = _member_arrays(x, t), _member_arrays(y, t)
+            if not (np.array_equal(ka, kb) and np.array_equal(ma[:2], mb[:2])):
+                raise AssertionError(f"resumed {bname}[{t}]: other keys or metadata")
+            u = _bf16_ulp(torch.from_numpy(va)).numpy()
+            ulps = max(ulps, float((np.abs(vb - va) / np.where(u > 0, u, 1)).max(initial=0)))
+            rel = max(rel, float((np.abs(ab - aa) / np.maximum(np.abs(aa), 1e-30)).max(
+                initial=0)))
+            exact = exact and np.array_equal(va, vb) and np.array_equal(aa, ab)
+            n += len(ka)
+    dd = max(float((a.dense[k] - b.dense[k]).abs().max()) for k in a.dense)
+    exact = exact and dl == 0 and dd == 0
+    if ulps > steps or rel > steps * TRAIN_RTOL:
+        raise AssertionError(f"resumed rows differ by {ulps} bf16 ulps, accumulators by "
+                             f"{rel} relative ({steps} steps)")
+    return dict(exact=exact, loss_diff=dl, row_ulps=ulps, accum_rel=rel, dense_diff=dd, keys=n)
+
+
+def run_ckpt(dev, seed, full, small, cfg, ckroot):
+    """Phase 16: (a) then (b), printed. Returns the launches of (#1, #3, #2,
+    #5, #4) over (b)'s path."""
+    t0 = time.perf_counter()
+    tmp = os.path.join(ckroot, "ckpt")
+    os.makedirs(tmp, exist_ok=True)
+    for line in ckpt_agreement(dev, seed, small, cfg, os.path.join(tmp, "agree")):
+        print(f"checkpoint agreement at capacity {small['capacity']}, {dev.type} vs cpu: {line}")
+    a_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    st = ckpt_loop_phase(dev, seed, full, cfg, os.path.join(tmp, "run", "ck"))
+    B = cfg["batch"]
+    print(f"checkpoint loop: DLRM-DCN {full} with bf16 tables, CounterFilter("
+          f"{cfg['filter_freq']}), GlobalStepEvict({cfg['steps_to_live']}), CriteoStats "
+          f"batch {B}, {cfg['steps']} steps in {st['loop_s']:.1f} s; keep {cfg['keep']}")
+    for s in st["saves"]:
+        what = (f"async: caller stall {s['stall_ms']:.1f} ms, write_ms {s.get('write_ms')}"
+                if s["async"] else f"{s['seconds']:.3f} s")
+        disk = "gone (retention)" if s["disk_mb"] is None else f"{s['disk_mb']:.1f} MB on disk"
+        print(f"checkpoint loop: step {s['step']} {s['kind']} save, {what}; "
+              f"transfer_bytes {s['transfer_bytes']}, rows {s['rows']}, {disk}")
+    print(f"checkpoint loop: chain {st['chain']} ({st['chain_mb']:.1f} MB) restored by a second "
+          f"trainer in {st['restore_s']:.3f} s, {st['restored_keys']} keys equal to the live "
+          f"state at step {cfg['restore_at']} bit for bit (rows, accumulators, freq, version, "
+          f"dirty; dense and Adam), the stream at index {cfg['restore_at']}; Predictor reloaded "
+          f"the chain in {st['reload_s']:.3f} s and answered {cfg['requests']} batches equal to "
+          f"eval_step bit for bit")
+    r = st["resumed"]
+    print(f"checkpoint loop: both trainers took steps {cfg['restore_at'] + 1}-{cfg['steps']}: "
+          f"bit for bit {r['exact']}; losses within {r['loss_diff']:.3g} relative, rows within "
+          f"{r['row_ulps']:.3g} bf16 ulps, accumulators within {r['accum_rel']:.3g} relative, "
+          f"dense within {r['dense_diff']:.3g} ({r['keys']} keys)")
+    win = {}
+    tl = cfg["timeline"]
+    for w0 in range(0, cfg["steps"], cfg["incr_steps"]):
+        ws = range(w0 + 1, w0 + cfg["incr_steps"] + 1)
+        if w0 == 0 or w0 >= cfg["restore_at"] or any(tl[0] < s <= tl[1] for s in ws):
+            continue  # warm-up, the resumed twin's window, traced steps
+        kind = "async delta in flight" if w0 > cfg["async_after"] else "none in flight"
+        win.setdefault(kind, []).append(
+            (w0 + 1, round(len(ws) * B / sum(st["step_s"][s] for s in ws), 1)))
+    print(f"checkpoint loop: examples/s per window of {cfg['incr_steps']} steps (first step, "
+          f"examples/s) {win}")
+    print(f"checkpoint loop: saves launched (#1, #3, #2, #5) {st['launch_save'].tolist()} "
+          f"({st['members']} members x {st['want_save'] // st['members']} saves); the restore "
+          f"{st['launch_restore'].tolist()} ({st['want_restore']} members with rows over the "
+          f"chain's links); the whole path (#1, #3, #2, #5, #4) {st['launches'].tolist()}")
+    print(f"checkpoint loop: retention left {st['listing']} (the JAX _gc: "
+          f"{st['want_listing']}); metrics file {st['metrics_lines']} lines for {st['logged']} "
+          f"logs; timeline steps {cfg['timeline'][0]}-{cfg['timeline'][1] - 1}: "
+          f"{st['trace_lookups']} phase_lookup ranges")
+    losses = st["losses"]
+    print(f"checkpoint loop: losses {losses[1]:.6f} .. {losses[cfg['steps']]:.6f}; held-out AUC "
+          f"over {cfg['eval_batches']} batches {st['auc']:.6f} (floor {cfg['auc_floor']})")
+    print(f"checkpoint loop: seconds by part {st['spent']}; the per-key comparison at step "
+          f"{cfg['restore_at']} {st['compare_s']:.2f} s")
+    print(f"phase 16 (the checkpoint lifecycle) took {time.perf_counter() - t0:.1f} s "
+          f"(agreement {a_s:.1f} s)")
+    return st["launches"]
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
-        multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER):
-    """Phases 3-15 on `dev`. Returns the kernel records, in the order of
+        multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT):
+    """Phases 3-16 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
@@ -3785,6 +4342,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         gather["launches"] += int(tl[0] + tl[2])
         scatter["launches"] += int(tl[1] + tl[3])
         pooled["launches"] += int(tl[4])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        cl = run_ckpt(dev, seed, full, small, ckpt, ckroot)
+        # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
+        gather["launches"] += int(cl[0] + cl[1])
+        scatter["launches"] += int(cl[2] + cl[3])
+        pooled["launches"] += int(cl[4])
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's

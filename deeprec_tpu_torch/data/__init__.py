@@ -1,7 +1,7 @@
 from deeprec_tpu_torch.data.prefetch import Prefetcher, staged
 from deeprec_tpu_torch.data.synthetic import (
-    SyntheticBehaviorSequence, SyntheticCriteo, SyntheticMultiTask, SyntheticTwoTower,
+    CriteoStats, SyntheticBehaviorSequence, SyntheticCriteo, SyntheticMultiTask, SyntheticTwoTower,
     zipf_ids)
 
-__all__ = ["Prefetcher", "SyntheticBehaviorSequence", "SyntheticCriteo", "SyntheticMultiTask",
+__all__ = ["CriteoStats", "Prefetcher", "SyntheticBehaviorSequence", "SyntheticCriteo", "SyntheticMultiTask",
            "SyntheticTwoTower", "staged", "zipf_ids"]

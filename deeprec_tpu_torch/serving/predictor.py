@@ -1,15 +1,17 @@
-"""Serving: load the latest full checkpoint and answer predictions — the
+"""Serving: load the latest checkpoint chain and answer predictions — the
 port of `deeprec_tpu/serving/predictor.py`, label-free predict path.
 
-`Predictor(model, ckpt_dir)` restores the checkpoint onto the device and
-serves `predict(batch)`: the read-only lookup of every bundle (dedup,
-probe, the hand-written row-gather kernel, combine), the model forward and
-a sigmoid. The live model is one immutable (version, state) snapshot:
+`Predictor(model, ckpt_dir)` restores the verified chain (the newest intact
+full save and the deltas after it, `CheckpointManager.restore`) onto the
+device and serves `predict(batch)`: the read-only lookup of every bundle
+(dedup, probe, the hand-written row-gather kernel, combine), the model
+forward and a sigmoid. The live model is one immutable (version, state) snapshot:
 `reload()` builds the next state to the side and publishes it with one
 reference swap, so a request is served from one model version.
 
-Quantized residency, feature stores, group_users, delta polling and the
-quality gate wait for a later slice.
+Quantized residency, feature stores, group_users, delta polling
+(`poll_updates`, `restore_chunk`) and the quality gate wait for a later
+slice (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ class Predictor:
         return self._snap.state.step
 
     def reload(self) -> bool:
-        """Restore the latest full checkpoint and publish it."""
+        """Restore the latest verified chain (a corrupt link is quarantined
+        and the longest valid prefix served) and publish it."""
         with self._lock:
             state = self._ck.restore()
             prev = self._snap

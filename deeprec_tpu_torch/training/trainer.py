@@ -76,6 +76,7 @@ from deeprec_tpu_torch.ops import dedup
 from deeprec_tpu_torch.optim import dense as dense_optim
 from deeprec_tpu_torch.optim.apply import apply_gradients, ensure_slots
 from deeprec_tpu_torch.training import metrics as M
+from deeprec_tpu_torch.training.profiler import phase_scope
 from deeprec_tpu_torch.utils.hashing import name_salt
 
 # `pipeline_mode`: how a K-step window schedules the lookups of its batches
@@ -211,14 +212,6 @@ def _put_member(ts: TableState, k: int, m: TableState) -> TableState:
     return ts
 
 
-def _phase(name: str):
-    """A `phase_<name>` range of the train step for torch.profiler (the
-    JAX package's `jax.named_scope("phase_<name>")`): a profile attributes
-    host time and the device time of the kernels launched inside to it.
-    Costs a few microseconds when no profiler runs."""
-    return torch.profiler.record_function(f"phase_{name}")
-
-
 class Trainer:
     """Single-device trainer. `model` is an nn.Module with `features` and
     `forward(inputs)`; its own parameters are only the template of
@@ -270,6 +263,22 @@ class Trainer:
         self._tiers: Dict[tuple, Any] = {}
         self._tier_pager = None
         self._tier_chunk = 256
+
+    @property
+    def tables(self) -> Dict[str, EmbeddingTable]:
+        """{table name: EmbeddingTable} over every feature's table."""
+        return {fcol.resolve_table_name(f): b.table
+                for b in self.bundles.values() for f in b.features}
+
+    def table_state(self, state: TrainState, table_name: str) -> TableState:
+        """The [1, ...] state of one named table: a view into a stacked
+        bundle's member (writes go through), or the bundle's own state."""
+        for b in self.bundles.values():
+            for k, f in enumerate(b.features):
+                if fcol.resolve_table_name(f) == table_name:
+                    ts = state.tables[b.name]
+                    return _member(ts, k) if b.stacked else ts
+        raise KeyError(table_name)
 
     def init(self, seed: Optional[int] = None) -> TrainState:
         """Empty tables (with the sparse optimizer's slots), the dense
@@ -522,7 +531,7 @@ class Trainer:
             rep = {"occupancy": occ, "insert_fails": sum(fails_each), "capacity": C}
             rep.update(dedup_report.get(bname, {}))
             if _tiered(b):
-                with _phase("tier_sync"):
+                with phase_scope("tier_sync"):
                     ts, demoted, promoted = self._tier_sync(b, ts, step,
                                                             tier_async=tier_async)
                 rep.update(demoted=demoted, promoted=promoted)
@@ -538,7 +547,7 @@ class Trainer:
                     # over the budget: demote cold rows to the host tier and
                     # keep the capacity; forced, since the pressure may come
                     # from probe clustering below the high watermark
-                    with _phase("tier_sync"):
+                    with phase_scope("tier_sync"):
                         ts, demoted, promoted = self._tier_sync(b, ts, step, force=True)
                     rep.update(auto_tiered=True, demoted=demoted, promoted=promoted)
                 elif new_c > C:
@@ -714,7 +723,7 @@ class Trainer:
             if not folds:
                 continue
             # every member's fold, one insert probe per chunk
-            with _phase("tier_fold"):
+            with phase_scope("tier_fold"):
                 counts = fold_members(b.table, state.tables[bname], folds, self._tier_chunk)
             folded, dropped = (sum(c[i] for c in counts) for i in (0, 1))
             if folded or dropped:
@@ -835,7 +844,7 @@ class Trainer:
         that take gradients, with the dense parameters. Returns (loss,
         logits, {name: dense gradient}, [group gradients in lookup
         order])."""
-        with _phase("dense_fwd_bwd"):
+        with phase_scope("dense_fwd_bwd"):
             leaves, embs = [], {}
             for bname, b in self.bundles.items():
                 for feats, res in self._results(b, bundle_res[bname]):
@@ -861,7 +870,7 @@ class Trainer:
     @torch.no_grad()
     def _apply_all(self, tables, bundle_res, g_embs, step: int, lr: float):
         """Every lookup group's sparse apply, IN PLACE."""
-        with _phase("sparse_apply"):
+        with phase_scope("sparse_apply"):
             g_embs = iter(g_embs)
             for bname, b in self.bundles.items():
                 # A shared table's features apply one after another, so each
@@ -880,7 +889,7 @@ class Trainer:
     def _dense_apply(self, params, opt_state, g_dense):
         """The dense optimizer's update, IN PLACE on `params`; returns the
         new optimizer state."""
-        with _phase("dense_apply"):
+        with phase_scope("dense_apply"):
             updates, opt_state = self.dense_opt.update(g_dense, opt_state, params)
             dense_optim.apply_updates(params, updates)
         return opt_state
@@ -900,7 +909,7 @@ class Trainer:
     def _step(self, state: TrainState, batch, lr: float):
         """One train step on a device batch (see `train_step`)."""
         step = int(state.step)
-        with _phase("lookup"), torch.no_grad():
+        with phase_scope("lookup"), torch.no_grad():
             views, bundle_res = self._lookup_all(state.tables, batch, step, True)
         loss, logits, g_dense, g_embs = self._fwd_bwd(state.dense, views,
                                                       bundle_res, batch)
@@ -954,19 +963,19 @@ class Trainer:
         were empty, never a row apply(t) writes: the order is exact."""
         step = int(state.step)
         tables, params, opt_state = state.tables, state.dense, state.opt_state
-        with _phase("lookup"), torch.no_grad():
+        with phase_scope("lookup"), torch.no_grad():
             views, res = self._lookup_all(tables, batches[0], step, True)
         mets = []
         for t, batch in enumerate(batches):
             nxt = batches[t + 1] if t + 1 < len(batches) else None
             if nxt is not None:
-                with _phase("route_next"), torch.no_grad():
+                with phase_scope("route_next"), torch.no_grad():
                     pending = self._resolve_all(tables, self._route_all(nxt),
                                                 step + 1)
             loss, logits, g_dense, g_embs = self._fwd_bwd(params, views, res, batch)
             self._apply_all(tables, res, g_embs, step, lr)
             if nxt is not None:
-                with _phase("finish_next"), torch.no_grad():
+                with phase_scope("finish_next"), torch.no_grad():
                     views, res = self._finish_all(tables, pending)
             opt_state = self._dense_apply(params, opt_state, g_dense)
             mets.append(self._metrics(loss, logits, batch))
@@ -993,7 +1002,7 @@ class Trainer:
         mets = []
         for a in range(A):
             mb = {k: v.reshape(A, n // A, *v.shape[1:])[a] for k, v in batch.items()}
-            with _phase("lookup"), torch.no_grad():
+            with phase_scope("lookup"), torch.no_grad():
                 views, res = self._lookup_all(state.tables, mb, step, True)
             loss, logits, g_dense, g_embs = self._fwd_bwd(state.dense, views, res, mb)
             self._apply_all(state.tables, res, g_embs, step, lr)

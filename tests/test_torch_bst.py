@@ -315,7 +315,7 @@ def test_port_checkpoint_restored_by_jax(tmp_path, mode):
         st = _port_from_jax(trainer, jtr.init(0))
         for b in batches[:2]:
             st, _ = trainer.train_step(st, b)
-        CheckpointManager(str(tmp_path), trainer).save(st)
+        st, _ = CheckpointManager(str(tmp_path), trainer).save(st)
         jst = JaxCkpt(str(tmp_path), jtr).restore()
         st = CheckpointManager(str(tmp_path), trainer).restore()
         assert int(jst.step) == st.step == 2

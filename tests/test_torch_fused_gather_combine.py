@@ -354,6 +354,6 @@ def test_bf16_tables_read_only_forward_matches_jax(tmp_path, monkeypatch):
     assert calls == [(4, torch.bfloat16, 16)]
     np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), rtol=0, atol=PROB_ATOL)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
-    CheckpointManager(str(tmp_path), trainer).save(st)
+    st, _ = CheckpointManager(str(tmp_path), trainer).save(st)
     got = Predictor(trainer.model, str(tmp_path), device="cpu").predict(batches[1])
     np.testing.assert_allclose(got, np.asarray(jprobs), rtol=0, atol=PROB_ATOL)

@@ -713,3 +713,57 @@ def test_tier_round_overlapped_by_train_steps_stores_the_boundary_rows(cuda_devi
             assert np.array_equal(hv[i], row) and (hf[i], hver[i]) == (f, v), (k, key)
         stored += len(hk)
     assert stored == rep[bname]["demoted"]
+
+
+@pytest.mark.cuda
+def test_async_delta_then_training_writes_the_state_at_the_save(cuda_device, tmp_path):
+    """save_incremental_async on the card, then train steps issued at once,
+    before wait(): the steps write in place into the tensors the stage half
+    compacted, but the gathers (#3 for the values and the accumulators, one
+    launch each per member) and the side stream's pinned copies come first
+    in stream order, so the delta's files are those of a synchronous delta
+    of a copy taken at the save, array for array."""
+    import json
+
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.models import WDL
+    from deeprec_tpu_torch.ops.fused_lookup import gather_rows
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager, _clone_table_state
+    from deeprec_tpu_torch.training.trainer import Trainer, TrainState
+
+    tr = Trainer(WDL(emb_dim=32, capacity=1 << 14, hidden=(32,), num_cat=4, num_dense=2),
+                 Adagrad(lr=0.1), adam(1e-3), device=cuda_device)
+    gen = SyntheticCriteo(batch_size=2048, num_cat=4, num_dense=2, vocab=20_000, seed=6)
+    st = tr.init()
+    for _ in range(3):
+        st, _ = tr.train_step(st, gen.batch())
+    ck_a = CheckpointManager(str(tmp_path / "async"), tr)
+    ck_s = CheckpointManager(str(tmp_path / "sync"), tr)
+    st, _ = ck_a.save(st)
+    st, _ = tr.train_step(st, gen.batch())
+    o = st.opt_state
+    copy = TrainState(step=st.step,
+                      tables={b: _clone_table_state(ts) for b, ts in st.tables.items()},
+                      dense={n: t.clone() for n, t in st.dense.items()},
+                      opt_state=type(o)(count=o.count.clone(),
+                                        mu={n: t.clone() for n, t in o.mu.items()},
+                                        nu={n: t.clone() for n, t in o.nu.items()}))
+    gather_rows.launches = 0
+    st, path = ck_a.save_incremental_async(st)
+    members = sum(b.num_tables for b in tr.bundles.values())
+    assert gather_rows.launches == 2 * members
+    for _ in range(3):
+        st, _ = tr.train_step(st, gen.batch())
+    ck_a.wait()
+    _, spath = ck_s.save_incremental(copy)
+    names = sorted(f for f in os.listdir(spath) if f.endswith(".npz"))
+    assert names == sorted(f for f in os.listdir(path) if f.endswith(".npz"))
+    for f in names:
+        with np.load(os.path.join(spath, f)) as zs, np.load(os.path.join(path, f)) as za:
+            assert zs.files == za.files, f
+            for k in zs.files:
+                assert np.array_equal(zs[k], za[k]), (f, k)
+    with open(os.path.join(path, "manifest.json")) as fh:
+        m = json.load(fh)
+    assert m["kind"] == "incr" and m["base"] == 3  # over the full save at step 3

@@ -242,7 +242,7 @@ def test_port_checkpoint_restored_and_served_by_jax(name, tmp_path):
     st = _port_from_jax(trainer, jtr.init(0))
     for b in batches[:2]:
         st, _ = trainer.train_step(st, b)
-    CheckpointManager(str(tmp_path), trainer).save(st)
+    st, _ = CheckpointManager(str(tmp_path), trainer).save(st)
     jst = JaxCkpt(str(tmp_path), jtr).restore()
     assert int(jst.step) == st.step == 2 and int(jst.opt_state[0].count) == 2
     # a restore clears the dirty flags: the port's own restore is the twin

@@ -122,7 +122,7 @@ def test_port_save_jax_restore_exact(jax_run, tmp_path):
     model, tr, st, d = jax_run
     trainer = Trainer(DLRMDCN(**KW), device="cpu")
     state = CheckpointManager(d, trainer).restore()
-    CheckpointManager(str(tmp_path), trainer).save(state)
+    state, _ = CheckpointManager(str(tmp_path), trainer).save(state)
     jtr = JaxTrainer(JaxDLRMDCN(**KW), Adagrad(lr=0.1), optax.adam(1e-3))
     back = JaxCkpt(str(tmp_path), jtr).restore()
     assert int(back.step) == 3

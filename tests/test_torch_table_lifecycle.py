@@ -446,7 +446,7 @@ def test_port_checkpoint_carries_bloom_and_growth_to_jax(tmp_path):
     st, rep = trainer.maintain(st, grow_threshold=0.1)
     C = {r["grew_to"] for r in rep.values()}
     assert len(C) == 1
-    CheckpointManager(str(tmp_path), trainer).save(st)
+    st, _ = CheckpointManager(str(tmp_path), trainer).save(st)
     (C,) = C
     jtr = JaxTrainer(_wdl(JaxWDL, C, _cbf_ev(jcfg)), JaxAdagrad(lr=0.1), optax.adam(1e-3))
     jst = JaxCkpt(str(tmp_path), jtr).restore()

@@ -210,7 +210,7 @@ def test_port_save_jax_restore_then_step_agrees(tmp_path):
     st = _port_from_jax(trainer, jtr.init(0))
     for b in batches[:2]:
         st, _ = trainer.train_step(st, b)
-    CheckpointManager(str(tmp_path), trainer).save(st)
+    st, _ = CheckpointManager(str(tmp_path), trainer).save(st)
     jst = JaxCkpt(str(tmp_path), jtr).restore()
     assert int(jst.step) == 2 and int(jst.opt_state[0].count) == 2
     st = CheckpointManager(str(tmp_path), trainer).restore()
@@ -272,3 +272,66 @@ def test_bf16_restore_rounds_stochastically(origin):
     for out in (got, want):
         assert set(np.unique(out)) <= {np.float32(1.0), np.float32(1.0 + 2.0 ** -7)}
         assert abs(out.mean() - v) < 8e-5, out.mean()
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (2^-133 at zero, bf16's
+    smallest subnormal)."""
+    a = np.abs(np.asarray(x, np.float32))
+    e = np.floor(np.log2(np.where(a > 0, a, 1.0)))
+    return np.where(a > 0, np.exp2(e - 7), 2.0 ** -133)
+
+
+def test_bf16_train_step_matches_jax_within_one_ulp():
+    """bf16 tables through `Trainer.train_step` against the JAX Trainer:
+    a JAX state after 2 steps is carried across, one more step is taken on
+    each side, and every key's row agrees within one bf16 ulp (the
+    stochastic-rounding bits are the port's `sr_bits`, not threefry);
+    accumulators, freq / version / dirty and the dense leaves within the
+    f32 tolerances."""
+    import dataclasses
+
+    def bf16(model):
+        model.features = [
+            dataclasses.replace(f, table=dataclasses.replace(f.table, value_dtype="bfloat16"))
+            if getattr(f, "table", None) is not None else f for f in model.features]
+        return model
+
+    jtr = JaxTrainer(bf16(JaxDLRMDCN(**KW)), JaxAdagrad(lr=LR), optax.adam(DENSE_LR))
+    trainer = Trainer(bf16(DLRMDCN(**KW)), Adagrad(lr=LR), adam(DENSE_LR), device="cpu")
+    gen = SyntheticCriteo(batch_size=B, num_cat=NUM_CAT, num_dense=NUM_DENSE,
+                          vocab=500, seed=4)
+    batches = [gen.batch() for _ in range(3)]
+    jst = jtr.init(0)
+    for b in batches[:2]:
+        jst, _ = jtr.train_step(jst, _jbatch(b))
+    st = _port_from_jax(trainer, jst)
+    for ts in st.tables.values():
+        assert ts.values.dtype == torch.bfloat16
+    jst, jm = jtr.train_step(jst, _jbatch(batches[2]))
+    st, m = trainer.train_step(st, batches[2])
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=RTOL)
+    got = {}
+    for bname, b in trainer.bundles.items():
+        ts = st.tables[bname]
+        for k, f in enumerate(b.features):
+            got[f.name] = _rows_by_key(ts.keys[k], ts.values[k].float(), ts.slots["accum"][k],
+                                       ts.meta[k])
+    want = {}
+    for bname, b in jtr.bundles.items():
+        ts = jst.tables[bname]
+        for k, f in enumerate(b.features):
+            want[f.name] = _rows_by_key(ts.keys[k], np.asarray(ts.values[k].astype(jnp.float32)),
+                                        ts.slots["accum"][k], ts.meta[k])
+    assert got.keys() == want.keys()
+    moved = 0
+    for name in want:
+        assert got[name].keys() == want[name].keys(), name
+        for key, (wv, wa, wm) in want[name].items():
+            gv, ga, gm = got[name][key]
+            np.testing.assert_array_equal(gm, wm)
+            assert np.all(np.abs(gv - wv) <= _bf16_ulp(wv)), (name, key, gv, wv)
+            np.testing.assert_allclose(ga, wa, rtol=RTOL, atol=ATOL)
+            moved += int(np.any(gv != wv))
+    _assert_dense_agree(trainer, st, jst, 3)
+    print(f"bf16 rows that differ by one ulp: {moved}")
