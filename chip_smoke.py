@@ -90,8 +90,9 @@ Phases, each of which must pass:
      steps (finite losses, no failed insert, table sizes, rows off the
      batch unchanged, one launch each of flash fwd, dK/dV and dQ and the
      gather/scatter launches the bundles imply per step), 30 timed, 3
-     profiled, on to 300 steps; held-out AUC over 8 batches at step 0 and
-     step 300, at least 0.60 at the end; card vs CPU at capacity 2^12
+     profiled, on to 150 steps (300, then 200, before the file-fed phase
+     17 needed the time); held-out AUC over 8 batches at step 0 and step
+     150, at least 0.60 at the end; card vs CPU at capacity 2^12
      (bst_agreement);
  12. the phase-11 state saved and served by Predictor: 30 requests of
      batch 2048 and one each of batch 1 and 37, every answer equal to
@@ -146,8 +147,8 @@ Phases, each of which must pass:
      steps x lr x TRAIN_RTOL and Adagrad accumulators within TRAIN_RTOL;
      (b) the tiered loop at MLPerf DLRM-DCN widths: hbm_dram tables of
      TIER["capacity"] slots (LFU, watermarks 0.8 / 0.6), enable_tier_paging
-     + warm_tier_folds, stage(depth=2) feeding 40 windows of
-     train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
+     + warm_tier_folds, stage(depth=2) feeding 30 windows (40 before
+     phase 17) of train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
      and maintain(tier_async=True) (every 5th a synchronous maintain(); 2
      windows profiled), a final maintain(), evaluate on 8 held-out batches:
      finite losses, rows demoted and brought back, occupancy at most the
@@ -157,8 +158,8 @@ Phases, each of which must pass:
      the table and the host store, the #3 / #5 / #4 launches the path and
      its tier events imply, AUC >= 0.60; (c) the modelzoo's budget path
      (maintain every window of 8 steps with hbm_budget_bytes) on HBM tables
-     from TIER["budget"]["capacity"] slots: one growth, then auto-tiering
-     that demotes.
+     from TIER["budget"]["capacity"] slots, 12 windows (18 before phase
+     17): one growth, then auto-tiering that demotes.
 
  16. the checkpoint lifecycle of modelzoo/common.py `run()`: (a) at the
      full widths and 2^12 slots, one state trained on the card: a full
@@ -188,6 +189,38 @@ Phases, each of which must pass:
      AUC >= 0.55; the save, stall, write, transfer, disk and restore
      figures and the examples/s of windows with and without an async delta
      in flight printed.
+ 17. training from files and streams: 4 Criteo TSV files of 50,000 rows
+     and a held-out file of 8 x 2048 rows written (without a loop over
+     rows) from CriteoStats; (a) on the card's host, bit for bit: the
+     native parser (criteo_parse_mt and criteo_parse) against
+     criteo_block_parse on every file, ParallelInputPipeline(k_stack=2,
+     shard_batches=2: 48 shards, several waves at every worker count) at
+     1, 2, 4 and 8 workers against the serial CriteoCSVReader stream (a
+     digest per unit; records/s and MB/s), and MultiHashTable,
+     DynamicDimEmbedding and AdaptiveEmbedding card vs CPU at 2^12 slots
+     per key (routing and masks exact, rows within COMPOSE_ROW_ATOL); (b)
+     DLRM-DCN at MLPerf widths with bf16 tables (Adagrad 0.05 with f32
+     accumulators, Adam 1e-3, CounterFilter(2), batch 2048) fed by
+     ParallelInputPipeline(num_workers=4, k_stack=8) through Trainer.stage
+     into train_steps(K=8, "lookahead"): an uninterrupted run over all 12
+     units, a run with CheckpointManager(datasets={"pipeline": ...}) that
+     saves after window 4 and stops after window 6, and a second trainer
+     and pipeline that restore and run to the end of the data; every
+     unit consumed exactly once across the two runs and equal to the
+     serial stream's, the final state equal to the uninterrupted run's per
+     key bit for bit (compared on the card), held-out AUC >= 0.55, the
+     training thread's stall per window (the registry's staged counter,
+     held against the Prefetcher's own total; the metrics must be on);
+     (e) as many windows on a fresh trainer fed by CriteoStats through
+     Trainer.stage in units of 8 stacked batches, and on another the same
+     units made before the windows (the two runs' losses equal), their
+     examples/s and stalls beside the file-fed oracle's;
+     (c) run()'s --workqueue leg at 2^17 slots: WorkQueue(num_slices=2)
+     -> input_dataset(drop_remainder=True) -> stage -> 16 train_steps, a
+     save after 8 whose queue position (and state) a second manager
+     restores; (d) FileStreamServer -> TCPStreamReader -> 8 train_steps
+     with a save / restore of the reader after 4, every record once; the
+     launches of #1, #3, #2, #5 and #4 the path implies.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -1819,7 +1852,7 @@ FLASH_BF16_SHAPES = [(2, 2, 256, 256, 32, False, 64, 64, None)]
 # capacity 2^12.
 BST_RUN = dict(emb_dim=16, capacity=1 << 20, heads=4, ff=128, blocks=1, max_len=200,
                hidden=(256, 64), batch=2048, vocab=100_000, seq_len=200, lr=0.2,
-               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=300,
+               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=150,
                eval_batches=8, auc_floor=0.60, agree_capacity=1 << 12,
                agree_batch=256, agree_vocab=2000, requests=30, sample=4096)
 
@@ -2930,7 +2963,7 @@ def run_loop(dev, seed, full, small, cfg, ckroot):
 # promote and fold. (c) starts the modelzoo's budget path at `capacity`
 # slots with a budget of 3 tables' worth of bytes: one growth fits, the
 # next does not.
-TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=40, capacity=1 << 15, every=5,
+TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=30, capacity=1 << 15, every=5,
             strategy="lfu", high=0.8, depth=4, chunk=256, lr=0.05, dense_lr=1e-3, eval_batches=8,
             auc_floor=0.60, profiled=20,
             # (a)'s tier sequence: per round the boundary, the ids looked up
@@ -2939,7 +2972,7 @@ TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=40, capacity=1 << 15, ever
                      rounds=(("sync", 3000, 0.0), ("sync", 3000, 0.0), ("sync", 1200, 0.5),
                              ("async", 600, 0.5), ("async", 700, 0.5))),
             train=dict(batch=512, K=4, rounds=3, prefill=6, depth=8),
-            budget=dict(capacity=1 << 14, windows=18, budget_tables=3))
+            budget=dict(capacity=1 << 14, windows=12, budget_tables=3))
 FILLS = (("accum", 0.1),)
 
 
@@ -3687,31 +3720,32 @@ def _flip_byte(path):
 
 
 def _member_arrays(ts, t):
-    """(keys, value rows as f32, accumulator rows, meta [3, n]) of member t's
-    live slots, sorted by key, on the host."""
+    """(keys, value rows, accumulator rows, meta [3, n]) of member t's live
+    slots, sorted by key, where the state lives."""
     keys = ts.keys[t]
     live = torch.nonzero(keys != torch.iinfo(keys.dtype).min).flatten()
     sel = live[torch.argsort(keys[live])]  # keys are unique: the order is total
-    return (keys[sel].cpu().numpy(), ts.values[t, sel].float().cpu().numpy(),
-            ts.slots["accum"][t, sel].cpu().numpy(), ts.meta[t][:, sel].cpu().numpy())
+    return keys[sel], ts.values[t, sel], ts.slots["accum"][t, sel], ts.meta[t][:, sel]
 
 
 def _same_state(a, b, what, meta=3):
-    """Per key bit for bit: every member's rows (bf16 values as f32),
-    accumulators and first `meta` metadata rows; the dense leaves, the Adam
-    state and the step. Returns the keys compared."""
+    """Per key bit for bit, compared on a's device (b's live rows are moved
+    there when it lies elsewhere): every member's rows, accumulators and
+    first `meta` metadata rows; the dense leaves, the Adam state and the
+    step. Returns the keys compared."""
     n = 0
     for bname, x in a.tables.items():
         y = b.tables[bname]
         for t in range(x.keys.shape[0]):
-            (ka, va, aa, ma), (kb, vb, ab, mb) = _member_arrays(x, t), _member_arrays(y, t)
-            if not np.array_equal(ka, kb):
+            ka, va, aa, ma = _member_arrays(x, t)
+            kb, vb, ab, mb = (v.to(ka.device) for v in _member_arrays(y, t))
+            if not torch.equal(ka, kb):
                 raise AssertionError(f"{what}, {bname}[{t}]: {len(ka)} keys, want {len(kb)}")
-            if not (np.array_equal(va, vb) and np.array_equal(aa, ab)
-                    and np.array_equal(ma[:meta], mb[:meta])):
+            if not (torch.equal(va, vb) and torch.equal(aa, ab)
+                    and torch.equal(ma[:meta], mb[:meta])):
                 raise AssertionError(f"{what}, {bname}[{t}]: rows differ")
             n += len(ka)
-    eq = lambda u, v: torch.equal(u.cpu(), v.cpu())  # noqa: E731
+    eq = lambda u, v: torch.equal(u, v.to(u.device))  # noqa: E731
     oa, ob = a.opt_state, b.opt_state
     bad = [k for k in a.dense if not eq(a.dense[k], b.dense[k])]
     bad += [] if eq(oa.count, ob.count) else ["count"]
@@ -3733,15 +3767,18 @@ def _link_members(path):
     return n
 
 
-def _ckpt_model(full, seed, cfg, steps_to_live):
-    """DLRM-DCN at `full` with bf16 tables, CounterFilter and a TTL, as
-    run() builds it under --bf16 --filter_freq --steps_to_live."""
+def _ckpt_model(full, seed, cfg, steps_to_live=None, capacity=None):
+    """DLRM-DCN at `full` (at `capacity` slots where given) with bf16 tables,
+    CounterFilter and, where `steps_to_live` is given, a TTL, as run()
+    builds it under --bf16 --filter_freq [--steps_to_live]."""
     from deeprec_tpu_torch.config import CounterFilter, EmbeddingVariableOption, GlobalStepEvict
     from deeprec_tpu_torch.models import DLRMDCN
 
+    ttl = None if steps_to_live is None else GlobalStepEvict(steps_to_live)
     ev = EmbeddingVariableOption(counter_filter=CounterFilter(cfg["filter_freq"]),
-                                 global_step_evict=GlobalStepEvict(steps_to_live))
-    return _retable(DLRMDCN(**full, ev=ev, seed=seed), value_dtype="bfloat16")
+                                 global_step_evict=ttl)
+    kw = full if capacity is None else dict(full, capacity=capacity)
+    return _retable(DLRMDCN(**kw, ev=ev, seed=seed), value_dtype="bfloat16")
 
 
 def _files_equal(a, b, what):
@@ -4087,17 +4124,18 @@ def _compare_resumed(a, b, losses, twin_losses, steps):
     if dl > TRAIN_RTOL:
         raise AssertionError(f"resumed losses differ by {dl} relative")
     ulps, rel, n, exact = 0.0, 0.0, 0, True
+    top = lambda x: float(x.max()) if x.numel() else 0.0  # noqa: E731
     for bname, x in a.tables.items():
         y = b.tables[bname]
         for t in range(x.keys.shape[0]):
             (ka, va, aa, ma), (kb, vb, ab, mb) = _member_arrays(x, t), _member_arrays(y, t)
-            if not (np.array_equal(ka, kb) and np.array_equal(ma[:2], mb[:2])):
+            if not (torch.equal(ka, kb) and torch.equal(ma[:2], mb[:2])):
                 raise AssertionError(f"resumed {bname}[{t}]: other keys or metadata")
-            u = _bf16_ulp(torch.from_numpy(va)).numpy()
-            ulps = max(ulps, float((np.abs(vb - va) / np.where(u > 0, u, 1)).max(initial=0)))
-            rel = max(rel, float((np.abs(ab - aa) / np.maximum(np.abs(aa), 1e-30)).max(
-                initial=0)))
-            exact = exact and np.array_equal(va, vb) and np.array_equal(aa, ab)
+            exact = exact and torch.equal(va, vb) and torch.equal(aa, ab)
+            va, vb = va.double(), vb.double()
+            u = _bf16_ulp(va)
+            ulps = max(ulps, top((vb - va).abs() / torch.where(u > 0, u, torch.ones_like(u))))
+            rel = max(rel, top((ab - aa).abs() / aa.abs().clamp_min(1e-30)))
             n += len(ka)
     dd = max(float((a.dense[k] - b.dense[k]).abs().max()) for k in a.dense)
     exact = exact and dl == 0 and dd == 0
@@ -4169,11 +4207,660 @@ def run_ckpt(dev, seed, full, small, cfg, ckroot):
     return st["launches"]
 
 
+# ------------------------------------------------------------ phase 17
+
+INGEST = dict(batch=2048, K=8, files=4, rows=49_152 + 848, eval_batches=8, shard_batches=8,
+              workers=4, worker_counts=(1, 2, 4, 8), save_after=4, stop_after=6, keep=3,
+              lr=0.05, dense_lr=1e-3, filter_freq=2, auc_floor=0.55,
+              drain=dict(k_stack=2, shard_batches=2),
+              compose=dict(capacity=1 << 12, dim=16, steps=4, ids=3000, static=1 << 10),
+              wq=dict(slices=2, steps=16, save_at=8, capacity=1 << 17),
+              stream=dict(steps=8, save_at=4))
+
+# Multi-hash gradients, card vs CPU: index backward sums each bucket's
+# rows in another order; 1024 ids into 64 buckets of |2 e| < 1 per row.
+COMPOSE_GRAD_ATOL = 1e-5
+# Table rows of the composite lookups, card vs CPU: the initializer's
+# torch.erfinv differs between the two in the last bits (rows of N(0, 0.05²)
+# scale, well under 1; the masks and the routing are compared exactly).
+COMPOSE_ROW_ATOL = 1e-6
+
+_HEX = np.frombuffer(b"0123456789abcdef", np.uint8)
+
+
+def _digits(vals, base):
+    """Left-aligned ASCII digits of non-negative ints [n, f] in `base`:
+    ([n, f, width] uint8, lengths [n, f])."""
+    vals = np.asarray(vals, np.int64)
+    nd = np.ones(vals.shape, np.int64)
+    x = vals // base
+    while (x > 0).any():
+        nd += x > 0
+        x //= base
+    exp = nd[..., None] - 1 - np.arange(int(nd.max()))
+    chars = _HEX[(vals[..., None] // base ** np.clip(exp, 0, None)) % base]
+    chars[exp < 0] = 0
+    return chars, nd
+
+
+def criteo_tsv_bytes(batch, num_dense=13, num_cat=26):
+    """Criteo TSV text of a generator batch, built without a loop over
+    rows: the label, each dense value as the integer floor(10 x) (an empty
+    field where it is 0, as a missing Criteo count) and each id as a hex
+    token, tab-separated, one line per row."""
+    n = len(batch["label"])
+    dense = np.floor(np.concatenate([batch[f"I{i + 1}"] for i in range(num_dense)], 1)
+                     * 10).astype(np.int64)
+    parts = [_digits(batch["label"].astype(np.int64)[:, None], 10),
+             _digits(dense, 10),
+             _digits(np.stack([batch[f"C{c + 1}"] for c in range(num_cat)], 1), 16)]
+    parts[1][1][dense == 0] = 0  # missing
+    W = max(p[0].shape[2] for p in parts) + 1
+    cube = np.zeros((n, 1 + num_dense + num_cat, W), np.uint8)
+    lens = np.concatenate([p[1] for p in parts], 1)
+    col = 0
+    for chars, nd in parts:
+        cube[:, col:col + nd.shape[1], :chars.shape[2]] = chars
+        col += nd.shape[1]
+    sep = np.full(lens.shape, 9, np.uint8)
+    sep[:, -1] = 10
+    np.put_along_axis(cube, lens[..., None], sep[..., None], 2)
+    return cube[np.arange(W) <= lens[..., None]].tobytes()
+
+
+def ingest_files(root, seed, cfg):
+    """The training files (`files` x `rows` rows of CriteoStats(seed + 170),
+    one stream batch each) and the held-out file (eval_batches x batch rows
+    of the eval split). Returns (paths, eval path, seconds, MB)."""
+    from deeprec_tpu_torch.data import CriteoStats
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    gen = CriteoStats(batch_size=cfg["rows"], seed=seed + 170, split="train")
+    paths, nbytes = [], 0
+    for i in range(cfg["files"]):
+        paths.append(os.path.join(root, f"day{i}.tsv"))
+        data = criteo_tsv_bytes(gen.batch_at(i))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+        nbytes += len(data)
+    held = CriteoStats(batch_size=cfg["eval_batches"] * cfg["batch"], seed=seed + 170,
+                       split="eval")
+    eval_path = os.path.join(root, "eval.tsv")
+    with open(eval_path, "wb") as f:
+        f.write(criteo_tsv_bytes(held.batch_at(0)))
+    return paths, eval_path, time.perf_counter() - t0, nbytes / 1e6
+
+
+def _digest(item):
+    """sha1 of a batch or unit: its keys, dtypes, shapes and bytes."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(item):
+        a = np.ascontiguousarray(item[k])
+        h.update(f"{k}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def serial_units(paths, cfg, ks):
+    """The serial stream (`CriteoCSVReader` over the native parser, file by
+    file) grouped into the pipeline's units of K batches within a file, for
+    each K in `ks`: {K: [unit digests]}."""
+    from deeprec_tpu_torch.data import CriteoCSVReader
+    from deeprec_tpu_torch.training.trainer import stack_batches
+
+    out = {K: [] for K in ks}
+    for p in paths:
+        batches = list(CriteoCSVReader([p], batch_size=cfg["batch"]))
+        for K in ks:
+            out[K] += [_digest(stack_batches(batches[u * K:(u + 1) * K]))
+                       for u in range(len(batches) // K)]
+    return out
+
+
+def parse_agreement(paths, cfg):
+    """The native parser, multi- and single-threaded, against
+    `criteo_block_parse` on every file, bit for bit. Returns per file
+    (rows, MB, native mt s, native st s, block s)."""
+    from deeprec_tpu_torch.data import criteo_block_parse
+    from deeprec_tpu_torch.native import criteo_parse_native
+
+    out = []
+    for p in paths:
+        with open(p, "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        want = criteo_block_parse(data)
+        tb = time.perf_counter() - t0
+        n = len(want["label"])
+        times = []
+        for threads in (0, 1):
+            t0 = time.perf_counter()
+            rows, labels, dense, cats, consumed = criteo_parse_native(data, n + 1, threads=threads)
+            times.append(time.perf_counter() - t0)
+            got = {"label": labels[:rows]}
+            got.update({f"I{i + 1}": dense[:rows, i:i + 1] for i in range(dense.shape[1])})
+            got.update({f"C{c + 1}": cats[:rows, c] for c in range(cats.shape[1])})
+            if rows != n or consumed != len(data) or _digest(got) != _digest(want):
+                raise AssertionError(f"{p}: the native parser (threads={threads}) differs "
+                                     f"from criteo_block_parse ({rows} of {n} rows)")
+        out.append((n, len(data) / 1e6, times[0], times[1], tb))
+    return out
+
+
+def pipeline_agreement(paths, cfg, serial):
+    """ParallelInputPipeline at each worker count, drained alone at the
+    `drain` shape (k_stack, shard_batches: small shards, so that every
+    worker count gets several waves of them), against the serial stream's
+    units bit for bit. Returns {workers: (shards, units, records/s, MB/s,
+    stats)}."""
+    from deeprec_tpu_torch.data import ParallelInputPipeline, plan_shards
+
+    out = {}
+    K, sb = cfg["drain"]["k_stack"], cfg["drain"]["shard_batches"]
+    shards = len(plan_shards(paths, cfg["batch"], K, sb))
+    for w in cfg["worker_counts"]:
+        pl = ParallelInputPipeline(paths, batch_size=cfg["batch"], num_workers=w,
+                                   k_stack=K, shard_batches=sb)
+        t0 = time.perf_counter()
+        got = [_digest(u) for u in pl]
+        sec = time.perf_counter() - t0
+        pl.close()
+        st = pl.stats()
+        if got != serial:
+            bad = [i for i, (a, b) in enumerate(zip(got, serial)) if a != b]
+            raise AssertionError(f"the pipeline at {w} workers emitted {len(got)} units, the "
+                                 f"serial stream {len(serial)}; differing units {bad[:8]}")
+        out[w] = (shards, len(got), st["records"] / sec, st["bytes"] / 1e6 / sec, st)
+    return out
+
+
+def compose_agreement(dev, seed, cfg):
+    """MultiHashTable, DynamicDimEmbedding and AdaptiveEmbedding on `dev`
+    and on the CPU from one generator, per key over `steps` train lookups:
+    the uids, the masked dims, the static routing and the multi-hash lookup
+    bit for bit; the table rows within COMPOSE_ROW_ATOL and the multi-hash
+    gradients within COMPOSE_GRAD_ATOL. Returns (keys compared, the largest
+    row difference)."""
+    from deeprec_tpu_torch.config import CounterFilter, EmbeddingVariableOption, TableConfig
+    from deeprec_tpu_torch.embedding import EmbeddingTable
+    from deeprec_tpu_torch.embedding.compose import (
+        AdaptiveEmbedding, DynamicDimEmbedding, MultiHashConfig, MultiHashTable)
+
+    from deeprec_tpu_torch.data.synthetic import zipf_ids
+
+    rng = np.random.default_rng(seed + 171)
+    ids = [torch.from_numpy(zipf_ids(rng, cfg["ids"], 1.2, (2, 512)).astype(np.int32))
+           for _ in range(cfg["steps"])]
+    runs, grads = {}, {}
+    for d in (dev, torch.device("cpu")):
+        out = []
+        mh = MultiHashTable(MultiHashConfig("mh", cfg["dim"], 64, 64))
+        params = tuple(p.requires_grad_() for p in mh.create(
+            torch.Generator().manual_seed(seed), device=d))
+        (mh.lookup(params, ids[0].to(d)) ** 2).sum().backward()
+        out.append(("multihash", (ids[0].numpy(),), mh.lookup(params, ids[0].to(d)).detach().cpu()))
+        grads[d.type] = torch.cat([params[0].grad, params[1].grad]).cpu()
+        ev = EmbeddingVariableOption(counter_filter=CounterFilter(filter_freq=3))
+        for kind in ("dyndim", "adaptive"):
+            table = EmbeddingTable(TableConfig(name=kind, dim=cfg["dim"],
+                                               capacity=cfg["capacity"], ev=ev))
+            state = table.create(2, device=d)
+            if kind == "dyndim":
+                mod = DynamicDimEmbedding(table, (4, 8, cfg["dim"]), (2, 4))
+            else:
+                mod = AdaptiveEmbedding(table, static_buckets=cfg["static"])
+                static = mod.create_static(torch.Generator().manual_seed(seed), device=d)
+            for step, x in enumerate(ids):
+                if kind == "dyndim":
+                    res = mod.lookup_unique(state, x.to(d), step=step)
+                else:
+                    res, use = mod.lookup_unique(state, static, x.to(d), step=step)
+                for t in range(2):
+                    u = res.uids[t].cpu().numpy()
+                    order = np.argsort(u)
+                    emb = res.embeddings[t].float().cpu().numpy()[order]
+                    route = (emb == 0) if kind == "dyndim" else use[t].cpu().numpy()[order]
+                    out.append((f"{kind} step {step} table {t}", (u[order], route), emb))
+        runs[d.type] = out
+    n, row_err = 0, 0.0
+    for (what, a, b), (_, c, e) in zip(runs[dev.type], runs["cpu"]):
+        b, e = np.asarray(b), np.asarray(e)
+        diff = float(np.abs(b - e).max(initial=0))
+        if not all(np.array_equal(x, y) for x, y in zip(a, c)):
+            raise AssertionError(f"compose {what}: the keys or the routing differ "
+                                 f"({dev.type} vs cpu)")
+        if what == "multihash" and diff != 0 or diff > COMPOSE_ROW_ATOL:
+            raise AssertionError(f"compose {what}: rows differ by {diff} ({dev.type} vs cpu)")
+        row_err = max(row_err, diff)
+        n += int((a[0] != np.iinfo(a[0].dtype).min).sum())
+    err = float((grads[dev.type] - grads["cpu"]).abs().max())
+    if err > COMPOSE_GRAD_ATOL:
+        raise AssertionError(f"multi-hash gradients differ by {err} ({dev.type} vs cpu)")
+    return n, row_err
+
+
+class _Tapped:
+    """A pipeline seen through a digest tap: iterating it records each
+    emitted unit's digest in order (in the staging thread); the
+    exactly-once hooks pass through, so `Trainer.stage` wires them."""
+
+    def __init__(self, pl):
+        self.pl, self.digests = pl, []
+
+    def __iter__(self):
+        for unit in self.pl:
+            self.digests.append(_digest(unit))
+            yield unit
+
+    def attach_consumer(self):
+        self.pl.attach_consumer()
+
+    def mark_consumed(self):
+        self.pl.mark_consumed()
+
+
+def _stall_total():
+    """The registry's `deeprec_input_stall_seconds_total{site="staged"}`."""
+    from deeprec_tpu_torch.obs import metrics as obs_metrics
+
+    return obs_metrics.default_registry().counter(
+        "deeprec_input_stall_seconds_total", "cumulative consumer wait for input",
+        {"site": "staged"}).value
+
+
+def ingest_loop(dev, seed, full, paths, evals, cfg, ckdir, serial):
+    """Phase 17 (b) and (e): the file-fed loop — an uninterrupted run (the
+    oracle), the same number of windows fed by CriteoStats on a fresh
+    trainer (units of K batches stacked as the pipeline stacks them) and
+    on another with the same units made beforehand, a run
+    saved after window `save_after` and stopped after `stop_after`, and a
+    second trainer and pipeline restoring the save and running to the end
+    of the data. Returns stats."""
+    from deeprec_tpu_torch.data import CriteoStats, ParallelInputPipeline
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer, stack_batches
+
+    K, B = cfg["K"], cfg["batch"]
+    model = _ckpt_model(full, seed, cfg)
+    units = len(serial)
+
+    def make():
+        return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev,
+                       pipeline_mode="lookahead")
+
+    def pipeline():
+        return _Tapped(ParallelInputPipeline(paths, batch_size=B, num_workers=cfg["workers"],
+                                             k_stack=K, shard_batches=cfg["shard_batches"]))
+
+    def windows(trainer, state, src, n, log):
+        """Up to n windows from the staged source, each timed and with the
+        training thread's stall, read from the registry and held against
+        the Prefetcher's own total; stops at the end of the data."""
+        losses = []
+        for _ in range(n):
+            s0, p0 = _stall_total(), src.stall_seconds
+            _sync(dev)
+            t0 = time.perf_counter()
+            try:
+                unit = next(src)
+            except StopIteration:
+                break
+            state, mets = trainer.train_steps(state, unit)
+            _sync(dev)
+            log.append((time.perf_counter() - t0, _stall_total() - s0))
+            if abs(log[-1][1] - (src.stall_seconds - p0)) > 1e-6:
+                raise AssertionError(f"the registry's staged stall {log[-1][1]} s, the "
+                                     f"Prefetcher's {src.stall_seconds - p0} s")
+            losses.extend(mets["loss"].tolist())
+        return state, losses
+
+    stats = {}
+    # the uninterrupted run: the oracle
+    oracle = make()
+    per_step = _loop_launches(oracle)
+    per_req = _per_request(oracle)
+    st_o = oracle.init()
+    tap_o = pipeline()
+    src = oracle.stage(tap_o, depth=2)
+    stats["oracle_windows"] = []
+    st_o, losses_o = windows(oracle, st_o, src, units + 1, stats["oracle_windows"])
+    src.close()
+    tap_o.pl.close()
+    stats["auc_oracle"] = oracle.evaluate(st_o, evals)["auc"]
+    if tap_o.digests != serial:
+        raise AssertionError("the oracle's pipeline stream differs from the serial stream")
+
+    # the same windows from CriteoStats on a fresh trainer: the generator's
+    # cost. One unit made first with no other thread at work. Then the same
+    # units, all made before the windows, on another fresh trainer: the
+    # same work with no generator running beside the training thread.
+    def generated(gen):
+        for _ in range(units):
+            yield stack_batches([gen.batch() for _ in range(K)])
+
+    for arm in ("gen", "made"):
+        src = generated(CriteoStats(batch_size=B, seed=seed + 170, split="train"))
+        t0 = time.perf_counter()
+        made = [next(src)] if arm == "gen" else list(src)
+        stats[f"{arm}_s"] = (time.perf_counter() - t0) / len(made)
+        fresh = make()
+        st_g = fresh.init()
+        staged = fresh.stage(itertools.chain(made, src), depth=2)
+        stats[f"{arm}_windows"] = []
+        st_g, stats[f"{arm}_losses"] = windows(fresh, st_g, staged, units,
+                                               stats[f"{arm}_windows"])
+        staged.close()
+        del fresh, st_g, staged, made
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if stats["gen_losses"] != stats["made_losses"]:
+        raise AssertionError("the CriteoStats-fed runs, live and made before, lost differently")
+
+    # the interrupted run
+    run1 = make()
+    st1 = run1.init()
+    tap1 = pipeline()
+    ck = CheckpointManager(ckdir, run1, keep=cfg["keep"], datasets={"pipeline": tap1.pl})
+    src = run1.stage(tap1, depth=2)
+    stats["run1_windows"] = []
+    st1, _ = windows(run1, st1, src, cfg["save_after"], stats["run1_windows"])
+    saved_pos = tap1.pl.save()
+    _sync(dev)
+    t0 = time.perf_counter()
+    st1, path = ck.save(st1)
+    _sync(dev)
+    stats["save_s"] = time.perf_counter() - t0
+    st1, _ = windows(run1, st1, src, cfg["stop_after"] - cfg["save_after"], stats["run1_windows"])
+    consumed1 = tap1.digests[:cfg["stop_after"]]  # the stream is in order
+    src.close()
+    tap1.pl.close()
+    ck.close()
+    del run1, st1, src, ck
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the resumed run: a second trainer and a new pipeline
+    run2 = make()
+    tap2 = pipeline()
+    ck2 = CheckpointManager(ckdir, run2, keep=cfg["keep"], datasets={"pipeline": tap2.pl})
+    _sync(dev)
+    t0 = time.perf_counter()
+    st2 = ck2.restore()
+    _sync(dev)
+    stats["restore_s"] = time.perf_counter() - t0
+    if tap2.pl.save() != saved_pos:
+        raise AssertionError(f"the restored pipeline is at {tap2.pl.save()}, saved {saved_pos}")
+    src = run2.stage(tap2, depth=2)
+    stats["run2_windows"] = []
+    st2, losses2 = windows(run2, st2, src, units + 1, stats["run2_windows"])
+    src.close()
+    tap2.pl.close()
+    ck2.close()
+    # exactly once: the units before the save from run 1, the rest from run 2
+    got = consumed1[:cfg["save_after"]] + tap2.digests
+    if got != serial:
+        raise AssertionError(f"across the two runs the units consumed were {len(got)}, not "
+                             f"each of the {units} serial units exactly once")
+    if consumed1[cfg["save_after"]:] != tap2.digests[:cfg["stop_after"] - cfg["save_after"]]:
+        raise AssertionError("the replayed units differ from the first run's")
+    _sync(dev)
+    t0 = time.perf_counter()
+    stats["keys"] = _same_state(st2, st_o, "the resumed run against the uninterrupted one",
+                                meta=2)
+    _sync(dev)
+    stats["compare_s"] = time.perf_counter() - t0
+    stats["auc"] = run2.evaluate(st2, evals)["auc"]
+    del oracle, st_o
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    losses = losses_o + stats["gen_losses"] + losses2
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss in the file-fed loop: {losses}")
+    if not stats["auc"] >= cfg["auc_floor"]:
+        raise AssertionError(f"held-out AUC {stats['auc']} (floor {cfg['auc_floor']})")
+    members = sum(b.num_tables for b in run2.bundles.values())
+    steps = (3 * units + cfg["stop_after"] + units - cfg["save_after"]) * K
+    want = np.concatenate([steps * per_step, [0]])
+    want[0] += 2 * len(evals) * per_req[0] + members  # 2 evaluations; the save's #1
+    want[1] += members  # the save's #3 (accumulators)
+    want[2] += _link_members(path)  # the restore's #2 and #5
+    want[3] += _link_members(path)
+    want[4] = 2 * len(evals) * per_req[1]
+    stats.update(want=want, units=units, losses=losses_o + losses2, saved_pos=saved_pos,
+                 trainer=run2, state=st2, model=model)
+    return stats
+
+
+def workqueue_leg(dev, seed, full, paths, cfg, ckdir):
+    """Phase 17 (c): run()'s --workqueue leg at `full` widths and
+    wq["capacity"] slots: WorkQueue(num_slices=2, num_epochs=1) ->
+    input_dataset(batch, drop_remainder=True) -> stage -> train_step; a full
+    save after `save_at` steps carries the queue's position, which a second
+    manager, trainer and queue restore (the state per key, the position,
+    the remaining items); then the first run takes the rest of its steps.
+    Returns stats."""
+    from deeprec_tpu_torch.data import WorkQueue, parse_slice
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    wq, B = cfg["wq"], cfg["batch"]
+    model = _ckpt_model(full, seed, cfg, capacity=wq["capacity"])
+
+    def make():
+        return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+
+    tr = make()
+    st = tr.init()
+    q = WorkQueue(paths, num_epochs=1, num_slices=wq["slices"])
+    items = list(q.save()["items"])
+    ck = CheckpointManager(ckdir, tr, datasets={"workqueue": q})
+    staged = tr.stage(q.input_dataset(B, drop_remainder=True), depth=2)
+    losses, consumed = [], 0
+    for batch in staged:
+        st, mets = tr.train_step(st, batch)
+        losses.append(float(mets["loss"]))
+        consumed += 1
+        if consumed == wq["save_at"]:
+            st, path = ck.save(st)
+            with open(os.path.join(path, "datasets.part00000.json")) as f:
+                pos = json.load(f)["workqueue"]
+            links = _link_members(path)
+            tr2 = make()
+            q2 = WorkQueue(paths, num_epochs=1, num_slices=wq["slices"])
+            ck2 = CheckpointManager(ckdir, tr2, datasets={"workqueue": q2})
+            st_r = ck2.restore()
+            keys = _same_state(st_r, st, "the work-queue leg's restore", meta=2)
+            if q2.save() != pos:
+                raise AssertionError(f"the restored queue is at {q2.save()['cursor']}, saved "
+                                     f"{pos['cursor']}")
+            cursor = pos["cursor"]
+            rest = list(q2)
+            del tr2, st_r, ck2
+        if consumed == wq["steps"]:
+            break
+    staged.close()
+    ck.close()
+    # the records of the items taken before the save that the loop had not
+    # consumed: the reference records its cursor at take time
+    rows = 0
+    for item in items[:cursor]:
+        path, k, n = parse_slice(item)
+        lo, hi = WorkQueue._slice_range(path, k, n)
+        with open(path, "rb") as f:
+            f.seek(lo)
+            rows += f.read(hi - lo).count(b"\n") // B * B
+    if rest != items[cursor:]:
+        raise AssertionError(f"the restored queue yields {rest}, want {items[cursor:]}")
+    if not np.all(np.isfinite(losses)) or consumed != wq["steps"]:
+        raise AssertionError(f"work-queue leg: {consumed} steps, losses {losses}")
+    return dict(items=len(items), cursor=cursor, keys=keys, losses=losses, links=links,
+                skipped=rows - wq["save_at"] * B, steps=consumed, trainer=tr, state=st)
+
+
+def stream_leg(dev, paths, cfg, trainer, state):
+    """Phase 17 (d): FileStreamServer over the first training file ->
+    TCPStreamReader -> train_step, `steps` steps; the reader is saved after
+    `save_at` and a new reader restored from the position serves the rest.
+    Every record the loop received is the file's next one: the batch
+    digests equal the serial stream's first ones. Returns stats."""
+    from deeprec_tpu_torch.data import CriteoCSVReader, FileStreamServer, TCPStreamReader
+
+    sc, B = cfg["stream"], cfg["batch"]
+    want = [_digest(b) for b, _ in zip(CriteoCSVReader([paths[0]], batch_size=B),
+                                       range(sc["steps"]))]
+    srv = FileStreamServer(paths[0]).start()
+    got, losses = [], []
+    try:
+        r1 = TCPStreamReader("127.0.0.1", srv.port, batch_size=B, stop_at_eof=True)
+        it = iter(r1)
+        for _ in range(sc["save_at"]):
+            batch = next(it)
+            got.append(_digest(batch))
+            state, mets = trainer.train_step(state, batch)
+            losses.append(float(mets["loss"]))
+        pos = r1.save()
+        it.close()
+        r2 = TCPStreamReader("127.0.0.1", srv.port, batch_size=B, stop_at_eof=True)
+        r2.restore(pos)
+        it = iter(r2)
+        for _ in range(sc["steps"] - sc["save_at"]):
+            batch = next(it)
+            got.append(_digest(batch))
+            state, mets = trainer.train_step(state, batch)
+            losses.append(float(mets["loss"]))
+        it.close()
+    finally:
+        srv.stop()
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"the stream leg's batches {bad} are not the file's records")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"stream leg losses {losses}")
+    return dict(offset=pos["offset"], losses=losses, state=state)
+
+
+def run_ingest(dev, seed, full, cfg, ckroot):
+    """Phase 17: (a) to (e), printed. Returns the launches of (#1, #3, #2,
+    #5, #4) over (b)-(d)'s path."""
+    from deeprec_tpu_torch.data import CriteoCSVReader
+    from deeprec_tpu_torch.obs import metrics as obs_metrics
+
+    if not obs_metrics.metrics_enabled():
+        raise AssertionError("phase 17 reads deeprec_input_stall_seconds: the metrics are off "
+                             "(DEEPREC_OBS)")
+    t0 = time.perf_counter()
+    root = os.path.join(ckroot, "ingest")
+    paths, eval_path, write_s, mb = ingest_files(os.path.join(root, "data"), seed, cfg)
+    print(f"ingest: {len(paths)} Criteo TSV files of {cfg['rows']} rows and a held-out file "
+          f"of {cfg['eval_batches']} x {cfg['batch']} rows from CriteoStats, {mb:.1f} MB "
+          f"written in {write_s:.2f} s")
+    t1 = time.perf_counter()
+    for p, (n, m, tmt, tst, tb) in zip(paths, parse_agreement(paths, cfg)):
+        print(f"ingest (a): {os.path.basename(p)} {n} rows, {m:.2f} MB: the native parser "
+              f"(multi-threaded {tmt * 1e3:.1f} ms, single {tst * 1e3:.1f} ms) equal to "
+              f"criteo_block_parse ({tb * 1e3:.1f} ms) bit for bit")
+    dk = cfg["drain"]["k_stack"]
+    serial = serial_units(paths, cfg, sorted({dk, cfg["K"]}))
+    for w, (sh, u, rps, mbps, st) in pipeline_agreement(paths, cfg, serial[dk]).items():
+        print(f"ingest (a): ParallelInputPipeline at {w} workers (k_stack {dk}, shard_batches "
+              f"{cfg['drain']['shard_batches']}: {sh} shards): {u} units equal to the serial "
+              f"CriteoCSVReader stream bit for bit; {rps:.1f} records/s, {mbps:.2f} MB/s; worker "
+              f"seconds read {st['read_s']:.3f}, parse {st['parse_s']:.3f}, pack "
+              f"{st['pack_s']:.3f}; consumer stall {st['stall_s']:.3f} s")
+    keys, row_err = compose_agreement(dev, seed, cfg["compose"])
+    print(f"ingest (a): MultiHashTable, DynamicDimEmbedding and AdaptiveEmbedding at capacity "
+          f"{cfg['compose']['capacity']}: {dev.type} vs cpu, {keys} keys, routing and masks bit "
+          f"for bit, rows within {row_err:.3g} (tolerance {COMPOSE_ROW_ATOL})")
+    a_s = time.perf_counter() - t1
+    evals = list(CriteoCSVReader([eval_path], batch_size=cfg["batch"]))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _zero_row_counts()  # the main path starts here
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+
+    fused_gather_combine.launches = 0
+    st = ingest_loop(dev, seed, full, paths, evals, cfg, os.path.join(root, "ck"),
+                     serial[cfg["K"]])
+    B, K = cfg["batch"], cfg["K"]
+
+    def eps(log):
+        return [round(K * B / s, 1) for s, _ in log]
+
+    print(f"ingest (b): DLRM-DCN {full} with bf16 tables, CounterFilter({cfg['filter_freq']}) "
+          f"fed by ParallelInputPipeline(num_workers={cfg['workers']}, k_stack={K}) through "
+          f"Trainer.stage into train_steps(K={K}, lookahead): {st['units']} units; the "
+          f"uninterrupted run's windows (examples/s) {eps(st['oracle_windows'])}")
+    print(f"ingest (b): training-thread stall per window (deeprec_input_stall_seconds"
+          f"{{site=staged}}, s) {[round(s, 6) for _, s in st['oracle_windows']]}")
+    print(f"ingest (b): a full save after window {cfg['save_after']} at {st['saved_pos']} in "
+          f"{st['save_s']:.3f} s; stopped after window {cfg['stop_after']}; a second trainer "
+          f"and pipeline restored in {st['restore_s']:.3f} s and ran windows "
+          f"{eps(st['run2_windows'])}; every unit consumed exactly once across the two runs, "
+          f"each equal to the serial stream's; the final state equal to the uninterrupted "
+          f"run's per key bit for bit ({st['keys']} keys, compared on the card in "
+          f"{st['compare_s']:.3f} s)")
+    def spread(log):
+        e = [K * B / s for s, _ in log[1:]]
+        return (f"median {np.median(e):.1f}, {min(e):.1f}-{max(e):.1f} (n {len(e)}); stalls "
+                f"{[round(s, 6) for _, s in log]} s")
+
+    print(f"ingest (e): examples/s of windows 2-{st['units']}, each run on a fresh trainer; fed "
+          f"by the pipeline: {spread(st['oracle_windows'])}")
+    print(f"ingest (e): fed by CriteoStats through Trainer.stage in units of {K} stacked "
+          f"batches, made while training: {spread(st['gen_windows'])}; the same units made "
+          f"before the windows: {spread(st['made_windows'])}; the two runs' losses equal; "
+          f"CriteoStats made a unit in {st['gen_s']:.3f} s alone, {st['made_s']:.3f} s a unit "
+          f"over all {st['units']}")
+    print(f"ingest (b): losses {st['losses'][0]:.6f} .. {st['losses'][-1]:.6f}; held-out AUC "
+          f"{st['auc']:.6f} (uninterrupted {st['auc_oracle']:.6f}, floor {cfg['auc_floor']})")
+    trainer, model = st.pop("trainer"), st.pop("model")
+    del trainer, model
+    st.pop("state")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    wq = workqueue_leg(dev, seed, full, paths, cfg, os.path.join(root, "wq"))
+    print(f"ingest (c): WorkQueue({len(paths)} files, num_slices={cfg['wq']['slices']}) "
+          f"{wq['items']} items -> input_dataset -> stage -> {wq['steps']} train_steps at "
+          f"capacity {cfg['wq']['capacity']}; the save after step {cfg['wq']['save_at']} held "
+          f"cursor {wq['cursor']}, restored with the state ({wq['keys']} keys bit for bit) "
+          f"and the remaining items; the in-flight item's {wq['skipped']} unconsumed records "
+          f"are skipped on restore (the reference records its cursor at take time)")
+    sl = stream_leg(dev, paths, cfg, wq["trainer"], wq["state"])
+    print(f"ingest (d): FileStreamServer -> TCPStreamReader -> {cfg['stream']['steps']} "
+          f"train_steps, saved at offset {sl['offset']} after {cfg['stream']['save_at']} and "
+          f"restored into a new reader: every record once, in the file's order; losses "
+          f"{sl['losses'][0]:.6f} .. {sl['losses'][-1]:.6f}")
+    launches = _launch_counts()
+    _row_counts()  # ... and ends here (adds the bf16 launches to PAIR_LAUNCHES)
+    per_step = _loop_launches(wq["trainer"])
+    want = st["want"] + np.concatenate([(cfg["wq"]["steps"] + cfg["stream"]["steps"])
+                                        * per_step, [0]])
+    want[:2] += sum(b.num_tables for b in wq["trainer"].bundles.values())  # its save
+    want[2:4] += wq["links"]  # its restore
+    del wq, sl
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        if not np.array_equal(launches, want):
+            raise AssertionError(f"phase 17 launched (#1, #3, #2, #5, #4) {launches.tolist()}, "
+                                 f"the path implies {want.tolist()}")
+    print(f"ingest: the path launched (#1, #3, #2, #5, #4) {launches.tolist()} (implied "
+          f"{want.tolist()})")
+    print(f"phase 17 (training from files and streams) took {time.perf_counter() - t0:.1f} s "
+          f"(agreement {a_s:.1f} s)")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
-        multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT):
-    """Phases 3-16 on `dev`. Returns the kernel records, in the order of
+        multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST):
+    """Phases 3-17 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
@@ -4350,6 +5037,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         gather["launches"] += int(cl[0] + cl[1])
         scatter["launches"] += int(cl[2] + cl[3])
         pooled["launches"] += int(cl[4])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        il = run_ingest(dev, seed, full, ingest, ckroot)
+        # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
+        gather["launches"] += int(il[0] + il[1])
+        scatter["launches"] += int(il[2] + il[3])
+        pooled["launches"] += int(il[4])
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's

@@ -5,7 +5,9 @@ module needs no jax: tables move slot for slot (same keys at the same slots,
 so both packages probe to the same rows) with their optimizer slots and
 counters, the dense pytree's leaves, in `jax.tree_util` flatten order,
 become the model's parameters, and the `optax.adam` state's leaves (count,
-mu..., nu...) become the port's Adam state.
+mu..., nu...) become the port's Adam state. The composite embeddings'
+dense tables (`MultiHashTable`'s (q, r), `AdaptiveEmbedding`'s static
+table) move as they are.
 """
 from __future__ import annotations
 
@@ -103,3 +105,23 @@ def train_state_from_arrays(trainer: Trainer, step: int,
         dense=dense,
         opt_state=opt_state,
     )
+
+
+def multihash_params_from_arrays(mh, arrays: Sequence[np.ndarray], device):
+    """`MultiHashTable` params (q, r) from the JAX `MultiHashTable.create`
+    pair (as numpy arrays), checked against the config's bucket counts."""
+    q, r = (np.asarray(a, np.float32) for a in arrays)
+    want = ((mh.cfg.num_buckets_q, mh.cfg.dim), (mh.cfg.num_buckets_r, mh.cfg.dim))
+    if (q.shape, r.shape) != want:
+        raise ValueError(f"multi-hash params have shapes {q.shape}, {r.shape}; want {want}")
+    return tuple(torch.tensor(a, device=device) for a in (q, r))
+
+
+def adaptive_static_from_array(ae, array: np.ndarray, device) -> torch.Tensor:
+    """`AdaptiveEmbedding`'s static table from the JAX `create_static`
+    array (as numpy), checked against [static_buckets, dim]."""
+    a = np.asarray(array, np.float32)
+    want = (ae.static_buckets, ae.table.cfg.dim)
+    if a.shape != want:
+        raise ValueError(f"static table has shape {a.shape}; want {want}")
+    return torch.tensor(a, device=device)

@@ -5,8 +5,9 @@ A background thread pulls batches from the reader, runs `transform` on each
 (the trainer's `stage_batch`: trim to the model's inputs and start the copy
 to the card on a copy stream) and keeps up to `depth` of them in a queue
 while the train loop consumes the previous one. The consumer's waits on an
-empty queue are the input stall, kept on the object (`stall_seconds`,
-`stalls`).
+empty queue are the input stall: kept on the object (`stall_seconds`,
+`stalls`) and reported per wait to the metrics plane
+(`deeprec_input_stall_seconds{site="staged"}`, `data/pipeline.record_stall`).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from deeprec_tpu_torch import resolve_device
+from deeprec_tpu_torch.data.pipeline import record_stall
 
 
 def _to_device(batch, device):
@@ -105,8 +107,10 @@ class Prefetcher:
             # bottleneck right now
             t0 = time.perf_counter()
             item = self.q.get()
-            self.stall_seconds += time.perf_counter() - t0
+            wait = time.perf_counter() - t0
+            self.stall_seconds += wait
             self.stalls += 1
+            record_stall("staged", wait)
         if item is None:
             raise StopIteration
         if isinstance(item, Exception):

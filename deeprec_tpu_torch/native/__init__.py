@@ -1,14 +1,16 @@
-"""The host-DRAM key-value store of the multi-tier tables (`HostKV`) — the
-port's copy of `deeprec_tpu/native/__init__.py`'s `HostKV`, over its own
-copy of the C++ source (`host_kv.cpp`).
+"""The native host runtime — the port's copy of `deeprec_tpu/native/`:
+the host-DRAM key-value store of the multi-tier tables (`HostKV`, over
+`host_kv.cpp`) and the Criteo TSV parser (`criteo_parse_native`, over
+`csv_parser.cpp`).
 
-The library builds at first use with `g++ -O3 -std=c++17 -fPIC -shared
+Each library builds at first use with `g++ -O3 -std=c++17 -fPIC -shared
 -pthread` into `build/deeprec_tpu_torch/` at the checkout root, named by a
-digest of the source and the flags (as `ops/_build.py` names the CUDA
+digest of its source and the flags (as `ops/_build.py` names the CUDA
 libraries), and loads with ctypes. A failed build or load raises: there is
 no silent fallback on the main path. `PlainHostKV` is a numpy dict with the
 same interface, the reference the tests hold the native store against;
-nothing else uses it.
+nothing else uses it. The parser's plain reference is
+`data/readers.criteo_block_parse`.
 
 Neither store is thread-safe: `MultiTierTable` serializes every access
 (its background rounds own the store while they run).
@@ -29,28 +31,34 @@ import numpy as np
 from deeprec_tpu_torch.ops._build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parent / "host_kv.cpp"
+CSV_SOURCE = Path(__file__).resolve().parent / "csv_parser.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 _lib = None
+_csv_lib = None
 _lock = threading.Lock()
 
 
-def _lib_path() -> Path:
+def _lib_path(source: Path = None) -> Path:
+    """build/deeprec_tpu_torch/lib<stem>-<digest>.so of `source` (the host
+    store's by default)."""
+    source = SOURCE if source is None else source
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libhost_kv-{digest}.so"
+        source.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, source: Path = None) -> None:
+    source = SOURCE if source is None else source
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
-        raise RuntimeError("host_kv: no C++ compiler (g++) to build the host store")
+        raise RuntimeError(f"{source.stem}: no C++ compiler (g++) to build {source.name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"host_kv: g++ failed (exit {proc.returncode}):\n"
+        raise RuntimeError(f"{source.stem}: g++ failed (exit {proc.returncode}):\n"
                            + proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
@@ -92,6 +100,59 @@ def load_library() -> ctypes.CDLL:
             _configure(lib)
             _lib = lib
         return _lib
+
+
+def _configure_csv(lib: ctypes.CDLL) -> None:
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
+    head = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+    tail = [f32p, f32p, i32p, ctypes.POINTER(ctypes.c_int64)]
+    lib.criteo_parse.restype = ctypes.c_int64
+    lib.criteo_parse.argtypes = head + tail
+    lib.criteo_parse_mt.restype = ctypes.c_int64
+    lib.criteo_parse_mt.argtypes = head + [ctypes.c_int] + tail
+
+
+def load_csv_library() -> ctypes.CDLL:
+    """The loaded Criteo parser library, building it first if needed.
+    Raises when the build or the load fails."""
+    global _csv_lib
+    with _lock:
+        if _csv_lib is None:
+            path = _lib_path(CSV_SOURCE)
+            if not path.exists():
+                _build(path, CSV_SOURCE)
+            lib = ctypes.CDLL(str(path))
+            _configure_csv(lib)
+            _csv_lib = lib
+        return _csv_lib
+
+
+def criteo_parse_native(buf: bytes, max_rows: int, num_dense: int = 13,
+                        num_cat: int = 26, threads: int = 0):
+    """Parse up to `max_rows` complete lines of Criteo TSV bytes with the
+    native parser: multi-threaded (`criteo_parse_mt`; threads=0 picks the
+    hardware count, capped at 16) or, with threads=1, single-threaded
+    (`criteo_parse`). Both give the same bits.
+
+    Returns (rows, labels [max_rows] f32, dense [max_rows, num_dense] f32,
+    cats [max_rows, num_cat] i32, consumed_bytes); `consumed` ends on a
+    line boundary. The ids are `(crc32(token) ^ salt_c) & 0x7fffffff` with
+    the salts of `data/readers.criteo_hash_salts`, -1 for an empty token."""
+    lib = load_csv_library()
+    labels = np.zeros(max_rows, np.float32)
+    dense = np.zeros((max_rows, num_dense), np.float32)
+    cats = np.zeros((max_rows, num_cat), np.int32)
+    consumed = ctypes.c_int64(0)
+    if threads != 1:
+        rows = lib.criteo_parse_mt(
+            buf, len(buf), max_rows, num_dense, num_cat, threads, labels,
+            dense.reshape(-1), cats.reshape(-1), ctypes.byref(consumed))
+    else:
+        rows = lib.criteo_parse(
+            buf, len(buf), max_rows, num_dense, num_cat, labels,
+            dense.reshape(-1), cats.reshape(-1), ctypes.byref(consumed))
+    return int(rows), labels, dense, cats, int(consumed.value)
 
 
 class HostKV:
