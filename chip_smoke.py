@@ -90,9 +90,9 @@ Phases, each of which must pass:
      steps (finite losses, no failed insert, table sizes, rows off the
      batch unchanged, one launch each of flash fwd, dK/dV and dQ and the
      gather/scatter launches the bundles imply per step), 30 timed, 3
-     profiled, on to 150 steps (300, then 200, before the file-fed phase
-     17 needed the time); held-out AUC over 8 batches at step 0 and step
-     150, at least 0.60 at the end; card vs CPU at capacity 2^12
+     profiled, on to 100 steps (300, then 200, then 150, before the
+     file-fed and serving phases needed the time); held-out AUC over 8
+     batches at step 0 and step 100, at least 0.60 at the end; card vs CPU at capacity 2^12
      (bst_agreement);
  12. the phase-11 state saved and served by Predictor: 30 requests of
      batch 2048 and one each of batch 1 and 37, every answer equal to
@@ -107,7 +107,7 @@ Phases, each of which must pass:
      (8 categorical and 4 numeric features, vocab 10^6, a ctr and a cvr or
      ctcvr label): 5 checked steps (finite losses, no failed insert, the
      gather and scatter launches the bundles imply), 20 timed (DIEN, DSSM
-     and MMoE then 3 profiled), on to 150 steps (the depth cut in half to
+     and MMoE then 1 profiled), on to 150 steps (the depth cut in half to
      make room for phase 16); held-out AUC (`auc_ctr` for the
      multi-task models, every other task's printed) at least 0.60; the
      state saved and served by Predictor, 5 requests equal to eval_step bit
@@ -147,8 +147,8 @@ Phases, each of which must pass:
      steps x lr x TRAIN_RTOL and Adagrad accumulators within TRAIN_RTOL;
      (b) the tiered loop at MLPerf DLRM-DCN widths: hbm_dram tables of
      TIER["capacity"] slots (LFU, watermarks 0.8 / 0.6), enable_tier_paging
-     + warm_tier_folds, stage(depth=2) feeding 30 windows (40 before
-     phase 17) of train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
+     + warm_tier_folds, stage(depth=2) feeding 20 windows (40 before
+     phase 17, 30 before phase 18) of train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
      and maintain(tier_async=True) (every 5th a synchronous maintain(); 2
      windows profiled), a final maintain(), evaluate on 8 held-out batches:
      finite losses, rows demoted and brought back, occupancy at most the
@@ -185,7 +185,7 @@ Phases, each of which must pass:
      accumulators within TRAIN_RTOL relative per step); retention leaves
      what the JAX _gc leaves; the trace holds phase_lookup ranges and the
      metrics file one line per log; #1 / #3 launched once per member per
-     save and #2 / #5 once per member with rows per restored link; held-out
+     save and #2 / #5 once per bundle with rows per restored link; held-out
      AUC >= 0.55; the save, stall, write, transfer, disk and restore
      figures and the examples/s of windows with and without an async delta
      in flight printed.
@@ -221,6 +221,36 @@ Phases, each of which must pass:
      restores; (d) FileStreamServer -> TCPStreamReader -> 8 train_steps
      with a save / restore of the reader after 4, every record once; the
      launches of #1, #3, #2, #5 and #4 the path implies.
+ 18. the serving stack: (a) MLPerf DLRM-DCN at full width from empty f32
+     tables (Adagrad 0.05, Adam 1e-3, batch 2048 of SyntheticCriteo(vocab=
+     10^6)): a full save after 8 steps; (b) HttpServer(ModelServer(
+     Predictor(quality_gate=QualityGate(probe)), max_batch=2048,
+     poll_updates_secs=0.5)) on 127.0.0.1, warmed (one bucket on the card), under 8
+     client threads sending 100 request bodies of 1-256 rows encoded
+     beforehand (3 in 4 JSON, 1 in 4 protobuf) while two deltas of 8 steps
+     each land: every answer finite in (0, 1), each client's stamped
+     versions never decreasing, every boot-version answer equal to the
+     solo Predictor.predict of its rows within COALESCE_ATOL (bit for bit
+     on the card, whose Predictor runs its dense model at 2048 rows per
+     call), one
+     version bump per delta, /healthz 200, /v1/model_info at the last step,
+     /v1/stats and /metrics answering, and after the last swap the probe
+     batch equal bit for bit to a fresh Predictor on the chain; requests/s,
+     e2e p50/p90/p99, the queue / pad / device / post split, rows per
+     device batch, the worst request during each update against the
+     steady p99 and last_apply_lag_seconds printed; (d) a delta whose dense
+     leaves are NaN rejected by the quality gate: poll_updates False, the
+     directory quarantined, the old version answering bit for bit, health
+     degraded / quality_gate, deeprec_quality_gate_rejections up by 1;
+     (c) Predictor(quantize="bf16") and ("int8") on the final chain: max
+     |dp| against f32 under BF16_ATOL and INT8_ATOL on the probe batch,
+     residency bytes equal to the model, int8 at most INT8_SHARE of f32, a
+     bf16 predict launching #1 once per lookup group and #3 never, int8
+     neither, p50/p90 at batch 2048 and each restore's seconds; (e)
+     ServerGroup(replicas=2) on the one card with one member, answering;
+     the phase's launches of #1, #3, #2, #5 and #4 equal to what its path
+     implies (train steps and saves, each Predictor's restored links and
+     warm replay, every predict, device batch, warm batch and gate pass).
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -235,6 +265,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1852,7 +1883,7 @@ FLASH_BF16_SHAPES = [(2, 2, 256, 256, 32, False, 64, 64, None)]
 # capacity 2^12.
 BST_RUN = dict(emb_dim=16, capacity=1 << 20, heads=4, ff=128, blocks=1, max_len=200,
                hidden=(256, 64), batch=2048, vocab=100_000, seq_len=200, lr=0.2,
-               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=150,
+               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=100,
                eval_batches=8, auc_floor=0.60, agree_capacity=1 << 12,
                agree_batch=256, agree_vocab=2000, requests=30, sample=4096)
 
@@ -2139,11 +2170,23 @@ def bst_train_phase(dev, seed, cfg):
     return trainer, state, stats
 
 
+def _eval_probs(trainer, state, batch, rows):
+    """Trainer.eval_step's probabilities for `batch`, computed at `rows`
+    rows (the batch padded by repeating its last row) where rows is set."""
+    n = len(next(iter(batch.values())))
+    if rows and n < rows:
+        batch = {k: np.concatenate([v, np.repeat(v[-1:], rows - n, axis=0)])
+                 for k, v in batch.items()}
+    return trainer.eval_step(state, batch)[1].cpu().numpy()[:n]
+
+
 def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
     """Phase 12: the trained state saved and served by Predictor: `requests`
     requests of the full batch and one each of batch 1 and 37, every
-    answer equal to Trainer.eval_step's on the trained state bit for bit,
-    one flash forward and one #4 launch (user, target_item and target_cat in
+    answer equal to Trainer.eval_step's on the trained state bit for bit
+    (eval_step at the Predictor's `read_rows` rows where it has them: the
+    batch padded by repeating its last row, as the card's Predictor pads
+    its dense model's input), one flash forward and one #4 launch (user, target_item and target_cat in
     one group) per request. Returns stats."""
     from deeprec_tpu_torch.data import SyntheticBehaviorSequence
     from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
@@ -2161,7 +2204,7 @@ def bst_serve_phase(dev, trainer, state, ckdir, seed, cfg):
                                     seq_len=cfg["seq_len"], seed=seed + 2)
     reqs = [gen.batch() for _ in range(cfg["requests"])]
     reqs += [{k: a[:n] for k, a in reqs[0].items()} for n in (1, 37)]
-    want = [trainer.eval_step(state, b)[1].cpu().numpy() for b in reqs]
+    want = [_eval_probs(trainer, state, b, p.read_rows) for b in reqs]
 
     _reset_flash_counts()  # the main path starts here
     _zero_row_counts()
@@ -2295,7 +2338,7 @@ def run_bst(dev, seed, cfg, ckroot):
 # (4 user and 4 item features, vocab 100,000, Adagrad 0.2,
 # modelzoo/dssm/train.py); SimpleMultiTask, ESMM, MMoE, PLE and DBMTL on
 # SyntheticMultiTask(num_cat=8, num_dense=4, vocab=1_000_000). Each: 5
-# checked steps, 20 timed (DIEN, DSSM and MMoE then 3 profiled), on to
+# checked steps, 20 timed (DIEN, DSSM and MMoE then 1 profiled), on to
 # `steps` (150, half the modelzoo's 300, so the script keeps to half its time
 # limit with phase 16); held-out AUC over 8 batches of another seed at step 0
 # and at the end (`auc`, or `auc_ctr` for the multi-task models, against the
@@ -2304,7 +2347,7 @@ def run_bst(dev, seed, cfg, ckroot):
 MULTI_TASK = ("SimpleMultiTask", "ESMM", "MMoE", "PLE", "DBMTL")
 ZOO = dict(emb_dim=16, capacity=1 << 20, batch=2048, dense_lr=1e-3, checked=5,
            timed=20, steps=150, eval_batches=8, auc_floor=0.60, requests=5,
-           profiled=3, profile=("DIEN", "DSSM", "MMoE"),
+           profiled=1, profile=("DIEN", "DSSM", "MMoE"),
            criteo=dict(vocab=1_000_000, lr=0.05),
            behavior=dict(vocab=100_000, lr=0.2, seq_len=50),
            two_tower=dict(vocab=100_000, lr=0.2),
@@ -2957,15 +3000,14 @@ def run_loop(dev, seed, full, small, cfg, ckroot):
 # ------------------------------------------------------------ phase 15
 
 # Phase 15, multi-tier storage. (b) trains MLPerf DLRM-DCN with a device
-# tier of `capacity` slots per table: the run sees about 64,000 distinct ids
-# per table (SyntheticCriteo, vocab 10^6), so 2^15 slots pass the high
-# watermark about a third of the way in and the later windows demote,
-# promote and fold. (c) starts the modelzoo's budget path at `capacity`
+# tier of `capacity` slots per table: over its 20 windows the run's ids
+# (SyntheticCriteo, vocab 10^6) pass 2^15 slots' high watermark at window
+# 10, and the later windows demote, promote and fold. (c) starts the modelzoo's budget path at `capacity`
 # slots with a budget of 3 tables' worth of bytes: one growth fits, the
 # next does not.
-TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=30, capacity=1 << 15, every=5,
+TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=20, capacity=1 << 15, every=5,
             strategy="lfu", high=0.8, depth=4, chunk=256, lr=0.05, dense_lr=1e-3, eval_batches=8,
-            auc_floor=0.60, profiled=20,
+            auc_floor=0.60, profiled=16,
             # (a)'s tier sequence: per round the boundary, the ids looked up
             # and the share of them drawn from the tier stores' keys
             ops=dict(capacity=1 << 12, vocab_mult=5, host_capacity=1024, picks=600,
@@ -3756,15 +3798,19 @@ def _same_state(a, b, what, meta=3):
     return n
 
 
-def _link_members(path):
-    """Members with rows in one checkpoint directory: a restore writes each
-    of them through #2 (bf16 values) and #5 (the accumulators) once."""
-    n = 0
+def _link_bundles(path, chunk=None):
+    """Import launches per array of one checkpoint directory: a restore
+    imports a bundle's members together (`import_members`), writing them
+    through #2 (bf16 values) and #5 (the accumulators) once per bundle with
+    rows, or once per `chunk` rows of its largest member where the import
+    is chunked (Predictor's `restore_chunk`)."""
+    most = {}
     for f in os.listdir(path):
         if f.startswith("table_"):
             with np.load(os.path.join(path, f)) as z:
-                n += int(z["keys"].shape[0] > 0)
-    return n
+                b = re.sub(r"_t\d*\.npz$", "", f)
+                most[b] = max(most.get(b, 0), z["keys"].shape[0])
+    return sum(1 if chunk is None else -(-n // chunk) for n in most.values() if n > 0)
 
 
 def _ckpt_model(full, seed, cfg, steps_to_live=None, capacity=None):
@@ -4050,7 +4096,7 @@ def ckpt_loop_phase(dev, seed, full, cfg, ckdir):
         raise AssertionError("the timeline holds no phase_lookup range")
     if dev.type == "cuda":
         # #1 (values) and #3 (accumulators) once per member per save; #2 and
-        # #5 once per member with rows per restored link
+        # #5 once per bundle with rows per restored link
         wsave = np.array([want_save, want_save, 0, 0])
         wrest = np.array([0, 0, want_restore, want_restore])
         if not (np.array_equal(launch_save, wsave) and np.array_equal(launch_restore, wrest)):
@@ -4111,7 +4157,7 @@ def _ckpt_restore_gates(dev, cfg, trainer, state, ck, make, model, gen, evals, c
         raise AssertionError(f"the restored stream is at {gen2.save()}")
     return dict(chain=chain, chain_mb=sum(_dir_bytes(p) for p in paths) / 1e6,
                 reload_s=reload_s, restore_s=restore_s, compare_s=compare_s, restored_keys=n_keys, launches=launches,
-                want=sum(_link_members(p) for p in paths), twin=(tr2, st2, gen2))
+                want=sum(_link_bundles(p) for p in paths), twin=(tr2, st2, gen2))
 
 
 def _compare_resumed(a, b, losses, twin_losses, steps):
@@ -4191,7 +4237,7 @@ def run_ckpt(dev, seed, full, small, cfg, ckroot):
           f"examples/s) {win}")
     print(f"checkpoint loop: saves launched (#1, #3, #2, #5) {st['launch_save'].tolist()} "
           f"({st['members']} members x {st['want_save'] // st['members']} saves); the restore "
-          f"{st['launch_restore'].tolist()} ({st['want_restore']} members with rows over the "
+          f"{st['launch_restore'].tolist()} ({st['want_restore']} bundles with rows over the "
           f"chain's links); the whole path (#1, #3, #2, #5, #4) {st['launches'].tolist()}")
     print(f"checkpoint loop: retention left {st['listing']} (the JAX _gc: "
           f"{st['want_listing']}); metrics file {st['metrics_lines']} lines for {st['logged']} "
@@ -4627,8 +4673,8 @@ def ingest_loop(dev, seed, full, paths, evals, cfg, ckdir, serial):
     want = np.concatenate([steps * per_step, [0]])
     want[0] += 2 * len(evals) * per_req[0] + members  # 2 evaluations; the save's #1
     want[1] += members  # the save's #3 (accumulators)
-    want[2] += _link_members(path)  # the restore's #2 and #5
-    want[3] += _link_members(path)
+    want[2] += _link_bundles(path)  # the restore's #2 and #5
+    want[3] += _link_bundles(path)
     want[4] = 2 * len(evals) * per_req[1]
     stats.update(want=want, units=units, losses=losses_o + losses2, saved_pos=saved_pos,
                  trainer=run2, state=st2, model=model)
@@ -4669,7 +4715,7 @@ def workqueue_leg(dev, seed, full, paths, cfg, ckdir):
             st, path = ck.save(st)
             with open(os.path.join(path, "datasets.part00000.json")) as f:
                 pos = json.load(f)["workqueue"]
-            links = _link_members(path)
+            links = _link_bundles(path)
             tr2 = make()
             q2 = WorkQueue(paths, num_epochs=1, num_slices=wq["slices"])
             ck2 = CheckpointManager(ckdir, tr2, datasets={"workqueue": q2})
@@ -4856,11 +4902,525 @@ def run_ingest(dev, seed, full, cfg, ckroot):
     return launches
 
 
+# ------------------------------------------------------------ phase 18
+
+# The serving stack under load while the chain grows: MLPerf DLRM-DCN at
+# full width from empty f32 tables (phase 6's trainer: Adagrad 0.05, Adam
+# 1e-3, batch 2048 of SyntheticCriteo(vocab=10^6)), a full save after
+# `steps` steps, then `deltas` deltas of `steps` steps each written while
+# `clients` HTTP clients send about `requests` requests of 1-`max_rows`
+# rows (3 in 4 JSON, 1 in 4 protobuf) to HttpServer(ModelServer(
+# Predictor(quality_gate=), max_batch, poll_updates_secs)).
+SERVE = dict(batch=2048, vocab=1_000_000, lr=0.05, dense_lr=1e-3, steps=8, deltas=2,
+             clients=8, requests=400, payloads=100, max_rows=256, max_batch=2048,
+             poll_secs=0.5, probe=2048, timed=10, max_shift=0.5, boot_share=0.1)
+# Coalesced answers against solo Predictor.predict of the same rows: a
+# request padded into a larger bucket changes the GEMMs' M, and cuBLAS may
+# pick another algorithm (TF32 stays off); the CPU tests hold 1e-6.
+COALESCE_ATOL = 1e-5
+# Quantized residencies against f32 on one batch (the JAX
+# tests/test_serving_quantized.py bounds): int8's per-row scale bounds an
+# element's error by max|row| / 254, bf16 by its 8-bit mantissa.
+BF16_ATOL, INT8_ATOL, INT8_SHARE = 2e-2, 5e-3, 0.55
+
+
+def _serve_requests(model, seed, cfg):
+    """`payloads` request payloads (label-free numpy dicts) of 1 to
+    `max_rows` rows cut from SyntheticCriteo batches of another seed, and a
+    fixed probe batch of `probe` rows."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+
+    gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed + 18,
+                          num_cat=model.num_cat, num_dense=model.num_dense)
+    pool = [{k: v for k, v in gen.batch().items() if not k.startswith("label")}
+            for _ in range(4)]
+    rng = np.random.default_rng(seed + 18)
+    reqs = []
+    for _ in range(cfg["payloads"]):
+        b = pool[int(rng.integers(len(pool)))]
+        n = int(rng.integers(1, cfg["max_rows"] + 1))
+        a = int(rng.integers(0, cfg["batch"] - n + 1))
+        reqs.append({k: v[a:a + n] for k, v in b.items()})
+    probe = {k: v[:cfg["probe"]] for k, v in pool[0].items()}
+    return reqs, probe
+
+
+def _http(port, path, body=None, ctype="application/json"):
+    """(status, body bytes) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": ctype} if body is not None else {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _bodies(req):
+    """(JSON body, protobuf PredictRequest body) of one request, encoded
+    once before the load: a client encodes in its own process, so its
+    encoding does not belong to the server's interpreter."""
+    from deeprec_tpu_torch.serving import predict_pb as pb
+
+    return (json.dumps({"features": {k: v.tolist() for k, v in req.items()}}).encode(),
+            pb.PredictRequest(inputs={k: pb.ArrayProto.from_numpy(np.asarray(v))
+                                      for k, v in req.items()}).serialize())
+
+
+def _predict_http(port, bodies, proto):
+    """(probabilities, stamped version or None) of one /v1/predict, as JSON
+    or as a protobuf PredictRequest (whose response carries no version)."""
+    from deeprec_tpu_torch.serving import predict_pb as pb
+
+    if proto:
+        code, data = _http(port, "/v1/predict", bodies[1], "application/x-protobuf")
+        if code != 200:
+            raise AssertionError(f"protobuf /v1/predict answered {code}: {data[:200]}")
+        return pb.PredictResponse.parse(data).outputs["probabilities"].to_numpy(), None
+    code, data = _http(port, "/v1/predict", bodies[0])
+    if code != 200:
+        raise AssertionError(f"JSON /v1/predict answered {code}: {data[:200]}")
+    d = json.loads(data)
+    return np.asarray(d["predictions"], np.float32), d["model_version"]
+
+
+def _wait_for(cond, what, timeout=120.0):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"phase 18: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _launch_delta(before):
+    return _launch_counts() - before
+
+
+def _read_launches(p):
+    """(#1, #3, #2, #5, #4) of one read-only forward of Predictor `p`: a
+    gather per lookup group (#1 on a bf16 residency, #3 on f32, plain
+    indexing on int8) and the #4 launches of its pooled groups."""
+    g, c = _per_request(p._trainer)
+    return np.array([g * (p.quantize == "bfloat16"), g * (p.quantize == "float32"), 0, 0, c])
+
+
+def _import_launches(p, paths, boot=False):
+    """(#1, #3, #2, #5, #4) of Predictor `p` importing the links `paths`
+    (`_link_bundles` at its restore chunk), and at boot its warm replay's
+    one import of sentinel rows per bundle: #2 into a bf16 residency, #5
+    into f32, plain stores into int8."""
+    n = sum(_link_bundles(path, p._restore_chunk) for path in paths)
+    n += len(p._trainer.bundles) if boot else 0
+    return np.array([0, 0, n * (p.quantize == "bfloat16"), n * (p.quantize == "float32"), 0])
+
+
+def _train_launches(trainer):
+    """(#1, #3, #2, #5, #4) of one train step on f32 tables (`_loop_launches`
+    with the bf16 gathers and scatters on the f32 kernels) and of one save:
+    a gather per member of its values and of each per-row slot, at the
+    member's static budget, so a delta with no dirty row gathers too."""
+    from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
+
+    a, b, c, d = _loop_launches(trainer)
+    nslots = sum(1 for name in trainer.sparse_opt.slot_specs(1)
+                 if not name.startswith(SCALAR_PREFIX))
+    members = sum(bd.num_tables for bd in trainer.bundles.values())
+    return (np.array([0, a + b, 0, c + d, 0]),
+            np.array([0, members * (1 + nslots), 0, 0, 0]))
+
+
+def serve_load(dev, seed, full, cfg, ckdir):
+    """Phase 18 (a), (b), (d): the chain, the HTTP server under load while
+    the deltas land, the quality gate. Returns (stats, the live predictor,
+    the probe batch)."""
+    import threading
+
+    from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.guard import QualityGate
+    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.obs import metrics as obs_metrics
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.serving import HttpServer, ModelServer, Predictor
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    st = {}
+    model = DLRMDCN(**full, seed=seed)
+    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+    state = trainer.init()
+    gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed,
+                          num_cat=model.num_cat, num_dense=model.num_dense)
+    staged = [trainer.device_batch(gen.batch())
+              for _ in range(cfg["steps"] * (1 + cfg["deltas"]))]
+    reqs, probe = _serve_requests(model, seed, cfg)
+    ck = CheckpointManager(ckdir, trainer)
+    losses, paths = [], []
+    # the launches the path implies, summed as it runs (see run_serving)
+    step_l, save_l = _train_launches(trainer)
+    want = cfg["steps"] * (1 + cfg["deltas"]) * step_l + (1 + cfg["deltas"]) * save_l
+    # the trainer on a CUDA stream of its own, as a trainer process beside
+    # the server would be: the requests' kernels do not queue behind its steps
+    _sync(dev)
+    train_stream = (torch.cuda.stream(torch.cuda.Stream(dev)) if dev.type == "cuda"
+                    else contextlib.nullcontext())
+
+    def train(i0):
+        nonlocal state
+        with train_stream:
+            for i in range(i0, i0 + cfg["steps"]):
+                state, m = trainer.train_step(state, staged[i])
+                losses.append(float(m["loss"]))
+
+    def save(delta):
+        nonlocal state
+        with train_stream:
+            state, path = (ck.save_incremental if delta else ck.save)(state)
+        paths.append(path)
+
+    t0 = time.perf_counter()
+    train(0)
+    save(False)
+    st["chain_s"] = [time.perf_counter() - t0]
+    st["t_setup"] = time.perf_counter()
+
+    # (b) the server on the full save, the gate armed on the probe batch
+    gate = QualityGate(probe=probe, max_shift=cfg["max_shift"])
+    t0 = time.perf_counter()
+    p = Predictor(model, ckdir, device=dev, quality_gate=gate)
+    _sync(dev)
+    st["boot_s"] = time.perf_counter() - t0
+    read = _read_launches(p)
+    want += _import_launches(p, paths, boot=True) + read  # the gate's first reference
+    ms = ModelServer(p, max_batch=cfg["max_batch"], poll_updates_secs=cfg["poll_secs"])
+    t0 = time.perf_counter()
+    st["buckets"] = ms.warmup({k: v[:1] for k, v in probe.items()})
+    st["warmup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = [p.predict(r) for r in reqs]  # the boot version, request by request
+    st["solo_s"] = time.perf_counter() - t0
+    bodies = [_bodies(r) for r in reqs]
+    http = HttpServer(ms, port=0, host="127.0.0.1").start()
+    swaps, commits = [], []
+    p._pre_swap = lambda: swaps.append(time.monotonic())
+    stop = threading.Event()
+    logs = [[] for _ in range(cfg["clients"])]
+    errors = []
+    done = [0]
+    lock = threading.Lock()
+
+    def client(c):
+        rng = np.random.default_rng(seed + 100 + c)
+        try:
+            while not stop.is_set():
+                j = int(rng.integers(len(reqs)))
+                proto = j % 4 == 3
+                t1 = time.monotonic()
+                probs, ver = _predict_http(http.port, bodies[j], proto)
+                logs[c].append((j, proto, ver, t1, time.monotonic(), probs))
+                with lock:
+                    done[0] += 1
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(cfg["clients"])]
+    t_load = time.monotonic()
+    for th in threads:
+        th.start()
+    try:
+        boot = int(cfg["requests"] * cfg["boot_share"])
+        _wait_for(lambda: done[0] >= boot or errors, "the boot-version requests")
+        # each delta's steps run while the previous delta replays; a delta
+        # is written only after the previous one is served (one bump each)
+        t0 = time.perf_counter()
+        for d in range(cfg["deltas"]):
+            train(cfg["steps"] * (1 + d))
+            _wait_for(lambda: p.version >= d or errors, f"delta {d}'s swap")
+            save(True)
+            commits.append(time.monotonic())
+            st["chain_s"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        _wait_for(lambda: p.version >= cfg["deltas"] or errors, "the last delta's swap")
+        _wait_for(lambda: done[0] >= cfg["requests"] or errors, "the requests")
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+    load_s = time.monotonic() - t_load
+    if errors:
+        raise errors[0]
+    # warmup, the solo predicts, the device batches; per delta its replay,
+    # the gate's pass and the warm batches
+    want += (len(p._warm_batches) * (1 + cfg["deltas"]) + len(reqs) + cfg["deltas"]) * read
+    want += _import_launches(p, paths[1:])
+    if p.version != cfg["deltas"] or p.update_count != cfg["deltas"] or len(swaps) != cfg["deltas"]:
+        raise AssertionError(f"version {p.version}, {p.update_count} updates, {len(swaps)} swaps "
+                             f"for {cfg['deltas']} deltas: the version must bump once per delta")
+    # the gates of (b)
+    entries = [e for log in logs for e in log]
+    boot_err, boot_n = 0.0, 0
+    for c, log in enumerate(logs):
+        vers = [e[2] for e in log if e[2] is not None]
+        if vers != sorted(vers):
+            raise AssertionError(f"client {c}: stamped versions decreased: {vers}")
+    for j, proto, ver, t1, t2, probs in entries:
+        n = len(next(iter(reqs[j].values())))
+        if probs.shape != (n,) or not np.all(np.isfinite(probs)) or not (
+                np.all(probs > 0) and np.all(probs < 1)):
+            raise AssertionError(f"an answer of {n} rows is not finite in (0, 1)")
+        # protobuf answers carry no version: those that ended before the
+        # first swap are the boot version's
+        if ver == 0 or (ver is None and t2 < swaps[0]):
+            boot_err = max(boot_err, float(np.abs(probs - solo[j]).max()))
+            boot_n += 1
+    if boot_err > COALESCE_ATOL:
+        raise AssertionError(f"coalesced answers differ from solo predicts by {boot_err} "
+                             f"(tolerance {COALESCE_ATOL})")
+    code, body = _http(http.port, "/healthz")
+    if code != 200 or json.loads(body)["status"] != "ok":
+        raise AssertionError(f"/healthz answered {code}: {body[:200]}")
+    code, body = _http(http.port, "/v1/model_info")
+    info = json.loads(body)
+    if code != 200 or info["step"] != state.step or info["model_version"] != cfg["deltas"]:
+        raise AssertionError(f"/v1/model_info {info}, the trainer is at step {state.step}")
+    code, body = _http(http.port, "/v1/stats")
+    snap = json.loads(body)
+    if code != 200 or snap["stages"]["device"]["count"] == 0:
+        raise AssertionError(f"/v1/stats answered {code}")
+    want += snap["batches"] * read
+    code, text = _http(http.port, "/metrics")
+    if code != 200 or (obs_metrics.metrics_enabled()
+                       and b"deeprec_serving_requests" not in text):
+        raise AssertionError(f"/metrics answered {code}")
+    http.stop()
+    ms.close()
+
+    lat = np.array([(e[4] - e[3]) * 1e3 for e in entries])
+    windows = list(zip(commits, swaps))
+
+    def during(e, w):
+        return e[3] <= w[1] and e[4] >= w[0]
+
+    steady = [x for x, e in zip(lat, entries) if not any(during(e, w) for w in windows)]
+    st.update(
+        requests=len(entries), rows=sum(len(next(iter(reqs[e[0]].values()))) for e in entries),
+        proto=sum(e[1] for e in entries), load_s=load_s, rps=len(entries) / load_s,
+        p50=float(np.percentile(lat, 50)), p90=float(np.percentile(lat, 90)),
+        p99=float(np.percentile(lat, 99)),
+        steady_p99=float(np.percentile(steady, 99)) if steady else None,
+        worst_during=[max([float(x) for x, e in zip(lat, entries) if during(e, w)],
+                          default=None) for w in windows],
+        replay_s=[b - a for a, b in windows], boot_err=boot_err, boot_n=boot_n,
+        stages={s: snap["stages"][s] for s in ("queue", "pad", "device", "post", "e2e")},
+        batch_rows=snap["batch_rows"], batches=snap["batches"],
+        lag=p.last_apply_lag_seconds, last_update_ms=p.last_update_ms, step=state.step,
+        losses=losses)
+
+    # (d) the quality gate: a delta whose dense leaves are NaN
+    t_gate = time.perf_counter()
+    before = p.predict(probe)
+    v = p.version
+    counter = (obs_metrics.default_registry().counter("deeprec_quality_gate_rejections")
+               if obs_metrics.metrics_enabled() else None)
+    c0 = counter.value if counter is not None else None
+    _sync(dev)
+    for t in state.dense.values():
+        t.fill_(float("nan"))
+    # one step on: a delta of its own, with no dirty row and NaN dense leaves
+    state, path = ck.save_incremental(dataclasses.replace(state, step=state.step + 1))
+    # before, the gate's pass and after; the poisoned delta's save and replay
+    want += 3 * read + save_l + _import_launches(p, [path])
+    if p.poll_updates():
+        raise AssertionError("the poisoned delta was published")
+    if os.path.exists(path) or not os.path.exists(path + ".quarantined"):
+        raise AssertionError(f"the poisoned delta {path} was not quarantined")
+    if p.version != v or not np.array_equal(p.predict(probe), before):
+        raise AssertionError("the old version stopped answering bit for bit")
+    h = p.health()
+    if h["status"] != "degraded" or h.get("degraded_reason") != "quality_gate":
+        raise AssertionError(f"health after a gated update: {h}")
+    if counter is not None and counter.value - c0 != 1:
+        raise AssertionError(f"deeprec_quality_gate_rejections moved by {counter.value - c0}")
+    st["gate"] = dict(gate.last_rejection or {}, counter=None if counter is None
+                      else counter.value)
+    st["gate_s"] = time.perf_counter() - t_gate
+    st.update(want=want, paths=paths)
+    _sync(dev)
+    del trainer, state, staged, ck
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return st, p, probe, model
+
+
+def serve_residency(dev, p, probe, model, cfg, ckdir, paths):
+    """Phase 18 (b)'s last gate, (c) and (e): a fresh Predictor on the same
+    chain (the links `paths`) bit for bit, bf16 and int8 residencies,
+    ServerGroup. Returns stats, with the launches the path implies under
+    `want`."""
+    from deeprec_tpu_torch.serving import Predictor, ServerGroup
+
+    st = {}
+    ref = p.predict(probe)
+    t0 = time.perf_counter()
+    fresh = Predictor(model, ckdir, device=dev)
+    st["restore_fresh"] = time.perf_counter() - t0
+    if not np.array_equal(fresh.predict(probe), ref):
+        raise AssertionError("the served model differs from a fresh Predictor on the chain")
+    want = 2 * _read_launches(p) + _import_launches(fresh, paths, boot=True)
+    del fresh
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (e)'s ServerGroup(replicas=2) on one device: one member, here an int8
+    # Predictor of the final chain, which (c) measures
+    t0 = time.perf_counter()
+    g = ServerGroup(model, ckdir, replicas=2, device=dev, max_batch=cfg["max_batch"],
+                    quantize="int8")
+    _sync(dev)
+    st["restore_int8"] = time.perf_counter() - t0
+    try:
+        p8 = g.members[0].predictor
+        want += _import_launches(p8, paths, boot=True)
+        want += _residencies(dev, p, p8, probe, model, cfg, ckdir, st, paths)
+        sub = {k: v[:16] for k, v in probe.items()}
+        got = g.request(sub)
+        st["group"] = len(g.members)
+        if len(g.members) != 1 or not np.array_equal(
+                got, g.members[0].predictor.predict(sub)):
+            raise AssertionError(f"ServerGroup(replicas=2): {len(g.members)} members")
+        want += 2 * _read_launches(p8)
+    finally:
+        g.close()
+    st["want"] = want
+    return st
+
+
+def _residencies(dev, p, p8, probe, model, cfg, ckdir, st, paths):
+    """Phase 18 (c) on the f32 predictor `p`, a bf16 one built here and the
+    int8 one `p8`: the answers' distance from f32, the resident bytes, the
+    launches of one predict and p50/p90 at the probe batch, into `st`.
+    Returns the launches this part implies."""
+    from deeprec_tpu_torch.serving import Predictor
+
+    groups, combines = _per_request(p._trainer)
+    t0 = time.perf_counter()
+    res = {"float32": p, "bf16": Predictor(model, ckdir, device=dev, quantize="bf16"),
+           "int8": p8}
+    _sync(dev)
+    st["restore_bf16"] = time.perf_counter() - t0
+    implied = _import_launches(res["bf16"], paths, boot=True)
+    implied += sum((1 + cfg["timed"]) * _read_launches(pq) for pq in res.values())
+    out = {}
+    for q, pq in res.items():
+        before = _launch_counts()
+        out[q] = pq.predict(probe)
+        n1, n3, _, _, n4 = _launch_delta(before)
+        want = {"float32": (0, groups), "bf16": (groups, 0), "int8": (0, 0)}[q]
+        if dev.type == "cuda" and ((n1, n3) != want or n4 != combines):
+            raise AssertionError(f"a {q} predict launched (#1, #3, #4) {(n1, n3, n4)}, the "
+                                 f"path implies {(*want, combines)}")
+        lat = []
+        for _ in range(cfg["timed"]):
+            t0 = time.perf_counter()
+            pq.predict(probe)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        st[q] = dict(p50=float(np.percentile(lat, 50)), p90=float(np.percentile(lat, 90)),
+                     residency=pq.residency_info()["measured_bytes"])
+        ri = pq.residency_info()
+        if ri["measured_bytes"] != ri["modeled_bytes"]:
+            raise AssertionError(f"{q}: measured {ri['measured_bytes']} B, modelled "
+                                 f"{ri['modeled_bytes']} B")
+    st["dp"] = {q: float(np.abs(out[q] - out["float32"]).max()) for q in ("bf16", "int8")}
+    if st["dp"]["bf16"] >= BF16_ATOL or st["dp"]["int8"] >= INT8_ATOL:
+        raise AssertionError(f"quantized answers moved {st['dp']} (bounds {BF16_ATOL}, "
+                             f"{INT8_ATOL})")
+    f32 = st["float32"]["residency"]
+    if st["int8"]["residency"] > INT8_SHARE * f32 or st["bf16"]["residency"] != f32 // 2:
+        raise AssertionError("the quantized residencies are not the bytes they should be")
+    del res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return implied
+
+
+def run_serving(dev, seed, full, cfg, ckroot):
+    """Phase 18, printed. Returns the launches of (#1, #3, #2, #5, #4) over
+    its path."""
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+
+    t0 = time.perf_counter()
+    ckdir = os.path.join(ckroot, "serve")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
+    st, p, probe, model = serve_load(dev, seed, full, cfg, ckdir)
+    print(f"serving stack (a): DLRM-DCN {full}, f32 tables: a full save after {cfg['steps']} "
+          f"steps and {cfg['deltas']} deltas of {cfg['steps']} (steps, the wait for the "
+          f"previous swap and the save, s) "
+          f"{[round(s, 3) for s in st['chain_s']]}; losses {st['losses'][0]:.6f} .. "
+          f"{st['losses'][-1]:.6f}; Predictor booted in {st['boot_s']:.3f} s, warmup of "
+          f"{st['buckets']} buckets {st['warmup_s']:.3f} s, {cfg['payloads']} solo predicts "
+          f"{st['solo_s']:.3f} s")
+    print(f"serving stack (b): {st['requests']} requests ({st['proto']} protobuf; "
+          f"{cfg['payloads']} payloads encoded beforehand) of "
+          f"1-{cfg['max_rows']} rows, {st['rows']} rows, from {cfg['clients']} clients in "
+          f"{st['load_s']:.3f} s: {st['rps']:.1f} requests/s; e2e p50 {st['p50']:.3f}, p90 "
+          f"{st['p90']:.3f}, p99 {st['p99']:.3f} ms; the worst request during each update "
+          f"{[None if w is None else round(w, 3) for w in st['worst_during']]} ms against "
+          f"the steady p99 {st['steady_p99']} ms; delta available to swap "
+          f"{[round(s, 3) for s in st['replay_s']]} s; last_apply_lag_seconds {st['lag']}, "
+          f"last_update_ms {st['last_update_ms']}")
+    print(f"serving stack (b): stages (ms) " + "; ".join(
+        f"{s} p50 {v['p50_ms']} p90 {v['p90_ms']} p99 {v['p99_ms']} mean {v['mean_ms']}"
+        for s, v in st["stages"].items())
+          + f"; {st['batches']} device batches, mean rows per batch "
+          f"{st['batch_rows']['mean']}")
+    print(f"serving stack (b): {st['boot_n']} boot-version answers equal solo predicts within "
+          f"{st['boot_err']:.3g} (tolerance {COALESCE_ATOL}); stamped versions never "
+          f"decreased; version bumped once per delta; /healthz 200, /v1/model_info step "
+          f"{st['step']}, /v1/stats and /metrics answered")
+    print(f"serving stack (d): a delta with NaN dense leaves rejected by the quality gate "
+          f"({st['gate']}), quarantined, the old version answering bit for bit, health "
+          f"degraded: quality_gate ({st['gate_s']:.3f} s with its save)")
+    rs = serve_residency(dev, p, probe, model, cfg, ckdir, st["paths"])
+    del p
+    print(f"serving stack (b): after the last swap the served model equals a fresh "
+          f"Predictor on the chain bit for bit ({cfg['probe']} probe rows)")
+    print(f"serving stack (c): restore s (3 links) fresh f32 {rs['restore_fresh']:.3f}, bf16 "
+          f"{rs['restore_bf16']:.3f}, int8 (ServerGroup's member) {rs['restore_int8']:.3f}; "
+          f"predict at batch {cfg['probe']}, p50 / p90 ms: " +
+          ", ".join(f"{q} {rs[q]['p50']:.3f} / {rs[q]['p90']:.3f}"
+                    for q in ("float32", "bf16", "int8")) +
+          f"; max |dp| against f32 {rs['dp']} (bounds {BF16_ATOL}, {INT8_ATOL}); value "
+          f"bytes f32 {rs['float32']['residency']}, bf16 {rs['bf16']['residency']}, int8 "
+          f"{rs['int8']['residency']} ({rs['int8']['residency'] / rs['float32']['residency']:.4f}"
+          f" of f32), each equal to the model")
+    print(f"serving stack (e): ServerGroup(replicas=2, quantize='int8') on one {dev.type} "
+          f"device: {rs['group']} member, answering as its Predictor")
+    launches = _launch_counts()
+    _row_counts()  # ... and ends here (adds the bf16 launches to PAIR_LAUNCHES)
+    want = st["want"] + rs["want"]
+    if dev.type == "cuda" and not np.array_equal(launches, want):
+        raise AssertionError(f"phase 18 launched (#1, #3, #2, #5, #4) {launches.tolist()}, the "
+                             f"path implies {want.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    print(f"serving stack: the path launched (#1, #3, #2, #5, #4) {launches.tolist()} (implied "
+          f"{want.tolist()}); peak device memory {peak} GB")
+    print(f"phase 18 (the serving stack) took {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return launches
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
-        multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST):
-    """Phases 3-17 on `dev`. Returns the kernel records, in the order of
+        multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST,
+        serve=SERVE):
+    """Phases 3-18 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
@@ -5045,6 +5605,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         gather["launches"] += int(il[0] + il[1])
         scatter["launches"] += int(il[2] + il[3])
         pooled["launches"] += int(il[4])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        sl = run_serving(dev, seed, full, serve, ckroot)
+        # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
+        gather["launches"] += int(sl[0] + sl[1])
+        scatter["launches"] += int(sl[2] + sl[3])
+        pooled["launches"] += int(sl[4])
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's
@@ -5054,6 +5622,19 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
     print(f"main paths: bf16 launches (gather_rows, apply_rows_sr) "
           f"{(PAIR_LAUNCHES['gather_rows'], PAIR_LAUNCHES['apply_rows_sr'])}")
     return list(rec.values())
+
+
+def _process_seconds():
+    """Seconds since this process started (from /proc), or None where
+    there is no /proc."""
+    try:
+        with open("/proc/self/stat") as f:
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+    return up - start / os.sysconf("SC_CLK_TCK")
 
 
 def main(argv=None) -> int:
@@ -5094,7 +5675,9 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
+    proc = _process_seconds()
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s (the process "
+          f"has run {'an unknown time' if proc is None else f'{proc:.1f} s'})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

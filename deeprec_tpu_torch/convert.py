@@ -31,7 +31,7 @@ def table_state_from_arrays(cfg, arrays: Dict[str, np.ndarray], num_tables: int,
     unstacked): `keys`, `values`, `meta`, and optionally `slots` ({name:
     array}), a CBF table's sketch `bloom` and the int32 counters
     `insert_fails`, `dedup_unique`, `dedup_ids`, `dedup_overflow` (zero
-    when absent). Packed small-dim arrays ([C // P,
+    when absent), and an int8 table's per-row scale `qscale`. Packed small-dim arrays ([C // P,
     P * w]) unpack by a reshape: the rows are row-major."""
     T = num_tables
     keys = np.asarray(arrays["keys"]).reshape(T, -1)
@@ -57,6 +57,8 @@ def table_state_from_arrays(cfg, arrays: Dict[str, np.ndarray], num_tables: int,
         **counters,
         bloom=(None if arrays.get("bloom") is None else torch.tensor(
             np.asarray(arrays["bloom"], np.int32).reshape(T, -1), device=device)),
+        qscale=(None if arrays.get("qscale") is None else torch.tensor(
+            np.asarray(arrays["qscale"], np.float32).reshape(T, C), device=device)),
     )
 
 

@@ -28,9 +28,10 @@ memory on the current stream and records an event; the worker thread waits
 on that event before it touches numpy and launches no CUDA work. The next
 train step, queued behind the copies, cannot change what the round reads.
 
-Left out: the serving row cache (`row_cache_bytes`, which needs
-`serving/reuse.ReuseCache`, ROADMAP queue A item 7) and the obs-plane
-counters (item 8); their values are kept as plain int attributes.
+`row_cache_bytes` puts the serving row cache (`serving/reuse.ReuseCache`,
+keyed by id and tier revision) in front of the stores'
+`lookup_with_fallback` reads. Left out: the obs-plane counters (ROADMAP
+queue A item 8); their values are kept as plain int attributes.
 """
 from __future__ import annotations
 
@@ -288,10 +289,6 @@ class MultiTierTable:
                  low_watermark: float = 0.6, storage_path: Optional[str] = None,
                  slot_fills: Optional[tuple] = None, scan_diet: bool = True,
                  row_cache_bytes: int = 0):
-        if row_cache_bytes > 0:
-            raise NotImplementedError(
-                "MultiTierTable(row_cache_bytes=) needs serving/reuse.ReuseCache, "
-                "which waits for ROADMAP queue A item 7 (serving breadth)")
         cfg = table.cfg
         self.table = table
         self.high = high_watermark
@@ -326,6 +323,16 @@ class MultiTierTable:
         # Gather generation: bumped only where rows are WRITTEN (demote,
         # load); a package gathered at an older generation is dead.
         self._tier_rev = 0
+        # Serving row cache: a byte-bounded LRU over the D-wide value slice
+        # of host/disk-resident rows, keyed (id, tier revision). Off by
+        # default — lookup_with_fallback then reads the stores every time.
+        self.row_cache = None
+        if row_cache_bytes > 0:
+            from deeprec_tpu_torch.serving.reuse import ReuseCache
+
+            self.row_cache = ReuseCache(
+                int(row_cache_bytes), f"tier_rows_{cfg.name}",
+                version_fn=lambda: self._tier_rev)
         self._gather_gen = 0
         # fold erases deferred while a round owns the stores
         self._pending_erase: list = []
@@ -943,7 +950,11 @@ class MultiTierTable:
     def lookup_with_fallback(self, state: TableState, ids) -> torch.Tensor:
         """Read-only lookup (rows [*ids.shape, D] in the value dtype, on the
         state's device) that serves a device miss from the host tier, then
-        the disk tier: one store probe over the distinct ids."""
+        the disk tier: one store probe over the distinct ids. With
+        `row_cache_bytes`, the row cache serves hot demoted rows without
+        touching the stores; its entries are keyed (id, tier revision), so
+        a row is never served across a boundary that changed the tiers.
+        Both paths give the same rows."""
         self._settle()  # a running round owns the stores
         ids_t = torch.as_tensor(np.asarray(ids) if not torch.is_tensor(ids) else ids)
         emb = self.table.lookup_readonly(state, ids_t.to(state.keys.device)[None])[0]
@@ -952,25 +963,49 @@ class MultiTierTable:
         D = self.table.cfg.dim
         flat_ids = ids_t.reshape(-1).cpu().numpy().astype(np.int64)
         uniq, inv = np.unique(flat_ids, return_inverse=True)
-        with self._store_lock:
-            if self.host is not None:
-                h_vals, _, _, found = self.host.get(uniq)
-            else:
-                h_vals = np.zeros((len(uniq), self.disk.dim), np.float32)
-                found = np.zeros(len(uniq), bool)
-            if self.disk is not None and (~found).any():
-                miss = ~found
-                d_vals, _, _, d_found = self.disk.get(uniq[miss])
-                if d_found.any():
-                    mix = np.nonzero(miss)[0][d_found]
-                    h_vals[mix] = d_vals[d_found]
-                    found[mix] = True
-        if found.any():
-            sel = found[inv]
+        n = len(uniq)
+        u_vals = np.zeros((n, D), np.float32)
+        u_found = np.zeros(n, bool)
+        need = np.ones(n, bool)
+        cache = self.row_cache
+        if cache is not None:
+            for j in range(n):
+                hit = cache.get_current(int(uniq[j]).to_bytes(8, "little", signed=True))
+                if hit is not None:
+                    u_vals[j] = hit[0]
+                    u_found[j] = True
+                    need[j] = False
+        probe = uniq[need]
+        if len(probe):
+            with self._store_lock:
+                rev = self._tier_rev
+                if self.host is not None:
+                    h_vals, _, _, found = self.host.get(probe)
+                else:
+                    h_vals = np.zeros((len(probe), self.disk.dim), np.float32)
+                    found = np.zeros(len(probe), bool)
+                if self.disk is not None and (~found).any():
+                    miss = ~found
+                    d_vals, _, _, d_found = self.disk.get(probe[miss])
+                    if d_found.any():
+                        mix = np.nonzero(miss)[0][d_found]
+                        h_vals[mix] = d_vals[d_found]
+                        found[mix] = True
+            if found.any():
+                pix = np.nonzero(need)[0][found]
+                rows = h_vals[found][:, :D]  # packed rows: values first
+                u_vals[pix] = rows
+                u_found[pix] = True
+                if cache is not None:
+                    for j, v in zip(pix, rows):
+                        cache.put(int(uniq[j]).to_bytes(8, "little", signed=True),
+                                  rev, np.array(v))
+        if u_found.any():
+            sel = u_found[inv]
             pos = torch.as_tensor(np.nonzero(sel)[0], device=emb.device)
-            rows = torch.as_tensor(h_vals[inv[sel], :D], device=emb.device)
+            rows = torch.as_tensor(u_vals[inv[sel]], device=emb.device)
             flat = emb.reshape(len(flat_ids), D)
-            flat[pos] = rows.to(flat.dtype)  # packed rows: values first
+            flat[pos] = rows.to(flat.dtype)
             emb = flat.reshape(emb.shape)
         return emb
 

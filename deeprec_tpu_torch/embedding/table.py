@@ -1,7 +1,10 @@
 """Hash-embedding table — the port of `deeprec_tpu/embedding/table.py`
 (create, probe/insert, the split-phase train and read-only lookups with
 counter and counting-Bloom admission, initializer rows, scatter_update,
-and the life cycle: eviction by TTL and L2 norm, rebuild, growth).
+the life cycle: eviction by TTL and L2 norm, rebuild, growth, and the
+int8 serving residency: rows stored as int8 with a per-row f32 scale
+(`TableState.qscale`), quantized on import (`quantize_rows_int8`) and
+dequantized on every read-only gather).
 
 The table is a set of dense tensors in device memory: `keys [T, C]`,
 `values [T, C, D]`, the fused per-slot metadata `meta [T, 3, C]`
@@ -36,7 +39,29 @@ from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
 from deeprec_tpu_torch.utils import hashing
 
 KEY_DTYPES = {"int32": torch.int32, "int64": torch.int64}
-VALUE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+VALUE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "int8": torch.int8}
+
+# int8 residency quantization range: symmetric, -127..127 (the -128 code is
+# unused so negation is exact and the scale maps max|row| onto the top code).
+QMAX = 127.0
+
+
+def quantize_rows_int8(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization for the serving residency, the
+    JAX package's formula and order: returns (q, scale) with rows ≈ q *
+    scale[..., None]. `q` is integer-valued f32 in [-127, 127] (rounded half
+    to even), `scale` f32 = max|row| / 127, 0 for an all-zero row (which
+    decodes to 0). XLA flushes a subnormal scale to 0; so does this."""
+    rows = rows.to(torch.float32)
+    amax = rows.abs().amax(dim=-1)
+    scale = amax / QMAX
+    scale = torch.where(scale < torch.finfo(torch.float32).tiny,
+                        torch.zeros_like(scale), scale)
+    inv = torch.where(scale > 0, 1.0 / torch.clamp(scale, min=1e-30),
+                      torch.zeros_like(scale))
+    q = torch.clamp(torch.round(rows * inv[..., None]), -QMAX, QMAX)
+    return q, scale
 
 # Row indices of the fused metadata tensor, and each row's fill value for an
 # empty slot: freq 0, version -1 (never touched), dirty 0.
@@ -69,6 +94,8 @@ class TableState:
     dedup_overflow: torch.Tensor
     # [T, M] int32 counting-Bloom sketch of a CBF-filtered table, else None
     bloom: Optional[torch.Tensor] = None
+    # [T, C] f32 per-row dequantization scale of an int8 table, else None
+    qscale: Optional[torch.Tensor] = None
 
 
 COUNTERS = ("insert_fails", "dedup_unique", "dedup_ids", "dedup_overflow")
@@ -90,7 +117,8 @@ def member_view(ts: TableState, k: int) -> TableState:
         keys=ts.keys[cut], values=ts.values[cut], meta=ts.meta[cut],
         slots={n: a[cut] for n, a in ts.slots.items()},
         **{n: getattr(ts, n)[cut] for n in COUNTERS},
-        bloom=None if ts.bloom is None else ts.bloom[cut])
+        bloom=None if ts.bloom is None else ts.bloom[cut],
+        qscale=None if ts.qscale is None else ts.qscale[cut])
 
 
 @dataclasses.dataclass
@@ -120,6 +148,23 @@ class EmbeddingTable:
         # round), summed over every lookup and restore of this table.
         self.probe_syncs = 0
 
+    @property
+    def quantized(self) -> bool:
+        """int8 serving residency: rows store int8 plus a per-row f32 scale
+        (`TableState.qscale`) and every gather dequantizes. Serving only:
+        train-mode lookups raise (train f32, serve quantized)."""
+        return self.cfg.value_dtype == "int8"
+
+    @staticmethod
+    def _gather_dequant(state: TableState, safe_ix: torch.Tensor) -> torch.Tensor:
+        """Rows [T, n, D] f32 of an int8 table at slots safe_ix [T, n]: the
+        int8 rows by plain indexing (no kernel: the TPU kernels move 4-byte
+        items only, so the JAX package gathers int8 rows outside them too),
+        then one [T, n] scale gather and a broadcast multiply."""
+        t = torch.arange(state.values.shape[0], device=safe_ix.device)[:, None]
+        ix = safe_ix.long()
+        return state.values[t, ix].to(torch.float32) * state.qscale[t, ix][..., None]
+
     # ------------------------------------------------------------------ state
 
     def create(self, num_tables: int = 1, device=None) -> TableState:
@@ -127,10 +172,8 @@ class EmbeddingTable:
         optimizer slots: `optim.apply.ensure_slots` adds them)."""
         cfg = self.cfg
         if cfg.value_dtype not in VALUE_DTYPES:
-            raise NotImplementedError(
-                f"table {cfg.name}: value_dtype {cfg.value_dtype!r} (int8 "
-                "serving residency) waits for a later slice"
-            )
+            raise ValueError(
+                f"table {cfg.name}: unknown value_dtype {cfg.value_dtype!r}")
         device = resolve_device(device)
         T, C, D = num_tables, cfg.capacity, cfg.dim
         fill = torch.tensor(_META_FILL, dtype=torch.int32, device=device)
@@ -145,6 +188,8 @@ class EmbeddingTable:
             **zero_counters(T, device),
             bloom=(None if cbf is None else torch.zeros(
                 (T, cbf.num_cells()), dtype=torch.int32, device=device)),
+            qscale=(torch.zeros((T, C), dtype=torch.float32, device=device)
+                    if self.quantized else None),
         )
 
     def occupied(self, state: TableState) -> torch.Tensor:
@@ -168,7 +213,10 @@ class EmbeddingTable:
         cfg = self.cfg
         init = cfg.ev.init
         D = cfg.dim
-        vdt = VALUE_DTYPES[cfg.value_dtype]
+        # an int8 table serves missing keys at full precision: the
+        # initializer row never lives in the residency, so there is nothing
+        # to dequantize
+        vdt = torch.float32 if self.quantized else VALUE_DTYPES[cfg.value_dtype]
         device = uids.device
         if init.kind == "constant":
             return torch.full((*uids.shape, D), init.constant, dtype=vdt,
@@ -331,6 +379,12 @@ class EmbeddingTable:
         claim a slot. Embeddings stay an empty placeholder until
         `_finish_resolved`."""
         cfg = self.cfg
+        if train and self.quantized:
+            raise ValueError(
+                f"table {cfg.name}: int8 residency is serving-only — train "
+                "fp32 and restore into a quantized Predictor "
+                "(Predictor(quantize='int8'))"
+            )
         cf = cfg.ev.counter_filter
         need_filter = cf is not None and cf.filter_freq > 0
         want_create = valid if train else None
@@ -383,9 +437,13 @@ class EmbeddingTable:
         """Value half of a lookup: gather the resolved rows through the
         row-gather kernel, then serve `default_value_no_permission` where a
         key is absent or not admitted. The raw gathered rows ride along as
-        the `rows` residual."""
+        the `rows` residual. An int8 table gathers and dequantizes by plain
+        indexing (`_gather_dequant`): its rows come out f32."""
         safe_ix = torch.where(res.slot_ix >= 0, res.slot_ix, 0)
-        emb = gather_rows(state.values, safe_ix)
+        if self.quantized:
+            emb = self._gather_dequant(state, safe_ix)
+        else:
+            emb = gather_rows(state.values, safe_ix)
         masked = torch.where(
             res.admitted[..., None], emb,
             self.cfg.ev.init.default_value_no_permission,
@@ -456,7 +514,8 @@ class EmbeddingTable:
         by plain indexing: no kernel. The metadata moves with its row;
         vacated slots take the empty fills, per-row optimizer slots their
         init value from `slot_fills` ((name, value) pairs; 0 when absent),
-        and per-table scalar slots and the sketch pass through. The
+        and per-table scalar slots and the sketch pass through (an int8
+        table's per-row scale moves with its row). The
         counters restart: `insert_fails` counts survivors that found no
         slot, the dedup counters are zero."""
         from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
@@ -501,6 +560,7 @@ class EmbeddingTable:
                    for name, arr in state.slots.items()},
             **counters,
             bloom=state.bloom,
+            qscale=None if state.qscale is None else move(state.qscale, 0.0),
         )
 
     def evict(self, state: TableState, step: int,
@@ -528,14 +588,16 @@ class EmbeddingTable:
         dtype, no insertion and no counter: a resident key reads its row
         (through the row-gather kernel), a missing key its initializer row
         (pass a stacked bundle's per-member `salt` to match training), a
-        pad zeros."""
+        pad zeros. An int8 table answers f32 rows (`_gather_dequant`)."""
         T = ids.shape[0]
         flat = ids.reshape(T, -1).to(state.keys.dtype)
         is_pad = flat == pad_value
         flat = torch.where(is_pad, empty_key(self.cfg), flat)
         slot_ix, _, _ = self._probe(state.keys, flat)
         present = slot_ix >= 0
-        emb = gather_rows(state.values, torch.where(present, slot_ix, 0))
+        safe_ix = torch.where(present, slot_ix, 0)
+        emb = (self._gather_dequant(state, safe_ix) if self.quantized
+               else gather_rows(state.values, safe_ix))
         emb = torch.where(present[..., None], emb, self._init_rows(flat, salt))
         emb = torch.where(is_pad[..., None], 0.0, emb)
         return emb.reshape(*ids.shape, self.cfg.dim)

@@ -19,11 +19,13 @@ cross net multiplies in plain f32 too, FM sums in f32, and the GRU's gates
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.func
 from torch import nn
 
 from deeprec_tpu_torch.ops.flash_attention import attention_reference, flash_attention
@@ -231,6 +233,124 @@ def transformer_block_apply(p, x: torch.Tensor, mask: torch.Tensor, heads: int,
     ff = dense_apply(p["ff2"], torch.relu(dense_apply(p["ff1"], x)))
     x = layernorm_apply(p["ln2"], x + ff)
     return torch.where(mask[..., None], x, 0.0)
+
+
+# ------------------------------------------------- sample-aware compression
+
+
+def _tree_map(fn, tree):
+    """fn over the tensor leaves of dicts, lists, tuples, NamedTuples and
+    dataclasses (a model's `ModelInputs`); other leaves pass as they are."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def group_compress(group_ids: torch.Tensor, num_groups: int):
+    """Dedup rows by a group id (user id) for sample-aware compression: the
+    port of the JAX `group_compress`. `num_groups` is the fixed number of
+    groups per batch (the packer's G).
+
+    Returns (first_ix [G], inverse [B], ok [B]): `x[first_ix]` is one
+    representative row per group (the first row of each distinct id, in
+    ascending id order; unused groups take row 0), `out[inverse]`
+    broadcasts per-group results back to the batch, and `ok` marks rows
+    whose group made the cut — rows of overflow groups MUST NOT silently
+    receive another group's output."""
+    group_ids = group_ids.reshape(-1)
+    B = group_ids.shape[0]
+    uniq, inverse = torch.unique(group_ids, sorted=True, return_inverse=True)
+    first = torch.full((uniq.shape[0],), B, dtype=torch.int64,
+                       device=group_ids.device).scatter_reduce_(
+        0, inverse, torch.arange(B, device=group_ids.device), reduce="amin")
+    first_ix = torch.zeros((num_groups,), dtype=torch.int64, device=group_ids.device)
+    n = min(num_groups, uniq.shape[0])
+    first_ix[:n] = first[:n]
+    ok = inverse < num_groups
+    return first_ix, torch.where(ok, inverse, 0), ok
+
+
+def apply_grouped(fn, inputs, group_ids: torch.Tensor, num_groups: int):
+    """Run `fn` once per distinct group and broadcast the results to the
+    batch (the JAX `apply_grouped`): fn(tree with leading dim G) on rows
+    deduped by group_ids [B]; output leaves regain leading dim B. Equal to
+    fn(full batch) row for row when fn is row-independent, with G/B of the
+    compute. Rows whose group overflowed num_groups come back as NaN."""
+    first_ix, inverse, ok = group_compress(group_ids, num_groups)
+    out = fn(_tree_map(lambda a: a[first_ix], inputs))
+
+    def broadcast(a):
+        rows = a[inverse]
+        mask = ok.reshape(ok.shape + (1,) * (rows.dim() - 1))
+        return torch.where(mask, rows, torch.full_like(rows, float("nan")))
+
+    return _tree_map(broadcast, out)
+
+
+def _leading_rows(tree) -> int:
+    """The leading dimension of the first tensor leaf of `tree`."""
+    found = []
+    _tree_map(lambda a: found.append(a.shape[0]) or a, tree)
+    if not found:
+        raise ValueError("no tensor in the inputs")
+    return found[0]
+
+
+def fixed_rows(fn, inputs, rows: int):
+    """fn(inputs) computed at exactly `rows` rows per call: the inputs'
+    leading dimension is padded to a multiple of `rows` by repeating the
+    last row, fn runs on each slice of `rows` rows, and the outputs are
+    joined and cut back. Every call then sees one shape, so a row's result
+    does not depend on how many rows it was batched with — which a BLAS
+    that picks its algorithm by the row count does not give otherwise.
+    fn must be row-independent."""
+    B = _leading_rows(inputs)
+    n = max(-(-B // rows), 1) * rows
+
+    def pad(a):
+        if a.shape[0] == n:
+            return a
+        return torch.cat([a, a[-1:].expand(n - a.shape[0], *a.shape[1:])])
+
+    padded = _tree_map(pad, inputs)
+    outs = [fn(_tree_map(lambda a: a[i:i + rows], padded)) for i in range(0, n, rows)]
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: torch.cat([o[k] for o in outs])[:B] for k in first}
+    return torch.cat(outs)[:B]
+
+
+class _BoundMethod(nn.Module):
+    """Calls one method of a module, so `functional_call` can run it over
+    a parameter dict (its parameters sit under `m.`)."""
+
+    def __init__(self, module: nn.Module, name: str):
+        super().__init__()
+        self.m = module
+        self.name = name
+
+    def forward(self, *args):
+        return getattr(self.m, self.name)(*args)
+
+
+def method_call(module: nn.Module, params: Dict[str, torch.Tensor], name: str,
+                *args):
+    """`module.<name>(*args)` with the module's parameters taken from
+    `params` ({parameter name: tensor}, a TrainState's `dense`): the tower
+    methods of a two-tower model (`user_vector`, `apply_with_user`) run on
+    a served state as `functional_call` runs `forward`."""
+    return torch.func.functional_call(
+        _BoundMethod(module, name), {f"m.{k}": v for k, v in params.items()}, args)
 
 
 # --------------------------------------------------------------- modules

@@ -60,8 +60,10 @@ sharded trainer (ROADMAP queue A item 6).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import glob
+import itertools
 import json
 import logging
 import os
@@ -70,6 +72,7 @@ import shutil
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,9 +80,10 @@ import torch
 
 from deeprec_tpu_torch.embedding.table import (
     COUNTERS, KEY_DTYPES, META_DIRTY, META_FREQ, META_VERSION, EmbeddingTable, TableState,
-    empty_key, member_view,
+    empty_key, member_view, quantize_rows_int8,
 )
 from deeprec_tpu_torch.nn import jax_leaf_names
+from deeprec_tpu_torch.obs import trace as obs_trace
 from deeprec_tpu_torch.ops.compact import next_pow2, quantize_rows, rank_compact
 from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
 from deeprec_tpu_torch.optim import dense as dense_optim
@@ -179,65 +183,108 @@ def import_rows(table: EmbeddingTable, state: TableState, member: int,
     (else the key is dropped); `bucket` pads the rows to the next power of
     two and `chunk` imports in slices of exactly `chunk` rows (the last one
     padded), re-applying the per-table entries with every slice. Pad keys
-    hold the sentinel and place nowhere. With no rows only the sketch is
+    hold the sentinel and place nowhere; the pads are made on the device,
+    so only the real rows cross from the host. With no rows only the sketch is
     applied, as in the JAX package. Which slot a key wins in a claim race
-    is free; the row a key reads back is not."""
-    device = state.keys.device
-    n = rows["keys"].shape[0]
-    if n == 0:
-        if "bloom" in rows and state.bloom is not None:
-            state.bloom[member].copy_(torch.as_tensor(np.asarray(rows["bloom"], np.int32)))
-        return
-    if chunk is not None and n > chunk:
-        for off in range(0, n, chunk):
-            import_rows(table, state, member,
-                        {k: (v[off:off + chunk] if is_per_row(k) else v)
-                         for k, v in rows.items()}, strict=strict, chunk=chunk)
-        return
-    m = chunk if chunk is not None else (next_pow2(n) if bucket else n)
-    if m != n:
-        def pad(k, a):
-            a = np.asarray(a)
-            if not is_per_row(k):
-                return a
-            fill = empty_key(table.cfg) if k == "keys" else 0
-            return np.concatenate([a, np.full((m - n,) + a.shape[1:], fill, a.dtype)])
+    is free; the row a key reads back is not. An int8 table quantizes the
+    rows on the way in (`quantize_rows_int8`) and writes each row's scale
+    into `qscale`. `import_members` does the same for several members of a
+    stacked state at once."""
+    import_members(table, member_view(state, member), {0: rows}, strict=strict,
+                   bucket=bucket, chunk=chunk)
 
-        rows = {k: pad(k, v) for k, v in rows.items()}
-    keys = torch.as_tensor(np.asarray(rows["keys"])).to(device, KEY_DTYPES[table.cfg.key_dtype])
+
+def import_members(table: EmbeddingTable, state: TableState,
+                   rows_by: Dict[int, Dict[str, np.ndarray]], strict: bool = True,
+                   bucket: bool = False, chunk: Optional[int] = None) -> None:
+    """`import_rows` for members {k: rows} of `state` [T, ...] at once: one
+    probe over every member, one row-scatter launch per value or slot
+    array, one metadata write. Each member's keys land where they would
+    alone (members probe their own tables); the padded shape is the
+    largest member's, so a bf16 table's rounding bits are drawn for
+    [T, m, D]."""
+    T = state.keys.shape[0]
+    device = state.keys.device
+    ns = {k: int(r["keys"].shape[0]) for k, r in rows_by.items()}
+    n_max = max(ns.values(), default=0)
+    if n_max == 0:
+        for k, rows in rows_by.items():
+            if "bloom" in rows and state.bloom is not None:
+                state.bloom[k].copy_(torch.as_tensor(np.asarray(rows["bloom"], np.int32)))
+        return
+    if chunk is not None and n_max > chunk:
+        for off in range(0, n_max, chunk):
+            import_members(table, state, {
+                k: {name: (v[off:off + chunk] if is_per_row(name) else v)
+                    for name, v in rows.items()}
+                for k, rows in rows_by.items() if ns[k] > off or off == 0},
+                strict=strict, chunk=chunk)
+        return
+    m = chunk if chunk is not None else (next_pow2(n_max) if bucket else n_max)
+    full = [k for k in rows_by if ns[k] > 0]
+    # where each real row sits in the padded [T, m] layout
+    t_of = np.repeat(np.asarray(full, np.int64), [ns[k] for k in full])
+    i_of = np.concatenate([np.arange(ns[k]) for k in full])
+    t_ix, i_ix = torch.as_tensor(t_of, device=device), torch.as_tensor(i_of, device=device)
+
+    def flat(name, dtype):
+        return torch.as_tensor(np.concatenate(
+            [np.asarray(rows_by[k][name], dtype) for k in full])).to(device)
+
+    kd = KEY_DTYPES[table.cfg.key_dtype]
+    keys = torch.full((T, m), empty_key(table.cfg), dtype=kd, device=device)
+    keys[t_ix, i_ix] = flat("keys", {torch.int32: np.int32, torch.int64: np.int64}[kd])
     slot_ix, _, failed = table._probe(
-        state.keys[member:member + 1], keys[None],
-        torch.ones((1, m), dtype=torch.bool, device=device),
-    )
+        state.keys, keys, torch.ones((T, m), dtype=torch.bool, device=device))
     if strict and bool(failed.any()):
         raise RuntimeError(
             f"table {table.cfg.name}: {int(failed.sum())} keys failed to "
             "insert on restore — grow the capacity"
         )
+    placed = slot_ix[t_ix, i_ix]
+    ok = placed >= 0  # failed keys place nowhere (nor do the pads)
+    t_ok, ix = t_ix[ok], placed[ok].long()
 
-    def put(target, name):
-        r = torch.tensor(np.asarray(rows[name], np.float32), device=device)
-        apply_rows_sr(target[member:member + 1], slot_ix, r.reshape(1, m, -1), seed=0)
+    def put(target, name, have):
+        """Scatter the members' `name` rows into `target` through the row
+        kernel; members in `full` but not in `have` write nothing."""
+        width = target.shape[-1]
+        r = torch.as_tensor(np.concatenate([
+            np.asarray(rows_by[k][name], np.float32).reshape(ns[k], width) if k in have
+            else np.zeros((ns[k], width), np.float32) for k in full])).to(device)
+        buf = r.new_zeros((T, m, width))
+        buf[t_ix, i_ix] = r
+        sel = slot_ix
+        if len(have) < len(full):
+            mask = torch.zeros((T, 1), dtype=torch.bool, device=device)
+            mask[sorted(have)] = True
+            sel = torch.where(mask, slot_ix, -1)
+        apply_rows_sr(target, sel, buf, seed=0)
 
-    put(state.values, "values")
+    if table.quantized:
+        # quantize on import: the file keeps f32 rows, the residency int8
+        # rows with their scale beside them (plain indexing: no kernel
+        # writes int8)
+        q, scale = quantize_rows_int8(flat("values", np.float32))
+        state.values[t_ok, ix] = q[ok].to(torch.int8)
+        state.qscale[t_ok, ix] = scale[ok]
+    else:
+        put(state.values, "values", set(full))
     for name, arr in state.slots.items():
-        if _SLOT + name not in rows:
+        have = {k for k in full if _SLOT + name in rows_by[k]}
+        if not have:
             continue
         if name.startswith(SCALAR_PREFIX):
-            arr[member].copy_(torch.tensor(
-                np.asarray(rows[_SLOT + name], np.float32)).reshape(1, 1))
+            for k in sorted(have):
+                arr[k].copy_(torch.tensor(
+                    np.asarray(rows_by[k][_SLOT + name], np.float32)).reshape(1, 1))
         else:
-            put(arr, _SLOT + name)
-    if "bloom" in rows and state.bloom is not None:
-        state.bloom[member].copy_(torch.as_tensor(np.asarray(rows["bloom"], np.int32)))
-    ok = slot_ix[0] >= 0  # pads and failed keys place nowhere
-    ix = slot_ix[0][ok].long()
-
-    def col(name):
-        return torch.tensor(np.asarray(rows[name]), device=device)[ok].to(torch.int32)
-
-    state.meta[member, META_FREQ, ix] = col("freqs")
-    state.meta[member, META_VERSION, ix] = col("versions")
+            put(arr, _SLOT + name, have)
+    for k, rows in rows_by.items():
+        if "bloom" in rows and state.bloom is not None:
+            state.bloom[k].copy_(torch.as_tensor(np.asarray(rows["bloom"], np.int32)))
+    state.meta[t_ok, META_FREQ, ix] = flat("freqs", np.int32)[ok]
+    state.meta[t_ok, META_VERSION, ix] = flat("versions", np.int32)[ok]
 
 
 def _clone_table_state(ts: TableState) -> TableState:
@@ -245,7 +292,8 @@ def _clone_table_state(ts: TableState) -> TableState:
         ts, keys=ts.keys.clone(), values=ts.values.clone(), meta=ts.meta.clone(),
         slots={n: a.clone() for n, a in ts.slots.items()},
         **{n: getattr(ts, n).clone() for n in COUNTERS},
-        bloom=None if ts.bloom is None else ts.bloom.clone())
+        bloom=None if ts.bloom is None else ts.bloom.clone(),
+        qscale=None if ts.qscale is None else ts.qscale.clone())
 
 
 # ------------------------------------------------- the stage half (device)
@@ -315,6 +363,31 @@ class _SavePlan:
     bundles: Dict[str, List[str]]
     stats: Dict[str, float]
     event: Optional[torch.cuda.Event] = None
+
+
+# threads that read and check a directory's files at once
+_VERIFY_THREADS = 8
+
+
+def _verify_file(path: str, fname: str, arrays: Dict[str, str]) -> Optional[str]:
+    """None when file `fname` of directory `path` holds every array of
+    `arrays` ({name: recorded digest}) with its recorded digest, else the
+    reason."""
+    fpath = os.path.join(path, fname)
+    if not os.path.exists(fpath):
+        return f"{fname}: missing from committed checkpoint"
+    try:
+        with np.load(fpath) as z:
+            names = set(z.files)
+            for aname, want in arrays.items():
+                if aname not in names:
+                    return f"{fname}:{aname}: array absent"
+                got = _array_digest(z[aname])
+                if got != want:
+                    return f"{fname}:{aname}: digest mismatch ({got} != recorded {want})"
+    except Exception as e:  # zip CRC, truncation, a bad header
+        return f"{fname}: unreadable ({type(e).__name__}: {e})"
+    return None
 
 
 # -------------------------------------------------------- checkpoint manager
@@ -426,8 +499,13 @@ class CheckpointManager:
             if self.on_write is not None:
                 self.on_write(plan.path)
             t0 = time.perf_counter()
+            t0w = time.time()
             self._write_plan(plan)
             record["write_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+            # obs timeline span of the background write (a no-op unless
+            # DEEPREC_TRACE is configured)
+            obs_trace.phase_span(f"ckpt_write_{plan.kind}", t0w, time.time(),
+                                 cat="train")
             if plan.kind == "full":
                 self._force_full = False  # the chain re-anchored durably
         except BaseException as e:  # raised again by wait()
@@ -642,7 +720,10 @@ class CheckpointManager:
     def _verify_quiet(self, path: str) -> Optional[str]:
         """None when the committed directory is intact, else the reason: a
         torn or unreadable manifest, a missing file or array, an unreadable
-        npz, a digest mismatch. A directory passes once (memoized)."""
+        npz, a digest mismatch. A directory passes once (memoized). Its
+        files are read and checked on a few threads at once (the reads and
+        crc32 release the interpreter lock); the reason reported is the
+        first failing file's in manifest order."""
         if path in self._verified:
             return None
         try:
@@ -652,22 +733,13 @@ class CheckpointManager:
             return f"manifest unreadable: {e}"
         except ValueError as e:
             return f"manifest torn: {e}"
-        for fname, arrays in (manifest.get("digests") or {}).items():
-            fpath = os.path.join(path, fname)
-            if not os.path.exists(fpath):
-                return f"{fname}: missing from committed checkpoint"
-            try:
-                with np.load(fpath) as z:
-                    names = set(z.files)
-                    for aname, want in arrays.items():
-                        if aname not in names:
-                            return f"{fname}:{aname}: array absent"
-                        got = _array_digest(z[aname])
-                        if got != want:
-                            return (f"{fname}:{aname}: digest mismatch "
-                                    f"({got} != recorded {want})")
-            except Exception as e:  # zip CRC, truncation, a bad header
-                return f"{fname}: unreadable ({type(e).__name__}: {e})"
+        items = list((manifest.get("digests") or {}).items())
+        if items:
+            with ThreadPoolExecutor(max_workers=min(_VERIFY_THREADS, len(items))) as ex:
+                errs = list(ex.map(lambda it: _verify_file(path, *it), items))
+            for err in errs:
+                if err is not None:
+                    return err
         self._verified.add(path)
         return None
 
@@ -774,8 +846,13 @@ class CheckpointManager:
         else:
             state = dataclasses.replace(template, tables={
                 b: _clone_table_state(ts) for b, ts in template.tables.items()})
-        for path in chain:
-            state = self._apply_ckpt(state, path, load_dense=True, chunk=chunk)
+        # every link's dense leaves and optimizer state replace the previous
+        # link's whole: only the newest links that have them are read
+        newest = {max((i for i, p in enumerate(chain)
+                       if os.path.exists(os.path.join(p, f))), default=-1)
+                  for f in ("dense.npz", "opt.npz")}
+        for i, path in enumerate(chain):
+            state = self._apply_ckpt(state, path, load_dense=i in newest, chunk=chunk)
         return TrainState(step=int(step), tables=state.tables, dense=state.dense,
                           opt_state=state.opt_state)
 
@@ -893,31 +970,51 @@ class CheckpointManager:
             merged["bloom_parts"] = np.stack([b for _, b in pairs])
         return merged
 
+    def _read_ahead(self, path: str, members):
+        """(member, `_load_rows` of it) for each (bundle, k, tag) of
+        `members`, in order, with up to _VERIFY_THREADS files read ahead on
+        threads (file reads and the zip's crc32 release the interpreter
+        lock); a failed read raises when its member's turn comes."""
+        with ThreadPoolExecutor(max_workers=_VERIFY_THREADS) as ex:
+            pending = collections.deque()
+            todo = iter(members)
+            for m in itertools.islice(todo, _VERIFY_THREADS):
+                pending.append((m, ex.submit(self._load_rows, path, m[0], m[2])))
+            while pending:
+                m, fut = pending.popleft()
+                nxt = next(todo, None)
+                if nxt is not None:
+                    pending.append((nxt, ex.submit(self._load_rows, path, nxt[0], nxt[2])))
+                yield m, fut.result()
+
     def _apply_ckpt(self, state: TrainState, path: str, load_dense: bool,
                     chunk: Optional[int] = None, copy: bool = False) -> TrainState:
         """Import one directory's rows into `state`'s tables — in place, or
         into copies of the bundles it touches when `copy` — prune each
         member to a delta's `live_keys`, and read the dense leaves and the
         optimizer state into new tensors. A delta's rows pad to a power of
-        two (`bucket`), as in the JAX package."""
+        two (`bucket`), as in the JAX package. The members' files are read
+        a few ahead on threads (`_read_ahead`); a bundle's members import
+        together (`import_members`) and prune together."""
         bucket = os.path.basename(path).startswith("incr-")
         tables = dict(state.tables)
+        members = [(bname, k, f"t{k}" if b.stacked else "t")
+                   for bname, b in self.trainer.bundles.items() for k in range(b.num_tables)]
+        found: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
+        for (bname, k, _), rows in self._read_ahead(path, members):
+            if rows is not None:
+                found.setdefault(bname, {})[k] = rows
         with torch.no_grad():
-            for bname, b in self.trainer.bundles.items():
-                ts = tables[bname]
-                copied = False
-                for k in range(b.num_tables):
-                    rows = self._load_rows(path, bname, f"t{k}" if b.stacked else "t")
-                    if rows is None:
-                        continue
-                    if copy and not copied:
-                        ts, copied = _clone_table_state(ts), True
+            for bname, rows_by in found.items():
+                b = self.trainer.bundles[bname]
+                ts = _clone_table_state(tables[bname]) if copy else tables[bname]
+                live = {}
+                for k, rows in rows_by.items():
                     rows.pop("partition_offset", None)
-                    live = rows.pop("live_keys", None)
-                    import_rows(b.table, ts, k, rows, bucket=bucket, chunk=chunk)
-                    if live is not None:
-                        ts = self._prune_to_live(b, ts, k, live)
-                tables[bname] = ts
+                    if "live_keys" in rows:
+                        live[k] = rows.pop("live_keys")
+                import_members(b.table, ts, rows_by, bucket=bucket, chunk=chunk)
+                tables[bname] = self._prune_to_live(b, ts, live)
         dense, opt_state = state.dense, state.opt_state
         dpath, opath = os.path.join(path, "dense.npz"), os.path.join(path, "opt.npz")
         if load_dense and os.path.exists(dpath):
@@ -929,18 +1026,24 @@ class CheckpointManager:
                 leaves, jax_leaf_names(self.trainer.model), dense)
         return TrainState(step=state.step, tables=tables, dense=dense, opt_state=opt_state)
 
-    def _prune_to_live(self, b, ts: TableState, k: int, live: np.ndarray) -> TableState:
-        """Drop member k's keys absent from a delta's live set (evicted
-        between the saves) by rebuilding the member, so probe chains heal
-        and freed slot rows restart at the optimizer's init value; nothing
-        to do when every occupied key is live."""
-        keys = ts.keys[k]
-        keep = torch.isin(keys, torch.as_tensor(np.asarray(live)).to(keys.device, keys.dtype))
-        if bool((keep | (keys == empty_key(b.table.cfg))).all()):
+    def _prune_to_live(self, b, ts: TableState, live: Dict[int, np.ndarray]) -> TableState:
+        """Drop each member k's keys absent from a delta's live set live[k]
+        (evicted between the saves) by rebuilding the member, so probe
+        chains heal and freed slot rows restart at the optimizer's init
+        value; nothing to do for a member whose occupied keys are all live
+        (one host read decides for every member)."""
+        if not live:
             return ts
-        new = b.table.rebuild(member_view(ts, k), keep=keep[None],
-                              slot_fills=self._slot_fills(b))
-        return _put_member(ts, k, new)
+        keeps = {k: torch.isin(ts.keys[k], torch.as_tensor(np.asarray(v)).to(
+            ts.keys.device, ts.keys.dtype)) for k, v in live.items()}
+        empty = ts.keys == empty_key(b.table.cfg)
+        stale = torch.stack([~(keep | empty[k]).all() for k, keep in keeps.items()]).tolist()
+        for (k, keep), drop in zip(keeps.items(), stale):
+            if drop:
+                new = b.table.rebuild(member_view(ts, k), keep=keep[None],
+                                      slot_fills=self._slot_fills(b))
+                ts = _put_member(ts, k, new)
+        return ts
 
     def _read_dense(self, dense: Dict[str, torch.Tensor], fpath: str) -> Dict[str, torch.Tensor]:
         """The dense leaves of `fpath` as new tensors on `dense`'s devices

@@ -4,9 +4,9 @@
 timings), `LatencyHistogram` and `StepWindowTracer` (modelzoo's
 `--timeline N`: steps [N, N + 10) traced).
 
-The JAX `PhaseProfiler.phase` also emits an obs-plane timeline span
-(`deeprec_tpu/obs/trace.py`); the port's waits for the obs plane, ROADMAP
-queue A item 8.
+`PhaseProfiler.phase` also lands each phase as an obs timeline span
+(`obs/trace.py`, a no-op unless `DEEPREC_TRACE` is configured), as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -74,8 +74,12 @@ class PhaseProfiler:
         """Time the enclosed block under `name`. Pass `block` (anything
         truthy; a tensor's device is used when it has one) to synchronise
         the device before the clock stops, so the kernels the block launched
-        count to it and not to the next phase."""
+        count to it and not to the next phase. With obs tracing configured
+        (`DEEPREC_TRACE`), the phase also lands as a timeline span."""
+        from deeprec_tpu_torch.obs import trace as obs_trace
+
         t0 = time.perf_counter()
+        t0w = time.time()
         with phase_scope(name):
             try:
                 yield
@@ -85,6 +89,7 @@ class PhaseProfiler:
                     if dev is None or dev.type == "cuda":
                         torch.cuda.synchronize(dev)
                 self._times.setdefault(name, []).append(time.perf_counter() - t0)
+                obs_trace.phase_span(f"phase_{name}", t0w, time.time())
 
     def timed(self, name: str, fn, *args, **kwargs):
         """Run fn(*args, **kwargs) under `name`, synchronising the device

@@ -34,8 +34,8 @@ at U = N through the hash engine until `update_budgets` has measured a
 unique fraction; a changed budget takes effect at the next step (the port
 has no compiled step to rebuild).
 
-The read-only forward (`probs_from_views`, which `eval_step` and
-`Predictor.predict` both run) pools every bag through kernel #4
+The read-only forward (`probs_from_views`, which `eval_step` runs, and
+`Predictor.predict` on the same `_build_inputs`) pools every bag through kernel #4
 `fused_gather_combine_grouped`, one launch per group of pooled features
 that share row dtype and width; the train step pools through the
 differentiable `combiners.combine`.
@@ -205,6 +205,8 @@ def _put_member(ts: TableState, k: int, m: TableState) -> TableState:
     pairs += [(getattr(ts, n), getattr(m, n)) for n in COUNTERS]
     if ts.bloom is not None:
         pairs.append((ts.bloom, m.bloom))
+    if ts.qscale is not None:
+        pairs.append((ts.qscale, m.qscale))
     for dst, src in pairs:
         dst = dst[cut]
         if src.data_ptr() != dst.data_ptr():

@@ -193,6 +193,42 @@ def test_demotion_on_pressure_and_fallback_serving():
 
 
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_row_cache_serves_the_same_fallback_rows(value_dtype):
+    """A MultiTierTable with the serving row cache gives the same fallback
+    rows, bit for bit, as one without: on its first read (misses, filled
+    from the host store) and its second (hits), and against the JAX
+    MultiTierTable with its row cache. A sync boundary bumps the tier
+    revision, so no cached row survives it."""
+    p = Pair(value_dtype=value_dtype)
+    jmt_c = JaxMT(p.jt, high_watermark=0.75, low_watermark=0.5, row_cache_bytes=1 << 16)
+    pmt_c = MultiTierTable(p.tt, high_watermark=0.75, low_watermark=0.5,
+                           row_cache_bytes=1 << 16)
+    js = _marked(p, per_id=True)
+    ps = p.carry(js)
+    ps_c = p.carry(js)
+    js_c = js
+    js, ps, st = p.sync(js, ps, 1)
+    js_c, _ = jmt_c.sync(js_c, 1)
+    ps_c, st_c = pmt_c.sync(ps_c, 1)
+    assert st.demoted > 0 and dataclasses.asdict(st_c) == dataclasses.asdict(st)
+    ids = torch.as_tensor(np.arange(60, dtype=np.int32))
+    plain = p.pmt.lookup_with_fallback(ps, ids)
+    want = np.asarray(jmt_c.lookup_with_fallback(js_c, jnp.asarray(ids.numpy())), np.float32)
+    for rnd in range(2):
+        got = pmt_c.lookup_with_fallback(ps_c, ids)
+        assert torch.equal(got, plain), rnd
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=RTOL, atol=0)
+    snap = pmt_c.row_cache.snapshot()
+    # every distinct id asks the cache each round; only stored rows enter it
+    assert snap["hits"] == st.demoted and snap["misses"] == 2 * 60 - st.demoted
+    assert snap["entries"] == st.demoted
+    rev = pmt_c._tier_rev
+    ps_c, _ = pmt_c.sync(ps_c, 2, force=True)
+    assert pmt_c._tier_rev > rev
+    assert pmt_c.row_cache.get_current((0).to_bytes(8, "little", signed=True)) is None
+
+
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
 def test_promotion_restores_values(value_dtype):
     p = Pair(value_dtype=value_dtype)
     js = _marked(p, value=3.25)
@@ -444,8 +480,8 @@ def test_lookup_with_fallback_before_any_sync_and_member_check():
     with pytest.raises(ValueError, match="one table"):
         p.pmt.sync(stacked, 0)
     assert TierStats().demoted == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MultiTierTable(p.tt, row_cache_bytes=1 << 20)
+    cached = MultiTierTable(p.tt, row_cache_bytes=1 << 20)
+    assert cached.row_cache is not None and cached.row_cache.capacity_bytes == 1 << 20
 
 
 def test_promote_then_demote_ranks_the_pre_promote_freqs():
