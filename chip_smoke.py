@@ -32,7 +32,7 @@ Phases, each of which must pass:
   4. the serving main path at full width: MLPerf DLRM-DCN (emb_dim 128,
      26 x 2^20-slot tables, bottom 512-256-128, top 512-256-1, cross depth
      3) restored from a full checkpoint written with numpy from --seed
-     (2^17 live keys per table), answering 5 requests of batch 2048 and one
+     (2^16 live keys per table; 2^17 before phase 19), answering 5 requests of batch 2048 and one
      each of batch 1 and 37 (ids 90% live, 5% unseen, 5% pad). Live ids must
      return their checkpoint row bit for bit, unseen ids the blocked default,
      probabilities must be finite in (0, 1), and every kernel of the path
@@ -90,9 +90,9 @@ Phases, each of which must pass:
      steps (finite losses, no failed insert, table sizes, rows off the
      batch unchanged, one launch each of flash fwd, dK/dV and dQ and the
      gather/scatter launches the bundles imply per step), 30 timed, 3
-     profiled, on to 100 steps (300, then 200, then 150, before the
+     profiled, on to 80 steps (300, then 200, 150 and 100, before the
      file-fed and serving phases needed the time); held-out AUC over 8
-     batches at step 0 and step 100, at least 0.60 at the end; card vs CPU at capacity 2^12
+     batches at step 0 and step 80, at least 0.60 at the end; card vs CPU at capacity 2^12
      (bst_agreement);
  12. the phase-11 state saved and served by Predictor: 30 requests of
      batch 2048 and one each of batch 1 and 37, every answer equal to
@@ -147,8 +147,8 @@ Phases, each of which must pass:
      steps x lr x TRAIN_RTOL and Adagrad accumulators within TRAIN_RTOL;
      (b) the tiered loop at MLPerf DLRM-DCN widths: hbm_dram tables of
      TIER["capacity"] slots (LFU, watermarks 0.8 / 0.6), enable_tier_paging
-     + warm_tier_folds, stage(depth=2) feeding 20 windows (40 before
-     phase 17, 30 before phase 18) of train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
+     + warm_tier_folds, stage(depth=2) feeding 16 windows (40 before
+     phase 17, 30 before phase 18, 20 before phase 19) of train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
      and maintain(tier_async=True) (every 5th a synchronous maintain(); 2
      windows profiled), a final maintain(), evaluate on 8 held-out batches:
      finite losses, rows demoted and brought back, occupancy at most the
@@ -251,6 +251,29 @@ Phases, each of which must pass:
      the phase's launches of #1, #3, #2, #5 and #4 equal to what its path
      implies (train steps and saves, each Predictor's restored links and
      warm replay, every predict, device batch, warm batch and gate pass).
+ 19. the rest of serving: DSSM at the modelzoo's widths (phase 13's saved
+     state, else 20 steps); (b) int8, bf16 and f32 RetrievalEngines over
+     1,000,000 items (block_rows 4096, 32,768-row encode chunks), 8-row
+     queries at k = 100 through ModelServer.retrieve_versioned: per
+     residency the ingest seconds, p50/p90, the sweep alone, its device
+     operations and its byte bound; the f32 answer against an exact f64
+     scan of its vectors (items equal where no neighbour is within
+     RETR_ATOL, exact scores within RETR_ATOL of the k best everywhere),
+     int8 tie-aware recall@10 and @100 at least RECALL_FLOOR, 8 client
+     threads' answers equal to solo ones bit for bit, measured = modeled
+     bytes; an int8 engine over 10,000,000 items timed; (d) two in-process
+     fp32 shards behind a Frontend: the merged top-k equal to the single
+     engine's bit for bit, partial and degraded after one stops; a
+     backend process (spawn_backends --device cuda) under PRED load
+     SIGKILLed with no failed request; (c) 8 steps with the dense half
+     frozen on 64 corpus items, a delta, one poll: the fold's rows equal
+     the rows whose item features were trained (numpy), no other row
+     moved, each equal to a fresh engine's; (e) Predictor(stores={
+     RemoteKVClient}) over a RemoteKVServer equal to an in-process HostKV
+     store bit for bit, the C ABI library (g++ at first use) loaded with
+     ctypes answering JSON and protobuf process() equal to predict bit for
+     bit; the phase's launches of #1, #3, #2, #5 and #4 equal to what its
+     path implies.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -289,7 +312,7 @@ TRAIN_RTOL = 1e-3
 ROW_ATOL = 1e-4
 
 FULL = dict(emb_dim=128, capacity=1 << 20, bottom=(512, 256, 128))
-LIVE_KEYS = 1 << 17
+LIVE_KEYS = 1 << 16
 SMALL_CAPACITY, SMALL_LIVE = 1 << 12, 1500
 TRAIN = dict(batch=2048, vocab=1_000_000, checked=5, timed=30, profiled=3,
              lr=0.05, dense_lr=1e-3, agree_batch=256, sample=4096)
@@ -1883,7 +1906,7 @@ FLASH_BF16_SHAPES = [(2, 2, 256, 256, 32, False, 64, 64, None)]
 # capacity 2^12.
 BST_RUN = dict(emb_dim=16, capacity=1 << 20, heads=4, ff=128, blocks=1, max_len=200,
                hidden=(256, 64), batch=2048, vocab=100_000, seq_len=200, lr=0.2,
-               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=100,
+               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=80,
                eval_batches=8, auc_floor=0.60, agree_capacity=1 << 12,
                agree_batch=256, agree_vocab=2000, requests=30, sample=4096)
 
@@ -3000,14 +3023,14 @@ def run_loop(dev, seed, full, small, cfg, ckroot):
 # ------------------------------------------------------------ phase 15
 
 # Phase 15, multi-tier storage. (b) trains MLPerf DLRM-DCN with a device
-# tier of `capacity` slots per table: over its 20 windows the run's ids
+# tier of `capacity` slots per table: over its 16 windows the run's ids
 # (SyntheticCriteo, vocab 10^6) pass 2^15 slots' high watermark at window
 # 10, and the later windows demote, promote and fold. (c) starts the modelzoo's budget path at `capacity`
 # slots with a budget of 3 tables' worth of bytes: one growth fits, the
 # next does not.
-TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=20, capacity=1 << 15, every=5,
+TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=16, capacity=1 << 15, every=5,
             strategy="lfu", high=0.8, depth=4, chunk=256, lr=0.05, dense_lr=1e-3, eval_batches=8,
-            auc_floor=0.60, profiled=16,
+            auc_floor=0.60, profiled=12,
             # (a)'s tier sequence: per round the boundary, the ids looked up
             # and the share of them drawn from the tier stores' keys
             ops=dict(capacity=1 << 12, vocab_mult=5, host_capacity=1024, picks=600,
@@ -4987,11 +5010,11 @@ def _predict_http(port, bodies, proto):
     return np.asarray(d["predictions"], np.float32), d["model_version"]
 
 
-def _wait_for(cond, what, timeout=120.0):
+def _wait_for(cond, what, timeout=120.0, phase=18):
     t0 = time.monotonic()
     while not cond():
         if time.monotonic() - t0 > timeout:
-            raise AssertionError(f"phase 18: timed out waiting for {what}")
+            raise AssertionError(f"phase {phase}: timed out waiting for {what}")
         time.sleep(0.01)
 
 
@@ -5415,12 +5438,794 @@ def run_serving(dev, seed, full, cfg, ckroot):
     return launches
 
 
+# ------------------------------------------------------------ phase 19
+
+# The rest of serving: full-corpus retrieval, the socket frontend and its
+# fleet, the feature stores and the C ABI. DSSM at the modelzoo's widths
+# (emb 16, 2^20 slots a table, 4 user and 4 item features, hidden
+# 256-128-64): phase 13's saved state where it is on disk, else `steps`
+# steps of SyntheticTwoTower(vocab 100,000) at batch 2048 (Adagrad 0.2, Adam
+# 1e-3) and a full save. (b) int8, bf16 and f32 RetrievalEngines over
+# `items` items (the first corpus size of RETRIEVAL_BENCH.json's protocol;
+# item i's features drawn from the item features' id ranges) at block_rows
+# 4096, `chunk` rows an encode and ops.topk.SWEEP_ROWS rows a sweep step, queries
+# of `query` rows at k; an int8 engine over `big_items` (the protocol's
+# second size) timed alone. (d) two in-process fp32 shards behind a
+# Frontend, one backend process. (c) `fold_steps` steps with the dense half
+# frozen (Adam at lr 0, the sparse-only online-update regime) on
+# `fold_items` items of the corpus, one delta, one poll. (e) the remote and
+# in-process stores and the C ABI. #3 and #4 are held against their plain
+# versions at (b)'s own shapes: an encode chunk, a query, a coalesced batch.
+RETR = dict(emb_dim=16, capacity=1 << 20, vocab=100_000, lr=0.2, dense_lr=1e-3,
+            batch=2048, steps=20, items=1_000_000, big_items=10_000_000, block_rows=4096,
+            chunk=32768, k=100, query=8, clients=8, rounds=4, timed=20,
+            big_timed=10, fold_steps=8, fold_items=64, pred_rows=64, fleet_requests=40,
+            recall_batches=16)
+# The f32 engine's answer against an exact scan of its own vectors in f64
+# on the host: a score's f32 sum over 64 products in another order (and a
+# product's order may depend on a column's place in the tile) is off by a
+# few ulps of 1. So at every position the exact score of the item returned
+# equals the exact k-th best score within this, and ids are compared where
+# both neighbours in the exact order are further apart than this.
+RETR_ATOL = 2e-6
+# int8 against the exact scan, tie-aware (tests/test_retrieval.py's floor),
+# over `recall_batches` query batches
+RECALL_FLOOR = 0.95
+
+
+def _dssm_ckpt(dev, seed, cfg, ckroot):
+    """(checkpoint dir, model, steps or None): phase 13's DSSM where it is on
+    disk, else a fresh one trained `steps` steps and saved."""
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    zoo = os.path.join(ckroot, "zoo-DSSM")
+    model, gen, _ = zoo_model("DSSM", seed, dict(
+        ZOO, emb_dim=cfg["emb_dim"], capacity=cfg["capacity"], batch=cfg["batch"],
+        two_tower=dict(vocab=cfg["vocab"], lr=cfg["lr"])))
+    if os.path.isdir(zoo) and any(d.startswith("full-") for d in os.listdir(zoo)):
+        return zoo, model, None
+    ckdir = os.path.join(ckroot, "retrieval")
+    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+    state = trainer.init()
+    g = gen(seed)
+    for _ in range(cfg["steps"]):
+        state, _ = trainer.train_step(state, g.batch())
+    CheckpointManager(ckdir, trainer).save(state)
+    return ckdir, model, cfg["steps"]
+
+
+def _corpus_items(n, model, vocab, seed):
+    """Item ids 1..n and their item features, each feature in its own id
+    range as SyntheticTwoTower draws them (V_j in [(j+1) vocab, (j+2) vocab))."""
+    rng = np.random.default_rng(seed)
+    return (np.arange(1, n + 1, dtype=np.int64),
+            {f: ((j + 1) * vocab + rng.integers(0, vocab, n)).astype(np.int32)
+             for j, f in enumerate(model.item_feats)})
+
+
+def _user_queries(p, model, cfg, seed, n):
+    """`n` parsed retrieval queries of `query` rows (user features of
+    SyntheticTwoTower, item features pad-filled)."""
+    from deeprec_tpu_torch.data import SyntheticTwoTower
+    from deeprec_tpu_torch.serving.predictor import parse_features
+    from deeprec_tpu_torch.serving.retrieval import fill_missing_item_features
+
+    g = SyntheticTwoTower(batch_size=cfg["query"] * n, num_user=len(model.user_feats),
+                          num_item=len(model.item_feats), vocab=cfg["vocab"], seed=seed)
+    b = g.batch()
+    q = cfg["query"]
+    return [parse_features(p, fill_missing_item_features(
+        p, {f: b[f][i * q:(i + 1) * q] for f in model.user_feats})) for i in range(n)]
+
+
+def _counted(engine, box):
+    """Count `engine.retrieve` calls in box[0] (each one user-tower forward)."""
+    inner = engine.retrieve
+
+    def retrieve(batch, k):
+        box[0] += 1
+        return inner(batch, k)
+
+    engine.retrieve = retrieve
+    return engine
+
+
+def _encodes(n, chunk):
+    """Item-tower forwards of an engine that ingests n items: the pad chunk
+    at construction and one per chunk."""
+    return 1 + -(-n // chunk)
+
+
+def _exact(uvec, hv, k):
+    """(scores f64, column indices, all scores) of the exact top-k of users x
+    vectors, ties to the lowest column (every column tied with the k-th is
+    a candidate)."""
+    s = uvec.astype(np.float64) @ hv.astype(np.float64).T
+    kth = -np.partition(-s, k - 1, axis=1)[:, k - 1]
+    cols = np.zeros((s.shape[0], k), np.int64)
+    for r in range(s.shape[0]):
+        c = np.nonzero(s[r] >= kth[r])[0]
+        cols[r] = c[np.lexsort((c, -s[r, c]))[:k]]
+    return np.take_along_axis(s, cols, 1), cols, s
+
+
+def _sweep_times(dev, eng, uvec, k, reps):
+    """(p50 ms, p90 ms, device operations) of one blocked sweep alone over
+    the engine's corpus (the user vectors given)."""
+    from deeprec_tpu_torch.ops.topk import blocked_topk
+
+    c = eng._corpus
+
+    def sweep():
+        return blocked_topk(uvec, c.vecs, c.valid, k, block_rows=eng.block_rows,
+                            scale=c.scale, query_rows=eng.query_rows)
+
+    sweep()
+    ms = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        sweep()
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ops = device_ops(sweep, calls=3) if dev.type == "cuda" else None
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 90)), ops
+
+
+def _path_kernels_vs_plain(dev, fn):
+    """Run fn() (one read-only forward of phase 19's path) with every call
+    of #3 (the table lookups) and of #4 (the grouped pooling) recorded, and
+    hold each recorded kernel output against the plain version on the same
+    inputs, bit for bit: the ids and pooling layout are the path's own.
+    The launches of this forward are a comparison, not the main path's:
+    the counts are put back after it. Returns (#3 calls, #4 calls, the
+    shapes seen, the max abs error)."""
+    from deeprec_tpu_torch.embedding import combiners, table
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+
+    counts = [(k, a, getattr(k, a)) for k in (fl.gather_rows, fl.apply_rows_sr)
+              for a in ("launches", "launches_bf16")]
+    counts.append((fl.fused_gather_combine, "launches", fl.fused_gather_combine.launches))
+    gathers, combines = [], []
+    g0, c0 = table.gather_rows, combiners.fused_gather_combine_grouped
+
+    def gather(values, ix):
+        out = g0(values, ix)
+        gathers.append((values, ix, out))
+        return out
+
+    def combine(values, row_ix, w):
+        out = c0(values, row_ix, w)
+        combines.append((list(values), list(row_ix), list(w), out))
+        return out
+
+    table.gather_rows, combiners.fused_gather_combine_grouped = gather, combine
+    try:
+        fn()
+        _sync(dev)
+    finally:
+        table.gather_rows, combiners.fused_gather_combine_grouped = g0, c0
+        for k, a, v in counts:
+            setattr(k, a, v)
+    if not gathers or not combines:
+        raise AssertionError(f"the forward called #3 {len(gathers)} and #4 "
+                             f"{len(combines)} times")
+    err, shapes = 0.0, set()
+    for values, ix, out in gathers:
+        want = fl.gather_rows_plain(values, ix)
+        if not torch.equal(out, want):
+            raise AssertionError(f"gather_rows at {tuple(values.shape)} x {tuple(ix.shape)} "
+                                 "on the path differs from the plain version")
+        err = max(err, float((out.float() - want.float()).abs().max()) if out.numel() else 0.0)
+        shapes.add(("gather_rows", tuple(values.shape), tuple(ix.shape), str(values.dtype)))
+    for values, row_ix, w, outs in combines:
+        for v, ix, ww, out in zip(values, row_ix, w, outs):
+            want = fl.fused_gather_combine_plain(v, ix, ww)
+            if not torch.equal(out, want):
+                raise AssertionError(f"fused_gather_combine at {tuple(v.shape)} x "
+                                     f"{tuple(ix.shape)} on the path differs from the "
+                                     "plain version")
+            err = max(err, float((out - want).abs().max()) if out.numel() else 0.0)
+            shapes.add(("fused_gather_combine", tuple(v.shape), tuple(ix.shape),
+                        str(v.dtype)))
+    return len(gathers), len(combines), sorted(shapes), err
+
+
+def retrieval_engines(dev, p, ms, model, cfg, seed, st):
+    """Phase 19 (b). Returns ({residency: engine}, items, queries, the
+    engines' retrieve count (a box), and the other read-only forwards it
+    ran: the encodes and the user towers run alone)."""
+    import threading
+
+    from deeprec_tpu_torch.ops import traffic
+    from deeprec_tpu_torch.serving import RetrievalEngine
+
+    ids, feats = _corpus_items(cfg["items"], model, cfg["vocab"], seed + 19)
+    queries = _user_queries(p, model, cfg, seed + 190, cfg["clients"] * cfg["rounds"])
+    box = [0]
+    engines, fwd = {}, 0
+    for q in ("bf16", "fp32", "int8"):  # int8 last: it is the one updates fold into
+        eng = _counted(RetrievalEngine(p, quantize=q, block_rows=cfg["block_rows"],
+                                       chunk=cfg["chunk"]),
+                       box)
+        _sync(dev)
+        t0 = time.perf_counter()
+        eng.upsert_items(ids, feats)
+        _sync(dev)
+        ingest = time.perf_counter() - t0
+        fwd += _encodes(cfg["items"], cfg["chunk"])
+        si = eng.sweep_info()
+        if si["measured_bytes"] != si["modeled_bytes"] or si["corpus_rows"] != cfg["items"]:
+            raise AssertionError(f"{q} corpus: {si}")
+        rs = ms.attach_retrieval(eng)
+        t0 = time.perf_counter()
+        rs.warmup(queries[0], k=cfg["k"])
+        lat = []
+        for i in range(cfg["timed"]):
+            t1 = time.perf_counter()
+            res = ms.retrieve_versioned(queries[i % len(queries)], cfg["k"])
+            lat.append((time.perf_counter() - t1) * 1e3)
+            if res.ids.shape != (cfg["query"], cfg["k"]) or not (res.ids >= 1).all() or \
+                    not np.all(np.isfinite(res.scores)):
+                raise AssertionError(f"{q}: a retrieval answer is not {cfg['k']} items")
+        uvec = eng._user(p._snap.state, queries[0])[:cfg["query"]]
+        fwd += 1
+        sw50, sw90, ops = _sweep_times(dev, eng, uvec, eng._bucket(cfg["k"], lo=1),
+                                       cfg["timed"])
+        bound = traffic.retrieval_sweep_bytes(
+            corpus_rows=eng.capacity, dim=eng.dim, value_dtype=eng.quantize,
+            block_rows=eng.block_rows) / HBM_BYTES_PER_S * 1e3
+        st[q] = dict(ingest_s=ingest, p50=float(np.percentile(lat, 50)),
+                     p90=float(np.percentile(lat, 90)), sweep_p50=sw50, sweep_p90=sw90,
+                     ops=ops, bound_ms=bound, bytes=si["measured_bytes"],
+                     capacity=eng.capacity)
+        engines[q] = eng
+        if q != "int8":
+            rs.close()
+            ms.retrieval = None
+
+    # the f32 engine against an exact scan of its own vectors; int8 recall
+    hids, hv = engines["fp32"].host_vectors()
+    if not np.array_equal(hids, ids):
+        raise AssertionError("the f32 engine's host ids are not the ingested ids")
+    k = cfg["k"]
+    hits = {10: [], 100: []}
+    st["exact"] = dict(apart=0, total=0, err=0.0)
+    for q0 in queries[:cfg["recall_batches"]]:
+        uvec = engines["fp32"]._user(p._snap.state, q0).cpu().numpy()[:cfg["query"]]
+        ref_s, ref_c, full = _exact(uvec, hv, k + 1)  # the (k+1)-th: the last gap
+        res = engines["fp32"].retrieve(q0, k)
+        gap = np.abs(np.diff(ref_s, axis=1))
+        ref_s, ref_c = ref_s[:, :k], ref_c[:, :k]
+        apart = np.ones(ref_s.shape, bool)
+        apart[:, 1:] &= gap[:, :-1] > RETR_ATOL
+        apart &= gap > RETR_ATOL
+        mine = np.take_along_axis(full, np.searchsorted(hids, res.ids), 1)
+        err = max(float(np.abs(res.scores - ref_s).max()), float(np.abs(mine - ref_s).max()))
+        if not np.array_equal(res.ids[apart], hids[ref_c][apart]) or err > RETR_ATOL:
+            raise AssertionError(f"the f32 engine's top-{k} differs from the exact scan "
+                                 f"(max |score diff| {err})")
+        st["exact"]["apart"] += int(apart.sum())
+        st["exact"]["total"] += apart.size
+        st["exact"]["err"] = max(st["exact"]["err"], err)
+        res8 = engines["int8"].retrieve(q0, k)
+        got = np.take_along_axis(full, np.searchsorted(hids, res8.ids), 1)
+        for kk in hits:
+            kth = -np.partition(-full, kk - 1, axis=1)[:, kk - 1]
+            hits[kk].append((got[:, :kk] >= kth[:, None] - 1e-6).mean(axis=1))
+        fwd += 1
+    st["recall"] = {kk: float(np.concatenate(v).mean()) for kk, v in hits.items()}
+    for kk, r in st["recall"].items():
+        if r < RECALL_FLOOR:
+            raise AssertionError(f"int8 tie-aware recall@{kk} {r} (floor {RECALL_FLOOR})")
+
+    # #3 and #4 at this path's shapes against their plain versions: one
+    # encode chunk of the corpus's own items, a solo query and a coalesced
+    # batch of the lane's most rows
+    eng, state = engines["int8"], p._snap.state
+    chunk = {n: (eng._h_feats[n][:cfg["chunk"]] if n in eng._h_feats
+                 else np.repeat(t, cfg["chunk"], axis=0))
+             for n, t in eng._templates.items()}
+    most = min(ms.retrieval.max_batch // cfg["query"], len(queries))
+    coalesced = {n: np.concatenate([qq[n] for qq in queries[:most]]) for n in queries[0]}
+    st["path_kernels"] = dict(gathers=0, combines=0, shapes=[], err=0.0,
+                              coalesced_rows=most * cfg["query"])
+    for what in (lambda: eng._encode(state, chunk), lambda: eng._user(state, queries[0]),
+                 lambda: eng._user(state, coalesced)):
+        ng, nc, shapes, err = _path_kernels_vs_plain(dev, what)
+        pk = st["path_kernels"]
+        pk["gathers"] += ng
+        pk["combines"] += nc
+        pk["shapes"] += [sh for sh in shapes if sh not in pk["shapes"]]
+        pk["err"] = max(pk["err"], err)
+
+    # coalesced answers (clients threads through ModelServer.retrieve_versioned
+    # into the int8 engine) against solo ones, bit for bit
+    solo = [engines["int8"].retrieve(qq, k) for qq in queries]
+    outs = [None] * len(queries)
+    errors = []
+
+    def client(c):
+        try:
+            for r in range(cfg["rounds"]):
+                i = c * cfg["rounds"] + r
+                outs[i] = ms.retrieve_versioned(queries[i], k)
+        except BaseException as e:
+            errors.append(e)
+
+    before = box[0]
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(cfg["clients"])]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors:
+        raise errors[0]
+    st["coalesced_sweeps"] = box[0] - before
+    for o, s in zip(outs, solo):
+        if not (np.array_equal(o.ids, s.ids) and np.array_equal(o.scores, s.scores)):
+            raise AssertionError("a coalesced retrieval answer differs from its solo answer")
+    snap = ms.stats_snapshot()
+    if snap["retrieval_corpus"]["measured_bytes"] != snap["retrieval_corpus"]["modeled_bytes"]:
+        raise AssertionError(f"/v1/stats retrieval_corpus {snap['retrieval_corpus']}")
+    st["stats_requests"] = snap["retrieval"]["requests"]
+    return engines, (ids, feats), queries, box, fwd
+
+
+def retrieval_big(dev, p, model, cfg, seed, queries, keep, st):
+    """Phase 19 (b)'s last part: one int8 engine over `big_items`, its sweep
+    timed alone; `keep` is attached to the Predictor again afterwards.
+    Returns the read-only forwards it ran."""
+    from deeprec_tpu_torch.ops import traffic
+    from deeprec_tpu_torch.serving import RetrievalEngine
+
+    n = cfg["big_items"]
+    ids, feats = _corpus_items(n, model, cfg["vocab"], seed + 191)
+    eng = RetrievalEngine(p, quantize="int8", block_rows=cfg["block_rows"],
+                          chunk=cfg["chunk"])
+    t0 = time.perf_counter()
+    eng.upsert_items(ids, feats)
+    _sync(dev)
+    ingest = time.perf_counter() - t0
+    del ids, feats
+    si = eng.sweep_info()
+    uvec = eng._user(p._snap.state, queries[0])[:cfg["query"]]
+    sw50, sw90, ops = _sweep_times(dev, eng, uvec, eng._bucket(cfg["k"], lo=1),
+                                   cfg["big_timed"])
+    res = eng.retrieve(queries[0], cfg["k"])
+    if not (res.ids >= 1).all() or si["measured_bytes"] != si["modeled_bytes"]:
+        raise AssertionError(f"the {n}-item engine: {si}")
+    st["big"] = dict(items=n, capacity=eng.capacity, ingest_s=ingest, sweep_p50=sw50,
+                     sweep_p90=sw90, ops=ops, bytes=si["measured_bytes"],
+                     bound_ms=si["modeled_bytes"] / HBM_BYTES_PER_S * 1e3)
+    p.attach_retrieval(keep)  # the engine updates fold into
+    del eng
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return _encodes(n, cfg["chunk"]) + 2  # its encodes, its user tower, one retrieve
+
+
+def retrieval_fleet(dev, p, model, cfg, ckdir, seed, items, queries, fp32, st, spawn):
+    """Phase 19 (d): two in-process fp32 shards behind a Frontend (merged
+    top-k against the single f32 engine's, bit for bit; a stopped member:
+    partial, degraded), then the spawned backend process answering PRED
+    through a Frontend beside an in-process sibling and killed mid-load.
+    Returns the launches of (#1, #3, #2, #5, #4) of its in-process path."""
+    import signal
+    import threading
+
+    from deeprec_tpu_torch.data import SyntheticTwoTower
+    from deeprec_tpu_torch.serving import (BackendServer, Frontend, ModelServer, Predictor,
+                                           RetrievalEngine)
+
+    ids, feats = items
+    read = _read_launches(p)
+    want = np.zeros(5, np.int64)
+    backends, boxes = [], []
+    paths = [os.path.join(ckdir, d) for d in p._dirs()]
+    for i in range(2):
+        bp = Predictor(model, ckdir, device=dev)
+        want += _import_launches(bp, paths, boot=True)
+        bms = ModelServer(bp, max_batch=cfg["batch"])
+        box = [0]
+        bms.attach_retrieval(_counted(RetrievalEngine(
+            bp, quantize="fp32", block_rows=cfg["block_rows"], chunk=cfg["chunk"],
+            shard_index=i, num_shards=2), box))
+        boxes.append(box)
+        backends.append(BackendServer(bms, port=0).start())
+    fe = Frontend([("127.0.0.1", b.port) for b in backends], model, reprobe_secs=0.0)
+    try:
+        t0 = time.perf_counter()
+        acc = fe.ingest_items(ids, feats)
+        st["fleet_ingest_s"] = time.perf_counter() - t0
+        if sorted(acc.values()) != sorted(
+                b.server.retrieval.engine.corpus_rows() for b in backends) or \
+                sum(acc.values()) != len(ids) or min(acc.values()) == 0:
+            raise AssertionError(f"the broadcast ingest did not partition itself: {acc}")
+        nfwd = sum(_encodes(n, cfg["chunk"]) for n in acc.values())
+        q = queries[2]
+        t0 = time.perf_counter()
+        merged = fe.retrieve_versioned(q, cfg["k"])
+        st["fleet_retr_ms"] = (time.perf_counter() - t0) * 1e3
+        single = fp32.retrieve(q, cfg["k"])
+        if merged.partial or not (np.array_equal(merged.ids, single.ids)
+                                  and np.array_equal(merged.scores, single.scores)):
+            raise AssertionError("the two shards' merged top-k differs from the single "
+                                 "f32 engine's")
+        backends[0].stop(unregister=False)  # the death of a member
+        part = fe.retrieve_versioned(q, cfg["k"])
+        h = fe.predictor.health()
+        left = set(backends[1].server.retrieval.engine.host_vectors()[0].tolist())
+        if not part.partial or h["status"] == "ok" or h["reachable"] != 1 or \
+                not set(part.ids.ravel().tolist()) <= left:
+            raise AssertionError(f"after a member stopped: partial {part.partial}, health {h}")
+        st["fleet"] = dict(shards=sorted(acc.values()), partial_health=h["status"],
+                           partials=h.get("retrieval_partials"))
+        nfwd += sum(b[0] for b in boxes)  # the shards' sweeps
+    finally:
+        fe.close()
+    # the backend process beside the surviving in-process member, killed mid-load
+    procs, addrs = spawn.result()
+    g = SyntheticTwoTower(batch_size=cfg["pred_rows"] * 4, num_user=len(model.user_feats),
+                          num_item=len(model.item_feats), vocab=cfg["vocab"], seed=seed + 192)
+    b = g.batch()
+    reqs = [{k: v[i * cfg["pred_rows"]:(i + 1) * cfg["pred_rows"]] for k, v in b.items()
+             if k != "label"} for i in range(4)]
+    expect = [p.predict(r) for r in reqs]
+    nfwd += len(reqs)
+    live = backends[1]
+    fe2 = Frontend([addrs[0], ("127.0.0.1", live.port)], model, reprobe_secs=0.0)
+    errors, killed, answered, worst = [], threading.Event(), [0], [0.0]
+    spawned = next(m for m in fe2._members if m.addr.endswith(f":{addrs[0][1]}"))
+    try:
+        fe2.warmup(reqs[0])
+
+        def driver():
+            # requests until the kill, then `fleet_requests` // 2 more: the
+            # round robin sends one of the first two of them to the dead
+            # backend, whose failed call is retried on the sibling
+            try:
+                i, after = 0, 0
+                while after < cfg["fleet_requests"] // 2:
+                    after += killed.is_set()
+                    got = fe2.request(reqs[i % 4])
+                    worst[0] = max(worst[0], float(np.abs(got - expect[i % 4]).max()))
+                    answered[0] += 1
+                    i += 1
+            except BaseException as e:
+                errors.append(e)
+
+        th = threading.Thread(target=driver)
+        th.start()
+        _wait_for(lambda: answered[0] >= cfg["fleet_requests"] // 2 or errors,
+                  "requests through the spawned backend", phase=19)
+        before = spawned.snapshot()
+        if before["requests"] == 0 or before["errors"]:
+            raise AssertionError(f"before the SIGKILL the spawned backend had {before}")
+        os.kill(procs[0].pid, signal.SIGKILL)
+        procs[0].wait()
+        killed.set()
+        th.join(timeout=120)
+        if errors:
+            raise errors[0]
+        if worst[0] > COALESCE_ATOL:
+            raise AssertionError(f"PRED answers through the frontend differ by {worst[0]}")
+        # read before any health sweep: a failed routed call marked it down
+        after = spawned.snapshot()
+        if after["errors"] == 0 or after["fails"] == 0:
+            raise AssertionError(f"no routed request failed over from the killed backend: "
+                                 f"{after}")
+        h = fe2.predictor.health()
+        if h["status"] == "ok" or h["reachable"] != 1:
+            raise AssertionError(f"health after the SIGKILL: {h}")
+        st["sigkill"] = dict(requests=answered[0], failed=0, worst=worst[0],
+                             health=h["status"], spawned_requests=before["requests"],
+                             failovers=after["errors"])
+    finally:
+        fe2.close()
+        for pr in procs:
+            pr.kill()
+            pr.wait()
+    nfwd += live.server.stats.snapshot()["batches"]
+    for bk in backends:
+        bk.stop()
+    want[1] += nfwd * read[1]
+    want[4] += nfwd * read[4]
+    del backends
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return want
+
+
+def retrieval_fold(dev, p, model, cfg, ckdir, seed, items, engine, st):
+    """Phase 19 (c): `fold_steps` steps with the dense half frozen on
+    `fold_items` items of the corpus, one delta, one poll: the fold's rows
+    equal the corpus rows whose item features the steps trained, the rest
+    unchanged, the re-encoded rows equal a fresh engine's. Returns the
+    launches of (#1, #3, #2, #5, #4) of its path."""
+    from deeprec_tpu_torch.data import SyntheticTwoTower
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.serving import RetrievalEngine
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    ids, feats = items
+    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(0.0), device=dev)
+    ck = CheckpointManager(ckdir, trainer)
+    chain = [os.path.join(ckdir, d) for d in ck.chain_dirs()]
+    t0 = time.perf_counter()
+    state = ck.restore()
+    step_l, save_l = _train_launches(trainer)
+    want = step_l * cfg["fold_steps"] + save_l
+    want[3] += 2 * sum(_link_bundles(c) for c in chain)  # values and accumulators
+    rng = np.random.default_rng(seed + 193)
+    pick = rng.choice(len(ids), cfg["fold_items"], replace=False)
+    g = SyntheticTwoTower(batch_size=cfg["batch"], num_user=len(model.user_feats),
+                          num_item=len(model.item_feats), vocab=cfg["vocab"], seed=seed + 194)
+    for _ in range(cfg["fold_steps"]):
+        b = g.batch()
+        rows = pick[rng.integers(0, len(pick), cfg["batch"])]
+        for f in model.item_feats:
+            b[f] = feats[f][rows]
+        state, m = trainer.train_step(state, b)
+    state, path = ck.save_incremental(state)
+    train_s = time.perf_counter() - t0
+    before = engine._corpus.vecs.clone()
+    sbefore = engine._corpus.scale.clone()
+    trained = {f: np.unique(feats[f][pick]) for f in model.item_feats}
+    expect = np.nonzero(np.any([np.isin(feats[f], trained[f]) for f in model.item_feats],
+                               axis=0))[0]
+    t0 = time.perf_counter()
+    if not p.poll_updates():
+        raise AssertionError("the delta was not applied")
+    poll_s = time.perf_counter() - t0
+    lf = engine.last_fold
+    if lf is None or lf["full"] or lf["dense_drift"] or lf["rows"] != expect.size:
+        raise AssertionError(f"the fold {lf}; the steps trained the features of "
+                             f"{expect.size} corpus rows")
+    after = engine._corpus.vecs
+    moved = np.nonzero(((after != before).any(dim=1)
+                        | (engine._corpus.scale != sbefore)).cpu().numpy())[0]
+    if not set(moved.tolist()) <= set(expect.tolist()):
+        raise AssertionError("the fold changed rows outside the trained items")
+    fresh = RetrievalEngine(p, quantize="int8", block_rows=cfg["block_rows"],
+                            chunk=cfg["chunk"])
+    fresh.upsert_items(ids[expect], {f: v[expect] for f, v in feats.items()})
+    n = expect.size
+    if not (torch.equal(fresh._corpus.vecs[:n], after[expect])
+            and torch.equal(fresh._corpus.scale[:n], engine._corpus.scale[expect])):
+        raise AssertionError("a re-encoded item's vector differs from a fresh engine's")
+    st["fold"] = dict(rows=lf["rows"], moved=len(moved), seconds=lf["seconds"],
+                      poll_s=poll_s, train_s=train_s, version=p.version,
+                      lag=p.last_apply_lag_seconds)
+    read = _read_launches(p)
+    nfwd = -(-n // cfg["chunk"]) + _encodes(n, cfg["chunk"])  # the fold; the fresh engine
+    want += _import_launches(p, [path]) + nfwd * read
+    del trainer, state, fresh, before
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return want
+
+
+def retrieval_stores_cabi(dev, p, model, cfg, seed, ckdir, lib_ready, st):
+    """Phase 19 (e): Predictor(stores={table: RemoteKVClient}) over a
+    RemoteKVServer serves the store's rows for keys missing from the table,
+    equal bit for bit to a Predictor over an in-process HostKV holding the
+    same rows; the processor library loaded with ctypes answers JSON and
+    protobuf process() calls equal to Predictor.predict bit for bit.
+    Returns the launches of (#1, #3, #2, #5, #4) of its path."""
+    import ctypes
+
+    from deeprec_tpu_torch import native
+    from deeprec_tpu_torch.data import SyntheticTwoTower
+    from deeprec_tpu_torch.serving import Predictor, RemoteKVClient, RemoteKVServer
+    from deeprec_tpu_torch.serving import predict_pb as pb
+
+    read = _read_launches(p)
+    paths = [os.path.join(ckdir, d) for d in p._dirs()]
+    g = SyntheticTwoTower(batch_size=cfg["pred_rows"], num_user=len(model.user_feats),
+                          num_item=len(model.item_feats), vocab=cfg["vocab"], seed=seed + 195)
+    req = {k: v for k, v in g.batch().items() if k != "label"}
+    table = model.user_feats[0]
+    novel = np.arange(50_000_000, 50_000_000 + cfg["pred_rows"] // 2, dtype=np.int64)
+    missing = dict(req)
+    missing[table] = req[table].copy()
+    missing[table][::2] = novel.astype(req[table].dtype)
+    rows = np.random.default_rng(seed + 196).normal(
+        0, 0.1, (len(novel), cfg["emb_dim"])).astype(np.float32)
+    kv_remote, kv_local = native.HostKV(cfg["emb_dim"]), native.HostKV(cfg["emb_dim"])
+    kv_local.put(novel, rows)
+    srv = RemoteKVServer(kv_remote, dim=cfg["emb_dim"]).start()
+    try:
+        client = RemoteKVClient("127.0.0.1", srv.port, dim=cfg["emb_dim"])
+        client.put(novel, rows)
+        t0 = time.perf_counter()
+        pr = Predictor(model, ckdir, device=dev, stores={table: client})
+        st["store_boot_s"] = time.perf_counter() - t0
+        pl = Predictor(model, ckdir, device=dev, stores={table: kv_local})
+        got, loc, plain = pr.predict(missing), pl.predict(missing), p.predict(missing)
+        if not np.array_equal(got, loc) or float(np.abs(got - plain).max()) == 0.0:
+            raise AssertionError("the remote store's rows were not served as the "
+                                 "in-process store's")
+        st["store"] = dict(keys=len(novel), shift=float(np.abs(got - plain).max()))
+        client.close()
+    finally:
+        srv.stop()
+    want = 2 * _import_launches(p, paths, boot=True) + 3 * read
+    del pr, pl
+
+    # the C ABI, loaded into this process
+    lib = native.load_processor_library() if lib_ready.result() else None
+    cfg_json = json.dumps({"model": "dssm", "ckpt_dir": ckdir, "device": dev.type,
+                           "model_args": {"emb_dim": cfg["emb_dim"],
+                                          "capacity": cfg["capacity"]},
+                           "max_wait_ms": 1.0, "poll_secs": 0.0}).encode()
+    state = ctypes.c_int(-1)
+    handle = lib.initialize(b"", cfg_json, ctypes.byref(state))
+    if state.value != 0 or not handle:
+        raise AssertionError(f"initialize() failed: state {state.value}")
+    try:
+        want += _import_launches(p, paths, boot=True)
+        feats = {k: v.tolist() for k, v in req.items()}
+        wire = pb.PredictRequest(inputs={k: pb.ArrayProto.from_numpy(v)
+                                         for k, v in req.items()}).serialize()
+        ref = p.predict(req)
+        answers = []
+        for payload in (json.dumps({"features": feats}).encode(), wire):
+            out, n = ctypes.c_void_p(), ctypes.c_int()
+            rc = lib.process(handle, payload, len(payload), ctypes.byref(out), ctypes.byref(n))
+            body = ctypes.string_at(out, n.value)
+            lib.free_buffer(out)
+            if rc != 200:
+                raise AssertionError(f"process() answered {rc}: {body[:200]}")
+            answers.append(np.asarray(json.loads(body)["predictions"], np.float32)
+                           if payload is not wire else
+                           pb.PredictResponse.parse(body).outputs["probabilities"].to_numpy())
+        if not all(np.array_equal(a, ref) for a in answers):
+            raise AssertionError("process() answers differ from Predictor.predict")
+        want += 3 * read
+        st["cabi"] = dict(lib=os.path.basename(str(native.processor_library_path())),
+                          rows=cfg["pred_rows"])
+    finally:
+        lib.shutdown_processor(handle)
+    return want
+
+
+def run_retrieval(dev, seed, cfg, ckroot):
+    """Phase 19, printed. Returns the launches of (#1, #3, #2, #5, #4) over
+    its path and the max abs error of #3 and #4 against their plain versions
+    at its shapes."""
+    import concurrent.futures
+
+    from deeprec_tpu_torch import native
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+    from deeprec_tpu_torch.ops.topk import SWEEP_ROWS
+    from deeprec_tpu_torch.serving import ModelServer, Predictor, spawn_backends
+
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    # the processor library's g++ build, beside the phase
+    lib_ready = pool.submit(lambda: bool(native.processor_library_path()))
+    ckdir, model, trained = _dssm_ckpt(dev, seed, cfg, ckroot)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_row_counts()  # the main path starts here
+    fused_gather_combine.launches = 0
+    st = {}
+    t1 = time.perf_counter()
+    p = Predictor(model, ckdir, device=dev)
+    _sync(dev)
+    st["boot_s"] = time.perf_counter() - t1
+    paths = [os.path.join(ckdir, d) for d in p._dirs()]
+    want = _import_launches(p, paths, boot=True)
+    read = _read_launches(p)
+    ms = ModelServer(p, max_batch=cfg["batch"])
+    spawn = None
+    try:
+        engines, items, queries, box, fwd = retrieval_engines(dev, p, ms, model, cfg, seed, st)
+        fwd += retrieval_big(dev, p, model, cfg, seed, queries, engines["int8"], st)
+        # (d)'s backend process, started now: its boot overlaps the fleet's
+        spawn = pool.submit(
+            spawn_backends, 1, ckpt=ckdir, model="dssm", device=dev.type, poll_secs=0.0,
+            model_json=json.dumps({"emb_dim": cfg["emb_dim"], "capacity": cfg["capacity"]}),
+            max_batch=cfg["batch"], ready_timeout=300.0)
+        want += retrieval_fleet(dev, p, model, cfg, ckdir, seed, items, queries,
+                                engines["fp32"], st, spawn)
+        fwd += box[0]  # every retrieve of the three engines, (d)'s included
+        want += fwd * read
+        want += retrieval_fold(dev, p, model, cfg, ckdir, seed, items, engines["int8"], st)
+        engines.clear()
+        want += retrieval_stores_cabi(dev, p, model, cfg, seed, ckdir, lib_ready, st)
+    finally:
+        ms.close()
+        if spawn is not None and spawn.done() and spawn.exception() is None:
+            for pr in spawn.result()[0]:
+                pr.kill()
+                pr.wait()
+        pool.shutdown(wait=True)
+    launches = _launch_counts()
+    _row_counts()  # ... and ends here (adds the bf16 launches to PAIR_LAUNCHES)
+    print(f"retrieval: DSSM emb {cfg['emb_dim']}, {cfg['capacity']} slots a table, "
+          f"{'phase 13' + chr(39) + 's state' if trained is None else f'{trained} steps'} "
+          f"from {os.path.basename(ckdir)}; Predictor booted in {st['boot_s']:.3f} s")
+    for q in ("int8", "bf16", "fp32"):
+        s = st[q]
+        print(f"retrieval (b) {q}: {cfg['items']} items (capacity {s['capacity']}, block_rows "
+              f"{cfg['block_rows']}, {min(SWEEP_ROWS, s['capacity'])} rows a sweep step) "
+              f"ingested in "
+              f"{s['ingest_s']:.3f} s; retrieve_versioned of {cfg['query']} rows at k "
+              f"{cfg['k']}: p50 {s['p50']:.3f} ms, p90 {s['p90']:.3f} ms; the sweep alone p50 "
+              f"{s['sweep_p50']:.3f} ms, p90 {s['sweep_p90']:.3f} ms, {s['ops']} device "
+              f"operations a sweep; byte bound {s['bound_ms']:.5f} ms; resident "
+              f"{s['bytes']} bytes (= the model)")
+    b = st["big"]
+    print(f"retrieval (b) int8 at {b['items']} items (capacity {b['capacity']}): ingested in "
+          f"{b['ingest_s']:.3f} s; the sweep alone p50 {b['sweep_p50']:.3f} ms, p90 "
+          f"{b['sweep_p90']:.3f} ms, {b['ops']} device operations; byte bound "
+          f"{b['bound_ms']:.5f} ms; resident {b['bytes']} bytes")
+    e = st["exact"]
+    print(f"retrieval (b) gates, {cfg['recall_batches']} queries of {cfg['query']} rows: the "
+          f"f32 top-{cfg['k']}'s items equal to an exact f64 scan of its vectors at "
+          f"{e['apart']} of {e['total']} positions (the rest within {RETR_ATOL} of a "
+          f"neighbour), their exact scores and the f32 scores within {e['err']:.3g} of the "
+          f"exact k best at every position; int8 tie-aware recall@10 "
+          f"{st['recall'][10]:.4f}, @100 {st['recall'][100]:.4f} (floor "
+          f"{RECALL_FLOOR}); {len(queries)} requests from {cfg['clients']} client threads "
+          f"in {st['coalesced_sweeps']} sweeps, each equal to its solo answer bit for bit; "
+          f"sweep_info measured = modeled bytes")
+    f = st["fleet"]
+    print(f"retrieval (d): two fp32 shards of {f['shards']} items (broadcast ingest "
+          f"{st['fleet_ingest_s']:.3f} s) merged at the frontend equal the single engine's "
+          f"top-{cfg['k']} bit for bit ({st['fleet_retr_ms']:.3f} ms); one member stopped: "
+          f"partial answer from the survivor, health {f['partial_health']}, "
+          f"retrieval_partials {f['partials']}")
+    s = st["sigkill"]
+    print(f"retrieval (d): a backend process (spawn_backends --device {dev.type}) answered "
+          f"{s['spawned_requests']} PRED requests through the frontend, SIGKILLed mid-load: "
+          f"{s['failovers']} routed calls to it failed and were retried on the sibling; "
+          f"{s['requests']} requests, {s['failed']} failed, answers within {s['worst']:.3g} "
+          f"of Predictor.predict, health {s['health']}")
+    fo = st["fold"]
+    print(f"retrieval (c): {cfg['fold_steps']} steps (dense frozen) on {cfg['fold_items']} "
+          f"corpus items and a delta ({fo['train_s']:.3f} s with the restore), one poll "
+          f"({fo['poll_s']:.3f} s): the fold re-encoded {fo['rows']} rows (the rows whose "
+          f"item features the steps trained) in {fo['seconds']:.3f} s, {fo['moved']} rows "
+          f"moved, none outside them, each equal to a fresh engine's bit for bit; "
+          f"version {fo['version']}, last_apply_lag_seconds {fo['lag']}")
+    print(f"retrieval (e): Predictor(stores={{RemoteKVClient}}) served {st['store']['keys']} "
+          f"missing keys' rows (max |dp| {st['store']['shift']:.4g} against no store) equal to "
+          f"an in-process HostKV store's bit for bit; {st['cabi']['lib']} loaded with ctypes: "
+          f"JSON and protobuf process() answers of {st['cabi']['rows']} rows equal to "
+          f"Predictor.predict bit for bit")
+    if dev.type == "cuda" and not np.array_equal(launches, want):
+        raise AssertionError(f"phase 19 launched (#1, #3, #2, #5, #4) {launches.tolist()}, the "
+                             f"path implies {want.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    pk = st["path_kernels"]
+    print(f"retrieval (b) kernels on the path: {pk['gathers']} gather_rows and "
+          f"{pk['combines']} grouped fused_gather_combine calls of one {cfg['chunk']}-row "
+          f"encode chunk, one {cfg['query']}-row query and one {pk['coalesced_rows']}-row coalesced "
+          f"batch each equal to the plain version bit for bit (max_abs_err {pk['err']}) at "
+          f"(kernel, values, ids, dtype) {pk['shapes']}")
+    print(f"retrieval: the path launched (#1, #3, #2, #5, #4) {launches.tolist()} (implied "
+          f"{want.tolist()}); peak device memory {peak} GB")
+    print(f"phase 19 (retrieval, the fleet, the stores and the C ABI) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, pk["err"]
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
         multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST,
-        serve=SERVE):
-    """Phases 3-18 on `dev`. Returns the kernel records, in the order of
+        serve=SERVE, retrieval=RETR):
+    """Phases 3-19 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
@@ -5613,6 +6418,16 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         gather["launches"] += int(sl[0] + sl[1])
         scatter["launches"] += int(sl[2] + sl[3])
         pooled["launches"] += int(sl[4])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        rl, rerr = run_retrieval(dev, seed, retrieval, ckroot)
+        gather["max_abs_err"] = max(gather["max_abs_err"], rerr)
+        pooled["max_abs_err"] = max(pooled["max_abs_err"], rerr)
+        # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
+        gather["launches"] += int(rl[0] + rl[1])
+        scatter["launches"] += int(rl[2] + rl[3])
+        pooled["launches"] += int(rl[4])
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's

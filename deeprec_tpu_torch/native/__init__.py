@@ -1,13 +1,17 @@
 """The native host runtime — the port's copy of `deeprec_tpu/native/`:
 the host-DRAM key-value store of the multi-tier tables (`HostKV`, over
-`host_kv.cpp`) and the Criteo TSV parser (`criteo_parse_native`, over
-`csv_parser.cpp`).
+`host_kv.cpp`), the Criteo TSV parser (`criteo_parse_native`, over
+`csv_parser.cpp`) and the serving C ABI (`load_processor_library`, over
+`processor.cpp`, with the pure-C host `chost_demo.c` that boots it).
 
 Each library builds at first use with `g++ -O3 -std=c++17 -fPIC -shared
 -pthread` into `build/deeprec_tpu_torch/` at the checkout root, named by a
 digest of its source and the flags (as `ops/_build.py` names the CUDA
 libraries), and loads with ctypes. A failed build or load raises: there is
-no silent fallback on the main path. `PlainHostKV` is a numpy dict with the
+no silent fallback on the main path. The processor library also
+compiles against the running interpreter's headers and links its
+libpython (sysconfig's INCLUDEPY, LIBDIR and LDLIBRARY), so a C host that
+dlopens it boots an embedded interpreter. `PlainHostKV` is a numpy dict with the
 same interface, the reference the tests hold the native store against;
 nothing else uses it. The parser's plain reference is
 `data/readers.criteo_block_parse`.
@@ -22,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Tuple
@@ -32,34 +37,55 @@ from deeprec_tpu_torch.ops._build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parent / "host_kv.cpp"
 CSV_SOURCE = Path(__file__).resolve().parent / "csv_parser.cpp"
+PROCESSOR_SOURCE = Path(__file__).resolve().parent / "processor.cpp"
+CHOST_SOURCE = Path(__file__).resolve().parent / "chost_demo.c"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 _lib = None
 _csv_lib = None
+_proc_lib = None
 _lock = threading.Lock()
 
 
-def _lib_path(source: Path = None) -> Path:
-    """build/deeprec_tpu_torch/lib<stem>-<digest>.so of `source` (the host
-    store's by default)."""
+def _python_flags():
+    """(compile flags, link flags) of the running interpreter, from
+    sysconfig: its headers, and its shared libpython where it has one (a
+    static interpreter exports the symbols itself, so a library loaded into
+    it links nothing)."""
+    cflags = [f"-I{sysconfig.get_config_var('INCLUDEPY')}"]
+    libdir = sysconfig.get_config_var("LIBDIR")
+    ldlib = sysconfig.get_config_var("LDLIBRARY") or ""
+    lflags = []
+    if sysconfig.get_config_var("Py_ENABLE_SHARED") and ldlib.startswith("lib"):
+        name = ldlib[3:].split(".so")[0].split(".dylib")[0]
+        lflags = [f"-L{libdir}", f"-Wl,-rpath,{libdir}", f"-l{name}"]
+    return cflags, lflags
+
+
+def _lib_path(source: Path = None, flags=CXX_FLAGS, name: str = None) -> Path:
+    """build/deeprec_tpu_torch/<name>-<digest>[.so] of `source` (the host
+    store's by default; `name` defaults to lib<stem>.so), the digest over
+    the source and the flags."""
     source = SOURCE if source is None else source
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+        source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    stem, _, suffix = (name or f"lib{source.stem}.so").partition(".")
+    return BUILD_DIR / (f"{stem}-{digest}" + (f".{suffix}" if suffix else ""))
 
 
-def _build(out: Path, source: Path = None) -> None:
+def _build(out: Path, source: Path = None, flags=CXX_FLAGS, link=(),
+           compilers=("g++", "c++")) -> None:
     source = SOURCE if source is None else source
-    cxx = shutil.which("g++") or shutil.which("c++")
+    cxx = next((c for c in map(shutil.which, compilers) if c), None)
     if cxx is None:
-        raise RuntimeError(f"{source.stem}: no C++ compiler (g++) to build {source.name}")
+        raise RuntimeError(f"{source.stem}: no compiler ({compilers[0]}) to build {source.name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *flags, "-o", str(tmp), str(source), *link],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"{source.stem}: g++ failed (exit {proc.returncode}):\n"
-                           + proc.stdout + proc.stderr)
+        raise RuntimeError(f"{source.stem}: {os.path.basename(cxx)} failed "
+                           f"(exit {proc.returncode}):\n" + proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -126,6 +152,60 @@ def load_csv_library() -> ctypes.CDLL:
             _configure_csv(lib)
             _csv_lib = lib
         return _csv_lib
+
+
+def _configure_processor(lib: ctypes.CDLL) -> None:
+    """The C ABI's signatures (native/processor.cpp)."""
+    vp, ip, vpp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+    lib.initialize.restype = vp
+    lib.initialize.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ip]
+    lib.process.restype = ctypes.c_int
+    lib.process.argtypes = [vp, ctypes.c_char_p, ctypes.c_int, vpp, ip]
+    lib.get_serving_model_info.restype = ctypes.c_int
+    lib.get_serving_model_info.argtypes = [vp, vpp, ip]
+    lib.batch_process.restype = ctypes.c_int
+    lib.batch_process.argtypes = [vp, ctypes.POINTER(ctypes.c_char_p), ip, vpp, ip]
+    lib.batch_process_n.restype = ctypes.c_int
+    lib.batch_process_n.argtypes = [vp, ctypes.POINTER(ctypes.c_char_p), ip,
+                                    ctypes.c_int, vpp, ip]
+    lib.free_buffer.argtypes = [vp]
+    lib.shutdown_processor.argtypes = [vp]
+
+
+def processor_library_path() -> Path:
+    """The processor library's path, built first if needed (raises when the
+    build fails). What an external host dlopens."""
+    cflags, lflags = _python_flags()
+    flags = ["-O2", "-std=c++17", "-fPIC", "-shared", "-Wall", *cflags]
+    path = _lib_path(PROCESSOR_SOURCE, flags + lflags, "libdeeprec_processor.so")
+    with _lock:
+        if not path.exists():
+            _build(path, PROCESSOR_SOURCE, flags, lflags)
+    return path
+
+
+def load_processor_library() -> ctypes.CDLL:
+    """The serving C ABI loaded into this process with ctypes (the
+    interpreter is already running, so `initialize` skips its boot)."""
+    global _proc_lib
+    path = processor_library_path()
+    with _lock:
+        if _proc_lib is None:
+            lib = ctypes.CDLL(str(path))
+            _configure_processor(lib)
+            _proc_lib = lib
+        return _proc_lib
+
+
+def build_chost_demo() -> Path:
+    """The pure-C host (chost_demo.c: dlopen the processor library, boot
+    the interpreter, serve one request), built with cc at first use."""
+    flags = ["-O2", "-Wall"]
+    path = _lib_path(CHOST_SOURCE, flags, "chost_demo")
+    with _lock:
+        if not path.exists():
+            _build(path, CHOST_SOURCE, flags, ["-ldl"], compilers=("cc", "gcc"))
+    return path
 
 
 def criteo_parse_native(buf: bytes, max_rows: int, num_dense: int = 13,

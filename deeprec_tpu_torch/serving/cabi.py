@@ -5,9 +5,9 @@ The reference exposes its serving stack to external RPC frameworks
 through a 4-function C ABI (``initialize`` / ``process`` /
 ``batch_process`` / ``get_serving_model_info``, the reference's
 serving/processor/serving/processor.h). The C library that embeds CPython
-and forwards to the functions below (`native/processor.cpp`) is the next
-slice of the port; `HttpServer` and `http_server --serve` use these
-functions today. Payloads may be the reference's protobuf wire format
+and forwards to the functions below is `native/processor.cpp`
+(`native.load_processor_library()` builds it at first use); `HttpServer`
+and `http_server --serve` use these functions too. Payloads may be the reference's protobuf wire format
 (serialized ``tensorflow.eas.PredictRequest`` -> ``PredictResponse``,
 decoded by :mod:`predict_pb`) or JSON (``{"features": {...}}``); the
 format is sniffed per request. All serving logic (validation, coalescing,

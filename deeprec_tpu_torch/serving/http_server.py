@@ -20,10 +20,10 @@ Protocol:
                   -> {"items": [[id,...]], "scores": [[...]],
                       "model_version": V, "partial": false,
                       "candidates_scanned": N}
-                     (full-corpus top-k: the retrieval lane is a later
-                      slice of the port; until then a server answers 400
-                      "retrieval not enabled on this server", as the JAX
-                      server does with no engine attached)
+                     (full-corpus top-k through ModelServer.attach_retrieval
+                      or a Frontend's fleet merge; a server with no
+                      retrieval lane answers 400 "retrieval not enabled on
+                      this server")
   GET  /healthz      -> 200 {"status": "ok", "staleness_seconds": ...,
                         "consecutive_poll_failures": 0, ...} — 503 with the
                         same body once the update poller is failing
@@ -54,6 +54,7 @@ from deeprec_tpu_torch.serving.predictor import (
     Predictor,
     parse_features,
 )
+from deeprec_tpu_torch.serving.retrieval import fill_missing_item_features
 
 
 def instances_to_features(instances) -> dict:
@@ -67,31 +68,6 @@ def instances_to_features(instances) -> dict:
     if any(set(r) != names for r in instances):
         raise BadRequest("instances disagree on feature names")
     return {k: [r[k] for r in instances] for k in names}
-
-
-def _fill_missing_item_features(predictor, feats) -> dict:
-    """A retrieval request carries USER features only: every absent item
-    feature is filled with its pad value (dense with 0) before parsing, as
-    the JAX `serving/retrieval.fill_missing_item_features` does."""
-    if not isinstance(feats, dict) or not feats:
-        raise BadRequest("missing 'features' object")
-    item_feats = set(getattr(predictor.model, "item_feats", ()))
-    if not item_feats:
-        return feats
-    v = next(iter(feats.values()))
-    rows = len(v) if isinstance(v, list) else int(np.asarray(v).shape[0])
-    specs = {f.name: f for f in predictor._trainer.sparse_specs}
-    dtypes = predictor.feature_dtypes
-    out = dict(feats)
-    for name in item_feats - set(feats):
-        want = dtypes.get(name)
-        if want is None:
-            continue
-        if want.kind in "iu":
-            out[name] = np.full((rows, 1), specs[name].pad_value, want)
-        else:
-            out[name] = np.zeros((rows, 1), np.float32)
-    return out
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -253,10 +229,11 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._send(500, {"error": str(e)})
             return self._send(200, {"updated": updated})
         if verb == "retrieve":
-            # Full-corpus top-k: the request carries USER features only
-            # (absent item features are pad-filled before parsing). With
-            # no retrieval lane attached, `retrieve_versioned` answers
-            # BadRequest, a 400.
+            # Full-corpus top-k (serving/retrieval.py): the request carries
+            # USER features only (absent item features are pad-filled before
+            # parsing). Answered by the local retrieval lane or the fleet's
+            # merge, whichever backs this server; with no lane attached,
+            # `retrieve_versioned` answers BadRequest, a 400.
             rv = getattr(server, "retrieve_versioned", None)
             if rv is None:
                 return self._send(501, {"error":
@@ -266,7 +243,7 @@ class _Handler(BaseHTTPRequestHandler):
                                         "body must be a JSON object"})
             try:
                 k = int(payload.get("k", 10))
-                feats = _fill_missing_item_features(
+                feats = fill_missing_item_features(
                     server.predictor, payload.get("features"))
                 batch = parse_features(server.predictor, feats)
             except BadRequest as e:

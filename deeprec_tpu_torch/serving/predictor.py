@@ -29,8 +29,11 @@ the micro-batching server in front of it — the port of
     member per distinct device behind one shared queue; on one card it is
     one member.
 
-Retrieval (`attach_retrieval`) is a later slice of the port (ROADMAP
-queue A item 7).
+Full-corpus retrieval (`serving/retrieval.py`) hangs off a Predictor:
+`attach_retrieval` registers a `RetrievalEngine` for model-update
+notifications (every publish folds the update into the resident corpus in
+the same poll round), and `ModelServer.attach_retrieval` puts its
+coalescing `RetrievalServer` behind the server's stats.
 """
 from __future__ import annotations
 
@@ -72,11 +75,6 @@ _log = logging.getLogger(__name__)
 # 1e-4, so otherwise a served row's answer would depend on what it was
 # batched with. On the CPU the answers agree within 1e-6 as they are.
 READ_ROWS = 2048
-
-_RETRIEVAL_SLICE = (
-    "retrieval (serving/retrieval.py with ops/topk.py) is the next slice of "
-    "the port's serving breadth, ROADMAP queue A item 7")
-
 
 class BadRequest(ValueError):
     """Client-side request error, with a structured payload for frontends
@@ -309,6 +307,9 @@ class Predictor:
         # and the old snapshot keeps serving (health() degraded).
         self.quality_gate = quality_gate
         self._gate_blocked = False
+        # the attached RetrievalEngine: every published update folds into
+        # its corpus inside the same updater round
+        self._retrieval = None
         # compute-reuse caches (serving/reuse.py): every publish drops
         # their stale-version entries inside the same updater round
         self._reuse_caches: List = []
@@ -358,10 +359,15 @@ class Predictor:
                 return False
             self._publish(state, dirs)
             self._gate_blocked = False
+            if self._retrieval is not None:
+                # full reload: every resident item vector may have moved
+                self._retrieval.on_model_update(None, full=True)
             return True
 
     def attach_retrieval(self, engine) -> None:
-        raise NotImplementedError(_RETRIEVAL_SLICE)
+        """Register a RetrievalEngine for model-update notifications (the
+        engine's constructor calls this)."""
+        self._retrieval = engine
 
     def attach_reuse_cache(self, cache) -> None:
         """Register a ReuseCache for publish-edge invalidation: every
@@ -538,6 +544,11 @@ class Predictor:
                 return False
             self._publish(state, applied)
             self._gate_blocked = False
+            if self._retrieval is not None:
+                # the replayed deltas' changed item rows, folded in this
+                # poll round: a newly trained item is retrievable when it
+                # returns
+                self._retrieval.on_model_update(replayed, full=False)
             self._stamp_apply_lag(replayed)
         self.update_count += 1
         self.last_update_time = time.monotonic()
@@ -563,6 +574,11 @@ class Predictor:
         now = time.monotonic()
         status = "ok" if self.consecutive_poll_failures == 0 else "degraded"
         extra = {}
+        if self._retrieval is not None:
+            # shard coverage for the fleet sweep: a retrieval backend that
+            # restarted with an EMPTY corpus answers RETR with nothing; the
+            # frontend compares this count across members
+            extra["retrieval_corpus_rows"] = self._retrieval.corpus_rows()
         if self.quality_gate is not None:
             extra["quality_gate_rejections"] = self.quality_gate.rejections
             if self.quality_gate.last_rejection is not None:
@@ -928,6 +944,7 @@ class ModelServer:
         # user-tower cache that routes hits onto the candidate-only lane.
         self.reuse = None
         self.user_reuse = None
+        self.retrieval = None  # the RetrievalServer of attach_retrieval
         self.memo_shared = 0  # requests served off a coalesced twin
         self._m_memo = None
         if reuse_cache_bytes > 0:
@@ -1221,13 +1238,22 @@ class ModelServer:
         return reply
 
     def attach_retrieval(self, engine, **kwargs):
-        raise NotImplementedError(_RETRIEVAL_SLICE)
+        """Put a full-corpus RetrievalEngine behind this server's stats:
+        builds the coalescing RetrievalServer of the lane (one sweep per
+        coalesced user batch; `kwargs` go to it) and returns it."""
+        from deeprec_tpu_torch.serving.retrieval import RetrievalServer
+
+        self.retrieval = RetrievalServer(engine, stats=self.stats, **kwargs)
+        return self.retrieval
 
     def retrieve_versioned(self, features, k: int, timeout: float = 30.0,
                            no_cache: bool = False):
-        """No retrieval lane is attached: the answer the JAX server gives
-        when no engine is attached."""
-        raise BadRequest("retrieval not enabled on this server")
+        """Full-corpus top-k of each user row (a RetrievalResult), the
+        retrieval lane's `request_versioned`; BadRequest without a lane."""
+        if self.retrieval is None:
+            raise BadRequest("retrieval not enabled on this server")
+        return self.retrieval.request_versioned(features, k, timeout=timeout,
+                                                no_cache=no_cache)
 
     def request(self, features: Dict[str, np.ndarray], timeout: float = 30.0,
                 group_users: bool = False):
@@ -1263,11 +1289,15 @@ class ModelServer:
                          "queue_depth": self._q.qsize(), "window_seconds": 60}
         out["health"] = p.health()
         out["residency"] = p.residency_info()
+        if self.retrieval is not None:
+            out["retrieval_corpus"] = self.retrieval.engine.sweep_info()
         reuse = {}
         if self.reuse is not None:
             reuse["predict"] = self.reuse.snapshot()
         if self.user_reuse is not None:
             reuse["user_tower"] = self.user_reuse.snapshot()
+        if self.retrieval is not None and self.retrieval.reuse is not None:
+            reuse["retrieve"] = self.retrieval.reuse.snapshot()
         if reuse:
             reuse["memo_shared"] = self.memo_shared
             out["reuse"] = reuse
@@ -1282,6 +1312,8 @@ class ModelServer:
 
     def close(self):
         self._stop.set()
+        if self.retrieval is not None:
+            self.retrieval.close()
         self._worker.join(timeout=2)
         if self._poller is not None:
             self._poller.join(timeout=2)

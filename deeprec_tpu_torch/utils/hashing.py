@@ -73,3 +73,50 @@ def stateless_uniform_from_ids(ids: torch.Tensor, salt) -> torch.Tensor:
     bits = mix32(fold64(ids) ^ mix32(salt & _M32))
     # the 24 high bits, exact in float32
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+# ---------------------------------------------------------------------------
+# Host numpy versions: the fleet computes which corpus shard owns an item on
+# the host (`serving/retrieval.py`); every backend and the JAX package must
+# agree bit for bit, so these reproduce `deeprec_tpu/utils/hashing.py`'s
+# `fold64_np`, `mix32_np` and `hash_shard_np` exactly.
+
+def fold64_np(ids):
+    import numpy as np
+
+    ids = np.asarray(ids)
+    if ids.dtype in (np.int64, np.uint64):
+        with np.errstate(over="ignore"):
+            lo = ids.astype(np.uint32)
+            hi = (ids >> 32).astype(np.uint32)
+            return lo ^ (hi * np.uint32(0x9E3779B9))
+    return ids.astype(np.uint32)
+
+
+def mix32_np(x):
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        x = np.asarray(x).astype(np.uint32)
+        x = x ^ (x >> np.uint32(16))
+        x = x * np.uint32(0x85EBCA6B)
+        x = x ^ (x >> np.uint32(13))
+        x = x * np.uint32(0xC2B2AE35)
+        x = x ^ (x >> np.uint32(16))
+        return x
+
+
+def hash_shard_np(ids, num_shards: int):
+    """Owner shard in [0, num_shards) of each id (int32). 64-bit ids narrow
+    to 32 bits first, as the JAX package's keys do on their way to the
+    device under its default 32-bit mode, so both packages place an item on
+    the same shard."""
+    import numpy as np
+
+    ids = np.asarray(ids)
+    if ids.dtype == np.int64:
+        ids = ids.astype(np.int32)
+    elif ids.dtype == np.uint64:
+        ids = ids.astype(np.uint32)
+    h = mix32_np(fold64_np(ids))
+    return (h % np.uint32(num_shards)).astype(np.int32)

@@ -446,9 +446,11 @@ def test_torn_reads_through_the_server_are_stamped_with_one_version(wdl, tmp_pat
 
 def test_towerless_grouping_and_retrieval_are_refused(wdl):
     """group_users on a model without towers is a client error (the
-    predictor's ValueError, the server's BadRequest); retrieval waits for
-    its slice, and with no lane attached the server answers as the JAX
-    server does."""
+    predictor's ValueError, the server's BadRequest); a retrieval engine
+    needs the two-tower split (the JAX engine's ValueError), and with no
+    lane attached the server answers as the JAX server does."""
+    from deeprec_tpu_torch.serving import RetrievalEngine
+
     d, req = wdl
     server = ModelServer(Predictor(WDL(**KW), d, device="cpu"))
     try:
@@ -456,10 +458,9 @@ def test_towerless_grouping_and_retrieval_are_refused(wdl):
             server.predictor.predict(req, group_users=True)
         with pytest.raises(BadRequest, match="tower"):
             server.submit(req, group_users=True)
-        with pytest.raises(NotImplementedError, match="retrieval"):
-            server.attach_retrieval(object())
-        with pytest.raises(NotImplementedError, match="retrieval"):
-            server.predictor.attach_retrieval(object())
+        with pytest.raises(ValueError, match="two-tower"):
+            server.attach_retrieval(RetrievalEngine(server.predictor))
+        assert server.retrieval is None and server.predictor._retrieval is None
         with pytest.raises(BadRequest, match="retrieval not enabled"):
             server.retrieve_versioned(req, 5)
     finally:
