@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each of which must pass:
+Phases, each of which must pass (the card-vs-CPU cells at 2^12 slots
+build DLRM-DCN with one cross layer, SMALL_CROSS_DEPTH, at FULL's widths;
+the seconds of every phase are printed at the end):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
      started together);
@@ -32,7 +34,7 @@ Phases, each of which must pass:
   4. the serving main path at full width: MLPerf DLRM-DCN (emb_dim 128,
      26 x 2^20-slot tables, bottom 512-256-128, top 512-256-1, cross depth
      3) restored from a full checkpoint written with numpy from --seed
-     (2^16 live keys per table; 2^17 before phase 19), answering 5 requests of batch 2048 and one
+     (2^15 live keys per table; 2^16 before phase 20, 2^17 before phase 19), answering 5 requests of batch 2048 and one
      each of batch 1 and 37 (ids 90% live, 5% unseen, 5% pad). Live ids must
      return their checkpoint row bit for bit, unseen ids the blocked default,
      probabilities must be finite in (0, 1), and every kernel of the path
@@ -90,9 +92,9 @@ Phases, each of which must pass:
      steps (finite losses, no failed insert, table sizes, rows off the
      batch unchanged, one launch each of flash fwd, dK/dV and dQ and the
      gather/scatter launches the bundles imply per step), 30 timed, 3
-     profiled, on to 80 steps (300, then 200, 150 and 100, before the
-     file-fed and serving phases needed the time); held-out AUC over 8
-     batches at step 0 and step 80, at least 0.60 at the end; card vs CPU at capacity 2^12
+     profiled, on to 60 steps (300, then 200, 150, 100 and 80, before the
+     file-fed, serving and online-loop phases needed the time); held-out
+     AUC over 8 batches at step 0 and step 60, at least 0.60 at the end; card vs CPU at capacity 2^12
      (bst_agreement);
  12. the phase-11 state saved and served by Predictor: 30 requests of
      batch 2048 and one each of batch 1 and 37, every answer equal to
@@ -106,8 +108,8 @@ Phases, each of which must pass:
      10^5) and the multi-task SimpleMultiTask, ESMM, MMoE, PLE and DBMTL
      (8 categorical and 4 numeric features, vocab 10^6, a ctr and a cvr or
      ctcvr label): 5 checked steps (finite losses, no failed insert, the
-     gather and scatter launches the bundles imply), 20 timed (DIEN, DSSM
-     and MMoE then 1 profiled), on to 150 steps (the depth cut in half to
+     gather and scatter launches the bundles imply), 20 timed (DIEN then 1
+     profiled; DSSM and MMoE too before phase 20), on to 150 steps (the depth cut in half to
      make room for phase 16); held-out AUC (`auc_ctr` for the
      multi-task models, every other task's printed) at least 0.60; the
      state saved and served by Predictor, 5 requests equal to eval_step bit
@@ -124,7 +126,9 @@ Phases, each of which must pass:
      restores the sketch and the grown capacity; (b) the loop at MLPerf
      DLRM-DCN widths with bf16 tables, CounterFilter(2) and
      GlobalStepEvict(200), each table starting at the power of two below
-     half its distinct ids: stage(depth=2) feeding 40 windows of
+     half its distinct ids (the model's options and the optimizers made by
+     the port's driver: `ev_option`, `_retable`, `make_optimizers` of
+     deeprec_tpu_torch/modelzoo/common.py): stage(depth=2) feeding 40 windows of
      train_steps(K=8) (lookahead; 5 in "off", 5 fed host batches, 2
      profiled), evict_tables and maintain(max_capacity=2^20) after every
      5th window, train_step_accum(A=4) over 2 windows' batches, evaluate on
@@ -140,15 +144,17 @@ Phases, each of which must pass:
      bit for bit per key: reports, device rows, host store, disk log, fold
      outcomes and retry keys, fallback rows; maintain(hbm_budget_bytes=) on
      an HBM DLRM-DCN filled past its growth threshold (a budget that grows,
-     one that auto-tiers) with equal reports and rows per key; 3 rounds of
-     pager observe + fold_tier_prefetch + train_steps(K=4) + maintain() on
+     one that auto-tiers) with equal reports and rows per key; 2 rounds (3
+     before phase 20) of pager observe + fold_tier_prefetch +
+     train_steps(K=4) at batch 256 (512 before phase 20) + maintain() on
      a tiered DLRM-DCN, losses within TRAIN_RTOL, demoted counts and folds
      equal, every key in one tier, value rows in the same tier within
      steps x lr x TRAIN_RTOL and Adagrad accumulators within TRAIN_RTOL;
      (b) the tiered loop at MLPerf DLRM-DCN widths: hbm_dram tables of
      TIER["capacity"] slots (LFU, watermarks 0.8 / 0.6), enable_tier_paging
-     + warm_tier_folds, stage(depth=2) feeding 16 windows (40 before
-     phase 17, 30 before phase 18, 20 before phase 19) of train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
+     + warm_tier_folds, stage(depth=2) feeding 14 windows (40 before
+     phase 17, 30 before phase 18, 20 before phase 19, 16 before phase 20)
+     of train_steps(K=8) in "lookahead", each followed by fold_tier_prefetch
      and maintain(tier_async=True) (every 5th a synchronous maintain(); 2
      windows profiled), a final maintain(), evaluate on 8 held-out batches:
      finite losses, rows demoted and brought back, occupancy at most the
@@ -158,7 +164,7 @@ Phases, each of which must pass:
      the table and the host store, the #3 / #5 / #4 launches the path and
      its tier events imply, AUC >= 0.60; (c) the modelzoo's budget path
      (maintain every window of 8 steps with hbm_budget_bytes) on HBM tables
-     from TIER["budget"]["capacity"] slots, 12 windows (18 before phase
+     from TIER["budget"]["capacity"] slots, 10 windows (12 before phase 20, 18 before phase
      17): one growth, then auto-tiering that demotes.
 
  16. the checkpoint lifecycle of modelzoo/common.py `run()`: (a) at the
@@ -188,14 +194,19 @@ Phases, each of which must pass:
      save and #2 / #5 once per bundle with rows per restored link; held-out
      AUC >= 0.55; the save, stall, write, transfer, disk and restore
      figures and the examples/s of windows with and without an async delta
-     in flight printed.
+     in flight printed. (b) runs through the port's driver: `run()` of
+     deeprec_tpu_torch/modelzoo/common.py with those flags, in this process,
+     observed from outside (Trainer and CheckpointManager methods wrapped
+     for the length of the call: the deltas after step 32 on the async
+     writer, the saves and train steps timed, the restore gates and the
+     restored twin at step 56).
  17. training from files and streams: 4 Criteo TSV files of 50,000 rows
      and a held-out file of 8 x 2048 rows written (without a loop over
      rows) from CriteoStats; (a) on the card's host, bit for bit: the
      native parser (criteo_parse_mt and criteo_parse) against
      criteo_block_parse on every file, ParallelInputPipeline(k_stack=2,
      shard_batches=2: 48 shards, several waves at every worker count) at
-     1, 2, 4 and 8 workers against the serial CriteoCSVReader stream (a
+     1, 2 and 4 workers (8 before phase 20) against the serial CriteoCSVReader stream (a
      digest per unit; records/s and MB/s), and MultiHashTable,
      DynamicDimEmbedding and AdaptiveEmbedding card vs CPU at 2^12 slots
      per key (routing and masks exact, rows within COMPOSE_ROW_ATOL); (b)
@@ -274,6 +285,43 @@ Phases, each of which must pass:
      ctypes answering JSON and protobuf process() equal to predict bit for
      bit; the phase's launches of #1, #3, #2, #5 and #4 equal to what its
      path implies.
+ 20. the guarded online train-to-serve loop (GUARD): WDL at the modelzoo's
+     widths (26 + 13 features, emb 16, 2^20 slots, hidden 1024-512-256)
+     with the step sentinel (spike 1.5, EMA 0.9, grad norm 5e3, row norm
+     50, evict quantile 0.9); (a) card against CPU at 2^12 slots from one
+     state: the sentinel off and on (untripped) over 3 train_steps and one
+     K = 4 lookahead window bit for bit, the loss and EMA of step k within
+     max(1, k / 3) x TRAIN_RTOL of the CPU's (with the MLPs' operands in
+     f32, every loss within TRAIN_RTOL / 10), the flags of a clean, a NaN, an
+     extreme, a label-flipped (against a seeded EMA) and an exploding-lr
+     step equal (all five bits between them), a TrainLoop rollback equal
+     per key and dense leaf to a clean run minus the poisoned batch,
+     maintain()'s anomaly eviction of an exploded row; (b) `python -m
+     deeprec_tpu_torch.modelzoo --model wide_and_deep --steps 20
+     --eval_every 10 --log_every 10` on the card, exit 0 with its
+     `global_step/sec:` and `Eval AUC:` lines; (c) 40 clean warmup steps
+     (80 in GUARD_BENCH) through TrainLoop, the step's ms with the sentinel
+     off and on in turns, then TrainLoop(guard=GuardPolicy(2, 128),
+     save_every 8, full_every 3) over 40 PoisonInjector deliveries (nan at
+     6, repeats at 10 and 14, extreme at 18, label_flip at 26) and one
+     exploding-lr step, ServeLoop(QualityGate) serving the chain to a
+     scorer thread: every injection detected within one dispatch,
+     delivery 6 quarantined, 0 failed requests, the lowest served AUC at
+     least the baseline less 0.05, a sentinel-less shadow trainer's NaN
+     delta rejected by the gate while serving continues; rollback_ms per
+     rollback; #3 (touched_row_norms' gather), #5 (a clamp_rows scatter at
+     the same rows, on a copy of the table) and #4 (one served request)
+     bit for bit against their plain versions; (d) FRESHNESS_BENCH's
+     protocol: `python -m deeprec_tpu_torch.online.loop --device cuda` at
+     26 + 13 features, emb 16, 2^20 slots under the Supervisor, fed over
+     TCP at batch 128, a save every 8 steps, 4 batches/s, 25 requests/s,
+     poll 0.25 s: 40 steady steps (80 in the bench) all reflected, p50 /
+     p95 freshness, the worker SIGKILLed (one restart, recovery s), the
+     newest delta corrupted (quarantined, a full save past it, recovery
+     s), 0 failed requests; the launches of #1, #3, #2, #5 and #4 of (c)
+     and (d)'s in-process path equal to what its events imply (train
+     steps, saves, directory imports, read-only forwards, the
+     comparisons' own launches).
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -284,6 +332,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import dataclasses
 import itertools
 import json
@@ -292,6 +341,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -312,8 +362,14 @@ TRAIN_RTOL = 1e-3
 ROW_ATOL = 1e-4
 
 FULL = dict(emb_dim=128, capacity=1 << 20, bottom=(512, 256, 128))
-LIVE_KEYS = 1 << 16
+LIVE_KEYS = 1 << 15
 SMALL_CAPACITY, SMALL_LIVE = 1 << 12, 1500
+# The card-vs-CPU cells at SMALL_CAPACITY (phases 5, 7, 14 (a), 15 (a),
+# 16 (a)) keep FULL's widths and cut DLRM-DCN's cross net to one layer
+# (three on the main paths): a depth cut for time. Each cross layer is a
+# [3456, 3456] matrix, so three of them are most of the dense and Adam
+# state that these cells train, save and restore on the CPU.
+SMALL_CROSS_DEPTH = 1
 TRAIN = dict(batch=2048, vocab=1_000_000, checked=5, timed=30, profiled=3,
              lr=0.05, dense_lr=1e-3, agree_batch=256, sample=4096)
 
@@ -379,6 +435,25 @@ def _timed_record(rec, label, kernel, plain, library):
 # they are the launches of #1 and #2, whose work is those kernels' bf16
 # branches on this card.
 PAIR_LAUNCHES = {"gather_rows": 0, "apply_rows_sr": 0}
+
+_BUILT = {}
+
+
+def _built(make, *key):
+    """A copy of the model make() builds, built once per key: the models'
+    initializers run on the host (about 1.5 s a DLRM-DCN and 0.5 s a WDL
+    at full widths), a copy takes milliseconds, and the copies are the same
+    bits."""
+    if key not in _BUILT:
+        _BUILT[key] = make()
+    return copy.deepcopy(_BUILT[key])
+
+
+def _dlrm_dcn(seed, **kw):
+    """DLRMDCN(**kw, seed=seed), built once per configuration."""
+    from deeprec_tpu_torch.models import DLRMDCN
+
+    return _built(lambda: DLRMDCN(**kw, seed=seed), "DLRMDCN", repr(sorted(kw.items())), seed)
 
 
 def _zero_row_counts():
@@ -933,11 +1008,10 @@ def serve_phase(dev, model_kw, live, ckdir, seed, batches, timed):
     `batches` on the main path, counting kernel launches; then time
     `timed` more requests of the first batch. Returns (predictor, first
     batch, stats, the checkpoint's {feature: (keys, rows)})."""
-    from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
     from deeprec_tpu_torch.serving import Predictor
 
-    model = DLRMDCN(**model_kw, seed=seed)
+    model = _dlrm_dcn(seed, **model_kw)
     t0 = time.perf_counter()
     host = write_checkpoint(model, ckdir, live, seed)
     write_s = time.perf_counter() - t0
@@ -1242,13 +1316,12 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
     """The training main path at full width (see the module docstring).
     Returns stats."""
     from deeprec_tpu_torch.data import SyntheticCriteo
-    from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.serving import Predictor
     from deeprec_tpu_torch.training.checkpoint import CheckpointManager
     from deeprec_tpu_torch.training.trainer import Trainer
 
-    model = DLRMDCN(**model_kw, seed=seed)
+    model = _dlrm_dcn(seed, **model_kw)
     trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1440,9 +1513,8 @@ def run_training(dev, full, small, ckroot, seed, cfg):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     from deeprec_tpu_torch.data import SyntheticCriteo
-    from deeprec_tpu_torch.models import DLRMDCN
 
-    model = DLRMDCN(**small, seed=seed)
+    model = _dlrm_dcn(seed, **small)
     loss_d, row_d, dense_d, n = train_agreement(
         dev, model, SyntheticCriteo(batch_size=cfg["agree_batch"], vocab=cfg["vocab"],
                                     seed=seed + 3, num_cat=model.num_cat,
@@ -1824,12 +1896,11 @@ def budget_phase(dev, model_kw, seed, cfg, steps=5):
     measured budget. Returns stats; fails on overflow or a launch count
     the path does not imply."""
     from deeprec_tpu_torch.data import SyntheticCriteo
-    from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.ops.dedup import hash_dedup
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.training.trainer import Trainer
 
-    model = DLRMDCN(**model_kw, seed=seed)
+    model = _dlrm_dcn(seed, **model_kw)
     trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev,
                       unique_budget="auto")
     state = trainer.init()
@@ -1906,7 +1977,7 @@ FLASH_BF16_SHAPES = [(2, 2, 256, 256, 32, False, 64, 64, None)]
 # capacity 2^12.
 BST_RUN = dict(emb_dim=16, capacity=1 << 20, heads=4, ff=128, blocks=1, max_len=200,
                hidden=(256, 64), batch=2048, vocab=100_000, seq_len=200, lr=0.2,
-               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=80,
+               dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=60,
                eval_batches=8, auc_floor=0.60, agree_capacity=1 << 12,
                agree_batch=256, agree_vocab=2000, requests=30, sample=4096)
 
@@ -2361,7 +2432,8 @@ def run_bst(dev, seed, cfg, ckroot):
 # (4 user and 4 item features, vocab 100,000, Adagrad 0.2,
 # modelzoo/dssm/train.py); SimpleMultiTask, ESMM, MMoE, PLE and DBMTL on
 # SyntheticMultiTask(num_cat=8, num_dense=4, vocab=1_000_000). Each: 5
-# checked steps, 20 timed (DIEN, DSSM and MMoE then 1 profiled), on to
+# checked steps, 20 timed (DIEN then 1 profiled; DSSM and MMoE too before
+# phase 20), on to
 # `steps` (150, half the modelzoo's 300, so the script keeps to half its time
 # limit with phase 16); held-out AUC over 8 batches of another seed at step 0
 # and at the end (`auc`, or `auc_ctr` for the multi-task models, against the
@@ -2370,7 +2442,7 @@ def run_bst(dev, seed, cfg, ckroot):
 MULTI_TASK = ("SimpleMultiTask", "ESMM", "MMoE", "PLE", "DBMTL")
 ZOO = dict(emb_dim=16, capacity=1 << 20, batch=2048, dense_lr=1e-3, checked=5,
            timed=20, steps=150, eval_batches=8, auc_floor=0.60, requests=5,
-           profiled=1, profile=("DIEN", "DSSM", "MMoE"),
+           profiled=1, profile=("DIEN",),
            criteo=dict(vocab=1_000_000, lr=0.05),
            behavior=dict(vocab=100_000, lr=0.2, seq_len=50),
            two_tower=dict(vocab=100_000, lr=0.2),
@@ -2591,17 +2663,22 @@ LOOP = dict(batch=2048, vocab=1_000_000, K=8, windows=40, every=5, accum_windows
 
 
 def _retable(model, **cfg):
-    """Every table config of `model` with `cfg` replaced (modelzoo/common.py
-    `_retable`: bf16 values, options)."""
-    import dataclasses
+    """Every table config of `model` with `cfg` replaced: the driver's own
+    `_retable` (deeprec_tpu_torch/modelzoo/common.py; bf16 values)."""
+    from deeprec_tpu_torch.modelzoo.common import _retable as retable
 
-    from deeprec_tpu_torch.features import SparseFeature
+    return retable(model, **cfg)
 
-    model.features = [
-        dataclasses.replace(f, table=dataclasses.replace(f.table, **cfg))
-        if isinstance(f, SparseFeature) and f.table is not None else f
-        for f in model.features]
-    return model
+
+def _zoo_args(*flags, model="mlperf"):
+    """The driver's flags (deeprec_tpu_torch/modelzoo/common.py
+    `build_argparser`, with `model`'s per-model defaults) parsed from
+    `flags`: what `python -m deeprec_tpu_torch.modelzoo` would run with."""
+    from deeprec_tpu_torch.modelzoo.common import MODELS, build_argparser
+
+    p = build_argparser(model)
+    p.set_defaults(model=model, **MODELS[model][1])
+    return p.parse_args([str(f) for f in flags])
 
 
 def _state_diff(a, b):
@@ -2653,7 +2730,6 @@ def loop_agreement(dev, seed, small, cfg, ckdir):
     from deeprec_tpu_torch.config import (
         CBFFilter, EmbeddingVariableOption, GlobalStepEvict, L2WeightEvict)
     from deeprec_tpu_torch.data import SyntheticCriteo
-    from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.training.checkpoint import CheckpointManager
     from deeprec_tpu_torch.training.trainer import Trainer
@@ -2664,8 +2740,12 @@ def loop_agreement(dev, seed, small, cfg, ckdir):
         return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]),
                        device=device, **kw)
 
+    # one build (the initializers run on the host, about 1.5 s a model at
+    # these widths), copied per variant: `ev` only reaches the table configs
+    base = _dlrm_dcn(seed, **small)
+
     def model(dtype="float32", ev=EmbeddingVariableOption()):
-        return _retable(DLRMDCN(**small, ev=ev, seed=seed), value_dtype=dtype)
+        return _retable(copy.deepcopy(base), value_dtype=dtype, ev=ev)
 
     def window(vocab, batch=cfg["agree_batch"], n=cfg["agree_K"], s=0):
         gen = SyntheticCriteo(batch_size=batch, vocab=vocab, seed=seed + 60 + s)
@@ -2841,12 +2921,13 @@ def _launch_counts():
 
 
 def loop_phase(dev, seed, full, cfg):
-    """Phase 14 (b): the loop at full width (see LOOP). Returns stats."""
-    from deeprec_tpu_torch.config import CounterFilter, EmbeddingVariableOption, GlobalStepEvict
+    """Phase 14 (b): the loop at full width (see LOOP), the model and the
+    optimizers made by the driver's `ev_option`, `_retable` and
+    `make_optimizers`. Returns stats."""
     from deeprec_tpu_torch.data import SyntheticCriteo
+    from deeprec_tpu_torch.modelzoo import common as zoo
     from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
-    from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.training.trainer import Trainer
 
     K, W, B = cfg["K"], cfg["windows"], cfg["batch"]
@@ -2859,11 +2940,13 @@ def loop_phase(dev, seed, full, cfg):
     distinct = [len(np.unique(np.concatenate([h[c] for h in host]))) for c in cats]
     C0 = 1 << ((min(distinct) // 2).bit_length() - 1)
     data_s = time.perf_counter() - t0
-    ev = EmbeddingVariableOption(counter_filter=CounterFilter(cfg["filter_freq"]),
-                                 global_step_evict=GlobalStepEvict(cfg["steps_to_live"]))
-    model = _retable(DLRMDCN(**dict(full, capacity=C0), ev=ev, seed=seed),
+    # the model and optimizers as the driver builds them from its flags
+    args = _zoo_args("--bf16", "--filter_freq", cfg["filter_freq"], "--steps_to_live",
+                     cfg["steps_to_live"], "--learning_rate", cfg["lr"], "--dense_lr",
+                     cfg["dense_lr"])
+    model = _retable(DLRMDCN(**dict(full, capacity=C0), ev=zoo.ev_option(args), seed=seed),
                      value_dtype="bfloat16")
-    trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev,
+    trainer = Trainer(model, *zoo.make_optimizers(args), device=dev,
                       pipeline_mode="lookahead")
     state = trainer.init()
     staged = trainer.stage(iter(host[:cfg["raw_windows"][0] * K]), depth=2)
@@ -3023,12 +3106,12 @@ def run_loop(dev, seed, full, small, cfg, ckroot):
 # ------------------------------------------------------------ phase 15
 
 # Phase 15, multi-tier storage. (b) trains MLPerf DLRM-DCN with a device
-# tier of `capacity` slots per table: over its 16 windows the run's ids
+# tier of `capacity` slots per table: over its 14 windows the run's ids
 # (SyntheticCriteo, vocab 10^6) pass 2^15 slots' high watermark at window
 # 10, and the later windows demote, promote and fold. (c) starts the modelzoo's budget path at `capacity`
 # slots with a budget of 3 tables' worth of bytes: one growth fits, the
 # next does not.
-TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=16, capacity=1 << 15, every=5,
+TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=14, capacity=1 << 15, every=5,
             strategy="lfu", high=0.8, depth=4, chunk=256, lr=0.05, dense_lr=1e-3, eval_batches=8,
             auc_floor=0.60, profiled=12,
             # (a)'s tier sequence: per round the boundary, the ids looked up
@@ -3036,8 +3119,8 @@ TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=16, capacity=1 << 15, ever
             ops=dict(capacity=1 << 12, vocab_mult=5, host_capacity=1024, picks=600,
                      rounds=(("sync", 3000, 0.0), ("sync", 3000, 0.0), ("sync", 1200, 0.5),
                              ("async", 600, 0.5), ("async", 700, 0.5))),
-            train=dict(batch=512, K=4, rounds=3, prefill=6, depth=8),
-            budget=dict(capacity=1 << 14, windows=12, budget_tables=3))
+            train=dict(batch=256, K=4, rounds=2, prefill=6, depth=8),
+            budget=dict(capacity=1 << 14, windows=10, budget_tables=3))
 FILLS = (("accum", 0.1),)
 
 
@@ -3271,13 +3354,13 @@ def tier_budget_agreement(dev, seed, small, cfg):
     that does not (auto_tiered: a forced sync per member); the reports,
     every member's rows and host store per key bit for bit."""
     from deeprec_tpu_torch.data import SyntheticCriteo
-    from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.training.trainer import Trainer
 
+    model = _dlrm_dcn(seed, **small)  # a template only: maintain never reads it
+
     def trainer(d):
-        return Trainer(DLRMDCN(**small, seed=seed), Adagrad(lr=cfg["lr"]),
-                       adam(cfg["dense_lr"]), device=d)
+        return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=d)
 
     gen = SyntheticCriteo(batch_size=2048, vocab=cfg["vocab"], seed=seed + 85)
     cpu = trainer("cpu")
@@ -3336,8 +3419,9 @@ def tier_train_agreement(dev, seed, small, cfg):
 
     tc = cfg["train"]
     ev = EmbeddingVariableOption(storage=StorageOption(storage_type="hbm_dram"))
-    trainers = {d: Trainer(DLRMDCN(**small, ev=ev, seed=seed), Adagrad(lr=cfg["lr"]),
-                           adam(cfg["dense_lr"]), device=d) for d in ("cpu", dev)}
+    model = DLRMDCN(**small, ev=ev, seed=seed)  # one template for both devices
+    trainers = {d: Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=d)
+                for d in ("cpu", dev)}
     pre = SyntheticCriteo(batch_size=2048, vocab=cfg["vocab"], seed=seed + 86)
     state0 = _prefill(trainers["cpu"], trainers["cpu"].init(),
                       [pre.batch() for _ in range(tc["prefill"])])
@@ -3418,17 +3502,43 @@ def tier_train_agreement(dev, seed, small, cfg):
             f"(tolerance {TRAIN_RTOL}); {moved} keys in another tier"]
 
 
-def _member_events(trainer, before):
-    """Per-member tier events since `before` (a snapshot of this function's
-    counts): members that demoted, that promoted through a sync, and fold
-    chunks that wrote rows. Returns (events, new snapshot)."""
-    now = {k: (mt.demoted_rows, mt.promoted_rows - mt.folded_rows, mt.fold_writes)
-           for k, mt in trainer._tiers.items()}
-    ev = np.zeros(3, np.int64)
-    for k, (d, p, w) in now.items():
-        d0, p0, w0 = before.get(k, (0, 0, 0))
-        ev += [d > d0, p > p0, w - w0]
-    return ev, now
+class _TierTally:
+    """The rows each MultiTierTable demoted and promoted through its sync
+    rounds, added up from the TierStats every round publishes (`_publish`,
+    wrapped from the tally's making to its `close`)."""
+
+    def __init__(self):
+        from deeprec_tpu_torch.embedding.multi_tier import MultiTierTable
+
+        self.rows = {}
+        self._cls, orig = MultiTierTable, MultiTierTable._publish
+
+        def publish(mt, stats):
+            d, p = self.rows.get(id(mt), (0, 0))
+            self.rows[id(mt)] = (d + stats.demoted, p + stats.promoted)
+            return orig(mt, stats)
+
+        self._orig = orig
+        MultiTierTable._publish = publish
+
+    def close(self):
+        self._cls._publish = self._orig
+
+    def demoted(self, mt):
+        return self.rows.get(id(mt), (0, 0))[0]
+
+    def member_events(self, trainer, before):
+        """Per-member tier events since `before` (a snapshot of this
+        method's counts): members that demoted, that promoted through a
+        sync, and fold chunks that wrote rows. Returns (events, new
+        snapshot)."""
+        now = {k: (*self.rows.get(id(mt), (0, 0)), mt.fold_writes)
+               for k, mt in trainer._tiers.items()}
+        ev = np.zeros(3, np.int64)
+        for k, (d, p, w) in now.items():
+            d0, p0, w0 = before.get(k, (0, 0, 0))
+            ev += [d > d0, p > p0, w - w0]
+        return ev, now
 
 
 def tier_phase(dev, seed, full, cfg):
@@ -3471,17 +3581,17 @@ def tier_phase(dev, seed, full, cfg):
     def do_maintain(w, sync):
         nonlocal state, snap, events
         fails = state.tables[bname].insert_fails.tolist()
-        before = {k: mt.demoted_rows for k, mt in trainer._tiers.items()}
+        before = {k: tally.demoted(mt) for k, mt in trainer._tiers.items()}
         _sync(dev)
         t1 = time.perf_counter()
         state, rep = trainer.maintain(state, tier_async=not sync)
         _sync(dev)
         sec = time.perf_counter() - t1
-        ev_, snap = _member_events(trainer, snap)
+        ev_, snap = tally.member_events(trainer, snap)
         events += ev_
         for k in range(T):  # insert_fails of the members this maintain rebuilt
             mt = trainer._tiers.get((bname, (k,)))
-            if mt is not None and mt.demoted_rows > before.get((bname, (k,)), 0):
+            if mt is not None and tally.demoted(mt) > before.get((bname, (k,)), 0):
                 lost[k] += fails[k]
         r = rep[bname]
         if sync:
@@ -3499,7 +3609,7 @@ def tier_phase(dev, seed, full, cfg):
         state, frep = trainer.fold_tier_prefetch(state)
         _sync(dev)
         t3 = time.perf_counter()
-        ev_, snap = _member_events(trainer, snap)
+        ev_, snap = tally.member_events(trainer, snap)
         events += ev_
         folded = sum(v["folded"] for v in frep.values())
         windows.append((w, "profiled" if profiled else "lookahead", t2 - t1, t3 - t2, folded,
@@ -3509,16 +3619,20 @@ def tier_phase(dev, seed, full, cfg):
 
     _zero_row_counts()  # the main path starts here
     fused_gather_combine.launches = 0
-    w = 0
-    while w < W:
-        if dev.type == "cuda" and w == cfg["profiled"]:
-            ws = iter((w, w + 1))
-            prof = profile_device(lambda: one_window(next(ws), True), 1)
-            w += 2
-        else:
-            one_window(w)
-            w += 1
-    do_maintain(W, True)  # settles the last round
+    tally = _TierTally()
+    try:
+        w = 0
+        while w < W:
+            if dev.type == "cuda" and w == cfg["profiled"]:
+                ws = iter((w, w + 1))
+                prof = profile_device(lambda: one_window(next(ws), True), 1)
+                w += 2
+            else:
+                one_window(w)
+                w += 1
+        do_maintain(W, True)  # settles the last round
+    finally:
+        tally.close()
     ts = state.tables[bname]
     lost += np.asarray(ts.insert_fails.tolist())
     # every key in one tier; the union is what was trained, less failed inserts
@@ -3624,16 +3738,20 @@ def budget_path_phase(dev, seed, full, cfg):
     reports, snap, events = [], {}, np.zeros(3, np.int64)
     _zero_row_counts()
     t0 = time.perf_counter()
-    for w in range(bc["windows"]):
-        state, mets = trainer.train_steps(state, host[w * K:(w + 1) * K])
-        _sync(dev)
-        t1 = time.perf_counter()
-        state, rep = trainer.maintain(state, hbm_budget_bytes=budget_mb << 20)
-        _sync(dev)
-        ev_, snap = _member_events(trainer, snap)
-        events += ev_
-        r = rep[bname]
-        reports.append((w, time.perf_counter() - t1, r))
+    tally = _TierTally()
+    try:
+        for w in range(bc["windows"]):
+            state, mets = trainer.train_steps(state, host[w * K:(w + 1) * K])
+            _sync(dev)
+            t1 = time.perf_counter()
+            state, rep = trainer.maintain(state, hbm_budget_bytes=budget_mb << 20)
+            _sync(dev)
+            ev_, snap = tally.member_events(trainer, snap)
+            events += ev_
+            r = rep[bname]
+            reports.append((w, time.perf_counter() - t1, r))
+    finally:
+        tally.close()
     seconds = time.perf_counter() - t0
     launches = _tier_launches()
     _row_counts()
@@ -3838,16 +3956,16 @@ def _link_bundles(path, chunk=None):
 
 def _ckpt_model(full, seed, cfg, steps_to_live=None, capacity=None):
     """DLRM-DCN at `full` (at `capacity` slots where given) with bf16 tables,
-    CounterFilter and, where `steps_to_live` is given, a TTL, as run()
-    builds it under --bf16 --filter_freq [--steps_to_live]."""
-    from deeprec_tpu_torch.config import CounterFilter, EmbeddingVariableOption, GlobalStepEvict
+    CounterFilter and, where `steps_to_live` is given, a TTL: the options
+    the driver's `ev_option` builds under --bf16 --filter_freq
+    [--steps_to_live]."""
+    from deeprec_tpu_torch.modelzoo.common import ev_option
     from deeprec_tpu_torch.models import DLRMDCN
 
-    ttl = None if steps_to_live is None else GlobalStepEvict(steps_to_live)
-    ev = EmbeddingVariableOption(counter_filter=CounterFilter(cfg["filter_freq"]),
-                                 global_step_evict=ttl)
+    args = _zoo_args("--filter_freq", cfg["filter_freq"], "--steps_to_live",
+                     steps_to_live or 0)
     kw = full if capacity is None else dict(full, capacity=capacity)
-    return _retable(DLRMDCN(**kw, ev=ev, seed=seed), value_dtype="bfloat16")
+    return _retable(DLRMDCN(**kw, ev=ev_option(args), seed=seed), value_dtype="bfloat16")
 
 
 def _files_equal(a, b, what):
@@ -3962,21 +4080,32 @@ def ckpt_agreement(dev, seed, small, cfg, tmp):
 
 
 def ckpt_loop_phase(dev, seed, full, cfg, ckdir):
-    """Phase 16 (b): the loop (see CKPT) at `full` widths. Returns stats."""
+    """Phase 16 (b): the driver's `run()` (deeprec_tpu_torch/modelzoo/
+    common.py) with CKPT's flags, in this process, observed through the
+    Trainer and CheckpointManager methods it calls (see CKPT). Returns
+    stats."""
     from deeprec_tpu_torch.data import CriteoStats
+    from deeprec_tpu_torch.modelzoo import common as zoo
+    from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.ops.fused_lookup import (
         apply_rows_sr, fused_gather_combine, gather_rows)
-    from deeprec_tpu_torch.optim import Adagrad, adam
-    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
-    from deeprec_tpu_torch.training.logging import MetricsLogger
-    from deeprec_tpu_torch.training.profiler import TRACE_FILE, StepWindowTracer
+    from deeprec_tpu_torch.training.profiler import TRACE_FILE
     from deeprec_tpu_torch.training.trainer import Trainer
 
     B, S = cfg["batch"], cfg["steps"]
-    model = _ckpt_model(full, seed, cfg, cfg["steps_to_live"])
-
-    def make():
-        return Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
+    trace_dir = os.path.join(os.path.dirname(ckdir), "timeline")
+    mfile = os.path.join(os.path.dirname(ckdir), "metrics.jsonl")
+    args = _zoo_args("--data", "criteo_stats", "--bf16", "--filter_freq", cfg["filter_freq"],
+                     "--steps_to_live", cfg["steps_to_live"], "--evict_every",
+                     cfg["evict_every"], "--save_steps", cfg["save_steps"],
+                     "--incremental_save_steps", cfg["incr_steps"], "--steps", S,
+                     "--batch_size", B, "--learning_rate", cfg["lr"], "--dense_lr",
+                     cfg["dense_lr"], "--eval_batches", cfg["eval_batches"], "--log_every",
+                     cfg["log_every"], "--checkpoint", ckdir, "--timeline", cfg["timeline"][0],
+                     "--timeline_dir", trace_dir, "--metrics_file", mfile, "--seed", seed + 90,
+                     "--emb_dim", full["emb_dim"], "--capacity", full["capacity"])
+    args.device = dev
+    evals = CriteoStats(batch_size=B, seed=seed + 90, split="eval")
 
     def counts():
         return np.array([gather_rows.launches_bf16,
@@ -3985,134 +4114,148 @@ def ckpt_loop_phase(dev, seed, full, cfg, ckdir):
                          apply_rows_sr.launches - apply_rows_sr.launches_bf16])
 
     spent = collections.Counter()  # seconds by part, printed
-    t_setup = time.perf_counter()
-    trainer = make()
-    state = trainer.init()
-    gen = CriteoStats(batch_size=B, seed=seed + 90, split="train")
-    evals = CriteoStats(batch_size=B, seed=seed + 90, split="eval")
-    ck = CheckpointManager(ckdir, trainer, keep=cfg["keep"], datasets={"criteo_stats": gen})
-    try:
-        state = ck.restore()
-    except FileNotFoundError:
-        pass
-    data = trainer.stage(gen, depth=2)  # wires attach_consumer / mark_consumed
-    eval_batches = [trainer.stage_batch(evals.batch_at(i)) for i in range(cfg["eval_batches"])]
-    trace_dir = os.path.join(os.path.dirname(ckdir), "timeline")
-    mfile = os.path.join(os.path.dirname(ckdir), "metrics.jsonl")
-    tracer = StepWindowTracer(*cfg["timeline"], trace_dir)
-    mlog = MetricsLogger(mfile)
-    saves, step_s, losses, logged = [], {}, {}, 0
-    launch_save, launch_restore = np.zeros(4, np.int64), np.zeros(4, np.int64)
-    want_save, want_restore = 0, 0
-    members = sum(b.num_tables for b in trainer.bundles.values())
-    written = []  # (kind, step) in order, for the retention gate
-    rs, twin, twin_losses, resumed = {}, None, {}, None
-    spent["set-up"] = time.perf_counter() - t_setup
-    _zero_row_counts()  # the main path starts here
-    fused_gather_combine.launches = 0
+    st = dict(saves=[], step_s={}, losses={}, written=[], logged=0, resumed=None, rs={},
+              launch_save=np.zeros(4, np.int64), launch_restore=np.zeros(4, np.int64),
+              want_save=0, want_restore=0)
 
-    def save(kind, asynchronous):
-        nonlocal state, want_save
+    # run() is observed from outside: for the length of the call the
+    # class methods below are wrapped (and put back after), and each
+    # wrapper acts only for the trainer and manager run() builds. That
+    # trainer is the first to stage its data (once, right after its
+    # restore: the main path starts there); run() is done with step n when
+    # it calls train_step for step n + 1, and with the last step when it
+    # returns.
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+
+    orig = dict(stage=Trainer.stage, train_step=Trainer.train_step,
+                save=CheckpointManager.save, incr=CheckpointManager.save_incremental)
+    main = dict(trainer=None, ck=None, twin=None, twin_losses={}, final=None)
+
+    def stage(tr, *a, **kw):
+        if main["trainer"] is None:
+            main["trainer"] = tr
+            _zero_row_counts()  # the main path starts here
+            fused_gather_combine.launches = 0
+        return orig["stage"](tr, *a, **kw)
+
+    def train_step(tr, s, b, **kw):
+        if tr is not main["trainer"]:
+            return orig["train_step"](tr, s, b, **kw)
+        if int(s.step):
+            after_step(int(s.step), s)
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = orig["train_step"](tr, s, b, **kw)
+        _sync(dev)
+        step = int(s.step) + 1
+        st["step_s"][step] = time.perf_counter() - t0
+        spent["train steps"] += st["step_s"][step]
+        st["losses"][step] = float(out[1]["loss"])
+        return out
+
+    def timed_save(fn, ck, state):
+        main["ck"] = ck
         c0 = counts()
         _sync(dev)
         t0 = time.perf_counter()
-        fn = {("full", False): ck.save, ("incr", False): ck.save_incremental,
-              ("incr", True): ck.save_incremental_async}[(kind, asynchronous)]
-        state, path = fn(state)
+        state, path = fn(ck, state)
         _sync(dev)
         sec = time.perf_counter() - t0
-        launch_save[:] += counts() - c0
-        want_save += members
+        st["launch_save"][:] += counts() - c0
+        st["want_save"] += sum(b.num_tables for b in ck.trainer.bundles.values())
         spent["saves"] += sec
         rec = ck.last_save  # an async writer stamps write_ms into it when done
         rec.update(seconds=sec, step=int(state.step))
-        written.append((rec["kind"], int(state.step)))
-        saves.append(rec)
+        st["written"].append((rec["kind"], int(state.step)))
+        st["saves"].append(rec)
+        if int(state.step) == S:  # no step follows: no stale state is kept
+            main["final"] = state
+        return state, path
 
-    t_loop = time.perf_counter()
-    t_mark = t_next = time.perf_counter()
-    for batch in data:
-        spent["waiting for a batch"] += time.perf_counter() - t_next
-        step = int(state.step)
-        if step >= S:
-            break
-        t0 = time.perf_counter()
-        tracer.on_step(step)
-        spent["tracer start / stop"] += time.perf_counter() - t0
-        _sync(dev)
-        t0 = time.perf_counter()
-        state, mets = trainer.train_step(state, batch)
-        _sync(dev)
-        step_s[step + 1] = time.perf_counter() - t0
-        spent["train steps"] += step_s[step + 1]
-        losses[step + 1] = float(mets["loss"])
-        step += 1
-        if twin is not None:  # the restored trainer takes the same step
-            tr2, st2, gen2 = twin
+    def save(ck, state):
+        if ck.trainer is not main["trainer"]:
+            return orig["save"](ck, state)
+        return timed_save(orig["save"], ck, state)
+
+    def save_incremental(ck, state):
+        # the deltas after `async_after` go to the async writer
+        if ck.trainer is not main["trainer"]:
+            return orig["incr"](ck, state)
+        return timed_save(CheckpointManager.save_incremental_async
+                          if int(state.step) > cfg["async_after"] else orig["incr"], ck, state)
+
+    def after_step(step, state):
+        """run() is done with step `step` (its eval, eviction and saves)."""
+        if step % cfg["log_every"] == 0:
+            st["logged"] += 1
+        if main["twin"] is not None:  # the restored trainer takes the same step
+            tr2, st2, gen2 = main["twin"]
             st2, m2 = tr2.train_step(st2, gen2.batch())
-            twin = (tr2, st2, gen2)
-            twin_losses[step] = float(m2["loss"])
+            if step % cfg["evict_every"] == 0:  # run() evicted the live state
+                st2 = tr2.evict_tables(st2)
+            main["twin"] = (tr2, st2, gen2)
+            main["twin_losses"][step] = float(m2["loss"])
             if step == S:
                 t0 = time.perf_counter()
-                resumed = _compare_resumed(state, st2, losses, twin_losses,
-                                           S - cfg["restore_at"])
+                st["resumed"] = _compare_resumed(state, st2, st["losses"],
+                                                 main["twin_losses"], S - cfg["restore_at"])
                 spent["resumed comparison"] += time.perf_counter() - t0
-                twin = None
-                del tr2, st2, gen2
-        if step % cfg["log_every"] == 0:
-            mlog.log(step, loss=mets["loss"],
-                     steps_per_sec=cfg["log_every"] / (time.perf_counter() - t_mark))
-            logged += 1
-            t_mark = time.perf_counter()
-        if step % cfg["evict_every"] == 0:
-            state = trainer.evict_tables(state)
-        if step % cfg["save_steps"] == 0:
-            state = trainer.evict_tables(state)  # evict at checkpoint time, as run() does
-            save("full", False)
-        elif step % cfg["incr_steps"] == 0:
-            save("incr", step > cfg["async_after"])
+                main["twin"] = None
         if step == cfg["restore_at"]:
             t0 = time.perf_counter()
-            rs = _ckpt_restore_gates(dev, cfg, trainer, state, ck, make, model, gen, evals,
-                                     ckdir, counts, eval_batches)
-            launch_restore[:] += rs.pop("launches")
-            want_restore += rs.pop("want")
-            twin = rs.pop("twin")
+            tr = main["trainer"]
+            rs = _ckpt_restore_gates(
+                dev, cfg, tr, state, main["ck"],
+                lambda: Trainer(tr.model, *zoo.make_optimizers(args), device=dev),
+                tr.model, args._datasets["criteo_stats"], evals, ckdir, counts)
+            st["launch_restore"][:] += rs.pop("launches")
+            st["want_restore"] += rs.pop("want")
+            main["twin"] = rs.pop("twin")
+            st["rs"] = rs
             spent["restore gates"] += time.perf_counter() - t0
-        t_next = time.perf_counter()
-    tracer.close()
-    loop_s = time.perf_counter() - t_loop
-    t0 = time.perf_counter()
-    auc = trainer.evaluate(state, eval_batches)["auc"]
-    spent["evaluate"] = time.perf_counter() - t0
-    save("full", False)  # the final save, as run() does
-    ck.close()
-    mlog.close()
-    data.close()
-    launches = _launch_counts()
+
+    t_loop = time.perf_counter()
+    # the MLPerf model at `full` widths (model_fn("mlperf") at FULL), the
+    # flags' admission and TTL options; run() makes its tables bf16
+    model = DLRMDCN(**full, ev=zoo.ev_option(args), seed=seed)
+    Trainer.stage, Trainer.train_step = stage, train_step
+    CheckpointManager.save, CheckpointManager.save_incremental = save, save_incremental
+    try:
+        auc = zoo.run(model, args, "criteo")["auc"]
+    finally:
+        Trainer.stage, Trainer.train_step = orig["stage"], orig["train_step"]
+        CheckpointManager.save, CheckpointManager.save_incremental = orig["save"], orig["incr"]
+    # the last step: the state of run()'s final save is the state after it
+    after_step(S, main["final"])
+    st["launches"] = _launch_counts()
     _row_counts()  # ... and ends here (adds the bf16 launches to PAIR_LAUNCHES)
-    for s in saves:  # what is still on disk after the final save
-        s["disk_mb"] = _dir_bytes(s["path"]) / 1e6 if os.path.isdir(s["path"]) else None
+    loop_s = time.perf_counter() - t_loop
+    spent["the rest of run()"] = loop_s - sum(spent.values())
+    saves, losses, rs = st["saves"], st["losses"], st["rs"]
+    for s_ in saves:  # what is still on disk after the final save
+        s_["disk_mb"] = _dir_bytes(s_["path"]) / 1e6 if os.path.isdir(s_["path"]) else None
     listing = sorted(d for d in os.listdir(ckdir))
-    want_listing = _jax_gc_listing(written, cfg["keep"])
+    want_listing = _jax_gc_listing(st["written"], cfg["keep"])
     with open(mfile) as f:
         mlines = [json.loads(line) for line in f]
     with open(os.path.join(trace_dir, TRACE_FILE)) as f:
         names = [e.get("name") for e in json.load(f)["traceEvents"]]
     n_lookup = sum(1 for n in names if n == "phase_lookup")
-    stats = dict(saves=saves, step_s=step_s, losses=losses, auc=auc, launches=launches,
-                 launch_save=launch_save, want_save=want_save, launch_restore=launch_restore,
-                 want_restore=want_restore, listing=listing, want_listing=want_listing,
-                 metrics_lines=len(mlines), logged=logged, trace_lookups=n_lookup,
-                 members=members, loop_s=loop_s, resumed=resumed,
+    members = st["want_save"] // max(len(saves), 1)
+    stats = dict(saves=saves, step_s=st["step_s"], losses=losses, auc=auc,
+                 launches=st["launches"], launch_save=st["launch_save"],
+                 want_save=st["want_save"], launch_restore=st["launch_restore"],
+                 want_restore=st["want_restore"], listing=listing, want_listing=want_listing,
+                 metrics_lines=len(mlines), logged=st["logged"], trace_lookups=n_lookup,
+                 members=members, loop_s=loop_s, resumed=st["resumed"],
                  spent={k: round(v, 2) for k, v in spent.items()}, **rs)
-    if not np.all(np.isfinite(list(losses.values()))):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if resumed is None:
+    if not np.all(np.isfinite(list(losses.values()))) or len(losses) != S:
+        raise AssertionError(f"losses of {len(losses)} steps: {losses}")
+    if st["resumed"] is None:
         raise AssertionError("the restored trainer never resumed")
     if listing != want_listing:
         raise AssertionError(f"retention left {listing}; the JAX _gc leaves {want_listing}")
-    if len(mlines) != logged or [r["step"] for r in mlines] != list(
+    if len(mlines) != st["logged"] or [r["step"] for r in mlines] != list(
             range(cfg["log_every"], S + 1, cfg["log_every"])):
         raise AssertionError(f"metrics file: {mlines}")
     if n_lookup < 1:
@@ -4120,19 +4263,20 @@ def ckpt_loop_phase(dev, seed, full, cfg, ckdir):
     if dev.type == "cuda":
         # #1 (values) and #3 (accumulators) once per member per save; #2 and
         # #5 once per bundle with rows per restored link
-        wsave = np.array([want_save, want_save, 0, 0])
-        wrest = np.array([0, 0, want_restore, want_restore])
-        if not (np.array_equal(launch_save, wsave) and np.array_equal(launch_restore, wrest)):
-            raise AssertionError(f"checkpoint launches: saves {launch_save.tolist()} (want "
-                                 f"{wsave.tolist()}), restores {launch_restore.tolist()} "
-                                 f"(want {wrest.tolist()})")
+        wsave = np.array([st["want_save"], st["want_save"], 0, 0])
+        wrest = np.array([0, 0, st["want_restore"], st["want_restore"]])
+        if not (np.array_equal(st["launch_save"], wsave)
+                and np.array_equal(st["launch_restore"], wrest)):
+            raise AssertionError(f"checkpoint launches: saves {st['launch_save'].tolist()} "
+                                 f"(want {wsave.tolist()}), restores "
+                                 f"{st['launch_restore'].tolist()} (want {wrest.tolist()})")
     if not auc >= cfg["auc_floor"]:
         raise AssertionError(f"held-out AUC {auc} (floor {cfg['auc_floor']})")
     return stats
 
 
 def _ckpt_restore_gates(dev, cfg, trainer, state, ck, make, model, gen, evals, ckdir,
-                        counts, eval_batches):
+                        counts):
     """Phase 16 (b) at `restore_at`, right after its delta: Predictor on the
     chain answers as eval_step on the live state; a second trainer, manager
     and CriteoStats restore the chain (equal to the live state per key bit
@@ -4279,7 +4423,7 @@ def run_ckpt(dev, seed, full, small, cfg, ckroot):
 # ------------------------------------------------------------ phase 17
 
 INGEST = dict(batch=2048, K=8, files=4, rows=49_152 + 848, eval_batches=8, shard_batches=8,
-              workers=4, worker_counts=(1, 2, 4, 8), save_after=4, stop_after=6, keep=3,
+              workers=4, worker_counts=(1, 2, 4), save_after=4, stop_after=6, keep=3,
               lr=0.05, dense_lr=1e-3, filter_freq=2, auc_floor=0.55,
               drain=dict(k_stack=2, shard_batches=2),
               compose=dict(capacity=1 << 12, dim=16, steps=4, ids=3000, static=1 << 10),
@@ -5063,7 +5207,6 @@ def serve_load(dev, seed, full, cfg, ckdir):
 
     from deeprec_tpu_torch.data import SyntheticCriteo
     from deeprec_tpu_torch.guard import QualityGate
-    from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.obs import metrics as obs_metrics
     from deeprec_tpu_torch.optim import Adagrad, adam
     from deeprec_tpu_torch.serving import HttpServer, ModelServer, Predictor
@@ -5071,7 +5214,7 @@ def serve_load(dev, seed, full, cfg, ckdir):
     from deeprec_tpu_torch.training.trainer import Trainer
 
     st = {}
-    model = DLRMDCN(**full, seed=seed)
+    model = _dlrm_dcn(seed, **full)
     trainer = Trainer(model, Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]), device=dev)
     state = trainer.init()
     gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed,
@@ -6220,14 +6363,1098 @@ def run_retrieval(dev, seed, cfg, ckroot):
     return launches, pk["err"]
 
 
+# ------------------------------------------------------------ phase 20
+
+# Phase 20, the guarded online train-to-serve loop. WDL at the modelzoo's
+# widths (`modelzoo/wide_and_deep/train.py` through the port's driver: 26
+# categorical and 13 dense features, emb 16, 2^20 slots, hidden
+# 1024-512-256, `ev_option` defaults) and the step sentinel of GUARD_BENCH's
+# protocol (`tools/bench_guard.py:60-63`), fed Criteo-shaped batches of 2048
+# over 1,000 ids a feature whose labels are sharpened (x4, the bench's
+# generator) so a clean loss floor exists: after 70 steps a flipped batch
+# spikes to 1.85x the clean EMA (about 1.3x over 10^6 ids a feature, under
+# the 1.5 spike ratio). Adagrad 0.1 (the bench's) and Adam 1e-3 (the
+# modelzoo's default: at these widths the bench's 5e-3 sends clean losses
+# to 2-2.5x their neighbours', which the spike check would trip on).
+# (a) agreement at 2^12 slots, card against CPU (grad_norm_max cut to 10 so
+#     the extreme batch trips the grad-norm bit); (b) the driver from the
+#     command line; (c) the guarded loop: `warmup` clean steps (80 in
+#     GUARD_BENCH), then `stream` deliveries (90) with nan at 6, its repeats
+#     at 10 and 14, extreme at 18, label_flip at 26 and one exploding-lr
+#     step `lr_after` steps in, under ServeLoop + QualityGate and a scorer
+#     thread, then a NaN delta from a sentinel-less shadow trainer; (d)
+#     FRESHNESS_BENCH's protocol with the port's worker process at the
+#     modelzoo widths (40 steady steps, 80 in the bench; the broker outage
+#     is held on the CPU only, tests/test_torch_online_loop.py).
+GUARD = dict(batch=2048, capacity=1 << 20, vocab=1000, sharp=4.0, lr=0.1, dense_lr=1e-3,
+             sentinel=dict(spike_ratio=1.5, ema_decay=0.9, grad_norm_max=5e3,
+                           row_norm_max=50.0, row_evict_quantile=0.9),
+             warmup=40, stream=40, plan={6: "nan", 18: "extreme", 26: "label_flip"},
+             repeats=(10, 14), lr_after=30, lr_factor=1e5, warm_save_every=10,
+             save_every=8, full_every=3, max_batch_trips=2, replay_window=128,
+             poll=0.2, auc_margin=0.05, max_shift=0.2, eval_batches=2, timed=16,
+             agree=dict(capacity=1 << 12, batch=128, K=4, grad_norm_max=10.0,
+                        rollback=10, poison_at=5),
+             zoo=dict(steps=20, eval_every=10, log_every=10, timeout=300, flags=()),
+             fresh=dict(batch=128, save_every=8, full_every=40, per_s=4.0, rps=25.0,
+                        poll=0.25, steps=40, lease=120.0, recovery=120.0, emb_dim=16,
+                        capacity=1 << 20, num_cat=26, num_dense=13, hidden=(16,)))
+
+
+def _wdl(args):
+    """The driver's wide_and_deep model at `args`, built once per capacity."""
+    from deeprec_tpu_torch.modelzoo import common as zoo
+
+    return _built(lambda: zoo.model_fn("wide_and_deep", args), "WDL", args.capacity)
+
+
+def _guard_args(cfg, capacity):
+    """The driver's flags of phase 20's model (wide_and_deep)."""
+    return _zoo_args("--capacity", capacity, "--learning_rate", cfg["lr"], "--dense_lr",
+                     cfg["dense_lr"], "--vocab", cfg["vocab"], model="wide_and_deep")
+
+
+def _guard_batches(seed, n, B, vocab, sharp):
+    """`tools/bench_guard.py` `batch_source` at the modelzoo's 26 + 13
+    features: SyntheticCriteo batches whose labels are drawn again from
+    the generator's hidden logit scaled by `sharp`."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+
+    gen = SyntheticCriteo(batch_size=B, vocab=vocab, seed=seed)
+    rng = np.random.default_rng(seed ^ 0xA5)
+    out = []
+    for _ in range(n):
+        b = gen.batch()
+        logit = np.zeros(B, np.float32)
+        for c in range(gen.num_cat):
+            logit += gen.id_weight[c, b[f"C{c + 1}"] - c * gen.vocab] * 0.3
+        dense = np.concatenate([b[f"I{i + 1}"] for i in range(gen.num_dense)], axis=1)
+        logit += (np.log1p(dense) @ gen.dense_weight) * 0.3
+        logit = (logit - logit.mean()) * sharp
+        b["label"] = (rng.random(B) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def guard_agreement(dev, seed, cfg, tmp):
+    """Phase 20 (a) at 2^12 slots, one state made on the CPU and copied to
+    the card. Per device: the sentinel off and on (untripped) over 3
+    train_steps and one K = 4 lookahead window, bit for bit; each poison
+    from one state (clean, nan, extreme, a flipped label against a seeded
+    EMA, an exploding lr); a TrainLoop rollback against a clean run minus
+    the poisoned batch, per key and dense leaf bit for bit; maintain()'s
+    anomaly eviction of one exploded row. Card against CPU: every flag
+    equal, the loss and the EMA of step k within max(1, k / 3) x
+    TRAIN_RTOL relative (and, the same steps with the MLPs' operands in
+    f32, the losses within TRAIN_RTOL / 10), the trip ledgers and the
+    evicted keys equal. Returns the lines."""
+    from deeprec_tpu_torch.guard import GuardPolicy, SentinelConfig
+    from deeprec_tpu_torch.guard.sentinel import flag_kinds, guard_carry
+    from deeprec_tpu_torch.modelzoo import common as zoo
+    from deeprec_tpu_torch.online import faults
+    from deeprec_tpu_torch.online.loop import TrainLoop
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    a = cfg["agree"]
+    args = _guard_args(cfg, a["capacity"])
+    sen = SentinelConfig(**dict(cfg["sentinel"], grad_norm_max=a["grad_norm_max"]))
+
+    def trainer(d, on=True):
+        return Trainer(_wdl(args), *zoo.make_optimizers(args),
+                       device=d, sentinel=sen if on else None, pipeline_mode="lookahead")
+
+    bs = _guard_batches(seed + 200, 12 + a["rollback"], a["batch"], cfg["vocab"],
+                        cfg["sharp"])
+    state0 = trainer("cpu").init(seed)
+    cases = [("clean", bs[7], None, None), ("nan", faults.poison_batch(bs[7], "nan"), None,
+                                           None),
+             ("extreme", faults.poison_batch(bs[7], "extreme", seed=18), None, None),
+             ("label_flip", faults.poison_batch(bs[7], "label_flip"), 0.3, None),
+             ("exploding_lr", bs[7], None, cfg["lr"] * cfg["lr_factor"])]
+    out = {}
+    for i, d in enumerate(("cpu", dev.type)):
+        d = torch.device(d)
+        on, off = trainer(d), trainer(d, on=False)
+        s_on, s_off = _copy_state(state0, d), _copy_state(state0, d)
+        g, flags, losses, emas = None, [], [], []
+        for b in bs[:3]:
+            s_on, m = on.train_step(s_on, b, guard=g)
+            g = guard_carry(m)
+            s_off, _ = off.train_step(s_off, b)
+            flags.append(int(m["guard_flags"]))
+            losses.append(float(m["loss"]))
+            emas.append(float(m["guard_ema"]))
+        s_on, m = on.train_steps(s_on, bs[3:3 + a["K"]], guard=g)
+        s_off, _ = off.train_steps(s_off, bs[3:3 + a["K"]])
+        flags += m["guard_flags"].tolist()
+        losses += m["loss"].tolist()
+        emas += m["guard_ema"].tolist()
+        diff = _state_diff(s_on, s_off)
+        if diff or any(flags):
+            raise AssertionError(f"{d.type}: sentinel on and off differ in {diff[:6]} "
+                                 f"(flags {flags})")
+        g = guard_carry(m)
+        # the witness: the same 7 steps with the MLPs' operands in f32
+        with _f32_dense_operands():
+            tr_w, s_w, g_w, f32_losses = trainer(d), _copy_state(state0, d), None, []
+            for b in bs[:3]:
+                s_w, m_w = tr_w.train_step(s_w, b, guard=g_w)
+                g_w = guard_carry(m_w)
+                f32_losses.append(float(m_w["loss"]))
+            s_w, m_w = tr_w.train_steps(s_w, bs[3:3 + a["K"]], guard=g_w)
+            f32_losses += m_w["loss"].tolist()
+            del tr_w, s_w
+        trips = {}
+        for name, batch, ema, lr in cases:
+            st = _copy_state(s_on, d)
+            gg = g if ema is None else {"ema": torch.tensor(ema, device=d)}
+            _, mm = on.train_step(st, batch, lr=lr, guard=gg)
+            trips[name] = int(mm["guard_flags"])
+            del st
+        # the rollback: a guarded loop over a stream with one NaN batch
+        # against the sentinel-less loop over the same stream without it
+        clean = bs[12:12 + a["rollback"]]
+        poisoned = list(clean)
+        poisoned[a["poison_at"]] = faults.poison_batch(clean[a["poison_at"]], "nan")
+        root = os.path.join(tmp, f"{i}-{d.type}")
+        tr_a, tr_b = trainer(d), trainer(d, on=False)
+        ck_a = CheckpointManager(os.path.join(root, "ckA"), tr_a)
+        ck_a.save(_copy_state(state0, d))
+        loop = TrainLoop(tr_a, ck_a, iter(poisoned), save_every=3, full_every=2,
+                         guard=GuardPolicy(os.path.join(root, "dl"), max_batch_trips=2),
+                         max_steps=len(clean))
+        st_a, _ = loop.run()
+        ck_b = CheckpointManager(os.path.join(root, "ckB"), tr_b)
+        ck_b.save(_copy_state(state0, d))
+        st_b, _ = TrainLoop(tr_b, ck_b, iter(clean[:a["poison_at"]] + clean[a["poison_at"] + 1:]),
+                            save_every=3, full_every=2, max_steps=len(clean) - 1).run()
+        n_keys = _same_state(st_a, st_b, f"{d.type}: the rollback against the clean run "
+                             "minus the poisoned batch", meta=2)
+        # row hygiene: one occupied row of member 0 blown up
+        st = _copy_state(s_on, d)
+        bname, ts = next(iter(st.tables.items()))
+        slot = int(torch.nonzero(ts.keys[0] != torch.iinfo(ts.keys.dtype).min)[0, 0])
+        blown = int(ts.keys[0, slot])
+        ts.values[0, slot] = 1e9
+        before = _member_arrays(ts, 1)
+        st, rep = on.maintain(st)
+        ka = _member_arrays(st.tables[bname], 0)[0]
+        after = _member_arrays(st.tables[bname], 1)
+        if blown in ka.tolist() or not all(torch.equal(x, y) for x, y in zip(before, after)):
+            raise AssertionError(f"{d.type}: maintain kept the exploded key {blown} or moved "
+                                 "another member's rows")
+        out[i] = dict(flags=flags, losses=losses, emas=emas, trips=trips, f32=f32_losses,
+                           trip_log=[t[:4] for t in loop.trip_log], rollbacks=loop.rollbacks,
+                           keys=n_keys, reinit=rep[bname].get("rows_reinit", 0),
+                           live=sorted(ka.tolist()))
+    x, y = out[0], out[1]
+    rel = lambda u, v: [abs(p - q) / abs(p) for p, q in zip(u, v)]  # noqa: E731
+    # TRAIN_RTOL is phase 7's bound for 3 steps. A step's loss moves with
+    # the parameters, whose card-vs-CPU difference grows by about the same
+    # amount each step (a bf16 operand flip moves an Adam step by up to
+    # 2 lr), so step k is held within max(1, k / 3) x TRAIN_RTOL, as phase
+    # 15 sums its per-step row bound over the steps. The witness runs the
+    # same steps with the MLPs' operands in f32 on both devices: without
+    # the flips every step is held within TRAIN_RTOL / 10.
+    bound = [max(1.0, k / 3) * TRAIN_RTOL for k in range(1, len(x["losses"]) + 1)]
+    loss_r, ema_r, f32_r = (rel(x[k], y[k]) for k in ("losses", "emas", "f32"))
+    if any(r > b for r, b in zip(loss_r + ema_r, bound + bound)):
+        raise AssertionError(f"losses differ by {loss_r}, EMAs by {ema_r} relative, "
+                             f"bounds {bound}")
+    if max(f32_r) > TRAIN_RTOL / 10:
+        raise AssertionError(f"with f32 operands the losses differ by {f32_r} relative")
+    if x["trips"] != y["trips"] or x["trip_log"] != y["trip_log"]:
+        raise AssertionError(f"flags differ: {x['trips']} {x['trip_log']} against "
+                             f"{y['trips']} {y['trip_log']}")
+    if x["trips"]["clean"] or not all(x["trips"][n] for n, *_ in cases[1:]):
+        raise AssertionError(f"the poisons tripped {x['trips']}")
+    every = 0
+    for v in x["trips"].values():
+        every |= v
+    if every != 31:
+        raise AssertionError(f"the poisons tripped only {flag_kinds(every)}")
+    if x["reinit"] != y["reinit"] or not x["reinit"] or x["live"] != y["live"]:
+        raise AssertionError(f"row hygiene: {x['reinit']} / {y['reinit']} rows re-initialized")
+    if y["rollbacks"] != 1:
+        raise AssertionError(f"the poisoned stream rolled back {y['rollbacks']} times")
+    fmt = lambda v: "[" + ", ".join(f"{u:.3g}" for u in v) + "]"  # noqa: E731
+    return [f"sentinel off and on over 3 train_steps and one K = {a['K']} lookahead window: "
+            f"every tensor bit for bit on each device, flags 0; card vs CPU per step, "
+            f"relative: losses {fmt(loss_r)}, EMAs {fmt(ema_r)} (bounds {fmt(bound)} = "
+            f"max(1, k / 3) x {TRAIN_RTOL}); with the MLPs' operands in f32 the losses "
+            f"{fmt(f32_r)} (bound {TRAIN_RTOL / 10:.3g})",
+            "flags by poison (card = cpu): " + ", ".join(
+                f"{n} {v} {flag_kinds(v)}" for n, v in y["trips"].items()),
+            f"rollback: tripped {y['trip_log']}, {y['rollbacks']} rollback; {y['keys']} keys, "
+            f"dense and Adam equal to the clean run minus the poisoned batch bit for bit on "
+            f"each device (cpu {x['keys']} keys)",
+            f"maintain: {y['reinit']} exploded row re-initialized on each device, the same "
+            f"{len(y['live'])} keys left in member 0, member 1 untouched bit for bit"]
+
+
+class _Ledger:
+    """The launches of (#1, #3, #2, #5, #4) a path implies, added up from the
+    events it is made of as they happen: a train step (`_train_launches`,
+    plus the sentinel's touched-row gather per lookup group), a save (a
+    gather per member and array), a checkpoint directory imported
+    (`_link_bundles` of its files, read just before the import, per array:
+    values and each per-row slot of a trainer's manager, values alone for a
+    Predictor's), a Predictor's read-only forward (`_read_launches`), and
+    the launches a comparison itself makes. f32 tables only."""
+
+    def __init__(self):
+        self.want = np.zeros(5, np.int64)
+        self._lock = threading.Lock()
+
+    def add(self, v):
+        with self._lock:
+            self.want += np.asarray(v, np.int64)
+
+    @staticmethod
+    def _wrap(obj, name, before):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **kw):
+            before(*a, **kw)
+            return fn(*a, **kw)
+
+        setattr(obj, name, wrapped)
+
+    def trainer(self, tr):
+        """Count every train step of `tr` (with the sentinel it has at the
+        time: the touched-row gather, and a gather and a scatter more per
+        group where it clamps)."""
+        base, _ = _train_launches(tr)
+        groups = sum(1 if b.stacked else len(b.features) for b in tr.bundles.values())
+
+        def step(*a, **kw):
+            sen = tr.sentinel
+            rows = sen is not None and (sen.row_norm_max is not None
+                                        or sen.row_clamp_norm is not None)
+            clamp = sen is not None and sen.row_clamp_norm is not None
+            self.add(base + groups * np.array([0, rows + clamp, 0, clamp, 0]))
+
+        self._wrap(tr, "_step", step)
+
+    @staticmethod
+    def _arrays(ck):
+        from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
+
+        opt = ck.trainer.sparse_opt
+        return 1 + (0 if opt is None else sum(
+            1 for n in opt.slot_specs(1) if not n.startswith(SCALAR_PREFIX)))
+
+    def manager(self, ck):
+        """Count every save and every directory import of manager `ck`."""
+        if ck.trainer.sparse_opt is not None:
+            save_l = _train_launches(ck.trainer)[1]
+            self._wrap(ck, "_stage", lambda *a, **kw: self.add(save_l))
+        arrays = self._arrays(ck)
+
+        def imported(state, path, load_dense, chunk=None, copy=False):
+            self.add([0, 0, 0, arrays * _link_bundles(path, chunk), 0])
+
+        self._wrap(ck, "_apply_ckpt", imported)
+
+    def serve_loop(self, make):
+        """make() -> a ServeLoop, counted from its Predictor's boot on: the
+        boot's imports and reads are counted at the class methods while it
+        is made, the warm replay adds a sentinel-row import per bundle; then
+        every import and read-only forward of that Predictor."""
+        from deeprec_tpu_torch.serving.predictor import Predictor
+        from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+
+        a0, r0 = CheckpointManager._apply_ckpt, Predictor._predict_impl
+        reads = []
+
+        def apply(ck, state, path, load_dense, chunk=None, copy=False):
+            self.add([0, 0, 0, self._arrays(ck) * _link_bundles(path, chunk), 0])
+            return a0(ck, state, path, load_dense, chunk=chunk, copy=copy)
+
+        def predict(p, state, batch):
+            reads.append(p)
+            return r0(p, state, batch)
+
+        CheckpointManager._apply_ckpt, Predictor._predict_impl = apply, predict
+        try:
+            serve = make()
+            p = serve.predictor
+            p._predict_impl = r0.__get__(p)
+            p._ck._apply_ckpt = a0.__get__(p._ck)
+            read = _read_launches(p)
+            self._wrap(p, "_predict_impl", lambda *a, **kw: self.add(read))
+            self.manager(p._ck)
+        finally:
+            CheckpointManager._apply_ckpt, Predictor._predict_impl = a0, r0
+        self.add(len(reads) * read + np.array([0, 0, 0, len(p._trainer.bundles), 0]))
+        return serve
+
+
+class _Scorer(threading.Thread):
+    """`tools/bench_guard.py` `Scorer`: score the held-out set against the
+    served model in a closed loop, request by request; any failure counts."""
+
+    def __init__(self, serve, feats, labels, rows):
+        super().__init__(daemon=True, name="guard-scorer")
+        self.serve, self.feats, self.labels, self.rows = serve, feats, labels, rows
+        self.requests = self.failed = 0
+        self.errors, self.aucs = [], []
+        self._halt = threading.Event()
+
+    def round(self):
+        from deeprec_tpu_torch.guard import np_auc
+
+        probs, ver = [], None
+        for off in range(0, len(self.labels), self.rows):
+            req = {k: v[off:off + self.rows] for k, v in self.feats.items()}
+            self.requests += 1
+            try:
+                p, ver = self.serve.request_versioned(req, timeout=60.0)
+            except Exception as e:
+                self.failed += 1
+                self.errors.append(repr(e))
+                return None
+            probs.append(np.asarray(p))
+        auc = np_auc(np.concatenate(probs), self.labels)
+        self.aucs.append((time.monotonic(), auc, ver))
+        return auc
+
+    def run(self):
+        while not self._halt.is_set():
+            self.round()
+            self._halt.wait(0.1)
+
+    def stop(self):
+        self._halt.set()
+
+
+def _no_host_sync(fn):
+    """fn under torch.cuda's sync debug mode "error": an operation inside
+    it that synchronises the host with the card raises."""
+    def wrapped(*a, **kw):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    return wrapped
+
+
+def _record_row_kernels(dev, st):
+    """Patch guard/rows.py's gather so that its FIRST call on the card holds
+    the #3 gather of the touched rows against `gather_rows_plain`, and runs
+    one clamp_rows at the same rows on a copy of the table (the bound at the
+    rows' median norm, so about half of them are rewritten), its #5 scatter
+    held against `apply_rows_sr_plain` on a second copy. Bit for bit.
+    Returns the function that puts the module back."""
+    from deeprec_tpu_torch.guard import rows as guard_rows
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+
+    g0 = guard_rows.gather_rows
+
+    def gather(values, ix):
+        out = g0(values, ix)
+        if "gather" in st or values.device.type != "cuda":
+            return out
+        if not torch.equal(out, fl.gather_rows_plain(values, ix)):
+            raise AssertionError(f"touched_row_norms' gather at {tuple(values.shape)} x "
+                                 f"{tuple(ix.shape)} differs from the plain version")
+        st["gather"] = (tuple(values.shape), tuple(ix.shape), 0.0)
+        norms = out.float().square().sum(-1).sqrt()
+        valid = ix >= 0
+        bound = float(norms.median())
+        v, want_v = values.clone(), values.clone()
+        seen = {}
+        s0 = guard_rows.apply_rows_sr
+
+        def scatter(vals, six, rows, seed=0):
+            seen.update(six=six.clone(), rows=rows.clone())
+            return s0(vals, six, rows, seed=seed)
+
+        guard_rows.apply_rows_sr = scatter
+        try:
+            guard_rows.clamp_rows(v, ix, torch.where(valid, norms, 0.0), bound, 0)
+        finally:
+            guard_rows.apply_rows_sr = s0
+        fl.apply_rows_sr_plain(want_v, seen["six"], seen["rows"])
+        n = int((seen["six"] >= 0).sum())
+        if not torch.equal(v, want_v) or not n:
+            raise AssertionError(f"clamp_rows' scatter at {tuple(values.shape)} x "
+                                 f"{tuple(ix.shape)} ({n} rows) differs from the plain version")
+        st["scatter"] = (tuple(values.shape), tuple(seen["six"].shape), n, 0.0)
+        del v, want_v
+        return out
+
+    guard_rows.gather_rows = gather
+    return lambda: setattr(guard_rows, "gather_rows", g0)
+
+
+def _served_kernels_vs_plain(dev, fn):
+    """One served forward with every #3 and #4 call recorded and held
+    against its plain version, bit for bit (the launches stay counted: they
+    are a read of the path). Returns (#3 calls, #4 calls, max abs err)."""
+    from deeprec_tpu_torch.embedding import combiners, table
+    from deeprec_tpu_torch.ops import fused_lookup as fl
+
+    gathers, combines = [], []
+    g0, c0 = table.gather_rows, combiners.fused_gather_combine_grouped
+
+    def gather(values, ix):
+        out = g0(values, ix)
+        gathers.append((values, ix, out))
+        return out
+
+    def combine(values, row_ix, w):
+        out = c0(values, row_ix, w)
+        combines.append((list(values), list(row_ix), list(w), out))
+        return out
+
+    table.gather_rows, combiners.fused_gather_combine_grouped = gather, combine
+    try:
+        fn()
+        _sync(dev)
+    finally:
+        table.gather_rows, combiners.fused_gather_combine_grouped = g0, c0
+    err = 0.0
+    for values, ix, out in gathers:
+        if not torch.equal(out, fl.gather_rows_plain(values, ix)):
+            raise AssertionError("a served gather differs from the plain version")
+    for values, row_ix, w, outs in combines:
+        for v, ix, ww, out in zip(values, row_ix, w, outs):
+            want = fl.fused_gather_combine_plain(v, ix, ww)
+            if not torch.equal(out, want):
+                raise AssertionError("a served fused_gather_combine differs from the plain "
+                                     "version")
+            err = max(err, float((out - want).abs().max()) if out.numel() else 0.0)
+    if not gathers or not combines:
+        raise AssertionError(f"the served forward called #3 {len(gathers)} and #4 "
+                             f"{len(combines)} times")
+    return len(gathers), len(combines), err
+
+
+def guard_loop(dev, seed, cfg, tmp, ledger):
+    """Phase 20 (c) (see GUARD). Returns stats."""
+    from deeprec_tpu_torch.guard import GuardPolicy, QualityGate, SentinelConfig
+    from deeprec_tpu_torch.guard.sentinel import guard_carry
+    from deeprec_tpu_torch.modelzoo import common as zoo
+    from deeprec_tpu_torch.online import faults
+    from deeprec_tpu_torch.online.loop import ServeLoop, TrainLoop
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    B = cfg["batch"]
+    args = _guard_args(cfg, cfg["capacity"])
+    ck_dir, dl_dir = os.path.join(tmp, "ck"), os.path.join(tmp, "deadletter")
+    trainer = Trainer(_wdl(args), *zoo.make_optimizers(args),
+                      device=dev, sentinel=SentinelConfig(**cfg["sentinel"]))
+    ck = CheckpointManager(ck_dir, trainer)
+    ledger.trainer(trainer)
+    ledger.manager(ck)
+    st = {}
+    t0 = time.perf_counter()
+    warm = _guard_batches(seed + 1, cfg["warmup"], B, cfg["vocab"], cfg["sharp"])
+    stream = _guard_batches(seed + 2, cfg["stream"], B, cfg["vocab"], cfg["sharp"])
+    hold = _guard_batches(seed + 99, cfg["eval_batches"], B, cfg["vocab"], cfg["sharp"])
+    timed = _guard_batches(seed + 3, cfg["timed"] * 2, B, cfg["vocab"], cfg["sharp"])
+    st["data_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    state, _ = TrainLoop(trainer, ck, iter(warm), save_every=cfg["warm_save_every"],
+                         full_every=2, max_steps=cfg["warmup"],
+                         guard=GuardPolicy(dl_dir, max_batch_trips=cfg["max_batch_trips"])
+                         ).run()
+    _sync(dev)
+    st["warmup_s"] = time.perf_counter() - t0
+    # the step with the sentinel on and off, in turns (off, on, on, off) on
+    # the warmup's state; the poisoned stream restores the chain after. On
+    # the card the sentinel's two halves run under the sync debug mode
+    # "error": a host synchronisation inside them fails the phase.
+    ms = {"off": [], "on": []}
+    g = None
+    sentinel = trainer.sentinel
+    if dev.type == "cuda":
+        for name in ("_sentinel_observe", "_sentinel_fold"):
+            setattr(trainer, name, _no_host_sync(getattr(trainer, name)))
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        trainer.sentinel = sentinel if mode == "on" else None
+        n = cfg["timed"] // 2
+        _sync(dev)
+        t1 = time.perf_counter()
+        for b in timed[i * n:(i + 1) * n]:
+            state, m = trainer.train_step(state, b, **({"guard": g} if mode == "on" else {}))
+            g = guard_carry(m) if mode == "on" else g
+        _sync(dev)
+        ms[mode].append((time.perf_counter() - t1) * 1e3 / n)
+    trainer.sentinel = sentinel
+    for name in ("_sentinel_observe", "_sentinel_fold"):
+        trainer.__dict__.pop(name, None)
+    st["step_ms"] = ms
+    del state
+
+    feats = {k: np.concatenate([b[k] for b in hold]) for k in hold[0] if k != "label"}
+    labels = np.concatenate([b["label"] for b in hold])
+    probe = {k: v[:B] for k, v in feats.items()}
+    gate = QualityGate(probe=probe, labels=labels[:B], auc_floor=0.5,
+                       max_shift=cfg["max_shift"])
+    t0 = time.perf_counter()
+    serve = ledger.serve_loop(lambda: ServeLoop(
+        _wdl(args), ck_dir, poll_secs=cfg["poll"], quality_gate=gate,
+        device=dev, max_batch=B))
+    st["serve_boot_s"] = time.perf_counter() - t0
+    scorer = _Scorer(serve, feats, labels, B)
+    baseline = scorer.round()
+    if baseline is None:
+        raise AssertionError(f"the baseline scoring failed: {scorer.errors[:3]}")
+    floor = round(max(0.5, baseline - cfg["auc_margin"]), 4)
+    scorer.start()
+
+    injector = faults.PoisonInjector(iter(stream), cfg["plan"], repeat_at=cfg["repeats"])
+    boom = {"fn": None, "at": None}
+
+    def lr_fn(step):
+        return boom["fn"](step) if boom["fn"] is not None else cfg["lr"]
+
+    def on_step(step):
+        # one exploding-lr step `lr_after` steps in; disarmed once it ran,
+        # so the rollback's replay trains at the base lr (a pushed config
+        # that was reverted)
+        if boom["at"] is None and step >= cfg["warmup"] + cfg["lr_after"]:
+            boom["at"] = step + 1
+            boom["fn"] = faults.exploding_lr(cfg["lr"], step + 1, 1, cfg["lr_factor"])
+        elif boom["fn"] is not None and step >= boom["at"]:
+            boom["fn"] = None
+
+    loop = TrainLoop(trainer, ck, injector, save_every=cfg["save_every"],
+                     full_every=cfg["full_every"],
+                     guard=GuardPolicy(dl_dir, max_batch_trips=cfg["max_batch_trips"],
+                                       replay_window=cfg["replay_window"]),
+                     lr_fn=lr_fn, on_step=on_step, log_every=0)
+    rollback_ms = []
+    rollback = loop._guard_rollback
+
+    def timed_rollback(*a, **kw):
+        out = rollback(*a, **kw)
+        rollback_ms.append(loop.last_rollback_ms)
+        return out
+
+    loop._guard_rollback = timed_rollback
+    kern = {}
+    put_back = _record_row_kernels(dev, kern)
+    if dev.type == "cuda":  # the comparison's own clamp_rows: a gather and a scatter
+        ledger.add([0, 1, 0, 1, 0])
+    t0 = time.perf_counter()
+    try:
+        state, _ = loop.run()
+    finally:
+        put_back()
+    _sync(dev)
+    st["stream_s"] = time.perf_counter() - t0
+
+    # a poisoned delta that slips past the trainer: a sentinel-less shadow
+    # trainer restores the chain and saves one NaN step; the gate rejects it
+    t0 = time.perf_counter()
+    shadow = Trainer(_wdl(args), *zoo.make_optimizers(args),
+                     device=dev)
+    ck_shadow = CheckpointManager(ck_dir, shadow)
+    ledger.trainer(shadow)
+    ledger.manager(ck_shadow)
+    s2 = ck_shadow.restore()
+    s2, _ = shadow.train_step(s2, faults.poison_batch(stream[-1], "nan"))
+    ck_shadow.save_incremental(s2)
+    del s2
+    # the gate counts its rejection before the poller quarantines the delta
+    # and marks the health: wait for the health
+    _wait_for(lambda: serve.health().get("degraded_reason") == "quality_gate",
+              "the quality gate's rejection", 60.0, phase=20)
+    st["gate_s"] = time.perf_counter() - t0
+    health = serve.health()
+    time.sleep(1.0)  # the scorer keeps requesting past the rejection
+    scorer.stop()
+    scorer.join(timeout=60)
+    serve.pause()
+    time.sleep(2 * cfg["poll"])
+    n3, n4, err4 = _served_kernels_vs_plain(dev, lambda: serve.predictor.predict(probe))
+    serve.close()
+
+    trips_by_fp = {}
+    for bad, detect, flags, kinds, fp in loop.trip_log:
+        trips_by_fp.setdefault(fp, []).append((detect - bad, kinds))
+    events = []
+    for idx, mode, fp in injector.injected:
+        hits = trips_by_fp.get(fp, [])
+        events.append(dict(delivery=idx, mode=mode, fp=fp,
+                           detected=bool(hits) or loop.dead_letter.is_quarantined(fp),
+                           lag=max((h[0] for h in hits), default=0), trips=len(hits),
+                           kinds=sorted({k for h in hits for k in h[1]})))
+    injected = {fp for _, _, fp in injector.injected}
+    lr_trips = [(s, k) for s, _, _, k, fp in loop.trip_log if fp not in injected]
+    min_auc = min(a for _, a, _ in scorer.aucs)
+    st["last_auc"], st["versions"] = scorer.aucs[-1][1], len({v for *_, v in scorer.aucs})
+    st.update(events=events, lr_trips=lr_trips, rollback_ms=rollback_ms,
+              trips=loop.guard_trips, rollbacks=loop.rollbacks, skipped=loop.batches_skipped,
+              quarantined=loop.dead_letter.permanent_count, gaps=loop.replay_gaps,
+              baseline=baseline, floor=floor, min_auc=min_auc, rounds=len(scorer.aucs),
+              requests=scorer.requests, failed=scorer.failed, gate=gate.last_rejection,
+              rejections=gate.rejections, health=health, kern=kern, served=(n3, n4, err4),
+              step=int(state.step))
+    nan_fp = next(fp for idx, mode, fp in injector.injected if idx == min(cfg["plan"]))
+    if scorer.failed:
+        raise AssertionError(f"{scorer.failed} failed requests: {scorer.errors[:3]}")
+    if [e for e in events if not e["detected"] or e["lag"] > 1]:
+        raise AssertionError(f"undetected or late poison: {events}")
+    if not loop.dead_letter.is_quarantined(nan_fp):
+        raise AssertionError(f"delivery {min(cfg['plan'])}'s batch was not quarantined")
+    if not lr_trips:
+        raise AssertionError("the exploding-lr step tripped nothing")
+    if min_auc < floor:
+        raise AssertionError(f"served AUC {min_auc} crossed the floor {floor}")
+    if gate.rejections < 1 or health.get("degraded_reason") != "quality_gate":
+        raise AssertionError(f"the quality gate: {gate.rejections} rejections, health {health}")
+    if dev.type == "cuda" and ("gather" not in kern or "scatter" not in kern):
+        raise AssertionError(f"the row kernels were not recorded: {kern}")
+    return st
+
+
+class _LineGen:
+    """`tools/bench_freshness.py` `LineGen`: Criteo-shaped TSV lines."""
+
+    def __init__(self, num_cat, num_dense, seed=0):
+        self.rng = np.random.default_rng(seed)
+        self.num_cat, self.num_dense = num_cat, num_dense
+
+    def lines(self, n):
+        out = []
+        for _ in range(n):
+            label = int(self.rng.random() < 0.4)
+            dense = [f"{self.rng.lognormal(0.0, 1.0):.3f}" for _ in range(self.num_dense)]
+            cats = [f"tok{int(self.rng.integers(0, 400))}" for _ in range(self.num_cat)]
+            out.append("\t".join([str(label)] + dense + cats))
+        return out
+
+
+class _Ingestor(threading.Thread):
+    """Append `batch` lines to the stream file `per_sec` times a second and
+    note (total lines, time) after each durable append."""
+
+    def __init__(self, path, batch, per_sec, gen):
+        super().__init__(daemon=True, name="ingestor")
+        self.path, self.batch, self.period, self.gen = path, batch, 1.0 / per_sec, gen
+        self.marks, self.total = [], 0
+        self._halt = threading.Event()
+
+    def run(self):
+        nxt = time.monotonic()
+        while not self._halt.is_set():
+            data = "\n".join(self.gen.lines(self.batch)) + "\n"
+            with open(self.path, "a") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            self.total += self.batch
+            self.marks.append((self.total, time.monotonic()))
+            nxt += self.period
+            delay = nxt - time.monotonic()
+            if delay > 0:
+                self._halt.wait(delay)
+
+    def stop(self):
+        self._halt.set()
+
+    def first_step_after(self, t, B):
+        for total, tm in self.marks:
+            if tm > t:
+                return total // B + (1 if total % B else 0)
+        return None
+
+
+class _VersionSampler(threading.Thread):
+    """Model version -> (train step, first seen), sampled every 20 ms."""
+
+    def __init__(self, predictor):
+        super().__init__(daemon=True, name="version-sampler")
+        self.predictor, self.seen = predictor, {}
+        self._halt = threading.Event()
+
+    def run(self):
+        while not self._halt.wait(0.02):
+            v = self.predictor.version
+            if v not in self.seen:
+                self.seen[v] = (self.predictor.step, time.monotonic())
+
+    def stop(self):
+        self._halt.set()
+
+
+class _LoadGen(threading.Thread):
+    """`rps` requests a second from 2 paced clients; (done, version) of
+    every answer, (time, error) of every failure."""
+
+    def __init__(self, serve, features, rps, clients=2):
+        super().__init__(daemon=True, name="loadgen")
+        self.serve, self.features, self.rps, self.clients = serve, features, rps, clients
+        self.records, self.failures = [], []
+        self._halt = threading.Event()
+
+    def _client(self, idx):
+        period = self.clients / self.rps
+        nxt = time.monotonic() + idx * period / self.clients
+        while not self._halt.is_set():
+            delay = nxt - time.monotonic()
+            if delay > 0 and self._halt.wait(delay):
+                return
+            nxt += period
+            try:
+                _, version = self.serve.request_versioned(self.features, timeout=30)
+                self.records.append((time.monotonic(), version))
+            except Exception as e:
+                self.failures.append((time.monotonic(), repr(e)))
+
+    def run(self):
+        threads = [threading.Thread(target=self._client, args=(i,), daemon=True)
+                   for i in range(self.clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    def stop(self):
+        self._halt.set()
+
+
+def _first_served(records, seen, step):
+    best = None
+    for t_done, v in records:
+        info = seen.get(v)
+        if info is not None and info[0] >= step and (best is None or t_done < best):
+            best = t_done
+    return best
+
+
+def _lags(ingest, load, sampler, B, t0, t1):
+    """Freshness of every step fully ingested in [t0, t1]: the time from its
+    last line's append to the first answer of a model trained past it."""
+    lags, steps = [], 0
+    for total, t_in in ingest.marks:
+        if not (t0 <= t_in <= t1) or total % B:
+            continue
+        steps += 1
+        t_served = _first_served(load.records, sampler.seen, total // B)
+        if t_served is not None and t_served >= t_in:
+            lags.append(t_served - t_in)
+    lags.sort()
+    out = dict(steps_ingested=steps, steps_reflected=len(lags))
+    if lags:
+        out.update(p50_s=round(lags[len(lags) // 2], 3),
+                   p95_s=round(lags[min(len(lags) - 1, int(len(lags) * 0.95))], 3),
+                   max_s=round(lags[-1], 3))
+    return out
+
+
+def _recovery(t_fault, ingest, load, sampler, B, timeout):
+    """Seconds from a fault to the first answer of a model trained on data
+    ingested after it (None: none within `timeout`)."""
+    deadline = time.monotonic() + 30
+    s_f = None
+    while s_f is None and time.monotonic() < deadline:
+        s_f = ingest.first_step_after(t_fault, B)
+        time.sleep(0.05)
+    if s_f is None:
+        return None
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        t = _first_served(load.records, sampler.seen, s_f)
+        if t is not None:
+            return round(t - t_fault, 3)
+        time.sleep(0.05)
+    return None
+
+
+def freshness_start(dev, cfg, tmp):
+    """Phase 20 (d)'s broker (an empty stream file) and the port's worker
+    (`python -m deeprec_tpu_torch.online.loop --device <dev>`) under the
+    Supervisor, started before (a) so the worker's start overlaps (a)-(c):
+    it connects and waits for data. Returns (broker, supervisor, stream
+    path, checkpoint dir)."""
+    from deeprec_tpu_torch.data.stream import FileStreamServer
+    from deeprec_tpu_torch.online import faults
+    from deeprec_tpu_torch.online.supervisor import ProcessSpec, Supervisor
+
+    f = cfg["fresh"]
+    stream, ckpt = os.path.join(tmp, "stream.txt"), os.path.join(tmp, "ckpt")
+    os.makedirs(tmp, exist_ok=True)
+    open(stream, "w").close()
+    broker = FileStreamServer(stream, follow=True, poll_secs=0.02).start()
+    hb_path = os.path.join(tmp, "trainer.hb")
+    argv = faults.worker_argv(
+        "--ckpt", ckpt, "--source", f"tcp://127.0.0.1:{broker.port}", "--batch-size",
+        f["batch"], "--save-every", f["save_every"], "--full-every", f["full_every"],
+        "--steps", 1_000_000_000, "--heartbeat", hb_path, "--log-every", 0, "--num-cat",
+        f["num_cat"], "--num-dense", f["num_dense"], "--emb-dim", f["emb_dim"],
+        "--capacity", f["capacity"], "--device", dev.type)
+    spec = ProcessSpec(name="trainer", argv=argv, heartbeat_path=hb_path,
+                       lease_secs=f["lease"], grace_secs=180, max_restarts=3,
+                       backoff_base_secs=0.2, env={"PYTHONPATH": ROOT}, cwd=ROOT,
+                       stdout=os.path.join(tmp, "trainer.log"))
+    sup = Supervisor([spec], poll_secs=0.2, on_event=lambda m: None).start()
+    return broker, sup, stream, ckpt
+
+
+def freshness_phase(dev, seed, cfg, tmp, ledger, rig):
+    """Phase 20 (d): FRESHNESS_BENCH's protocol (`tools/bench_freshness.py`)
+    with the worker `rig` (freshness_start) fed over TCP and the ServeLoop
+    in this process: steady freshness, then the worker SIGKILLed, then the
+    newest delta corrupted. Returns stats."""
+    import signal
+
+    from deeprec_tpu_torch.data.stream import criteo_line_parser
+    from deeprec_tpu_torch.models import WDL
+    from deeprec_tpu_torch.online import faults
+    from deeprec_tpu_torch.online.loop import ServeLoop
+    from deeprec_tpu_torch.online.supervisor import Heartbeat
+
+    f = cfg["fresh"]
+    B, nc, nd = f["batch"], f["num_cat"], f["num_dense"]
+    broker, sup, stream, ckpt = rig
+    gen = _LineGen(nc, nd, seed)
+    ingest = _Ingestor(stream, B, f["per_s"], gen)
+    st, serve, sampler, load = {}, None, None, None
+    try:
+        t0 = time.perf_counter()
+        ingest.start()
+        model = WDL(emb_dim=f["emb_dim"], capacity=f["capacity"], hidden=f["hidden"],
+                    num_cat=nc, num_dense=nd)
+        serve = ledger.serve_loop(lambda: ServeLoop(
+            model, ckpt, poll_secs=f["poll"], device=dev, max_batch=64,
+            heartbeat=Heartbeat(os.path.join(tmp, "serve.hb")), wait_for_checkpoint_secs=300))
+        st["boot_s"] = time.perf_counter() - t0
+        req = criteo_line_parser(nd, nc)(_LineGen(nc, nd, seed + 7).lines(4))
+        req.pop("label")
+        serve.warmup(req)
+        sampler = _VersionSampler(serve.predictor)
+        sampler.start()
+        load = _LoadGen(serve, req, rps=f["rps"])
+        load.start()
+        # steady: `steps` steps ingested, then until the last is served
+        t0 = time.monotonic()
+        time.sleep(f["steps"] / f["per_s"])
+        t1 = time.monotonic()
+        last = max((n // B for n, tm in ingest.marks if tm <= t1), default=0)
+        _wait_for(lambda: _first_served(load.records, sampler.seen, last) is not None,
+                  "the steady window to be served", 60.0, phase=20)
+        steady = _lags(ingest, load, sampler, B, t0, t1)
+        steady["failed"] = len([x for x in load.failures if t0 <= x[0] <= t1])
+        steady["requests"] = len([r for r in load.records if t0 <= r[0] <= t1])
+        st["steady"] = steady
+        # the worker SIGKILLed
+        tf = time.monotonic()
+        r0 = sup.stats()["trainer"]["restarts"]
+        if not sup.kill("trainer", signal.SIGKILL):
+            raise AssertionError("the supervisor could not kill its worker")
+        st["kill_recovery_s"] = _recovery(tf, ingest, load, sampler, B, f["recovery"])
+        st["restarts"] = sup.stats()["trainer"]["restarts"] - r0
+        # the newest committed delta corrupted before serving applies it
+        serve.pause()
+        time.sleep(2 * f["poll"] + 0.2)
+
+        def fresh_delta():
+            applied = set(serve.predictor._applied)
+            names = [d for d in os.listdir(ckpt) if d.startswith("incr-") and "." not in d
+                     and d not in applied
+                     and os.path.exists(os.path.join(ckpt, d, "manifest.json"))]
+            return max(names, key=lambda d: int(d.split("-")[1])) if names else None
+
+        _wait_for(fresh_delta, "a fresh delta to corrupt", 60.0, phase=20)
+        delta = fresh_delta()
+        tf = time.monotonic()
+        q0 = serve.health()["quarantined"]
+        corrupted = faults.corrupt_latest_delta(ckpt, mode="bitflip")
+        serve.resume()
+        with contextlib.suppress(Exception):
+            serve.poll_now()
+        _wait_for(lambda: serve.health()["quarantined"] > q0, "the quarantine", 60.0, phase=20)
+        st["corrupt_recovery_s"] = _recovery(tf, ingest, load, sampler, B, f["recovery"])
+        _wait_for(lambda: any(d.startswith("full-") and "." not in d
+                              and int(d.split("-")[1]) > int(delta.split("-")[1])
+                              for d in os.listdir(ckpt)), "the self-healing full save",
+                  60.0, phase=20)
+        st.update(corrupted=os.path.basename(os.path.dirname(corrupted)), delta=delta,
+                  quarantined=serve.health()["quarantined"] - q0,
+                  failed=len(load.failures), requests=len(load.records),
+                  health=serve.health(), worker=sup.stats()["trainer"],
+                  lag_gauge=serve.predictor.last_apply_lag_seconds)
+    finally:
+        ingest.stop()
+        if load is not None:
+            load.stop()
+        if sampler is not None:
+            sampler.stop()
+        if serve is not None:
+            serve.close()
+    s = st["steady"]
+    if s["steps_ingested"] == 0 or s["steps_reflected"] != s["steps_ingested"]:
+        raise AssertionError(f"steady freshness: {s}")
+    if st["restarts"] != 1 or st["kill_recovery_s"] is None:
+        raise AssertionError(f"after the SIGKILL: {st['restarts']} restarts, recovery "
+                             f"{st['kill_recovery_s']}")
+    if st["corrupt_recovery_s"] is None or st["quarantined"] < 1:
+        raise AssertionError(f"the corrupt delta: {st}")
+    if st["failed"]:
+        raise AssertionError(f"{st['failed']} failed requests: {load.failures[:3]}")
+    return st
+
+
+def zoo_cli(dev, cfg):
+    """Phase 20 (b)'s command line, started: `python -m
+    deeprec_tpu_torch.modelzoo --model wide_and_deep` on the card (and
+    --log_every so its 20 steps print the rate line)."""
+    z = cfg["zoo"]
+    cmd = [sys.executable, "-m", "deeprec_tpu_torch.modelzoo", "--model", "wide_and_deep",
+           "--steps", str(z["steps"]), "--eval_every", str(z["eval_every"]), "--log_every",
+           str(z["log_every"]), "--device", dev.type, *map(str, z["flags"])]
+    return cmd, subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True,
+                                 env={**os.environ, "PYTHONPATH": ROOT})
+
+
+def zoo_cli_result(proc, cmd, timeout):
+    """(exit code, lines, seconds) of zoo_cli's process; fails without its
+    `global_step/sec:` and `Eval AUC:` lines or with another code than 0."""
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise AssertionError(f"{' '.join(cmd[1:])} ran past {timeout} s: {out[-2000:]}")
+    lines = out.splitlines()
+    rate = [ln for ln in lines if "global_step/sec:" in ln]
+    auc = [ln for ln in lines if ln.startswith("Eval AUC:")]
+    if proc.returncode != 0 or not rate or not auc:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {proc.returncode}: {out[-3000:]}")
+    return rate, auc, time.perf_counter() - t0
+
+
+def run_guard(dev, seed, cfg, ckroot):
+    """Phase 20: (d)'s worker and (b)'s command line started, (a), (b)
+    collected, (c), (d), printed. Returns the launches of (#1, #3, #2, #5,
+    #4) over (c) and (d)'s in-process path, the kernel comparisons' shapes
+    and the served request's (#3 calls, #4 calls, max abs err)."""
+    t0 = time.perf_counter()
+    tmp = os.path.join(ckroot, "guard")
+    os.makedirs(tmp, exist_ok=True)
+    rig = freshness_start(dev, cfg, os.path.join(tmp, "fresh"))
+    try:
+        return _run_guard(dev, seed, cfg, tmp, rig, t0)
+    finally:
+        rig[1].stop()
+        rig[0].stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_guard(dev, seed, cfg, tmp, rig, t0):
+    """run_guard's phases, with (d)'s worker `rig` running."""
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+
+    cmd, proc = zoo_cli(dev, cfg)
+    try:
+        for line in guard_agreement(dev, seed, cfg, os.path.join(tmp, "agree")):
+            print(f"guard agreement at capacity {cfg['agree']['capacity']}, {dev.type} vs "
+                  f"cpu: {line}")
+        a_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ledger = _Ledger()
+        _zero_row_counts()  # the main path starts here
+        fused_gather_combine.launches = 0
+        t1 = time.perf_counter()
+        st = guard_loop(dev, seed, cfg, os.path.join(tmp, "loop"), ledger)
+        c_s = time.perf_counter() - t1
+        rate, auc, wait_s = zoo_cli_result(proc, cmd, cfg["zoo"]["timeout"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"driver: `{' '.join(cmd[1:])}` exited 0 ({wait_s:.1f} s after (c)): "
+          f"{rate[-1].strip()}; {auc[-1].strip()}")
+    ms = st["step_ms"]
+    print(f"guarded loop: WDL at the modelzoo widths (26 + 13 features, emb 16, "
+          f"{cfg['capacity']} slots), batch {cfg['batch']}: warmup {cfg['warmup']} steps in "
+          f"{st['warmup_s']:.1f} s; ms/step sentinel off {[round(x, 3) for x in ms['off']]}, "
+          f"on {[round(x, 3) for x in ms["on"]]} (in turns, {cfg["timed"] // 2} steps each; "
+          f"on the card no host sync inside the sentinel)")
+    print(f"guarded loop: {cfg['stream']} deliveries in {st['stream_s']:.1f} s, "
+          f"{st['trips']} trips, {st['rollbacks']} rollbacks (rollback_ms "
+          f"{st['rollback_ms']}), {st['skipped']} skipped, {st['quarantined']} quarantined, "
+          f"{st['gaps']} replay gaps, final step {st['step']}")
+    for e in st["events"]:
+        print(f"guarded loop: delivery {e['delivery']} {e['mode']} ({e['fp']}): detected "
+              f"{e['detected']} within {e['lag']} dispatch, {e['trips']} trips {e['kinds']}")
+    print(f"guarded loop: the exploding-lr step tripped {st['lr_trips']}")
+    print(f"guarded loop: served AUC baseline {st['baseline']:.4f}, lowest "
+          f"{st['min_auc']:.4f} (floor {st['floor']}), last {st['last_auc']:.4f} over "
+          f"{st['rounds']} rounds of {st['versions']} model versions; "
+          f"{st['requests']} requests of {cfg['batch']} rows, {st['failed']} failed; "
+          f"the NaN delta rejected by the gate ({st['gate']}, {st['rejections']} "
+          f"rejections, health {st['health'].get('status')}: "
+          f"{st['health'].get('degraded_reason')}) in {st['gate_s']:.1f} s")
+    k = st["kern"]
+    n3, n4, err4 = st["served"]
+    print(f"guarded loop: kernels against their plain versions, bit for bit: #3 "
+          f"touched_row_norms' gather {k.get('gather')}, #5 clamp_rows' scatter "
+          f"{k.get('scatter')} (on a copy of the table), #4 on one served request "
+          f"({n3} #3 and {n4} #4 calls, max abs err {err4})")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fr = freshness_phase(dev, seed, cfg, os.path.join(tmp, "fresh"), ledger, rig)
+    d_s = time.perf_counter() - t1
+    s = fr["steady"]
+    print(f"freshness: the worker `python -m deeprec_tpu_torch.online.loop --device "
+          f"{dev.type}` under the Supervisor, batch {cfg['fresh']['batch']}, a save every "
+          f"{cfg['fresh']['save_every']} steps, {cfg['fresh']['per_s']} batches/s, "
+          f"{cfg['fresh']['rps']} requests/s, poll {cfg['fresh']['poll']} s; serving booted "
+          f"in {fr['boot_s']:.1f} s")
+    print(f"freshness: steady {s['steps_reflected']} of {s['steps_ingested']} steps "
+          f"reflected, p50 {s.get('p50_s')} s, p95 {s.get('p95_s')} s, max {s.get('max_s')} "
+          f"s; {s['requests']} requests, {s['failed']} failed")
+    print(f"freshness: SIGKILL: {fr['restarts']} restart, recovered in "
+          f"{fr['kill_recovery_s']} s; corrupt delta {fr['corrupted']}: quarantined "
+          f"{fr['quarantined']}, a full save past it, recovered in "
+          f"{fr['corrupt_recovery_s']} s; {fr['requests']} requests, {fr['failed']} failed; "
+          f"last_apply_lag_seconds {fr['lag_gauge']}")
+    launches = _launch_counts()
+    _row_counts()  # ... and ends here
+    want = ledger.want
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    if dev.type == "cuda" and (not np.array_equal(launches, want) or not launches[[1, 3, 4]].all()):
+        raise AssertionError(f"phase 20 launched (#1, #3, #2, #5, #4) {launches.tolist()}, the "
+                             f"path implies {want.tolist()}")
+    print(f"guard phase: the path (c, d) launched (#1, #3, #2, #5, #4) {launches.tolist()} "
+          f"(implied {want.tolist()}); peak device memory {peak} GB")
+    print(f"phase 20 (the guarded online loop) took {time.perf_counter() - t0:.1f} s "
+          f"(agreement {a_s:.1f} s, the guarded loop {c_s:.1f} s, freshness {d_s:.1f} s)")
+    return launches, st["kern"], st["served"]
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
         multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST,
-        serve=SERVE, retrieval=RETR):
-    """Phases 3-19 on `dev`. Returns the kernel records, in the order of
+        serve=SERVE, retrieval=RETR, guard=GUARD):
+    """Phases 3-20 on `dev`. Returns the kernel records, in the order of
     the TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
+    phase_s, lap = {}, [t0]
+
+    def done(name):
+        """The seconds since the previous phase ended, as phase `name`'s."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - lap[0], 1)
+        lap[0] = now
     PAIR_LAUNCHES.update(gather_rows=0, apply_rows_sr=0)
     gathers = kernel_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)
     scatters = scatter_phase(dev, kernel_shapes[0], kernel_shapes[1:], seed)
@@ -6241,6 +7468,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
                                                 "fused_gather_combine"))
     print(f"phase 3 (kernels against their plain versions) took "
           f"{time.perf_counter() - t0:.1f} s")
+    done("3")
 
     ckroot = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckroot, ignore_errors=True)
@@ -6292,6 +7520,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         del p
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("4")
 
         probs, multi_probs = {}, {}
         for d in (dev, torch.device("cpu")):
@@ -6310,12 +7539,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
             raise AssertionError("card and CPU probabilities disagree")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("5")
 
         tst = run_training(dev, full, small, ckroot, seed, train)
         gather["launches"] += tst["launches"][1]
         scatter["launches"] = tst["launches"][0]
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("6-7")
 
         fst, f_rec, b_rec = fused_phase(dev, seed, fused)
         rec["fused_sparse_forward"], rec["fused_sparse_backward"] = f_rec, b_rec
@@ -6342,6 +7573,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
                 print(f"profile:   {dt:10.1f} us/step  x{count:<4d} {key[:100]}")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("8")
 
         bud = budget_phase(dev, full, seed, train)
         gather["launches"] += bud["launches"][1]
@@ -6357,11 +7589,13 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
               f"{bud['probe_syncs_per_step']:.1f} host syncs per step")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("9")
 
         f_rec, b_rec = flash_phase(dev, seed, bst, flash_shapes)
         rec["flash_attention_fwd"], rec["flash_attention_bwd"] = f_rec, b_rec
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("10")
         st, sv = run_bst(dev, seed, bst, ckroot)
         f_rec["launches"] = st["flash"][0] + sv["launches"][0]
         b_rec["launches"] = st["flash"][1]
@@ -6370,6 +7604,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         pooled["launches"] += sv["launches"][2]
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("11-12")
 
         t0 = time.perf_counter()
         for zs in zoo_phase(dev, seed, zoo, ckroot).values():
@@ -6380,6 +7615,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         print(f"phase 13 (the modelzoo) took {time.perf_counter() - t0:.1f} s")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("13")
 
         lst = run_loop(dev, seed, full, small, loop, ckroot)
         # #1 and #2 reach the records through PAIR_LAUNCHES below
@@ -6388,6 +7624,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         pooled["launches"] += int(lst["launches"][4])
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("14")
 
         tl = run_tier(dev, seed, full, small, tier, ckroot)
         # (#3, #5, #1, #2, #4); #1 and #2 reach the records through PAIR_LAUNCHES
@@ -6396,6 +7633,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         pooled["launches"] += int(tl[4])
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("15")
 
         cl = run_ckpt(dev, seed, full, small, ckpt, ckroot)
         # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
@@ -6404,6 +7642,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         pooled["launches"] += int(cl[4])
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("16")
 
         il = run_ingest(dev, seed, full, ingest, ckroot)
         # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
@@ -6412,6 +7651,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         pooled["launches"] += int(il[4])
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("17")
 
         sl = run_serving(dev, seed, full, serve, ckroot)
         # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
@@ -6420,6 +7660,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         pooled["launches"] += int(sl[4])
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        done("18")
 
         rl, rerr = run_retrieval(dev, seed, retrieval, ckroot)
         gather["max_abs_err"] = max(gather["max_abs_err"], rerr)
@@ -6428,6 +7669,17 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         gather["launches"] += int(rl[0] + rl[1])
         scatter["launches"] += int(rl[2] + rl[3])
         pooled["launches"] += int(rl[4])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        done("19")
+
+        gl, _, served = run_guard(dev, seed, guard, ckroot)
+        pooled["max_abs_err"] = max(pooled["max_abs_err"], served[2])
+        # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
+        gather["launches"] += int(gl[0] + gl[1])
+        scatter["launches"] += int(gl[2] + gl[3])
+        pooled["launches"] += int(gl[4])
+        done("20")
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's
@@ -6436,6 +7688,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         k["launches"] -= PAIR_LAUNCHES[k["name"]]
     print(f"main paths: bf16 launches (gather_rows, apply_rows_sr) "
           f"{(PAIR_LAUNCHES['gather_rows'], PAIR_LAUNCHES['apply_rows_sr'])}")
+    print(f"seconds by phase {phase_s}")
     return list(rec.values())
 
 
@@ -6480,7 +7733,8 @@ def main(argv=None) -> int:
         print(f"build: {names} in {time.perf_counter() - t1:.1f} s")
         kernels = run(
             dev, args.seed,
-            full=FULL, small=dict(FULL, capacity=SMALL_CAPACITY),
+            full=FULL, small=dict(FULL, capacity=SMALL_CAPACITY,
+                                  cross_depth=SMALL_CROSS_DEPTH),
             kernel_shapes=[(26, 1 << 20, 128, 2048), (26, 1 << 20, 128, 1),
                            (26, 1 << 20, 128, 37), (4, 4096, 16, 2048),
                            (4, 4096, 3, 37)],

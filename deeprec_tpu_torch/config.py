@@ -220,3 +220,15 @@ class TableConfig:
                 f"'float32', got {self.exchange_dtype!r}"
             )
         validate_unique_budget(self.unique_budget, f"table {self.name}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Full + incremental checkpoint cadence — parity with
+    MonitoredTrainingSession(save_checkpoint_secs=, save_incremental_checkpoint_secs=)
+    (docs/docs_en/Incremental-Checkpoint.md)."""
+
+    directory: str = "ckpt"
+    save_steps: int = 1000
+    incremental_save_steps: int = 0  # 0 disables incremental saves
+    keep: int = 3

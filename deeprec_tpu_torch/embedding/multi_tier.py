@@ -30,8 +30,13 @@ train step, queued behind the copies, cannot change what the round reads.
 
 `row_cache_bytes` puts the serving row cache (`serving/reuse.ReuseCache`,
 keyed by id and tier revision) in front of the stores'
-`lookup_with_fallback` reads. Left out: the obs-plane counters (ROADMAP
-queue A item 8); their values are kept as plain int attributes.
+`lookup_with_fallback` reads. Every sync round and fold publishes the JAX
+package's obs-plane counters and gauges, labelled by table
+(`deeprec_tier_demoted_rows`, `_promoted_rows`, `_spilled_rows`,
+`_host_rows`, `_device_rows`, `_sync_stall_ms`, `_prefetch_probed`,
+`_prefetch_hits`, `_prefetch_folds`, `_prefetch_stale_dropped`,
+`_prefetch_fold_lag_ms`). As in the JAX package, only the fold totals
+that `Trainer.tier_paging_stats` reads (and `sync_stall_ms`) are attributes.
 """
 from __future__ import annotations
 
@@ -348,24 +353,48 @@ class MultiTierTable:
         self.folded_rows = 0
         self.fold_bytes = 0
         self.fold_writes = 0  # fold chunks that wrote rows (#5 / #2 launches)
-        # the JAX package's obs-plane counters, as plain values
-        self.demoted_rows = 0
-        self.promoted_rows = 0
-        self.spilled_rows = 0
-        self.host_rows = 0
-        self.device_rows = 0
-        self.prefetch_probed = 0
-        self.prefetch_hits = 0
-        self.prefetch_folds = 0
-        self.prefetch_stale_dropped = 0
-        self.prefetch_fold_lag_ms = 0.0
+        # the obs plane's per-table counters and gauges (no-op singletons
+        # when DEEPREC_OBS=off)
+        self._init_obs(cfg.name)
+
+    def _init_obs(self, name: str) -> None:
+        from deeprec_tpu_torch.obs import metrics as obs_metrics
+
+        reg = obs_metrics.default_registry()
+        lab = {"table": name}
+        self._m_demoted = reg.counter("deeprec_tier_demoted_rows", "device→host demotions", lab)
+        self._m_promoted = reg.counter("deeprec_tier_promoted_rows",
+                                       "host/disk→device promotions", lab)
+        self._m_spilled = reg.counter("deeprec_tier_spilled_rows", "host→disk spills", lab)
+        self._m_host_size = reg.gauge("deeprec_tier_host_rows", "host-tier resident rows", lab)
+        self._m_device_size = reg.gauge("deeprec_tier_device_rows", "device-tier live rows",
+                                        lab)
+        self._m_stall = reg.gauge("deeprec_tier_sync_stall_ms",
+                                  "cumulative caller-side tier sync stall", lab)
+        self._m_pf_probed = reg.counter(
+            "deeprec_tier_prefetch_probed",
+            "unique upcoming ids probed against the tier stores", lab)
+        self._m_pf_hits = reg.counter("deeprec_tier_prefetch_hits",
+                                      "probed ids found resident in the host/disk tiers", lab)
+        self._m_pf_folds = reg.counter("deeprec_tier_prefetch_folds",
+                                       "prefetched tier rows folded into the device table",
+                                       lab)
+        self._m_pf_stale = reg.counter(
+            "deeprec_tier_prefetch_stale_dropped",
+            "prefetched rows dropped by fold revalidation "
+            "(stale revision or device row trained past the copy)", lab)
+        self._m_pf_lag = reg.gauge("deeprec_tier_prefetch_fold_lag_ms",
+                                   "gather-to-fold latency of the last folded package", lab)
 
     def _publish(self, stats: TierStats) -> None:
-        self.demoted_rows += stats.demoted
-        self.promoted_rows += stats.promoted
-        self.spilled_rows += stats.spilled
-        self.host_rows = stats.host_size
-        self.device_rows = stats.device_size
+        """Fold one sync round's TierStats into the obs plane: values the
+        round already computed, no device traffic."""
+        self._m_demoted.inc(stats.demoted)
+        self._m_promoted.inc(stats.promoted)
+        self._m_spilled.inc(stats.spilled)
+        self._m_host_size.set(stats.host_size)
+        self._m_device_size.set(stats.device_size)
+        self._m_stall.set(self.sync_stall_ms)
 
     # --------------------------------------------------------- packed rows
 
@@ -833,11 +862,11 @@ class MultiTierTable:
                     vers[mix] = d_ver[d_found]
                     found[mix] = True
                     from_disk[mix] = True
-        self.prefetch_probed += len(uniq)
+        self._m_pf_probed.inc(len(uniq))
         hits = int(found.sum())
         if not hits:
             return None
-        self.prefetch_hits += hits
+        self._m_pf_hits.inc(hits)
         return {"keys": uniq[found], "rows": vals[found], "freqs": freqs[found],
                 "vers": vers[found], "from_disk": from_disk[found], "rev": rev, "ts": t0}
 
@@ -851,9 +880,9 @@ class MultiTierTable:
             idle = self._worker is None or not self._worker.is_alive()
             fresh = self.probe_rows(cand["keys"]) if idle else None
             if fresh is None:
-                self.prefetch_stale_dropped += n_all
+                self._m_pf_stale.inc(n_all)
                 return None
-            self.prefetch_stale_dropped += n_all - len(fresh["keys"])
+            self._m_pf_stale.inc(n_all - len(fresh["keys"]))
             cand = fresh
             n_all = len(cand["keys"])
         return {"keys": np.asarray(cand["keys"], np.int64),
@@ -911,12 +940,13 @@ class MultiTierTable:
                 erase_d.append(keys[part][refreshed & from_disk[part]])
         if folded:
             self._erase_tier_rows(np.concatenate(erase_h), np.concatenate(erase_d))
-            self.prefetch_folds += folded
-            self.promoted_rows += folded
             self.folded_rows += folded
             self.fold_bytes += folded * pkg["rows"].shape[1] * 4
-        self.prefetch_stale_dropped += dropped
-        self.prefetch_fold_lag_ms = (t0 - pkg["ts"]) * 1e3
+            self._m_pf_folds.inc(folded)
+            self._m_promoted.inc(folded)
+        if dropped:
+            self._m_pf_stale.inc(dropped)
+        self._m_pf_lag.set((t0 - pkg["ts"]) * 1e3)
         self.fold_stall_ms += stall_ms
         return folded, dropped
 

@@ -2,8 +2,9 @@
 residency model of `deeprec_tpu/ops/traffic.py`, which
 `Predictor.residency_info` compares its measured bytes with, and the
 retrieval sweep's, which `RetrievalEngine.sweep_info` does. The rest of
-the JAX traffic model (train-step gathers and scatters, exchange wire
-bytes) belongs to ROADMAP queue A item 8."""
+the JAX traffic model belongs to ROADMAP queue A items 2 (the train-step
+gathers and scatters, the benchmark's byte models) and 6 (the exchange
+wire bytes)."""
 from __future__ import annotations
 
 

@@ -30,7 +30,7 @@ legacy surface identical at zero obs cost.
 The port's copy of `deeprec_tpu/serving/stats.py`, over the port's own
 `training/profiler.LatencyHistogram` and `obs/metrics.py`. The JAX class
 carries a `@guarded_by("_lock")` marker, which only feeds the JAX
-package's lint (`analysis/`, ROADMAP queue A item 8); the port leaves it
+package's lint (`analysis/`, ROADMAP queue A item 8 (c)); the port leaves it
 out. The ``device`` stage ends in the device-to-host copy of the answer,
 which synchronises with the card.
 """

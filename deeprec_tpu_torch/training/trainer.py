@@ -9,7 +9,10 @@ member of an hbm_dram / hbm_dram_ssd bundle with its own `MultiTierTable`
 (synchronously, or overlapped with `tier_async`), auto-tiers a bundle whose
 growth would pass `hbm_budget_bytes`, and tier paging
 (`enable_tier_paging`, `fold_tier_prefetch`) folds demoted rows back ahead
-of the lookups that need them.
+of the lookups that need them. `Trainer(sentinel=)` computes the step
+sentinel's flags on the device after each step's sparse applies (see
+`guard/sentinel.py`): a bit-for-bit no-op on the update math while
+untripped.
 
 A K-step window is exactly K `train_step` calls: the same inserts,
 admission, counters and version stamps, the step advancing by one per
@@ -223,13 +226,26 @@ class Trainer:
     without a sparse optimizer only serves (lookups and forward) and its
     `init()` carries no optimizer state. `remat` recomputes the model's
     forward in the backward; `stage` ("auto" | "off") is what `stage()`
-    does; `pipeline_mode` (PIPELINE_MODES) schedules `train_steps`."""
+    does; `pipeline_mode` (PIPELINE_MODES) schedules `train_steps`;
+    `sentinel` (a `guard.SentinelConfig`) adds the step sentinel's flags
+    and EMA to every train path's metrics and the anomaly eviction to
+    `maintain`."""
 
     def __init__(self, model, sparse_opt=None, dense_opt=None,
                  grad_averaging: bool = False, device=None,
                  unique_budget=None, remat: bool = False, stage: str = "auto",
-                 pipeline_mode: str = "off", pipeline_chunks: int = 4):
+                 pipeline_mode: str = "off", pipeline_chunks: int = 4, sentinel=None):
         self.model = model
+        # the step sentinel (guard/sentinel.py SentinelConfig): per-step
+        # model-quality flags computed on the device after the sparse
+        # applies; a bit-for-bit no-op on the update math while untripped
+        if sentinel is not None:
+            from deeprec_tpu_torch.guard.sentinel import SentinelConfig
+
+            if not isinstance(sentinel, SentinelConfig):
+                raise TypeError("sentinel must be a guard.SentinelConfig, got "
+                                f"{type(sentinel).__name__}")
+        self.sentinel = sentinel
         self.sparse_opt = sparse_opt
         self.dense_opt = dense_opt or dense_optim.adam(1e-3)
         self.grad_averaging = grad_averaging
@@ -423,7 +439,9 @@ class Trainer:
         """Per-TABLE dedup telemetry since the last counter reset:
         `unique_fraction` ((budgeted uniques + overflow) over id positions,
         what the auto budget tracks) and `dedup_overflow`. Stacked bundles
-        report each member under its table's name."""
+        report each member under its table's name. Mirrored into the obs
+        plane as the gauges `deeprec_dedup_unique_fraction{table}` and
+        `deeprec_dedup_overflow{table}`."""
         out: Dict[str, Dict[str, float]] = {}
         for bname, b in self.bundles.items():
             ts = state.tables[bname]
@@ -436,7 +454,28 @@ class Trainer:
                 }
                 if not b.stacked:
                     break  # a shared table holds one merged counter
+        self._publish_dedup_obs(out)
         return out
+
+    @staticmethod
+    def _publish_dedup_obs(stats: Dict[str, Dict]) -> None:
+        """The dedup telemetry into the obs plane: per-table unique-fraction
+        and overflow gauges, from the host ints `dedup_stats` already read.
+        The table label is a bounded set."""
+        from deeprec_tpu_torch.obs import metrics as obs_metrics
+
+        if not obs_metrics.metrics_enabled():
+            return
+        reg = obs_metrics.default_registry()
+        for tname, rec in stats.items():
+            lab = {"table": tname}
+            if rec.get("unique_fraction") is not None:
+                reg.gauge("deeprec_dedup_unique_fraction",
+                          "budgeted uniques + overflow over id positions",
+                          lab).set(rec["unique_fraction"])
+            reg.gauge("deeprec_dedup_overflow",
+                      "ids past the unique budget since last reset",
+                      lab).set(rec.get("dedup_overflow") or 0)
 
     def update_budgets(self, state: TrainState, *, slack: float = 1.5,
                        ema: float = 0.5
@@ -514,8 +553,13 @@ class Trainer:
         (a synchronous forced sync, `auto_tiered`, `demoted`, `promoted`).
         Bytes are counted as `_state_bytes` counts them.
 
-        The placement plan and the sentinel's row hygiene raise
-        NotImplementedError: later slices port them."""
+        With a sentinel whose `row_evict_quantile` is set, each member's
+        anomalous rows (`guard/rows.anomaly_evict`) are re-initialized
+        first, before occupancy and growth read the state, and counted as
+        `rows_reinit` (and into `deeprec_guard_rows_reinit{table}`).
+
+        The placement plan raises NotImplementedError: ROADMAP queue A item
+        6 ports it."""
         self._check_maintain_ported()
         step = int(state.step) if step is None else int(step)
         state, dedup_report = self.update_budgets(state)
@@ -528,9 +572,12 @@ class Trainer:
         for bname, b in self.bundles.items():
             ts = tables[bname]
             C = b.table.cfg.capacity
+            ts, rows_reinit = self._row_hygiene(b, ts)
             occ = int(b.table.size(ts).max()) / C
             fails_each = ts.insert_fails.tolist()
             rep = {"occupancy": occ, "insert_fails": sum(fails_each), "capacity": C}
+            if rows_reinit:
+                rep["rows_reinit"] = rows_reinit
             rep.update(dedup_report.get(bname, {}))
             if _tiered(b):
                 with phase_scope("tier_sync"):
@@ -572,10 +619,34 @@ class Trainer:
             raise NotImplementedError(
                 "maintain: placement='plan' waits for ROADMAP queue A item 6 "
                 "(multi-GPU)")
-        if getattr(self, "sentinel", None) is not None:
-            raise NotImplementedError(
-                "maintain: the sentinel's row hygiene waits for ROADMAP queue "
-                "A item 8 (operations)")
+
+    def _row_hygiene(self, b: Bundle, ts: TableState) -> Tuple[TableState, int]:
+        """The sentinel's anomaly eviction over every member of bundle `b`
+        (a member with anomalous rows is rebuilt without them and written
+        back; the others stay as they are). Returns (the bundle's state, the
+        rows re-initialized)."""
+        sen = self.sentinel
+        if sen is None or sen.row_evict_quantile is None:
+            return ts, 0
+        from deeprec_tpu_torch.guard import rows as guard_rows
+
+        fills = self._slot_fills(b)
+        total = 0
+        for k in range(b.num_tables):
+            m, n = guard_rows.anomaly_evict(b.table, _member(ts, k), sen.row_evict_quantile,
+                                            sen.row_evict_factor, fills)
+            if n:
+                ts = _put_member(ts, k, m)
+                total += n
+        if total:
+            from deeprec_tpu_torch.obs import metrics as obs_metrics
+
+            if obs_metrics.metrics_enabled():
+                obs_metrics.default_registry().counter(
+                    "deeprec_guard_rows_reinit",
+                    "anomalous table rows re-initialized by maintain() row hygiene",
+                    {"table": b.name}).inc(total)
+        return ts, total
 
     @staticmethod
     def _state_bytes(ts: TableState) -> int:
@@ -733,13 +804,13 @@ class Trainer:
         return state, report
 
     def tier_paging_stats(self) -> Dict[str, float]:
-        """The pump's drop and error counters, the fold totals (rows,
-        bytes, training-thread stall ms) and the probe counters."""
+        """The pump's drop and error counters and the fold totals (rows,
+        bytes, training-thread stall ms); the probe counters are the obs
+        plane's `deeprec_tier_prefetch_*`."""
         out: Dict[str, float] = (dict(self._tier_pager.stats())
                                  if self._tier_pager is not None else {})
         tiers = self._tiers.values()
-        for name in ("folded_rows", "fold_bytes", "fold_stall_ms", "prefetch_probed",
-                     "prefetch_hits", "prefetch_stale_dropped"):
+        for name in ("folded_rows", "fold_bytes", "fold_stall_ms"):
             out[name] = sum(getattr(mt, name) for mt in tiers)
         return out
 
@@ -908,26 +979,83 @@ class Trainer:
             raise ValueError(f"{what} needs a Trainer with a sparse optimizer")
         return self.sparse_opt.lr if lr is None else float(lr)
 
-    def _step(self, state: TrainState, batch, lr: float):
-        """One train step on a device batch (see `train_step`)."""
+    # ------------------------------------------------------- step sentinel
+
+    @torch.no_grad()
+    def _sentinel_observe(self, tables, bundle_res, loss, g_dense, g_embs,
+                          step: int) -> Dict[str, torch.Tensor]:
+        """Device half of the step sentinel, after the sparse applies: the
+        loss, the gradients' finiteness and squared norm, and (when a row
+        bound or clamp is configured) the largest L2 norm of the rows this
+        step updated, read through #3 (#1 on bf16 tables) at each lookup
+        group's slot indices. Reads only, unless `row_clamp_norm` is set:
+        then the rows past it are rescaled IN PLACE through #5 (#2)."""
+        from deeprec_tpu_torch.guard import rows as guard_rows
+        from deeprec_tpu_torch.guard import sentinel as guard_sentinel
+
+        with phase_scope("sentinel"):
+            cfg = self.sentinel
+            finite, norm_sq = guard_sentinel.grad_observations(g_dense, g_embs)
+            obs = {"loss": loss.to(torch.float32), "grads_finite": finite,
+                   "grad_norm_sq": norm_sq}
+            if cfg.row_norm_max is None and cfg.row_clamp_norm is None:
+                return obs
+            row_max = torch.zeros((), dtype=torch.float32, device=self.device)
+            for bname, b in self.bundles.items():
+                for _, res in self._results(b, bundle_res[bname]):
+                    values = tables[bname].values
+                    n = guard_rows.touched_row_norms(values, res.slot_ix)
+                    if cfg.row_clamp_norm is not None:
+                        guard_rows.clamp_rows(values, res.slot_ix, n, cfg.row_clamp_norm,
+                                              step)
+                    row_max = torch.maximum(row_max, n.max())
+            obs["row_max"] = row_max
+        return obs
+
+    def _sentinel_fold(self, mets, obs, guard):
+        """Fold a step's observations with the guard carry into the flags
+        scalar and the advanced EMA, both riding out through `mets`
+        ("guard_flags", "guard_ema"). Returns the next carry."""
+        from deeprec_tpu_torch.guard import sentinel as guard_sentinel
+
+        if guard is None:
+            guard = guard_sentinel.guard_init(self.device)
+        flags, guard = guard_sentinel.step_flags(
+            self.sentinel, obs["loss"], obs["grads_finite"], obs["grad_norm_sq"],
+            obs.get("row_max"), guard)
+        mets["guard_flags"] = flags
+        mets["guard_ema"] = guard["ema"]
+        return guard
+
+    def _step(self, state: TrainState, batch, lr: float, guard=None):
+        """One train step on a device batch (see `train_step`). Returns (the
+        next TrainState, metrics, the next guard carry)."""
         step = int(state.step)
         with phase_scope("lookup"), torch.no_grad():
             views, bundle_res = self._lookup_all(state.tables, batch, step, True)
         loss, logits, g_dense, g_embs = self._fwd_bwd(state.dense, views,
                                                       bundle_res, batch)
         self._apply_all(state.tables, bundle_res, g_embs, step, lr)
+        mets = self._metrics(loss, logits, batch)
+        if self.sentinel is not None:
+            guard = self._sentinel_fold(mets, self._sentinel_observe(
+                state.tables, bundle_res, loss, g_dense, g_embs, step), guard)
         opt_state = self._dense_apply(state.dense, state.opt_state, g_dense)
         return (TrainState(step=step + 1, tables=state.tables, dense=state.dense,
-                           opt_state=opt_state),
-                self._metrics(loss, logits, batch))
+                           opt_state=opt_state), mets, guard)
 
-    def train_step(self, state: TrainState, batch, lr: Optional[float] = None):
+    def train_step(self, state: TrainState, batch, lr: Optional[float] = None,
+                   guard=None):
         """One step: train lookups (insert, initializer rows, metadata),
         forward and backward, the sparse applies and the dense optimizer,
         all IN PLACE on `state`'s tensors. Returns (the next TrainState,
-        {"loss", "accuracy"} as 0-d device tensors)."""
+        {"loss", "accuracy"} as 0-d device tensors). With a sentinel the
+        metrics also carry "guard_flags" (int32) and "guard_ema"; `guard` is
+        the carry of the previous dispatch (`guard.sentinel.guard_carry`),
+        None for a fresh one. Nothing is read on the host."""
         lr = self._train_lr("train_step", lr)
-        return self._step(state, self.device_batch(batch), lr)
+        state, mets, _ = self._step(state, self.device_batch(batch), lr, guard)
+        return state, mets
 
     def _window(self, batches) -> List[Dict[str, torch.Tensor]]:
         """A window's K device batches from a list of K batches or one
@@ -938,31 +1066,36 @@ class Trainer:
             return [{k: v[i] for k, v in batches.items()} for i in range(K)]
         return [self.device_batch(b) for b in batches]
 
-    def train_steps(self, state: TrainState, batches, lr: Optional[float] = None):
+    def train_steps(self, state: TrainState, batches, lr: Optional[float] = None,
+                    guard=None):
         """K train steps in one call: `batches` is a list of K same-shape
         batches or one stacked [K, ...] dict (`stack_batches`). Exactly K
-        `train_step` calls in every `pipeline_mode`, IN PLACE. Returns (the
-        state after K steps, metrics as [K] device tensors, one entry per
-        inner step). Evict, maintain, save and evaluate between windows."""
+        `train_step` calls in every `pipeline_mode`, IN PLACE, the sentinel's
+        carry threaded from step to step. Returns (the state after K steps,
+        metrics as [K] device tensors, one entry per inner step: with a
+        sentinel, "guard_flags" and "guard_ema" too). Evict, maintain, save
+        and evaluate between windows."""
         lr = self._train_lr("train_steps", lr)
         batches = self._window(batches)
         if self.pipeline_mode == "off":
             mets = []
             for b in batches:
-                state, m = self._step(state, b, lr)
+                state, m, guard = self._step(state, b, lr, guard)
                 mets.append(m)
         else:
-            state, mets = self._steps_pipelined(state, batches, lr)
+            state, mets = self._steps_pipelined(state, batches, lr, guard)
         return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
 
-    def _steps_pipelined(self, state: TrainState, batches, lr: float):
+    def _steps_pipelined(self, state: TrainState, batches, lr: float, guard=None):
         """The window with a one-batch lookahead: the first batch's full
         lookup, then for each batch t: route and resolve batch t+1 (under
         step t+1), the dense forward and backward and the sparse apply of
         batch t, the value gather of batch t+1 (after that apply, so it
         reads the rows batch t wrote), the dense update. resolve(t+1)
         touches keys, metadata, the sketch and value rows of slots that
-        were empty, never a row apply(t) writes: the order is exact."""
+        were empty, never a row apply(t) writes: the order is exact. The
+        sentinel observes batch t after its apply and before the gather of
+        batch t+1 (a clamp lands before that gather reads the rows)."""
         step = int(state.step)
         tables, params, opt_state = state.tables, state.dense, state.opt_state
         with phase_scope("lookup"), torch.no_grad():
@@ -976,23 +1109,30 @@ class Trainer:
                                                 step + 1)
             loss, logits, g_dense, g_embs = self._fwd_bwd(params, views, res, batch)
             self._apply_all(tables, res, g_embs, step, lr)
+            m = self._metrics(loss, logits, batch)
+            if self.sentinel is not None:
+                guard = self._sentinel_fold(m, self._sentinel_observe(
+                    tables, res, loss, g_dense, g_embs, step), guard)
             if nxt is not None:
                 with phase_scope("finish_next"), torch.no_grad():
                     views, res = self._finish_all(tables, pending)
             opt_state = self._dense_apply(params, opt_state, g_dense)
-            mets.append(self._metrics(loss, logits, batch))
+            mets.append(m)
             step += 1
         return TrainState(step=step, tables=tables, dense=params,
                           opt_state=opt_state), mets
 
     def train_step_accum(self, state: TrainState, batch, accum_steps: int,
-                         lr: Optional[float] = None):
+                         lr: Optional[float] = None, guard=None):
         """One step over a batch of A x B rows in A micro-batches of B: each
         micro-batch looks up and applies its sparse gradients (all under
         the same step, with the dense parameters as they were), the dense
         gradients are summed, divided by A and applied once. Returns (the
         next TrainState, the mean loss and accuracy over the
-        micro-batches)."""
+        micro-batches). The dispatch is the sentinel's unit: the
+        micro-batches' observations reduce to one record (the mean loss,
+        every gradient finite, the largest squared norm and row norm) and
+        one "guard_flags" / "guard_ema"."""
         lr = self._train_lr("train_step_accum", lr)
         batch = self.device_batch(batch)
         A = int(accum_steps)
@@ -1001,7 +1141,7 @@ class Trainer:
             raise ValueError(f"batch of {n} rows does not split into {A} micro-batches")
         step = int(state.step)
         g_acc = {name: torch.zeros_like(p) for name, p in state.dense.items()}
-        mets = []
+        mets, obs = [], []
         for a in range(A):
             mb = {k: v.reshape(A, n // A, *v.shape[1:])[a] for k, v in batch.items()}
             with phase_scope("lookup"), torch.no_grad():
@@ -1011,11 +1151,21 @@ class Trainer:
             for name, g in g_dense.items():
                 g_acc[name] += g
             mets.append(self._metrics(loss, logits, mb))
+            if self.sentinel is not None:
+                obs.append(self._sentinel_observe(state.tables, res, loss, g_dense, g_embs,
+                                                  step))
         g_mean = {name: g / float(A) for name, g in g_acc.items()}
+        out = {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
+        if obs:
+            red = {"loss": torch.stack([o["loss"] for o in obs]).mean(),
+                   "grads_finite": torch.stack([o["grads_finite"] for o in obs]).all(),
+                   "grad_norm_sq": torch.stack([o["grad_norm_sq"] for o in obs]).max()}
+            if "row_max" in obs[0]:
+                red["row_max"] = torch.stack([o["row_max"] for o in obs]).max()
+            self._sentinel_fold(out, red, guard)
         opt_state = self._dense_apply(state.dense, state.opt_state, g_mean)
         return (TrainState(step=step + 1, tables=state.tables, dense=state.dense,
-                           opt_state=opt_state),
-                {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]})
+                           opt_state=opt_state), out)
 
     # ----------------------------------------------------------- staged input
 

@@ -393,12 +393,14 @@ def test_maintain_grows_on_overfill_like_jax():
 @pytest.mark.parametrize("case", ["hbm_budget_bytes", "tier_async", "storage",
                                   "placement", "sentinel"])
 def test_maintain_unported_paths_raise(case):
-    """placement='plan' and a sentinel still raise, naming their ROADMAP
-    items. The multi-tier paths, ported since (tests/test_torch_multi_tier.py
-    and tests/test_torch_tier_paging.py hold them against the JAX package),
-    now run: a tiered table's maintain reports `demoted` and `promoted` and
-    makes one MultiTierTable per member (tier_async too), and a budget the
-    empty tables fit in changes nothing."""
+    """placement='plan' still raises, naming its ROADMAP item. The
+    multi-tier paths and the sentinel's row hygiene, ported since
+    (tests/test_torch_multi_tier.py, tests/test_torch_tier_paging.py and
+    tests/test_torch_guard.py hold them against the JAX package), now run: a
+    tiered table's maintain reports `demoted` and `promoted` and makes one
+    MultiTierTable per member (tier_async too), a budget the empty tables
+    fit in changes nothing, and the anomaly eviction finds nothing to
+    re-initialize in empty tables."""
     tiered = case in ("storage", "tier_async")
     ev = tcfg.EmbeddingVariableOption(storage=tcfg.StorageOption(
         storage_type="hbm_dram")) if tiered else tcfg.EmbeddingVariableOption()
@@ -409,15 +411,17 @@ def test_maintain_unported_paths_raise(case):
     if case == "placement":
         trainer.placement = "plan"
     if case == "sentinel":
-        trainer.sentinel = object()
-    if case in ("placement", "sentinel"):
-        item = {"placement": "item 6", "sentinel": "item 8"}[case]
-        with pytest.raises(NotImplementedError, match=item):
+        from deeprec_tpu_torch.guard import SentinelConfig
+
+        trainer.sentinel = SentinelConfig(row_evict_quantile=0.9)
+    if case == "placement":
+        with pytest.raises(NotImplementedError, match="item 6"):
             trainer.maintain(st, **kw)
         return
     st, rep = trainer.maintain(st, **kw)
     for bname, r in rep.items():
         assert r["capacity"] == 64 and "grew_to" not in r and "auto_tiered" not in r
+        assert "rows_reinit" not in r
         if tiered:
             assert (r["demoted"], r["promoted"]) == (0, 0)
     members = sum(b.num_tables for b in trainer.bundles.values())

@@ -41,6 +41,7 @@ from deeprec_tpu_torch.data import SyntheticCriteo
 from deeprec_tpu_torch.embedding.table import COUNTERS
 from deeprec_tpu_torch.embedding.tier_prefetch import TierPrefetcher
 from deeprec_tpu_torch.models import WDL
+from deeprec_tpu_torch.obs import metrics as obs_metrics
 from deeprec_tpu_torch.optim import Adagrad, adam
 from deeprec_tpu_torch.training.trainer import Trainer, stack_batches
 from test_torch_multi_tier import (  # noqa: E402  (shared helpers)
@@ -79,6 +80,15 @@ def _same_cand(pc, jc):
         np.testing.assert_array_equal(pc[k], np.asarray(jc[k]), err_msg=k)
 
 
+def _prefetch_counts(p, since=(0, 0, 0, 0)):
+    """The port table's deeprec_tier_prefetch_{probed,hits,stale_dropped,
+    folds} counters (the obs plane's; the table keeps no attributes for
+    them), less `since`."""
+    reg, lab = obs_metrics.default_registry(), {"table": p.pmt.table.cfg.name}
+    return tuple(reg.counter(f"deeprec_tier_prefetch_{n}", "", lab).value - s
+                 for n, s in zip(("probed", "hits", "stale_dropped", "folds"), since))
+
+
 def _probe(p, ids):
     jc, pc = p.jmt.probe_rows(np.asarray(ids, np.int64)), p.pmt.probe_rows(np.asarray(ids, np.int64))
     _same_cand(pc, jc)
@@ -90,16 +100,18 @@ def _probe(p, ids):
 
 def test_probe_rows_dedups_and_stamps_revision():
     p = Pair()
+    c0 = _prefetch_counts(p)
     js, ps, demoted = demote_marked(p)
     jc, pc = _probe(p, demoted[:5] * 3 + [9999, 10000])
     assert sorted(pc["keys"].tolist()) == sorted(demoted[:5])
     assert pc["rev"] == p.pmt._gather_gen and pc["rows"].shape[1] == 4
     assert _probe(p, [9999]) == (None, None)
-    assert p.pmt.prefetch_probed == 8 and p.pmt.prefetch_hits == 5
+    assert _prefetch_counts(p, c0)[:2] == (8, 5)
 
 
 def test_fold_restores_values_and_optimizer_slots_bit_exact():
     p = Pair(fills=FILLS)
+    c0 = _prefetch_counts(p)
     js = _with_adagrad(p)
     slot7 = int(np.nonzero(np.asarray(js.keys) == 7)[0][0])
     occ0 = np.asarray(p.jt.occupied(js))
@@ -119,11 +131,13 @@ def test_fold_restores_values_and_optimizer_slots_bit_exact():
     slot = int(torch.nonzero(ps.keys[0] == 7)[0, 0])
     assert torch.all(ps.values[0, slot] == 2.5) and torch.all(ps.slots["accum"][0, slot] == 7.75)
     assert _probe(p, [7]) == (None, None)  # the tier copy is consumed
-    assert p.pmt.prefetch_folds == 1 and p.pmt.folded_rows == 1 and p.pmt.fold_bytes == 32
+    assert _prefetch_counts(p, c0)[3] == 1 and p.pmt.folded_rows == 1 \
+        and p.pmt.fold_bytes == 32
 
 
 def test_fold_loses_to_newer_device_row_bit_exact():
     p = Pair()
+    c0 = _prefetch_counts(p)
     js, ps, demoted = demote_marked(p)
     k = demoted[0]
     jc, pc = _probe(p, [k])
@@ -137,7 +151,7 @@ def test_fold_loses_to_newer_device_row_bit_exact():
                              mask=jres.valid)
     before = p.tt.lookup_readonly(ps, torch.tensor([[k]], dtype=torch.int32)).clone()
     js, ps, folded, dropped = _fold(p, js, ps, jc, pc)
-    assert (folded, dropped) == (0, 1) and p.pmt.prefetch_stale_dropped == 1
+    assert (folded, dropped) == (0, 1) and _prefetch_counts(p, c0)[2] == 1
     assert torch.equal(p.tt.lookup_readonly(ps, torch.tensor([[k]], dtype=torch.int32)), before)
     assert p.pmt.probe_rows(np.array([k])) is not None and k in p.pmt._retry_keys
     p.check(js, ps)
@@ -179,13 +193,14 @@ def test_fold_erase_keeps_other_packages_valid():
 
 def test_fold_drops_whole_package_on_revision_change():
     p = Pair()
+    c0 = _prefetch_counts(p)
     js, ps, demoted = demote_marked(p)
     jc, pc = _probe(p, demoted[:3])
     js = p.lookup(js, ps, demoted[:3], 2)
     js, ps, _ = p.sync(js, ps, 3)
     assert pc["rev"] != p.pmt._gather_gen
     js, ps, folded, dropped = _fold(p, js, ps, jc, pc)
-    assert (folded, dropped) == (0, 3) and p.pmt.prefetch_stale_dropped == 3
+    assert (folded, dropped) == (0, 3) and _prefetch_counts(p, c0)[2] == 3
     p.check(js, ps)
 
 
