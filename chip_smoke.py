@@ -322,6 +322,29 @@ the seconds of every phase are printed at the end):
      and (d)'s in-process path equal to what its events imply (train
      steps, saves, directory imports, read-only forwards, the
      comparisons' own launches).
+ 21. the sharded engine (deeprec_tpu_torch/parallel/, SHARD): DLRM-DCN at
+     FULL's widths (26 x 2^20 x 128 f32 slots in all), Adagrad 0.05 + Adam
+     1e-3, a global batch of 2048 from SyntheticCriteo(vocab=10^6); every
+     rank a process started by `python -m deeprec_tpu_torch.launch`
+     running this file with --sharded-rank. (a) world 1 over NCCL on the
+     card: the Trainer, then ShardedTrainer(allgather) with the f32 wire
+     (losses and the touched keys' rows bit for bit) and with the default
+     bf16 wire (within 1e-3), 4 steps each from the parameters of the
+     model built from --seed; (b) world 4 over gloo, every rank on the one
+     card (host-staged): allgather and a2a on the 1-D and the 2x2 mesh,
+     hier on 2x2, 3 steps each (the first loss equal across comms, the
+     flat comms bit for bit across the meshes, summed a2a_overflow 0,
+     losses within 1e-4 of (a)'s bf16 wire at steps 1-2 and within
+     TRAIN_RTOL after), a part-file save after the 2x2 allgather leg and
+     its restore at 4 (the next loss bit for bit), and a bf16-table a2a leg
+     (#1 and #2); (c) the part files restored at world 2 (the 1-D mesh
+     plan_mesh_after_rescale gives) and at world 1 (their processes start
+     with (b) and wait for it; the world-1 one then runs (a)): every key's
+     row, accumulator, freq and version bit for bit, the resumed step's
+     loss within 1e-4 of world 4's; every rank's launches of #1, #3, #2
+     and #5 equal to what its steps imply. Each leg's step ms carries the
+     card's name and power limit (the world-4 ones: gloo, host-staged, one
+     card, not a multi-GPU figure).
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -1979,7 +2002,7 @@ BST_RUN = dict(emb_dim=16, capacity=1 << 20, heads=4, ff=128, blocks=1, max_len=
                hidden=(256, 64), batch=2048, vocab=100_000, seq_len=200, lr=0.2,
                dense_lr=1e-3, checked=5, timed=30, profiled=3, steps=60,
                eval_batches=8, auc_floor=0.60, agree_capacity=1 << 12,
-               agree_batch=256, agree_vocab=2000, requests=30, sample=4096)
+               agree_batch=128, agree_vocab=2000, requests=30, sample=4096)
 
 
 def _bst(cfg, seed, **over):
@@ -2346,10 +2369,11 @@ def _f32_dense_operands():
 
 def bst_agreement(dev, seed, cfg):
     """BST trained on the card and on the CPU from one state at capacity
-    2^12 and batch 256. A 1-ulp difference before a bf16 operand rounding
-    flips that operand by 2^-8, and Adam's first step moves a dense element
-    by about lr whatever the size of its gradient, so a flipped sign moves
-    it 2 lr apart; the next steps' embedding gradients carry that apart
+    2^12 and batch 128 (256 before phase 21). A 1-ulp difference before a
+    bf16 operand rounding flips that operand by 2^-8, and Adam's first step
+    moves a dense element by about lr whatever the size of its gradient, so
+    a flipped sign moves it 2 lr apart; the next steps' embedding gradients
+    carry that apart
     (card vs CPU rows 3.6e-3 after 3 steps, with or without flash
     attention). So: in the models' own numerics, 1 step within TRAIN_RTOL
     and ROW_ATOL and 3 steps' losses within TRAIN_RTOL; with dense_apply's
@@ -3116,9 +3140,10 @@ TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=14, capacity=1 << 15, ever
             auc_floor=0.60, profiled=12,
             # (a)'s tier sequence: per round the boundary, the ids looked up
             # and the share of them drawn from the tier stores' keys
-            ops=dict(capacity=1 << 12, vocab_mult=5, host_capacity=1024, picks=600,
-                     rounds=(("sync", 3000, 0.0), ("sync", 3000, 0.0), ("sync", 1200, 0.5),
-                             ("async", 600, 0.5), ("async", 700, 0.5))),
+            # (capacity 2^12 and twice these sizes before phase 21)
+            ops=dict(capacity=1 << 11, vocab_mult=5, host_capacity=512, picks=300,
+                     rounds=(("sync", 1500, 0.0), ("sync", 1500, 0.0), ("sync", 600, 0.5),
+                             ("async", 300, 0.5), ("async", 350, 0.5))),
             train=dict(batch=256, K=4, rounds=2, prefill=6, depth=8),
             budget=dict(capacity=1 << 14, windows=10, budget_tables=3))
 FILLS = (("accum", 0.1),)
@@ -3158,6 +3183,40 @@ def _disk_rows(disk):
     keys = np.fromiter(disk.index, np.int64, len(disk.index))
     v, f, ver, _ = disk.get(keys)
     return {int(keys[i]): (v[i], int(f[i]), int(ver[i])) for i in range(len(keys))}
+
+
+def _tier_member_arrays(ts, t):
+    """Member t's live rows as arrays sorted by key: (keys, value rows f32,
+    accum rows, meta columns [n, 3])."""
+    keys = ts.keys[t].cpu().numpy()
+    live = np.nonzero(keys != np.iinfo(keys.dtype).min)[0]
+    live = live[np.argsort(keys[live], kind="stable")]
+    return (keys[live], ts.values[t].float().cpu().numpy()[live],
+            ts.slots["accum"][t].cpu().numpy()[live], ts.meta[t].cpu().numpy()[:, live].T)
+
+
+def _tier_store_arrays(kv):
+    """A HostKV's rows as arrays sorted by key: (keys, packed rows, freqs,
+    versions); empty without a store."""
+    if kv is None:
+        return (np.zeros(0, np.int64), np.zeros((0, 0), np.float32), np.zeros(0, np.int64),
+                np.zeros(0, np.int64))
+    k, v, f, ver = kv.export()
+    order = np.argsort(k, kind="stable")
+    return k[order], v[order], f[order], ver[order]
+
+
+def _same_tier_arrays(a, b, what):
+    """Two row sets of `_tier_member_arrays` / `_tier_store_arrays` equal
+    bit for bit (the same keys, each key's rows equal). Returns the key
+    count."""
+    if not np.array_equal(a[0], b[0]):
+        raise AssertionError(f"{what}: {len(a[0])} keys against {len(b[0])} "
+                             f"({len(np.setxor1d(a[0], b[0]))} differ)")
+    for x, y in zip(a[1:], b[1:]):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: rows differ")
+    return len(a[0])
 
 
 def _same_map(a, b, what):
@@ -3376,8 +3435,8 @@ def tier_budget_agreement(dev, seed, small, cfg):
             st, rep = t.maintain(st, hbm_budget_bytes=budget)
             ts = st.tables[bname]
             out[torch.device(d).type] = (
-                rep, [_member_rows(ts, k) for k in range(ts.keys.shape[0])],
-                [_store_rows(t._tiers[(bname, (k,))].host) if t._tiers else {}
+                rep, [_tier_member_arrays(ts, k) for k in range(ts.keys.shape[0])],
+                [_tier_store_arrays(t._tiers[(bname, (k,))].host if t._tiers else None)
                  for k in range(ts.keys.shape[0])])
         (ra, ma, ha), (rb, mb, hb) = out["cpu"], out[dev.type]
         if ra != rb:
@@ -3386,9 +3445,9 @@ def tier_budget_agreement(dev, seed, small, cfg):
         want = "grew_to" if label == "grows" else "auto_tiered"
         if want not in ra[bname] or (label != "grows" and not ra[bname]["demoted"]):
             raise AssertionError(f"maintain(hbm_budget_bytes={budget}) did not act: {ra}")
-        n = sum(_same_map(x, y, f"budget {label} member {k}")
+        n = sum(_same_tier_arrays(x, y, f"budget {label} member {k}")
                 for k, (x, y) in enumerate(zip(mb, ma)))
-        n += sum(_same_map(x, y, f"budget {label} host {k}")
+        n += sum(_same_tier_arrays(x, y, f"budget {label} host {k}")
                  for k, (x, y) in enumerate(zip(hb, ha)))
         lines.append(f"maintain(hbm_budget_bytes={budget}) {label}: report "
                      f"{ {k: v for k, v in ra[bname].items() if k in ('occupancy', 'insert_fails', 'grew_to', 'auto_tiered', 'demoted', 'promoted')} } "
@@ -3397,9 +3456,11 @@ def tier_budget_agreement(dev, seed, small, cfg):
 
 
 def _tiers_by_key(trainer, state, bname, t):
-    """(device rows, host rows) of member t of a tiered bundle."""
+    """(device rows, host rows) of member t of a tiered bundle, as arrays
+    sorted by key (`_tier_member_arrays`, `_tier_store_arrays`)."""
     mt = trainer._tiers.get((bname, (t,)))
-    return _member_rows(state.tables[bname], t), _store_rows(mt.host if mt else None)
+    return (_tier_member_arrays(state.tables[bname], t),
+            _tier_store_arrays(mt.host if mt else None))
 
 
 def tier_train_agreement(dev, seed, small, cfg):
@@ -3464,21 +3525,22 @@ def tier_train_agreement(dev, seed, small, cfg):
         for d, st in (("cpu", sa), (dev.type, sb)):
             dev_rows, host_rows = _tiers_by_key(trainers[d if d == "cpu" else dev], st,
                                                 bname, t)
-            if dev_rows.keys() & host_rows.keys():
+            if np.intersect1d(dev_rows[0], host_rows[0]).size:
                 raise AssertionError(f"{d} member {t}: keys in both tiers")
             tiers[d] = (dev_rows, host_rows)
         for i in range(2):
             x, y = tiers["cpu"][i], tiers[dev.type][i]
-            moved += len(x.keys() ^ y.keys())
-            for k in x.keys() & y.keys():
-                same += 1
-                p, q = x[k], y[k]
-                D = len(q[0]) if i == 0 else small["emb_dim"]
-                v, w = np.asarray(p[0])[:D], np.asarray(q[0])[:D]
-                # the accumulator (a device slot row, or the host row's tail)
-                a, c = (p[1], q[1]) if i == 0 else (np.asarray(p[0])[D:], np.asarray(q[0])[D:])
-                row_d = max(row_d, float(np.abs(v - w).max()))
-                acc_d = max(acc_d, float((np.abs(a - c) / np.abs(a)).max()))
+            moved += len(np.setxor1d(x[0], y[0]))
+            _, ix, iy = np.intersect1d(x[0], y[0], assume_unique=True, return_indices=True)
+            if not ix.size:
+                continue
+            same += ix.size
+            D = small["emb_dim"]
+            v, w = x[1][ix][:, :D], y[1][iy][:, :D]
+            # the accumulator (a device slot row, or the host row's tail)
+            a, c = (x[2][ix], y[2][iy]) if i == 0 else (x[1][ix][:, D:], y[1][iy][:, D:])
+            row_d = max(row_d, float(np.abs(v - w).max()))
+            acc_d = max(acc_d, float((np.abs(a - c) / np.abs(a)).max()))
     # ROW_ATOL is phase 7's bound for 3 steps, from the reasoning beside
     # it: a step moves a row by at most lr per element, so a 1e-3 relative
     # gradient difference moves it by at most lr x TRAIN_RTOL. Over this
@@ -7440,13 +7502,536 @@ def _run_guard(dev, seed, cfg, tmp, rig, t0):
     return launches, st["kern"], st["served"]
 
 
+# ------------------------------------------------------------ phase 21
+
+# Phase 21, the sharded engine (deeprec_tpu_torch/parallel/): MLPerf
+# DLRM-DCN at FULL's widths (26 f32 tables of 128, 2^20 slots in all),
+# Adagrad 0.05 + Adam 1e-3, a global batch of 2048 from
+# SyntheticCriteo(vocab=10^6). Every rank is a process started through
+# `python -m deeprec_tpu_torch.launch` running this file with
+# --sharded-rank. (a) world 1 over NCCL; (b) world 4 over gloo with every
+# rank on the one card (host-staged); (c) the world-4 part files restored
+# at world 2 and world 1.
+SHARD = dict(batch=2048, vocab=1_000_000, lr=0.05, dense_lr=1e-3, steps_a=4, steps_b=3,
+             bf16_steps=2, world=4, loss_rtol=1e-4, bf16_wire_rtol=1e-3,
+             bf16_wire_atol=1e-3, update_rtol=0.1, timeout=900)
+
+
+def _shard_model(cfg, seed, value_dtype=None, exchange=None):
+    model = _dlrm_dcn(seed, **cfg["model"])
+    over = {k: v for k, v in (("value_dtype", value_dtype), ("exchange_dtype", exchange)) if v}
+    return _retable(model, **over) if over else model
+
+
+def _shard_batches(cfg, seed, n):
+    from deeprec_tpu_torch.data import SyntheticCriteo
+
+    gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed + 210)
+    return [gen.batch() for _ in range(n)]
+
+
+def _shard_rows(trainer, state):
+    """The live rows of this position's shard, sorted by (member, key):
+    member, key, value (f32), accumulator, freq, version, and init, the
+    table's initializer row of the key (value - init is what training
+    wrote)."""
+    from deeprec_tpu_torch.embedding.table import empty_key
+
+    out = {}
+    for bname, b in trainer.bundles.items():
+        ts = state.tables[bname]
+        # the live slots picked on the device: only their rows cross
+        t_ix, c_ix = torch.nonzero(ts.keys != empty_key(b.table.cfg), as_tuple=True)
+        keys = ts.keys[t_ix, c_ix].cpu().numpy().astype(np.int64)
+        order = torch.as_tensor(np.lexsort((keys, t_ix.cpu().numpy())), device=t_ix.device)
+        t_ix, c_ix = t_ix[order], c_ix[order]
+        init = torch.empty_like(ts.values[t_ix, c_ix], dtype=torch.float32)
+        for m in torch.unique(t_ix).tolist():
+            at = t_ix == m
+            init[at] = b.table._init_rows(ts.keys[m, c_ix[at]][None],
+                                          [b.salts[m]])[0].float()
+        out[bname] = dict(member=t_ix.cpu().numpy(), key=keys[order.cpu().numpy()],
+                          value=ts.values[t_ix, c_ix].float().cpu().numpy(),
+                          accum=ts.slots["accum"][t_ix, c_ix].cpu().numpy(),
+                          freq=ts.meta[t_ix, 0, c_ix].cpu().numpy(),
+                          version=ts.meta[t_ix, 1, c_ix].cpu().numpy(),
+                          init=init.cpu().numpy())
+    return out
+
+
+def _same_updates(a, b, what, rtol=None):
+    """Rows maps of the same keys (`_same_shard_rows`): every row's update
+    value - init in `a` within rtol of `b`'s largest update in its bundle
+    (rtol None: not held). Returns the largest difference over that
+    scale."""
+    worst = 0.0
+    for bname in a:
+        da = a[bname]["value"] - a[bname]["init"]
+        db = b[bname]["value"] - b[bname]["init"]
+        scale = float(np.abs(db).max()) if db.size else 0.0
+        d = float(np.abs(da - db).max()) / scale if scale else 0.0
+        if rtol is not None and d > rtol:
+            raise AssertionError(f"{what}: {bname} updates differ by {d:.3g} of the largest "
+                                 f"({scale:.3g}); bound {rtol}")
+        worst = max(worst, d)
+    return worst
+
+
+def _rows_digest(rows) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for bname in sorted(rows):
+        for k in ("member", "key", "value", "accum", "freq", "version"):
+            h.update(np.ascontiguousarray(rows[bname][k]).tobytes())
+    return h.hexdigest()
+
+
+def _save_rows(path, rows):
+    np.savez(path, **{f"{b}:{k}": v for b, r in rows.items() for k, v in r.items()})
+
+
+def _load_rows(paths):
+    """Rows files of every position merged and sorted by (member, key)."""
+    merged = collections.defaultdict(lambda: collections.defaultdict(list))
+    for p in paths:
+        with np.load(p) as z:
+            for name in z.files:
+                b, k = name.split(":")
+                merged[b][k].append(z[name])
+    out = {}
+    for b, cols in merged.items():
+        r = {k: np.concatenate(v) for k, v in cols.items()}
+        order = np.lexsort((r["key"], r["member"]))
+        out[b] = {k: v[order] for k, v in r.items()}
+    return out
+
+
+def _part_rows(path, bundles):
+    """The rows of a part-file save, merged like `_load_rows`."""
+    import glob as _glob
+
+    merged = collections.defaultdict(lambda: collections.defaultdict(list))
+    for b in bundles:
+        for f in sorted(_glob.glob(os.path.join(path, f"table_{b}_t*.part*.npz"))):
+            m = re.search(rf"table_{b}_t(\d*)\.part", f)
+            with np.load(f) as z:
+                n = z["keys"].shape[0]
+                merged[b]["member"].append(np.full(n, int(m.group(1) or 0)))
+                merged[b]["key"].append(z["keys"].astype(np.int64))
+                merged[b]["value"].append(np.asarray(z["values"], np.float32))
+                merged[b]["accum"].append(z["slot:accum"])
+                merged[b]["freq"].append(z["freqs"])
+                merged[b]["version"].append(z["versions"])
+    out = {}
+    for b, cols in merged.items():
+        r = {k: np.concatenate(v) for k, v in cols.items()}
+        order = np.lexsort((r["key"], r["member"]))
+        out[b] = {k: v[order] for k, v in r.items()}
+    return out
+
+
+def _same_shard_rows(a, b, what, rtol=0.0, atol=0.0):
+    """Rows maps with the same keys, freqs and versions; values and
+    accumulators equal (bit for bit by default). Returns the largest
+    value difference and the row count."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: bundles {sorted(a)} against {sorted(b)}")
+    worst, n = 0.0, 0
+    for bname in a:
+        x, y = a[bname], b[bname]
+        for k in ("member", "key", "freq", "version"):
+            if x[k].shape != y[k].shape or not np.array_equal(x[k], y[k]):
+                raise AssertionError(f"{what}: {bname} {k} differ "
+                                     f"({x[k].shape} against {y[k].shape} rows)")
+        for k in ("value", "accum"):
+            d = float(np.abs(x[k] - y[k]).max()) if x[k].size else 0.0
+            worst = max(worst, d) if k == "value" else worst
+            if rtol == 0.0 and atol == 0.0:
+                if not np.array_equal(x[k], y[k]):
+                    raise AssertionError(f"{what}: {bname} {k} not bit for bit (max |diff| {d})")
+            elif not np.allclose(x[k], y[k], rtol=rtol, atol=atol):
+                raise AssertionError(f"{what}: {bname} {k} past rtol {rtol}, atol {atol} "
+                                     f"(max |diff| {d})")
+        n += x["key"].size
+    return worst, n
+
+
+def _rank_launches():
+    """(#1 bf16 gathers, #3 f32 gathers, #2 bf16 scatters, #5 f32 scatters)
+    since the counts were zeroed."""
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+
+    return [gather_rows.launches_bf16, gather_rows.launches - gather_rows.launches_bf16,
+            apply_rows_sr.launches_bf16, apply_rows_sr.launches - apply_rows_sr.launches_bf16]
+
+
+def _leg_launches(trainer, steps):
+    """(#1, #3, #2, #5) launches `steps` train steps imply on one position:
+    `_path_launches` per step, the value gather and the initializer and
+    value writes on the bf16 branches where the values are bf16."""
+    apply_n, gather_n = _path_launches(trainer)
+    bf16 = [b for b in trainer.bundles.values() if b.table.cfg.value_dtype == "bfloat16"]
+    g16 = sum(1 if b.stacked else len(b.features) for b in bf16)
+    return [steps * g16, steps * (gather_n - g16), steps * 2 * g16,
+            steps * (apply_n - 2 * g16)]
+
+
+def sharded_rank(spec_path):
+    """One rank of phase 21 (this process was started by the launcher):
+    runs the spec's legs in order and writes each leg's record (and rows
+    files) under the spec's directory."""
+    import torch.distributed as dist
+
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.parallel import (
+        ShardedTrainer, make_mesh, make_mesh_2d, plan_mesh_after_rescale)
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    torch.set_num_threads(1)  # up to 4 ranks share the host's cores
+    with open(spec_path) as f:
+        spec = json.load(f)
+    cfg, seed, out_dir = spec["cfg"], spec["seed"], spec["dir"]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device(os.environ["DEEPREC_DEVICE"])
+    batches = _shard_batches(cfg, seed, spec["batches"])
+    if spec.get("wait_for"):  # started early: run once the parent says so
+        deadline = time.time() + cfg["timeout"]
+        while not os.path.exists(spec["wait_for"]):
+            if time.time() > deadline:
+                raise TimeoutError(f"no {spec['wait_for']} within {cfg['timeout']} s")
+            time.sleep(0.05)
+
+    def timed_steps(trainer, state, first, steps, snap=None):
+        """`steps` timed train steps; with snap = (ks, fn), fn(state, k)
+        after each step k in ks, outside the timing."""
+        losses, t = [], []
+        for i in range(steps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, batches[first + i])
+            losses.append(float(m["loss"]))  # a host read: the step is done
+            t.append(time.perf_counter() - t0)
+            if snap and i + 1 in snap[0]:
+                snap[1](state, i + 1)
+        return state, losses, (float(np.mean(t[1:])) * 1e3 if len(t) > 1 else None)
+
+    for leg in spec["legs"]:
+        t_leg = time.perf_counter()
+        rec = {"name": leg["name"], "rank": rank, "world": world}
+        opt = (Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]))
+        model = _shard_model(cfg, seed, leg.get("value_dtype"), leg.get("exchange"))
+        if leg.get("plain"):
+            trainer = Trainer(model, *opt, device=dev)
+        else:
+            if leg.get("rescale_from"):
+                intra, inter = leg["rescale_from"]
+                old = type("OldMesh", (), dict(axis_names=("inter", "intra"),
+                                               shape={"inter": inter, "intra": intra}))
+                mesh = plan_mesh_after_rescale(world, old, device=dev)
+            elif leg.get("mesh") == "2x2":
+                mesh = make_mesh_2d(2, 2, device=dev)
+            else:
+                mesh = make_mesh(device=dev)
+            rec["mesh"] = list(mesh.axis_names)
+            trainer = ShardedTrainer(model, *opt, mesh=mesh, comm=leg.get("comm", "allgather"))
+        # the model's own parameters: it was built from the seed (once per
+        # process), so every leg starts from the same dense state
+        state = (CheckpointManager(leg["restore"], trainer).restore() if leg.get("restore")
+                 else trainer.init())
+        _sync(dev)
+        rec["init_s"] = time.perf_counter() - t_leg
+        # rows_at = [k, ...]: this position's rows after each step k too
+        # (held per key across legs of other step counts and worlds)
+        snap = leg.get("rows_at") and (leg["rows_at"], lambda st, k: _save_rows(
+            os.path.join(out_dir, f"{leg['name']}-rows{k}-{rank}.npz"),
+            _shard_rows(trainer, st)))
+        _zero_row_counts()
+        state, rec["losses"], rec["step_ms"] = timed_steps(
+            trainer, state, leg.get("first", 0), leg.get("steps", 0), snap)
+        rec["launches"] = _rank_launches()
+        rec["implied"] = _leg_launches(trainer, leg.get("steps", 0))
+        if not leg.get("plain"):
+            rec["a2a_overflow"] = trainer.a2a_overflow(state)
+            rec["insert_fails"] = sum(int(ts.insert_fails.sum()) for ts in state.tables.values())
+        rows = _shard_rows(trainer, state)
+        rec["digest"] = _rows_digest(rows)
+        if leg.get("rows"):
+            _save_rows(os.path.join(out_dir, f"{leg['name']}-rows-{rank}.npz"), rows)
+        if leg.get("save"):
+            state, _ = CheckpointManager(leg["save"], trainer, sharded_io=True).save(state)
+        if leg.get("after") is not None:
+            state, m = trainer.train_step(state, batches[leg["after"]])
+            rec["after_loss"] = float(m["loss"])
+        rec["peak_gb"] = (round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2)
+                          if dev.type == "cuda" else None)
+        rec["seconds"] = time.perf_counter() - t_leg
+        with open(os.path.join(out_dir, f"{leg['name']}-{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        del trainer, state, rows
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+    return 0
+
+
+def _start_ranks(dev, world, backend, tmp, tag, legs, cfg, seed, nbatches, wait_for=None):
+    """Start `world` processes of `legs` through the launcher (with
+    `wait_for`, they start up and then wait for that file before their
+    legs); returns (procs, the spec's directory)."""
+    d = os.path.join(tmp, tag)
+    os.makedirs(d, exist_ok=True)
+    spec = os.path.join(d, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(cfg=cfg, seed=seed, dir=d, legs=legs, batches=nbatches,
+                       wait_for=wait_for), f)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+    for r in range(world):
+        cmd = [sys.executable, "-m", "deeprec_tpu_torch.launch",
+               "--init_method", f"file://{d}/rendezvous", "--num_processes", str(world),
+               "--process_id", str(r), "--backend", backend, "--device", dev.type, "--",
+               os.path.join(ROOT, "chip_smoke.py"), "--sharded-rank", spec]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    return procs, d
+
+
+def _wait_ranks(procs, d, legs, timeout, what):
+    """Wait for every rank; raise with their output when one fails. Returns
+    {leg: [rank records]}."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 21 {what}: ranks did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        tails = "\n".join(f"--- rank {i} (rc {p.returncode}):\n{o[-3000:]}"
+                          for i, (p, o) in enumerate(zip(procs, outs)))
+        raise AssertionError(f"phase 21 {what}: a rank failed\n{tails}")
+    res = {}
+    for leg in legs:
+        res[leg["name"]] = []
+        for r in range(len(procs)):
+            with open(os.path.join(d, f"{leg['name']}-{r}.json")) as f:
+                res[leg["name"]].append(json.load(f))
+    return res
+
+
+def run_sharded(dev, seed, cfg, ckroot):
+    """Phase 21 on `dev` (cuda: world 1 over NCCL, the rest over gloo; cpu:
+    gloo throughout). (b) runs first; then its part files restore at world 2
+    beside one world-1 process that restores them too and then runs (a)
+    (both process sets start with (b) and wait for it). Returns the
+    launches of (#1, #3, #2, #5) summed over every rank's main-path legs."""
+    t0 = time.perf_counter()
+    tmp = os.path.join(ckroot, "sharded")
+    shutil.rmtree(tmp, ignore_errors=True)
+    parts = os.path.join(tmp, "parts")
+    W, A, Bs = cfg["world"], cfg["steps_a"], cfg["steps_b"]
+    label = _smi() if dev.type == "cuda" else "cpu"
+    host_label = f"{label}; gloo, host-staged, one card: not a multi-GPU figure"
+    total = np.zeros(4, np.int64)
+
+    def counted(res, names):
+        for name in names:
+            for r in res[name]:
+                if dev.type == "cuda" and r["launches"] != r["implied"]:
+                    raise AssertionError(f"phase 21 {name} rank {r['rank']}: launched "
+                                         f"(#1, #3, #2, #5) {r['launches']}, the steps imply "
+                                         f"{r['implied']}")
+                total[:] += r["launches"]
+
+    # (b) world 4 over gloo, every rank on the one card, host-staged
+    legs_b = [dict(name="ag_1d", comm="allgather", steps=Bs, rows=True, rows_at=[1]),
+              dict(name="ag_2x2", comm="allgather", mesh="2x2", steps=Bs, save=parts,
+                   after=Bs, rows=True),
+              dict(name="restored_4", comm="allgather", mesh="2x2", restore=parts, steps=1,
+                   first=Bs),
+              dict(name="a2a_1d", comm="a2a", steps=Bs, rows=True, rows_at=[1]),
+              dict(name="a2a_2x2", comm="a2a", mesh="2x2", steps=Bs),
+              dict(name="hier_2x2", comm="hier", mesh="2x2", steps=Bs, rows=True, rows_at=[1]),
+              dict(name="bf16_tables", comm="a2a", value_dtype="bfloat16",
+                   steps=cfg["bf16_steps"])]
+    # (c) the part files restored at world 2 (the 1-D mesh of the 2x2
+    # rescale) over gloo, beside one world-1 process over NCCL that restores
+    # them too and then runs (a): the port's Trainer, then
+    # ShardedTrainer(allgather) with the f32 wire and with the default bf16
+    # wire, each from the seeded model's parameters (the bf16 wire's rows
+    # kept after step 1 and (b)'s step count too). Both start with (b)
+    # and wait for it.
+    go = os.path.join(tmp, "b-done")
+    legs_c = [dict(name="restored", restore=parts, rescale_from=[2, 2], rows=True, after=Bs)]
+    legs_a = [dict(name="plain", plain=True, steps=A, rows=True),
+              dict(name="f32_wire", exchange="float32", steps=A, rows=True),
+              dict(name="bf16_wire", steps=A, rows=True, rows_at=[1, Bs])]
+    procs, db = _start_ranks(dev, W, "gloo", tmp, "b", legs_b, cfg, seed, Bs + 1)
+    runs = {2: _start_ranks(dev, 2, "gloo", tmp, "c2", legs_c, cfg, seed, Bs + 1, go),
+            1: _start_ranks(dev, 1, "nccl" if dev.type == "cuda" else "gloo", tmp, "c1",
+                            legs_c + legs_a, cfg, seed, max(A, Bs + 1), go)}
+    try:
+        rb = _wait_ranks(procs, db, legs_b, cfg["timeout"], "(b)")
+    except BaseException:
+        for later, _ in runs.values():
+            for p in later:
+                p.kill()
+                p.wait()
+        raise
+    seconds = {"b": round(time.perf_counter() - t0, 1)}
+    t1 = time.perf_counter()
+    with open(go, "w"):
+        pass
+    rc = {m: _wait_ranks(procs, d, legs_c + (legs_a if m == 1 else []), cfg["timeout"],
+                         f"(c) world {m}") for m, (procs, d) in runs.items()}
+    seconds["c+a"] = round(time.perf_counter() - t1, 1)
+    counted(rb, [leg["name"] for leg in legs_b if leg["name"] != "restored_4"])
+    ra, da = rc[1], runs[1][1]
+    counted(ra, ["f32_wire", "bf16_wire"])
+
+    plain, f32w, bf16w = (ra[n][0] for n in ("plain", "f32_wire", "bf16_wire"))
+    rows = {n: _load_rows([os.path.join(da, f"{n}-rows-0.npz")]) for n in
+            ("plain", "f32_wire", "bf16_wire")}
+    if f32w["losses"] != plain["losses"]:
+        raise AssertionError(f"phase 21 (a): f32-wire losses {f32w['losses']} against the "
+                             f"Trainer's {plain['losses']}")
+    _, n_rows = _same_shard_rows(rows["f32_wire"], rows["plain"], "phase 21 (a) f32 wire")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(bf16w["losses"], plain["losses"]))
+    if rel > cfg["bf16_wire_rtol"]:
+        raise AssertionError(f"phase 21 (a): bf16-wire losses {bf16w['losses']} against "
+                             f"{plain['losses']}: relative {rel}")
+    wrow, _ = _same_shard_rows(rows["bf16_wire"], rows["plain"], "phase 21 (a) bf16 wire",
+                         rtol=cfg["bf16_wire_rtol"], atol=cfg["bf16_wire_atol"])
+    print(f"sharded (a): world 1 over {'NCCL' if dev.type == 'cuda' else 'gloo'}, "
+          f"DLRM-DCN {cfg['model']}, batch {cfg['batch']}, {A} steps from seed {seed}: "
+          f"ShardedTrainer(allgather) with the f32 wire equals the Trainer bit for bit (losses "
+          f"{plain['losses']}; {n_rows} rows of the touched keys); with the default bf16 "
+          f"wire the embeddings and gradients round to bf16 on the wire: losses within "
+          f"{rel:.3g} relative, rows within {wrow:.3g} (bounds {cfg['bf16_wire_rtol']}, "
+          f"{cfg['bf16_wire_atol']})")
+    print(f"sharded (a): step ms Trainer {plain['step_ms']:.3f}, sharded f32 wire "
+          f"{f32w['step_ms']:.3f}, bf16 wire {bf16w['step_ms']:.3f} ({label})")
+
+    first = {n: rb[n][0]["losses"][0] for n in ("ag_1d", "ag_2x2", "a2a_1d", "a2a_2x2",
+                                                 "hier_2x2")}
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"phase 21 (b): first-step losses differ across comms {first}")
+    for x, y in (("ag_1d", "ag_2x2"), ("a2a_1d", "a2a_2x2")):
+        for rx, ry in zip(rb[x], rb[y]):
+            if rx["losses"] != ry["losses"] or rx["digest"] != ry["digest"]:
+                raise AssertionError(f"phase 21 (b): {x} and {y} differ on rank "
+                                     f"{rx['rank']}")
+    ovf = sum(r["a2a_overflow"] for n in ("a2a_1d", "a2a_2x2", "hier_2x2", "bf16_tables")
+              for r in rb[n])
+    if ovf:
+        raise AssertionError(f"phase 21 (b): summed a2a_overflow {ovf}")
+    fails = sum(r["insert_fails"] for n in rb for r in rb[n])
+    if fails:
+        raise AssertionError(f"phase 21 (b): {fails} failed inserts")
+    # against (a)'s bf16-wire world 1 over the same steps: the batch split
+    # sums in another order and rounds each rank's share to bf16 on the
+    # wire. Every loss within loss_rtol; the merged shards' rows per key:
+    # keys, freqs and versions exact, values and accumulators within the
+    # bf16 wire's bounds, and each row's update (value - init) within
+    # update_rtol of the largest update. That last bound catches a source
+    # left out of the owner sums, which the values' bound does not: it
+    # moved the updates by 0.29-0.78 of the largest in a CPU rehearsal
+    # (1.3e-3-1.8e-3 with every source). On the card with every source:
+    # 0.0047 after step 1 (each rank's share rounds to bf16, 2^-9
+    # relative), 0.0228 after step 2 and 0.0218 after step 3, once the
+    # dense layers' first update has moved them apart. Step 1's updates
+    # are reported beside step 3's.
+    rel4 = {n: [abs(x - y) / abs(y) for x, y in zip(rb[n][0]["losses"], bf16w["losses"])]
+            for n in ("ag_1d", "a2a_1d", "hier_2x2")}
+    for n, v in rel4.items():
+        if max(v) > cfg["loss_rtol"]:
+            raise AssertionError(f"phase 21 (b): {n}'s losses against (a)'s world 1 {v}")
+    rows4 = {}
+    for n in rel4:
+        what = f"phase 21 (b) {n} against (a)'s world 1"
+        one, got = (_load_rows([os.path.join(da, f"bf16_wire-rows{Bs}-0.npz")]),
+                    _load_rows([os.path.join(db, f"{n}-rows-{r}.npz") for r in range(W)]))
+        w, k = _same_shard_rows(got, one, what, rtol=cfg["bf16_wire_rtol"],
+                                atol=cfg["bf16_wire_atol"])
+        late = _same_updates(got, one, what, cfg["update_rtol"])
+        one, got = (_load_rows([os.path.join(da, "bf16_wire-rows1-0.npz")]),
+                    _load_rows([os.path.join(db, f"{n}-rows1-{r}.npz") for r in range(W)]))
+        _same_shard_rows(got, one, f"{what} after step 1", rtol=cfg["bf16_wire_rtol"],
+                         atol=cfg["bf16_wire_atol"])
+        rows4[n] = (w, k, _same_updates(got, one, f"{what} after step 1"), late)
+    if dev.type == "cuda" and not all(r["launches"][0] and r["launches"][2]
+                                      for r in rb["bf16_tables"]):
+        raise AssertionError("phase 21 (b): the bf16 tables did not launch #1 and #2")
+    cont = rb["ag_2x2"][0]["after_loss"]
+    if rb["restored_4"][0]["losses"][0] != cont:
+        raise AssertionError(f"phase 21 (b): restored at 4, the next loss "
+                             f"{rb['restored_4'][0]['losses'][0]} against {cont}")
+    print(f"sharded (b): world {W} over gloo on one card (host-staged), {Bs} steps from "
+          f"seed {seed}: first-step loss {first['ag_1d']!r} bit for bit across allgather, "
+          f"a2a (1-D and 2x2) and hier (2x2); allgather and a2a bit for bit between the 1-D "
+          f"and the 2x2 mesh (losses and every shard's rows); summed a2a_overflow 0; "
+          f"per-step losses against (a)'s bf16-wire world 1 {rel4} (bound "
+          f"{cfg['loss_rtol']}); the 4 shards' rows merged against world 1's after {Bs} "
+          f"steps, keys, freqs and versions exact, (max |value diff|, rows; max update diff "
+          f"over the largest update after step 1, after step {Bs}) "
+          f"{ {n: (float(f'{w:.3g}'), k, float(f'{u:.3g}'), float(f'{x:.3g}')) for n, (w, k, u, x) in rows4.items()} } "
+          f"(bounds {cfg['bf16_wire_rtol']}, {cfg['bf16_wire_atol']}; step 1 not held, "
+          f"{cfg['update_rtol']} after step {Bs}); restored from its part files "
+          f"at 4, the next loss equals the uninterrupted run's bit for bit ({cont!r})")
+    for n in ("ag_1d", "ag_2x2", "a2a_1d", "a2a_2x2", "hier_2x2", "bf16_tables"):
+        ms = [r["step_ms"] for r in rb[n]]
+        print(f"sharded (b): {n} step ms per rank {[round(x, 3) for x in ms]} "
+              f"(launches per rank (#1, #3, #2, #5) {rb[n][0]['launches']}; peak "
+              f"{rb[n][0]['peak_gb']} GB on rank 0) ({host_label})")
+
+    saved = _part_rows(os.path.join(parts, f"full-{Bs}"), ["group0"])
+    _same_shard_rows(saved, _load_rows([os.path.join(db, f"ag_2x2-rows-{r}.npz")
+                                  for r in range(W)]),
+               "phase 21 (c): part files against the saved state")
+    for m, (_, d) in runs.items():
+        got = _load_rows([os.path.join(d, f"restored-rows-{r}.npz") for r in range(m)])
+        _, n = _same_shard_rows(got, saved, f"phase 21 (c) world {m}")
+        loss = rc[m]["restored"][0]["after_loss"]
+        rel = abs(loss - cont) / abs(cont)
+        if rel > cfg["loss_rtol"]:
+            raise AssertionError(f"phase 21 (c) world {m}: resumed loss {loss} against "
+                                 f"{cont} at world {W}")
+        print(f"sharded (c): part files saved at world {W} (2x2) restored at world {m} "
+              f"(mesh {rc[m]['restored'][0]['mesh']}): {n} rows equal per key bit for bit; "
+              f"the resumed step's loss {loss!r}, {rel:.3g} relative from world {W}'s "
+              f"(another world sums the batch in another order)")
+    legs = {n: (round(r[0]["init_s"], 1), round(r[0]["seconds"], 1))
+            for res in (rb, ra) for n, r in res.items()}
+    print(f"phase 21 (sharded engine) took {time.perf_counter() - t0:.1f} s (process sets "
+          f"{seconds}; rank 0's (init, leg) seconds {legs}); launches (#1, #3, #2, #5) over "
+          f"every rank's legs {total.tolist()}")
+    return total
+
+
+def _add_sharded(sh, gather, scatter):
+    """Phase 21's rank launches (#1, #3, #2, #5) into the records: the
+    ranks are other processes, so their bf16 launches go to PAIR_LAUNCHES
+    here."""
+    gather["launches"] += int(sh[0] + sh[1])
+    scatter["launches"] += int(sh[2] + sh[3])
+    PAIR_LAUNCHES["gather_rows"] += int(sh[0])
+    PAIR_LAUNCHES["apply_rows_sr"] += int(sh[2])
+
+
 def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         fused=FUSED, flash_shapes=FLASH_SHAPES, bst=BST_RUN, combine=COMBINE,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
         multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST,
-        serve=SERVE, retrieval=RETR, guard=GUARD):
-    """Phases 3-20 on `dev`. Returns the kernel records, in the order of
-    the TPU kernels they replace (#1-#9)."""
+        serve=SERVE, retrieval=RETR, guard=GUARD, sharded=SHARD):
+    """Phases 3-21 on `dev`. Returns the kernel records, in the order of the
+    TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     phase_s, lap = {}, [t0]
 
@@ -7679,7 +8264,13 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         gather["launches"] += int(gl[0] + gl[1])
         scatter["launches"] += int(gl[2] + gl[3])
         pooled["launches"] += int(gl[4])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
         done("20")
+
+        _add_sharded(run_sharded(dev, seed, dict(sharded, model=full), ckroot),
+                     gather, scatter)
+        done("21")
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's
@@ -7690,6 +8281,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
           f"{(PAIR_LAUNCHES['gather_rows'], PAIR_LAUNCHES['apply_rows_sr'])}")
     print(f"seconds by phase {phase_s}")
     return list(rec.values())
+
+
+def _smi() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def _process_seconds():
@@ -7708,7 +8307,11 @@ def _process_seconds():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sharded-rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.sharded_rank:  # one rank of phase 21, started by the launcher
+        sys.path.insert(0, ROOT)
+        return sharded_rank(args.sharded_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -7723,10 +8326,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True,
-        ).stdout.strip().splitlines()[0]
+        smi = _smi()
         print(smi)
         t1 = time.perf_counter()
         names = _build.build_all()

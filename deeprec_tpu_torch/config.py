@@ -223,6 +223,18 @@ class TableConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: `dp` replicates the dense model / splits the batch,
+    `mp` shards embedding tables (DeepRec CollectiveStrategy.embedding_scope
+    analog, group_embedding_collective_strategy.py:68-86)."""
+
+    dp: int = 1
+    mp: int = 1
+    axis_dp: str = "dp"
+    axis_mp: str = "mp"
+
+
+@dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
     """Full + incremental checkpoint cadence — parity with
     MonitoredTrainingSession(save_checkpoint_secs=, save_incremental_checkpoint_secs=)

@@ -127,3 +127,34 @@ def adaptive_static_from_array(ae, array: np.ndarray, device) -> torch.Tensor:
     if a.shape != want:
         raise ValueError(f"static table has shape {a.shape}; want {want}")
     return torch.tensor(a, device=device)
+
+
+def sharded_train_state_from_arrays(trainer, step: int, arrays: Dict[str, object],
+                                    rank: int) -> TrainState:
+    """Position `rank`'s TrainState of a `parallel.ShardedTrainer` from a JAX
+    ShardedTrainer state's arrays: `arrays["tables"]` maps each bundle to its
+    stacked leaves ([T, N, C / N, ...] for a stacked bundle, [N, C / N, ...]
+    otherwise; the counters [T, N] / [N], `a2a_overflow`, `owner_arrivals`
+    and `owner_unique` among them), of which the `rank` slice of the shard
+    axis is taken; `arrays["dense"]` and `arrays["opt"]` are the replicated
+    dense and `optax.adam` leaves (see `train_state_from_arrays`)."""
+    from deeprec_tpu_torch.embedding.table import SHARD_COUNTERS
+
+    def local(x, axis):
+        if isinstance(x, dict):
+            return {k: local(v, axis) for k, v in x.items()}
+        return np.take(np.asarray(x), rank, axis=axis)
+
+    tables = {}
+    for bname, b in trainer.bundles.items():
+        axis = 1 if b.stacked else 0
+        tables[bname] = {k: local(v, axis) for k, v in arrays["tables"][bname].items()}
+    st = train_state_from_arrays(trainer, step, tables, arrays["dense"], arrays.get("opt"))
+    for bname, b in trainer.bundles.items():
+        ts = st.tables[bname]
+        for name in SHARD_COUNTERS:
+            v = tables[bname].get(name)
+            setattr(ts, name, torch.tensor(
+                np.zeros(b.num_tables) if v is None else np.asarray(v), dtype=torch.int32,
+                device=trainer.device).reshape(b.num_tables))
+    return st

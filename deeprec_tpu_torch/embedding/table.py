@@ -96,9 +96,33 @@ class TableState:
     bloom: Optional[torch.Tensor] = None
     # [T, C] f32 per-row dequantization scale of an int8 table, else None
     qscale: Optional[torch.Tensor] = None
+    # [T] int32 counters of a sharded table's shard (parallel/sharded.py),
+    # else None: ids served the default past the a2a / inter-tier budget,
+    # exchanged rows this shard owned (arrivals) and their distinct keys
+    a2a_overflow: Optional[torch.Tensor] = None
+    owner_arrivals: Optional[torch.Tensor] = None
+    owner_unique: Optional[torch.Tensor] = None
 
 
 COUNTERS = ("insert_fails", "dedup_unique", "dedup_ids", "dedup_overflow")
+
+# the element count of the largest CPU initializer rows this process has
+# held against a second computation (`EmbeddingTable._init_rows`)
+_cpu_rows_checked = 0
+
+
+def _agreed(first: torch.Tensor, again) -> torch.Tensor:
+    """`first`, where a second computation `again()` equals it bit for bit;
+    else the one of two more that a third agrees with. Raises where all
+    three differ."""
+    second = again()
+    if torch.equal(first, second):
+        return first
+    third = again()
+    if torch.equal(third, first) or torch.equal(third, second):
+        return third
+    raise RuntimeError("three computations of the same initializer rows disagree")
+SHARD_COUNTERS = ("a2a_overflow", "owner_arrivals", "owner_unique")
 
 
 def zero_counters(T: int, device) -> Dict[str, torch.Tensor]:
@@ -118,7 +142,9 @@ def member_view(ts: TableState, k: int) -> TableState:
         slots={n: a[cut] for n, a in ts.slots.items()},
         **{n: getattr(ts, n)[cut] for n in COUNTERS},
         bloom=None if ts.bloom is None else ts.bloom[cut],
-        qscale=None if ts.qscale is None else ts.qscale[cut])
+        qscale=None if ts.qscale is None else ts.qscale[cut],
+        **{n: None if getattr(ts, n) is None else getattr(ts, n)[cut]
+           for n in SHARD_COUNTERS})
 
 
 @dataclasses.dataclass
@@ -221,11 +247,31 @@ class EmbeddingTable:
         if init.kind == "constant":
             return torch.full((*uids.shape, D), init.constant, dtype=vdt,
                               device=device)
+        if init.kind not in ("matrix_normal", "stateless_normal"):
+            raise ValueError(f"unknown initializer kind {init.kind!r}")
         salt = torch.as_tensor(self.default_salt() if salt is None else salt,
                                dtype=torch.int64, device=device)
         if salt.dim() == 1:
             salt = salt[:, None, None]
-        iota = torch.arange(D, dtype=torch.int64, device=device)
+        rows = self._normal_rows(uids, salt)
+        global _cpu_rows_checked
+        if device.type == "cpu" and rows.numel() > _cpu_rows_checked:
+            # On the CPU a process's first vector ops gave one thread's
+            # chunk other bits now and then (about 1 process in 40-200; the
+            # op varied: erfinv, sqrt). The rows are a pure function of the
+            # ids, so until the process has computed rows this large (a
+            # larger call may start more threads) a second computation
+            # checks the first, and where the two differ a third decides.
+            rows = _agreed(rows, lambda: self._normal_rows(uids, salt))
+            _cpu_rows_checked = rows.numel()
+        return rows.to(vdt)
+
+    def _normal_rows(self, uids: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
+        """f32 initializer rows [..., D] of ids uids [...] under `salt`
+        (broadcasting against uids [..., None])."""
+        init = self.cfg.ev.init
+        D = self.cfg.dim
+        iota = torch.arange(D, dtype=torch.int64, device=uids.device)
         if init.kind == "matrix_normal":
             # row (key % default_value_dim) of a normal matrix regenerated
             # from the salt, never stored
@@ -233,16 +279,14 @@ class EmbeddingTable:
             x = (rows[..., None] * D + iota).to(torch.int32)
             u = hashing.stateless_uniform_from_ids(
                 x, (salt & 0xFFFFFFFF) ^ 0x5EED)
-        elif init.kind == "stateless_normal":
+        else:
             # `uids * D + iota` in the key dtype: int32 keys wrap as JAX's
             # int32 product does once an id passes 2^31 / D
             x = uids[..., None].to(torch.int64) * max(D, 1) + iota
             if uids.dtype == torch.int32:
                 x = hashing.wrap_int32(x)
             u = hashing.stateless_uniform_from_ids(x, salt)
-        else:
-            raise ValueError(f"unknown initializer kind {init.kind!r}")
-        return self._uniform_to_normal(u).to(vdt)
+        return self._uniform_to_normal(u)
 
     def _uniform_to_normal(self, u: torch.Tensor) -> torch.Tensor:
         """N(mean, stddev) by the inverse CDF. `torch.erfinv` is not XLA's

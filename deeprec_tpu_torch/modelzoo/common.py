@@ -12,7 +12,15 @@ read.
 Models resolve through `models/registry` (all 18 names); each name takes
 the per-model defaults and constructor of its `modelzoo/<model>/train.py`
 (`MODELS`). It runs on the CUDA card unless `--device cpu`. `--sharded`
-(and so `--comm`) waits for ROADMAP queue A item 6 (multi-GPU).
+trains a `parallel.ShardedTrainer` over every process of the group (one
+process without a launcher) with the `--comm` exchange; start one process
+per rank with the launcher, every rank reading the same input stream:
+
+    python -m deeprec_tpu_torch.launch --num_processes 2 --process_id 0 \
+        --coordinator 127.0.0.1:29500 -- -m deeprec_tpu_torch.modelzoo \
+        --model mlperf --sharded --comm a2a
+
+Its checkpoints are part files when there are several ranks.
 """
 from __future__ import annotations
 
@@ -67,8 +75,8 @@ def build_argparser(name: str = "a model") -> argparse.ArgumentParser:
                    help="'synthetic', 'criteo_stats' (pinned Criteo-marginal stream), "
                         "a criteo .tsv glob, or a .parquet glob")
     p.add_argument("--sharded", action="store_true",
-                   help="shard tables + batch over all local devices (ROADMAP queue A "
-                        "item 6: not ported)")
+                   help="shard tables + batch over every process of the group "
+                        "(python -m deeprec_tpu_torch.launch)")
     p.add_argument("--comm", default="allgather", choices=["allgather", "a2a"],
                    help="sharded embedding exchange (with --sharded)")
     p.add_argument("--checkpoint", default="",
@@ -212,9 +220,6 @@ def run(model, args, data_kind: str) -> Dict[str, float]:
     from deeprec_tpu_torch.training.checkpoint import CheckpointManager
     from deeprec_tpu_torch.training.trainer import Trainer
 
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: the sharded trainer waits for ROADMAP queue A item 6 (multi-GPU)")
     overrides = {}
     if args.bf16:
         overrides["value_dtype"] = "bfloat16"
@@ -224,7 +229,13 @@ def run(model, args, data_kind: str) -> Dict[str, float]:
         model = _retable(model, **overrides)
 
     sparse_opt, dense_opt = make_optimizers(args)
-    trainer = Trainer(model, sparse_opt, dense_opt, device=getattr(args, "device", None))
+    if args.sharded:
+        from deeprec_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+        trainer = ShardedTrainer(model, sparse_opt, dense_opt, comm=args.comm,
+                                 mesh=make_mesh(device=getattr(args, "device", None)))
+    else:
+        trainer = Trainer(model, sparse_opt, dense_opt, device=getattr(args, "device", None))
     state = trainer.init(args.seed)
     # data FIRST: make_data registers the input-state carriers (WorkQueue,
     # CriteoStats) in args._datasets, which the CheckpointManager must know

@@ -72,6 +72,7 @@ def log_full_fallback(name: str, n: int) -> None:
 
 
 def hash_dedup(flat: torch.Tensor, size: int, *, sentinel, max_probes: int = 64,
+               weights: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Deduplicate each row of `flat` [..., N] (padding already collapsed
     onto `sentinel`) into at most `size - 1` unique ids.
@@ -84,7 +85,9 @@ def hash_dedup(flat: torch.Tensor, size: int, *, sentinel, max_probes: int = 64,
     into a trash slot past the end, so any sentinel works. One host sync
     per round (`pending.any()`, counted in `hash_dedup.probe_syncs`). Then
     the j-th occupied scratch slot, in slot order, takes unique index j in
-    1..size-1 (`rank_compact`); the rest overflow.
+    1..size-1 (`rank_compact`); the rest overflow. `weights` [..., N]
+    (int) replaces each position's count of 1 (the owner side's dedup sums
+    the exchanged counts this way).
 
     Returns (uids [..., size], inverse [..., N] int32, counts [..., size]
     int32, overflow [...] int32) with `uids[inverse]` rebuilding every
@@ -130,8 +133,9 @@ def hash_dedup(flat: torch.Tensor, size: int, *, sentinel, max_probes: int = 64,
     budgeted = pos_ok & (r < size)
     inverse = torch.where(budgeted, r, 0).to(torch.int32)
     counts = torch.zeros((R, size + 1), dtype=torch.int32, device=device)
-    counts.scatter_add_(1, torch.where(budgeted, inverse.long(), size),
-                        torch.ones_like(inverse))
+    w = (torch.ones_like(inverse) if weights is None
+         else weights.reshape(R, N).to(torch.int32))
+    counts.scatter_add_(1, torch.where(budgeted, inverse.long(), size), w)
     counts = counts[:, :size].contiguous()
     overflow = (torch.clamp(n_occ - (size - 1), min=0)
                 + pending.sum(-1, dtype=torch.int32)).to(torch.int32)

@@ -7,8 +7,10 @@ scaling protocol (IsReadyScaling polled by workers, ReadyToUpdate,
 UpdateServerDef with the new cluster). The same choreography here:
 
   * `reshard` — the state move: checkpoints restore by re-probing keys, so
-    any saved state loads into any capacity (on one device; across devices
-    once ROADMAP queue A item 6 ports the sharded trainer).
+    any saved state loads into any capacity, trainer or mesh. A world size
+    changes only between process sets, through part files: save at N
+    (`CheckpointManager`, sharded_io), exit with `EXIT_RESCALE`, respawn at
+    M, `plan_mesh_after_rescale`, restore.
   * `ElasticCoordinator` — the control plane over a shared filesystem. An
     autoscaler posts a plan (`request_scale`); workers poll at step
     boundaries (`should_scale`, one decision for every process of a
@@ -44,12 +46,26 @@ def factorize_mesh(n: int, prefer_intra: int) -> Tuple[int, int]:
     return n, 1  # 1-D degrade
 
 
-def plan_mesh_after_rescale(n: int, old_mesh=None):
-    """The mesh for `n` surviving devices: the port has no device mesh
-    until ROADMAP queue A item 6 (multi-GPU) ports it."""
-    raise NotImplementedError(
-        "plan_mesh_after_rescale: the device mesh waits for ROADMAP queue A "
-        "item 6 (multi-GPU)")
+def plan_mesh_after_rescale(n: int, old_mesh=None, device=None):
+    """The mesh for `n` surviving positions (the first n ranks of the
+    world), keeping the old mesh's hierarchy where one exists: a 1-D old
+    mesh (or None) gives a 1-D mesh; a 2-D one the `factorize_mesh` shape
+    seeded with its intra width, degrading to 1-D when `n` has no valid
+    factorization. `old_mesh` is anything with `axis_names` and `shape`
+    (a `Mesh` of the previous generation, as its process recorded it).
+    Restore is mesh-shape independent, so the state loads whichever shape
+    comes back. Every rank must call it (it may make subgroups)."""
+    from deeprec_tpu_torch.parallel.mesh import INTRA_AXIS, make_mesh, make_mesh_2d
+
+    if device is None and old_mesh is not None:
+        device = getattr(old_mesh, "device", None)
+    names = tuple(old_mesh.axis_names) if old_mesh is not None else ()
+    if len(names) != 2:
+        return make_mesh(n, device=device)
+    intra, inter = factorize_mesh(n, int(old_mesh.shape[INTRA_AXIS]))
+    if inter == 1:
+        return make_mesh(n, device=device)
+    return make_mesh_2d(intra, inter, device=device)
 
 
 def _rank_world() -> Tuple[int, int]:
@@ -61,10 +77,11 @@ def _rank_world() -> Tuple[int, int]:
 
 
 def reshard(src_trainer, src_state, dst_trainer, scratch_dir: Optional[str] = None):
-    """`src_state` moved onto `dst_trainer`'s tables (another capacity, any
-    config whose model and features match) through the checkpoint
-    container: the tested export/import path, keys re-probed into their
-    new slots. In a multi-process group pass a SHARED scratch_dir."""
+    """`src_state` moved onto `dst_trainer`'s tables (another capacity, a
+    sharded or plain trainer, any config whose model and features match)
+    through the checkpoint container: the tested export/import path, keys
+    re-probed into their new slots and owners. In a multi-process group
+    pass a SHARED scratch_dir (a sharded source writes part files there)."""
     from deeprec_tpu_torch.training.checkpoint import CheckpointManager
 
     if _rank_world()[1] > 1 and scratch_dir is None:

@@ -55,8 +55,18 @@ row-scatter kernel (#5; its bf16 branch, #2, rounds stochastically with
 seed 0 as the JAX restore does — rows that came out of a bf16 table are
 representable and stay bit-identical). Part files (the JAX ShardedTrainer's
 `sharded_io=True` format) are read and merged; a plain trainer imports no
-sketch from them, as the JAX plain trainer does. Writing them needs a
-sharded trainer (ROADMAP queue A item 6).
+sketch from them, as the JAX plain trainer does.
+
+A `ShardedTrainer` (parallel/trainer.py) of N > 1 positions saves part
+files: every position writes `table_<bundle>_<tag>.part<rank>.npz` with its
+shard's rows (plus `partition_offset`, `shard_ids`, `num_shards` and a CBF
+table's sketch as `bloom_parts`) and `datasets.part<rank>.json`; after a
+barrier position 0 writes the dense state and the manifest (`format:
+"parts"`, `parts`, `num_shards`, the digests of every part). A sharded
+restore reads every part and keeps the rows its position owns
+(`restore_owner`), whatever world size or mesh shape saved them; a CBF
+sketch comes back exactly from `bloom_parts` when the shard count and
+routing match, else is rebuilt from the imported rows' freqs.
 """
 from __future__ import annotations
 
@@ -80,7 +90,7 @@ import torch
 
 from deeprec_tpu_torch.embedding.table import (
     COUNTERS, KEY_DTYPES, META_DIRTY, META_FREQ, META_VERSION, EmbeddingTable, TableState,
-    empty_key, member_view, quantize_rows_int8,
+    SHARD_COUNTERS, empty_key, member_view, quantize_rows_int8,
 )
 from deeprec_tpu_torch.nn import jax_leaf_names
 from deeprec_tpu_torch.obs import trace as obs_trace
@@ -293,7 +303,9 @@ def _clone_table_state(ts: TableState) -> TableState:
         slots={n: a.clone() for n, a in ts.slots.items()},
         **{n: getattr(ts, n).clone() for n in COUNTERS},
         bloom=None if ts.bloom is None else ts.bloom.clone(),
-        qscale=None if ts.qscale is None else ts.qscale.clone())
+        qscale=None if ts.qscale is None else ts.qscale.clone(),
+        **{n: None if getattr(ts, n) is None else getattr(ts, n).clone()
+           for n in SHARD_COUNTERS})
 
 
 # ------------------------------------------------- the stage half (device)
@@ -408,14 +420,22 @@ class CheckpointManager:
         deltas and quarantined directories older than the oldest kept full
         save go with it. datasets: {name: reader} of input-state carriers
         (anything with `save() -> dict` / `restore(dict)`), whose positions
-        ride every save and rewind with `restore()`. sharded_io=True (part
-        files per process) needs a sharded trainer: ROADMAP queue A item
-        6."""
-        if sharded_io:
-            raise NotImplementedError(
-                "CheckpointManager(sharded_io=True) writes part files from a "
-                "sharded trainer, which waits for ROADMAP queue A item 6 "
-                "(multi-GPU); part files are read")
+        ride every save and rewind with `restore()`. sharded_io: part files
+        per position, for a ShardedTrainer only; None = parts when its mesh
+        has more than one position (the only format such a trainer can
+        write: no position holds another's shard)."""
+        self._sharded = hasattr(trainer, "mesh") and hasattr(trainer, "num_shards")
+        if sharded_io and not self._sharded:
+            raise ValueError(
+                "CheckpointManager(sharded_io=True) writes the part files of a "
+                "ShardedTrainer; a plain Trainer saves single files")
+        n = trainer.num_shards if self._sharded else 1
+        self._parts = self._sharded and (n > 1 if sharded_io is None else bool(sharded_io))
+        if self._sharded and n > 1 and not self._parts:
+            raise ValueError(
+                "CheckpointManager: a ShardedTrainer over several positions saves "
+                "part files (sharded_io=True); no position holds the whole table")
+        self._rank = trainer.mesh.index if self._sharded else 0
         self.dir = directory
         self.trainer = trainer
         self.keep = keep
@@ -479,6 +499,9 @@ class CheckpointManager:
         return state, plan.path
 
     def _save_async(self, state: TrainState, kind: str) -> Tuple[TrainState, str]:
+        if self._parts:
+            raise ValueError("part-file saves are synchronous (the positions meet "
+                             "before the manifest): use save / save_incremental")
         self.wait()  # at most one save in flight
         kind = self._effective_kind(kind)
         t0 = time.perf_counter()
@@ -642,6 +665,8 @@ class CheckpointManager:
         first."""
         if plan.event is not None:
             plan.event.synchronize()
+        if self._parts:
+            return self._write_parts(plan)
         path, incr = plan.path, plan.kind == "incr"
         os.makedirs(path, exist_ok=True)
         mf = os.path.join(path, "manifest.json")
@@ -670,11 +695,65 @@ class CheckpointManager:
 
     def _write_positions(self, path: str, positions: Optional[Dict[str, dict]]) -> None:
         """The readers' positions taken at stage time (an async writer must
-        record where they were when the state was captured)."""
+        record where they were when the state was captured); one file per
+        position."""
         if not positions:
             return
-        with open(os.path.join(path, "datasets.part00000.json"), "w") as f:
+        with open(os.path.join(path, f"datasets.part{self._rank:05d}.json"), "w") as f:
             json.dump(positions, f)
+
+    def _write_parts(self, plan: _SavePlan) -> None:
+        """The write half of a part-file save, on every position: position 0
+        clears the directory of a crashed earlier attempt (manifest first),
+        every position writes its parts and positions, the digests meet on
+        position 0, which writes the dense state and commits the manifest;
+        a last barrier keeps every position behind the commit."""
+        from deeprec_tpu_torch.parallel import mesh as M
+
+        mesh = self.trainer.mesh
+        path, incr, rank = plan.path, plan.kind == "incr", self._rank
+        os.makedirs(path, exist_ok=True)
+        if rank == 0:
+            mf = os.path.join(path, "manifest.json")
+            if os.path.exists(mf):
+                os.remove(mf)
+            for stale in (glob.glob(os.path.join(path, "table_*.npz"))
+                          + glob.glob(os.path.join(path, "datasets.part*.json"))):
+                os.remove(stale)
+        M.barrier(mesh)
+        digests: Dict[str, Dict[str, str]] = {}
+        for bname, pkgs in plan.tables.items():
+            cfg, stacked = plan.cfgs[bname]
+            for k, arrays, n in pkgs:
+                rows = _materialize(cfg, arrays, n)
+                bloom = rows.pop("bloom", None)
+                if bloom is not None:
+                    rows["bloom_parts"] = bloom[None]
+                rows["partition_offset"] = np.asarray([0, rows["keys"].shape[0]], np.int64)
+                rows["shard_ids"] = np.asarray([rank], np.int64)
+                rows["num_shards"] = np.asarray(self.trainer.num_shards, np.int64)
+                fname = table_file(bname, k if stacked else None)
+                _savez(digests, path, fname[:-4] + f".part{rank:05d}.npz", rows)
+        self._write_positions(path, plan.positions)
+        merged: Dict[str, Dict[str, str]] = {}
+        for d in M.all_gather_object(mesh, digests):
+            merged.update(d)
+        if rank == 0:
+            _savez(merged, path, "dense.npz", _leaves_file([t.numpy() for t in plan.dense]))
+            if plan.opt is not None:
+                _savez(merged, path, "opt.npz", _leaves_file([t.numpy() for t in plan.opt]))
+            manifest = {"step": plan.step, "kind": plan.kind, "digests": merged,
+                        "routing": {b: self.trainer.routing_fingerprint(b)
+                                    for b in plan.tables},
+                        "format": "parts", "parts": mesh.size,
+                        "num_shards": self.trainer.num_shards}
+            if incr:
+                manifest["base"] = self._chain_tip(before=plan.step)
+            else:
+                manifest["bundles"] = plan.bundles
+            _commit_manifest(path, manifest)
+            self._gc()
+        M.barrier(mesh)
 
     # -------------------------------------------------------------- listing
 
@@ -902,7 +981,7 @@ class CheckpointManager:
         if not self.datasets:
             return
         for path in reversed(chain):
-            p = os.path.join(path, "datasets.part00000.json")
+            p = os.path.join(path, f"datasets.part{self._rank:05d}.json")
             if not os.path.exists(p):
                 continue
             with open(p) as f:
@@ -1008,12 +1087,15 @@ class CheckpointManager:
             for bname, rows_by in found.items():
                 b = self.trainer.bundles[bname]
                 ts = _clone_table_state(tables[bname]) if copy else tables[bname]
-                live = {}
+                live, rebuild = {}, {}
                 for k, rows in rows_by.items():
                     rows.pop("partition_offset", None)
                     if "live_keys" in rows:
                         live[k] = rows.pop("live_keys")
+                    if self._sharded:
+                        rows_by[k], rebuild[k] = self._owned_rows(path, bname, k, rows)
                 import_members(b.table, ts, rows_by, bucket=bucket, chunk=chunk)
+                self._rebuild_sketches(b, ts, rows_by, rebuild)
                 tables[bname] = self._prune_to_live(b, ts, live)
         dense, opt_state = state.dense, state.opt_state
         dpath, opath = os.path.join(path, "dense.npz"), os.path.join(path, "opt.npz")
@@ -1025,6 +1107,50 @@ class CheckpointManager:
             opt_state = dense_optim.state_from_leaves(
                 leaves, jax_leaf_names(self.trainer.model), dense)
         return TrainState(step=state.step, tables=tables, dense=dense, opt_state=opt_state)
+
+    def _owned_rows(self, path: str, bname: str, k: int, rows: Dict[str, np.ndarray]):
+        """The rows of member k this position owns under the trainer's
+        routing, and whether its CBF sketch must be rebuilt from them: the
+        saved per-shard sketch comes back exactly only when the saving
+        shard count and routing match."""
+        tr = self.trainer
+        rows = dict(rows)
+        parts = rows.pop("bloom_parts", None)
+        merged = rows.pop("bloom", None)
+        own = np.asarray(tr.restore_owner(bname, k, rows["keys"])) == tr.mesh.index
+        out = {name: (v[own] if is_per_row(name) else v) for name, v in rows.items()}
+        if tr.bundles[bname].table.cfg.ev.cbf_filter is None:
+            return out, False
+        mf = self._manifest(path)
+        same = (mf.get("routing", {}).get(bname, "uniform") == tr.routing_fingerprint(bname))
+        if parts is not None and same and int(mf.get("num_shards", parts.shape[0])) \
+                == tr.num_shards and parts.shape[0] == tr.num_shards:
+            out["bloom"] = parts[tr.mesh.index]
+            return out, False
+        if merged is not None and tr.num_shards == 1:
+            out["bloom"] = merged
+            return out, False
+        return out, True
+
+    @staticmethod
+    def _rebuild_sketches(b, ts: TableState, rows_by, rebuild: Dict[int, bool]) -> None:
+        """A re-sharded CBF sketch: zeros plus the imported rows' freqs (an
+        admitted key keeps its count; sub-threshold keys restart), as the
+        JAX package rebuilds it."""
+        from deeprec_tpu_torch.embedding import filters
+
+        cbf = b.table.cfg.ev.cbf_filter
+        for k, again in rebuild.items():
+            if not again or ts.bloom is None:
+                continue
+            bloom = ts.bloom[k:k + 1]
+            bloom.zero_()
+            keys = rows_by[k]["keys"]
+            if keys.shape[0]:
+                dev = ts.keys.device
+                filters.cbf_add(cbf, bloom, torch.as_tensor(keys).to(dev, ts.keys.dtype)[None],
+                                torch.as_tensor(np.asarray(rows_by[k]["freqs"], np.int32)
+                                                ).to(dev)[None])
 
     def _prune_to_live(self, b, ts: TableState, live: Dict[int, np.ndarray]) -> TableState:
         """Drop each member k's keys absent from a delta's live set live[k]

@@ -72,7 +72,7 @@ from deeprec_tpu_torch import features as fcol
 from deeprec_tpu_torch import resolve_device
 from deeprec_tpu_torch.embedding import combiners
 from deeprec_tpu_torch.embedding.table import (
-    COUNTERS, KEY_DTYPES, EmbeddingTable, TableState)
+    COUNTERS, KEY_DTYPES, SHARD_COUNTERS, EmbeddingTable, TableState)
 from deeprec_tpu_torch.embedding.table import member_view as _member
 from deeprec_tpu_torch.features import SparseFeature
 from deeprec_tpu_torch.ops import dedup
@@ -206,6 +206,8 @@ def _put_member(ts: TableState, k: int, m: TableState) -> TableState:
     pairs = [(ts.keys, m.keys), (ts.values, m.values), (ts.meta, m.meta)]
     pairs += [(ts.slots[n], m.slots[n]) for n in ts.slots]
     pairs += [(getattr(ts, n), getattr(m, n)) for n in COUNTERS]
+    pairs += [(getattr(ts, n), getattr(m, n)) for n in SHARD_COUNTERS
+              if getattr(ts, n) is not None and getattr(m, n) is not None]
     if ts.bloom is not None:
         pairs.append((ts.bloom, m.bloom))
     if ts.qscale is not None:
@@ -558,8 +560,8 @@ class Trainer:
         first, before occupancy and growth read the state, and counted as
         `rows_reinit` (and into `deeprec_guard_rows_reinit{table}`).
 
-        The placement plan raises NotImplementedError: ROADMAP queue A item
-        6 ports it."""
+        The placement plan raises NotImplementedError: slice 18 (ROADMAP
+        queue A item 6b) ports it."""
         self._check_maintain_ported()
         step = int(state.step) if step is None else int(step)
         state, dedup_report = self.update_budgets(state)
@@ -573,8 +575,8 @@ class Trainer:
             ts = tables[bname]
             C = b.table.cfg.capacity
             ts, rows_reinit = self._row_hygiene(b, ts)
-            occ = int(b.table.size(ts).max()) / C
-            fails_each = ts.insert_fails.tolist()
+            live_max, fails_each = self._bundle_fill(b, ts)
+            occ = live_max / C
             rep = {"occupancy": occ, "insert_fails": sum(fails_each), "capacity": C}
             if rows_reinit:
                 rep["rows_reinit"] = rows_reinit
@@ -617,8 +619,13 @@ class Trainer:
         """Raise for the parts of `maintain` a later slice ports."""
         if getattr(self, "placement", "uniform") == "plan":
             raise NotImplementedError(
-                "maintain: placement='plan' waits for ROADMAP queue A item 6 "
-                "(multi-GPU)")
+                "maintain: placement='plan' waits for slice 18 (ROADMAP queue A "
+                "item 6b)")
+
+    def _bundle_fill(self, b: Bundle, ts: TableState) -> Tuple[int, List[int]]:
+        """(the fullest member's live keys, every member's insert_fails):
+        what `maintain` decides growth on."""
+        return int(b.table.size(ts).max()), ts.insert_fails.tolist()
 
     def _row_hygiene(self, b: Bundle, ts: TableState) -> Tuple[TableState, int]:
         """The sentinel's anomaly eviction over every member of bundle `b`
@@ -835,6 +842,18 @@ class Trainer:
     # `_resolve_routed`, `_finish_resolved`) over every lookup group: a
     # stacked bundle at once, a shared table's features one after another.
 
+    # One group's phases; the sharded trainer's go through its collective
+    # ShardedTable (parallel/trainer.py).
+    def _route_one(self, b: Bundle, ids: torch.Tensor, pad: int, train: bool):
+        return b.table._route_ids(ids, pad, self._budget_for_lookup(b, ids, train))
+
+    def _resolve_one(self, bname: str, ts: TableState, route, step: int, train: bool):
+        return self.bundles[bname].table._resolve_routed(
+            ts, route, step=step, train=train, salt=self._salts.get(bname))
+
+    def _finish_one(self, bname: str, ts: TableState, res):
+        return self.bundles[bname].table._finish_resolved(ts, res)
+
     def _route_all(self, batch, train: bool = True) -> list:
         """Route every lookup group of `batch`: [(bundle, features, masks
         [T, B, L], route)], in bundle and feature order."""
@@ -843,17 +862,15 @@ class Trainer:
             for feats in self._members(b):
                 ids = self._ids(b, batch, feats)
                 pad = feats[0].pad_value
-                out.append((bname, feats, ids != pad, b.table._route_ids(
-                    ids, pad, self._budget_for_lookup(b, ids, train))))
+                out.append((bname, feats, ids != pad, self._route_one(b, ids, pad, train)))
         return out
 
     def _resolve_all(self, tables, routes: list, step: int = 0,
                      train: bool = True) -> list:
         """Resolve each routed group in order (train mode inserts and
         stamps IN PLACE): [(bundle, features, masks, pending result)]."""
-        return [(bname, feats, masks, self.bundles[bname].table._resolve_routed(
-                    tables[bname], route, step=step, train=train,
-                    salt=self._salts.get(bname)))
+        return [(bname, feats, masks,
+                 self._resolve_one(bname, tables[bname], route, step, train))
                 for bname, feats, masks, route in routes]
 
     def _finish_all(self, tables, pending: list):
@@ -864,7 +881,7 @@ class Trainer:
         views, bundle_res = {}, {}
         for bname, feats, masks, res in pending:
             b = self.bundles[bname]
-            res = b.table._finish_resolved(tables[bname], res)
+            res = self._finish_one(bname, tables[bname], res)
             for k, f in enumerate(feats):
                 views[f.name] = (res.embeddings[k], res.inverse[k], masks[k])
             if b.stacked:
@@ -951,12 +968,14 @@ class Trainer:
                 # them); every other bundle reuses the lookup's rows.
                 reuse = b.stacked or len(b.features) == 1
                 for _, res in self._results(b, bundle_res[bname]):
-                    apply_gradients(
-                        b.table, tables[bname], self.sparse_opt, res,
-                        next(g_embs), step=step, lr=lr,
-                        grad_averaging=self.grad_averaging,
-                        reuse_rows=reuse, stamp_meta=False,
-                    )
+                    self._apply_one(b, tables[bname], res, next(g_embs), step, lr, reuse)
+
+    def _apply_one(self, b: Bundle, ts: TableState, res, grad, step: int, lr: float,
+                   reuse: bool) -> None:
+        """One lookup group's sparse apply, IN PLACE."""
+        apply_gradients(b.table, ts, self.sparse_opt, res, grad, step=step, lr=lr,
+                        grad_averaging=self.grad_averaging, reuse_rows=reuse,
+                        stamp_meta=False)
 
     @torch.no_grad()
     def _dense_apply(self, params, opt_state, g_dense):

@@ -59,6 +59,14 @@ def hash_to_bucket(ids: torch.Tensor, num_buckets: int, salt: int = 0
     return (h & (num_buckets - 1)).to(torch.int32)
 
 
+def hash_shard(ids: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """Owner shard in [0, num_shards) of each id, int32 (any num_shards):
+    the sharded tables' uniform routing, the JAX package's `hash_shard`. On
+    int32 ids it equals `hash_shard_np` bit for bit (which narrows 64-bit ids
+    to 32 bits first; this folds them, as the device function does)."""
+    return (mix32(fold64(ids)) % int(num_shards)).to(torch.int32)
+
+
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 values wrapped to int32 two's complement, as int32 arithmetic
     overflows in JAX (`uids * D + iota` on int32 keys)."""

@@ -460,7 +460,9 @@ def test_keep_and_gc_match_jax(tmp_path, keep):
 
 
 def test_sharded_io_raises_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Part files are a ShardedTrainer's format (parallel/trainer.py); a
+    plain Trainer asking for them is refused."""
+    with pytest.raises(ValueError, match="ShardedTrainer"):
         CheckpointManager(str(tmp_path), _port_trainer("ttl"), sharded_io=True)
 
 

@@ -373,8 +373,18 @@ def test_factorize_mesh_matches_jax(n, intra, want):
 
 
 def test_plan_mesh_after_rescale_names_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        plan_mesh_after_rescale(4)
+    """Ported (queue A item 6a): without a process group the mesh is one
+    position, 1-D whatever the old shape; the 2-D factorization itself is
+    `factorize_mesh`'s (above) and runs across ranks in
+    tests/test_torch_sharded.py."""
+    class Old:
+        axis_names = ("inter", "intra")
+        shape = {"inter": 2, "intra": 2}
+        device = "cpu"
+
+    for old in (None, Old):
+        mesh = plan_mesh_after_rescale(1, old, device="cpu")
+        assert mesh.axis_names == ("data",) and mesh.size == 1
 
 
 @pytest.mark.parametrize("dst_capacity", [1 << 9, 1 << 12])
