@@ -344,7 +344,29 @@ the seconds of every phase are printed at the end):
      loss within 1e-4 of world 4's; every rank's launches of #1, #3, #2
      and #5 equal to what its steps imply. Each leg's step ms carries the
      card's name and power limit (the world-4 ones: gloo, host-staged, one
-     card, not a multi-GPU figure).
+     card, not a multi-GPU figure). The world-4 ranks start up during phase
+     20 and wait for phase 21.
+ 22. skew-aware placement, the async stage and ring attention
+     (deeprec_tpu_torch/parallel/placement.py, async_stage.py,
+     ring_attention.py; PLACE), as further legs of phase 21's processes at
+     FULL's widths: (a) world 4 over gloo, a uniform and then a plan
+     ShardedTrainer (a2a, lookahead, ReplanConfig(threshold=1.25, sustain=1,
+     cooldown=0)) over tests/test_placement_v2.py's drifting stream (zipf
+     1.6-2.5 cycled over the 26 columns, one id space, the hot set rotating
+     every 4 batches), 4 windows of 2 steps with maintain() after each and
+     one train_steps(K=3): losses and every live key's rows bit for bit
+     between the two, at least one automatic replan and no forced one,
+     migrated rows = plan_moved_rows, no a2a overflow after the adoption,
+     the #3 / #5 launches of the steps and the migration; the measured
+     per-shard exchange bytes per window and the modeled gain against the
+     migration bytes printed; (b) AsyncShardedTrainer at world 4 (gloo) and
+     world 1 (NCCL): with every lr 0 the async loss at step t equal to
+     eval_step on batch t-1 within 1e-5, bootstrap + 4 single steps + one
+     train_steps_async(K=3) equal to 7 single steps bit for bit, finite
+     losses; (c) ring_attention_sharded at world 4 over q, k, v [32, 4,
+     8192, 8] f32 with the sequence tails masked, causal and not, its output
+     against kernel #8 and its gradients of sum(o^2) against #9 on the whole
+     sequence (phase 10's tolerances), its ms per forward and backward.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -7512,9 +7534,19 @@ def _run_guard(dev, seed, cfg, tmp, rig, t0):
 # --sharded-rank. (a) world 1 over NCCL; (b) world 4 over gloo with every
 # rank on the one card (host-staged); (c) the world-4 part files restored
 # at world 2 and world 1.
+# Phase 22 (slice 18) runs as further legs of phase 21's process sets: the
+# drift-driven replanner and its migration, the async stage and ring
+# attention (`_drift_leg`, `_async_leg`, `_ring_leg`; see run_sharded).
+PLACE = dict(zipf_a=(1.6, 1.9, 2.2, 2.5), rotate_every=4, windows=4, per_window=2, K=3,
+             hot_budget=64, replan=dict(threshold=1.25, sustain=1, cooldown=0,
+                                        horizon_steps=100_000),
+             async_steps=4, async_K=3, lr0_steps=2, lr0_rtol=1e-5,
+             ring=dict(shape=(32, 4, 8192, 8), masked=0.05))
+
+
 SHARD = dict(batch=2048, vocab=1_000_000, lr=0.05, dense_lr=1e-3, steps_a=4, steps_b=3,
              bf16_steps=2, world=4, loss_rtol=1e-4, bf16_wire_rtol=1e-3,
-             bf16_wire_atol=1e-3, update_rtol=0.1, timeout=900)
+             bf16_wire_atol=1e-3, update_rtol=0.1, timeout=900, place=PLACE)
 
 
 def _shard_model(cfg, seed, value_dtype=None, exchange=None):
@@ -7677,6 +7709,233 @@ def _leg_launches(trainer, steps):
             steps * (apply_n - 2 * g16)]
 
 
+def _drift_batches(cfg, seed, n):
+    """tests/test_placement_v2.py's drifting stream at FULL's widths: the
+    zipf exponents cycled over the 26 columns, one shared raw id space, the
+    hot set rotating every `rotate_every` batches."""
+    from deeprec_tpu_torch.data import SyntheticCriteo
+
+    pc = cfg["place"]
+    a = [pc["zipf_a"][c % len(pc["zipf_a"])] for c in range(26)]
+    gen = SyntheticCriteo(batch_size=cfg["batch"], vocab=cfg["vocab"], seed=seed + 220,
+                          zipf_a=a, offset_ids=False, zipf_rotate_every=pc["rotate_every"])
+    return [gen.batch() for _ in range(n)]
+
+
+def _migration_launches(trainer, adopted_bundles):
+    """(#1, #3, #2, #5) one migration implies: per adopted bundle one
+    gather and one scatter of the values and of each per-row slot."""
+    from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
+
+    rows = 1 + sum(1 for n in trainer.sparse_opt.slot_specs(1)
+                   if not n.startswith(SCALAR_PREFIX))
+    out = np.zeros(4, np.int64)
+    for b in adopted_bundles:
+        bf16 = trainer.bundles[b].table.cfg.value_dtype == "bfloat16"
+        out += [int(bf16), rows - int(bf16), int(bf16), rows - int(bf16)]
+    return out
+
+
+def _drift_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
+    """Phase 22 (a) on one rank: a uniform and then a plan trainer (a2a,
+    lookahead, the drift ReplanConfig) over the drifting stream, windows
+    of `per_window` steps with maintain() after each, then one
+    train_steps(K); each trainer freed before the next is built."""
+    from deeprec_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from deeprec_tpu_torch.parallel.placement import ReplanConfig
+
+    pc = cfg["place"]
+    n = pc["windows"] * pc["per_window"]
+    batches = _drift_batches(cfg, seed, n + pc["K"])
+    rec = {}
+    for placement in ("uniform", "plan"):
+        t0 = time.perf_counter()
+        trainer = ShardedTrainer(copy.deepcopy(model), *opt(), mesh=make_mesh(device=dev),
+                                 comm="a2a", pipeline_mode="lookahead", placement=placement,
+                                 placement_hot_budget=pc["hot_budget"],
+                                 replan=ReplanConfig(**pc["replan"]))
+        state = trainer.init()
+        _zero_row_counts()
+        implied = np.asarray(_leg_launches(trainer, n + pc["K"]), np.int64)
+        losses, windows, adoptions, i = [], [], [], 0
+        ovf_at_adoption = None
+        init_s, maint_s = time.perf_counter() - t0, 0.0
+        for w in range(pc["windows"]):
+            for _ in range(pc["per_window"]):
+                state, m = trainer.train_step(state, batches[i])
+                losses.append(float(m["loss"]))
+                i += 1
+            ps = {t: r["per_shard"] for t, r in trainer.dedup_stats(state).items()
+                  if isinstance(r, dict) and r.get("per_shard")}
+            windows.append(dict(
+                exchange_bytes=np.sum([p["exchange_bytes"] for p in ps.values()], 0).tolist(),
+                imbalance=max(p["imbalance"] for p in ps.values())))
+            t1 = time.perf_counter()
+            state, rep = trainer.maintain(state)
+            maint_s += time.perf_counter() - t1
+            pl = {b: r["placement"] for b, r in rep.items() if "placement" in r}
+            adopted = [b for b, r in pl.items() if r.get("adopted") and r.get("moved")]
+            if pl:
+                windows[-1]["placement"] = pl
+            if adopted:
+                last = trainer.last_placement
+                adoptions.append(dict(window=w, moved=sum(pl[b]["moved"] for b in adopted),
+                                      modeled_rows=last["migration_rows"],
+                                      gain=last["gain_bytes_per_step"],
+                                      migration_bytes=last["migration_bytes"],
+                                      amortize_steps=last["amortize_steps"],
+                                      imbalance=(last["imbalance_current"],
+                                                 last["imbalance_candidate"])))
+                implied += _migration_launches(trainer, adopted)
+                if ovf_at_adoption is None:
+                    ovf_at_adoption = trainer.a2a_overflow(state)
+        state, m = trainer.train_steps(state, batches[i:i + pc["K"]])
+        losses += m["loss"].tolist()
+        ovf = trainer.a2a_overflow(state)
+        _sync(dev)
+        r = dict(losses=losses, windows=windows, adoptions=adoptions,
+                 launches=_rank_launches(), implied=implied.tolist(), a2a_overflow=ovf,
+                 overflow_after_adoption=None if ovf_at_adoption is None
+                 else ovf - ovf_at_adoption, init_s=init_s, maintain_s=maint_s,
+                 seconds=time.perf_counter() - t0)
+        if placement == "plan":
+            r["stats"] = trainer.placement_stats()
+        _save_rows(os.path.join(out_dir, f"{leg['name']}-{placement}-rows-{rank}.npz"),
+                   _shard_rows(trainer, state))
+        rec[placement] = r
+        del trainer, state
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rec
+
+
+def _async_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
+    """Phase 22 (b) on one rank: with every learning rate 0 (and the f32
+    wire), bootstrap and `lr0_steps` async steps, each loss against
+    eval_step on the batch before (the tables equal at lr 0); then at the
+    real rates and the default wire, bootstrap + async_steps single steps
+    + one train_steps_async(K), against a twin that takes the K batches as
+    single steps from the same carried state."""
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.parallel import AsyncShardedTrainer, make_mesh
+
+    pc = cfg["place"]
+    S, K = pc["async_steps"], pc["async_K"]
+    batches = _shard_batches(cfg, seed + 1, 1 + S + K)
+    mesh = make_mesh(device=dev)
+    rec = {}
+    # the f32 wire: train lookups then carry the rows eval_step reads, exact
+    tr = AsyncShardedTrainer(_shard_model(cfg, seed, exchange="float32"), Adagrad(lr=0.0),
+                             adam(0.0), mesh=mesh)
+    ast = tr.bootstrap(tr.init(), batches[0])
+    lr0, n0 = [], pc["lr0_steps"]
+    for t in range(1, n0 + 1):
+        ast, m = tr.train_step_async(ast, batches[t])
+        lr0.append(float(m["loss"]))
+    rec["lr0"] = lr0
+    rec["lr0_eval"] = [float(tr.eval_step(ast.inner, batches[t - 1])[0])
+                       for t in range(1, n0 + 1)]
+    del tr, ast
+    t0 = time.perf_counter()
+    tr = AsyncShardedTrainer(copy.deepcopy(model), *opt(), mesh=mesh)
+    _zero_row_counts()
+    ast = tr.bootstrap(tr.init(), batches[0])
+    losses = []
+    for t in range(1, S + 1):
+        ast, m = tr.train_step_async(ast, batches[t])
+        losses.append(float(m["loss"]))
+    # the same carried state for the K single steps: a copy where the card
+    # holds a quarter of the tables (world 4), else a second trainer that
+    # replays the steps (world 1: a copy of 28 GB of tables beside the
+    # world-2 restore would not fit)
+    twin = copy.deepcopy(ast) if mesh.size > 1 else None
+    ast, m = tr.train_steps_async(ast, batches[S + 1:])
+    _sync(dev)
+    # per async step: the lookup's gather and initializer scatter, and the
+    # stale apply's re-gathers and writes (reuse_rows=False); the bootstrap
+    # one lookup; counted before the twin's steps
+    apply_n, gather_n = _path_launches(tr)
+    groups = sum(1 if b.stacked else len(b.features) for b in tr.bundles.values())
+    rec["window"] = dict(losses=losses + m["loss"].tolist(), launches=_rank_launches(),
+                         implied=[0, (S + K) * (gather_n + groups) + groups, 0,
+                                  (S + K) * apply_n + groups],
+                         digest=_rows_digest(_shard_rows(tr, ast.inner)),
+                         seconds=time.perf_counter() - t0)
+    del ast
+    singles = list(losses)
+    if twin is None:
+        del tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        tr = AsyncShardedTrainer(copy.deepcopy(model), *opt(), mesh=mesh)
+        twin = tr.bootstrap(tr.init(), batches[0])
+        singles = []
+        for t in range(1, S + 1):
+            twin, m = tr.train_step_async(twin, batches[t])
+            singles.append(float(m["loss"]))
+    for t in range(S + 1, S + K + 1):
+        twin, m = tr.train_step_async(twin, batches[t])
+        singles.append(float(m["loss"]))
+    rec["singles"] = dict(losses=singles, digest=_rows_digest(_shard_rows(tr, twin.inner)))
+    del tr, twin
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _ring_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
+    """Phase 22 (c) on one rank: ring_attention_sharded over the global
+    q, k, v (the same on every rank, from the seed) and a key mask about
+    `masked` false at the sequence tails, causal and not; the output and
+    the gradients of sum(o^2) on every rank; rank 0 holds them against
+    kernel #8 and #9 through flash_attention on the whole sequence."""
+    from deeprec_tpu_torch.ops.flash_attention import flash_attention
+    from deeprec_tpu_torch.parallel import make_mesh, ring_attention_sharded
+
+    rc = cfg["place"]["ring"]
+    B, H, L, D = rc["shape"]
+    g = torch.Generator().manual_seed(seed + 230)
+    q, k, v = (torch.randn((B, H, L, D), generator=g).to(dev) for _ in range(3))
+    cut = torch.randint(0, int(2 * rc["masked"] * L) + 1, (B,), generator=g)
+    mask = (torch.arange(L)[None, :] < (L - cut)[:, None]).to(dev)
+    mesh = make_mesh(device=dev)
+    rec = {"masked": float(1.0 - mask.float().mean())}
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():  # warm the collectives and the products up
+        ring_attention_sharded(mesh, q, k, v, mask)
+    _sync(dev)
+    rec["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    for causal in (False, True):
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        _sync(dev)
+        t0 = time.perf_counter()
+        o = ring_attention_sharded(mesh, qg, kg, vg, mask, causal=causal)
+        _sync(dev)
+        t1 = time.perf_counter()
+        (o ** 2).sum().backward()
+        _sync(dev)
+        t2 = time.perf_counter()
+        tag = "causal" if causal else "full"
+        rec[tag] = dict(fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3)
+        if rank == 0:  # the oracle: #8 and #9 on the whole sequence
+            qf, kf, vf = (x.clone().requires_grad_(True) for x in (q, k, v))
+            of = flash_attention(qf, kf, vf, mask, causal)
+            (of ** 2).sum().backward()
+            errs = {"o": _flash_errs(o.detach(), of.detach(), False)}
+            for name, a, b in (("dq", qg, qf), ("dk", kg, kf), ("dv", vg, vf)):
+                errs[name] = _flash_errs(a.grad, b.grad, True)
+            rec[tag]["errs"] = errs
+            del qf, kf, vf, of
+        del qg, kg, vg, o
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rec
+
+
+P22_LEGS = {"drift": _drift_leg, "async": _async_leg, "ring": _ring_leg}
+
+
 def sharded_rank(spec_path):
     """One rank of phase 21 (this process was started by the launcher):
     runs the spec's legs in order and writes each leg's record (and rows
@@ -7721,6 +7980,21 @@ def sharded_rank(spec_path):
         t_leg = time.perf_counter()
         rec = {"name": leg["name"], "rank": rank, "world": world}
         opt = (Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]))
+        if leg.get("p22"):  # phase 22's legs
+            rec.update(P22_LEGS[leg["p22"]](
+                leg, cfg, seed, dev, out_dir, rank,
+                lambda: (Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"])),
+                _shard_model(cfg, seed)))
+            rec["seconds"] = time.perf_counter() - t_leg
+            rec["peak_gb"] = (round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2)
+                              if dev.type == "cuda" else None)
+            with open(os.path.join(out_dir, f"{leg['name']}-{rank}.json"), "w") as f:
+                json.dump(rec, f)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            continue
         model = _shard_model(cfg, seed, leg.get("value_dtype"), leg.get("exchange"))
         if leg.get("plain"):
             trainer = Trainer(model, *opt, device=dev)
@@ -7826,15 +8100,59 @@ def _wait_ranks(procs, d, legs, timeout, what):
     return res
 
 
-def run_sharded(dev, seed, cfg, ckroot):
-    """Phase 21 on `dev` (cuda: world 1 over NCCL, the rest over gloo; cpu:
-    gloo throughout). (b) runs first; then its part files restore at world 2
-    beside one world-1 process that restores them too and then runs (a)
-    (both process sets start with (b) and wait for it). Returns the
-    launches of (#1, #3, #2, #5) summed over every rank's main-path legs."""
-    t0 = time.perf_counter()
+def _legs_b(cfg, parts):
+    """(b)'s legs: world 4 over gloo, every rank on the one card,
+    host-staged; then phase 22's in the same processes (no second start)."""
+    Bs = cfg["steps_b"]
+    return [dict(name="ag_1d", comm="allgather", steps=Bs, rows=True, rows_at=[1]),
+            dict(name="ag_2x2", comm="allgather", mesh="2x2", steps=Bs, save=parts,
+                 after=Bs, rows=True),
+            dict(name="restored_4", comm="allgather", mesh="2x2", restore=parts, steps=1,
+                 first=Bs),
+            dict(name="a2a_1d", comm="a2a", steps=Bs, rows=True, rows_at=[1]),
+            dict(name="a2a_2x2", comm="a2a", mesh="2x2", steps=Bs),
+            dict(name="hier_2x2", comm="hier", mesh="2x2", steps=Bs, rows=True, rows_at=[1]),
+            dict(name="bf16_tables", comm="a2a", value_dtype="bfloat16",
+                 steps=cfg["bf16_steps"]),
+            dict(name="p22_drift", p22="drift"), dict(name="p22_async", p22="async"),
+            dict(name="p22_ring", p22="ring")]
+
+
+def start_sharded(dev, seed, cfg, ckroot):
+    """Start (b)'s world-4 process set ahead of phase 21: its ranks start up
+    (torch, the card, the model, the batches: about 13 s) while an earlier
+    phase runs, and wait for the file `run_sharded` writes. Returns the
+    handle run_sharded takes."""
     tmp = os.path.join(ckroot, "sharded")
     shutil.rmtree(tmp, ignore_errors=True)
+    go = os.path.join(tmp, "b-go")
+    procs, d = _start_ranks(dev, cfg["world"], "gloo", tmp, "b",
+                            _legs_b(cfg, os.path.join(tmp, "parts")), cfg, seed,
+                            cfg["steps_b"] + 1, wait_for=go)
+    return dict(procs=procs, dir=d, go=go)
+
+
+def stop_ranks(early) -> None:
+    """Kill what is left of a process set `start_sharded` started (nothing
+    once run_sharded has waited for it)."""
+    for p in early["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def run_sharded(dev, seed, cfg, ckroot, early=None):
+    """Phase 21 on `dev` (cuda: world 1 over NCCL, the rest over gloo; cpu:
+    gloo throughout). (b) runs first, in the process set `early` (from
+    `start_sharded`, started here when None); then its part files restore at
+    world 2 beside one world-1 process that restores them too and then runs
+    (a) (both process sets start with (b) and wait for it). Phase 22 runs as
+    further legs of (b) and (a). Returns (the launches of (#1, #3, #2, #5)
+    summed over every rank's main-path legs, phase 22's seconds)."""
+    t0 = time.perf_counter()
+    if early is None:
+        early = start_sharded(dev, seed, cfg, ckroot)
+    tmp = os.path.join(ckroot, "sharded")
     parts = os.path.join(tmp, "parts")
     W, A, Bs = cfg["world"], cfg["steps_a"], cfg["steps_b"]
     label = _smi() if dev.type == "cuda" else "cpu"
@@ -7850,17 +8168,7 @@ def run_sharded(dev, seed, cfg, ckroot):
                                          f"{r['implied']}")
                 total[:] += r["launches"]
 
-    # (b) world 4 over gloo, every rank on the one card, host-staged
-    legs_b = [dict(name="ag_1d", comm="allgather", steps=Bs, rows=True, rows_at=[1]),
-              dict(name="ag_2x2", comm="allgather", mesh="2x2", steps=Bs, save=parts,
-                   after=Bs, rows=True),
-              dict(name="restored_4", comm="allgather", mesh="2x2", restore=parts, steps=1,
-                   first=Bs),
-              dict(name="a2a_1d", comm="a2a", steps=Bs, rows=True, rows_at=[1]),
-              dict(name="a2a_2x2", comm="a2a", mesh="2x2", steps=Bs),
-              dict(name="hier_2x2", comm="hier", mesh="2x2", steps=Bs, rows=True, rows_at=[1]),
-              dict(name="bf16_tables", comm="a2a", value_dtype="bfloat16",
-                   steps=cfg["bf16_steps"])]
+    legs_b = _legs_b(cfg, parts)
     # (c) the part files restored at world 2 (the 1-D mesh of the 2x2
     # rescale) over gloo, beside one world-1 process over NCCL that restores
     # them too and then runs (a): the port's Trainer, then
@@ -7872,8 +8180,11 @@ def run_sharded(dev, seed, cfg, ckroot):
     legs_c = [dict(name="restored", restore=parts, rescale_from=[2, 2], rows=True, after=Bs)]
     legs_a = [dict(name="plain", plain=True, steps=A, rows=True),
               dict(name="f32_wire", exchange="float32", steps=A, rows=True),
-              dict(name="bf16_wire", steps=A, rows=True, rows_at=[1, Bs])]
-    procs, db = _start_ranks(dev, W, "gloo", tmp, "b", legs_b, cfg, seed, Bs + 1)
+              dict(name="bf16_wire", steps=A, rows=True, rows_at=[1, Bs]),
+              dict(name="p22_async1", p22="async")]
+    procs, db = early["procs"], early["dir"]
+    with open(early["go"], "w"):
+        pass
     runs = {2: _start_ranks(dev, 2, "gloo", tmp, "c2", legs_c, cfg, seed, Bs + 1, go),
             1: _start_ranks(dev, 1, "nccl" if dev.type == "cuda" else "gloo", tmp, "c1",
                             legs_c + legs_a, cfg, seed, max(A, Bs + 1), go)}
@@ -7892,7 +8203,8 @@ def run_sharded(dev, seed, cfg, ckroot):
     rc = {m: _wait_ranks(procs, d, legs_c + (legs_a if m == 1 else []), cfg["timeout"],
                          f"(c) world {m}") for m, (procs, d) in runs.items()}
     seconds["c+a"] = round(time.perf_counter() - t1, 1)
-    counted(rb, [leg["name"] for leg in legs_b if leg["name"] != "restored_4"])
+    counted(rb, [leg["name"] for leg in legs_b
+                 if leg["name"] != "restored_4" and not leg.get("p22")])
     ra, da = rc[1], runs[1][1]
     counted(ra, ["f32_wire", "bf16_wire"])
 
@@ -7932,7 +8244,7 @@ def run_sharded(dev, seed, cfg, ckroot):
               for r in rb[n])
     if ovf:
         raise AssertionError(f"phase 21 (b): summed a2a_overflow {ovf}")
-    fails = sum(r["insert_fails"] for n in rb for r in rb[n])
+    fails = sum(r["insert_fails"] for n in rb if not n.startswith("p22_") for r in rb[n])
     if fails:
         raise AssertionError(f"phase 21 (b): {fails} failed inserts")
     # against (a)'s bf16-wire world 1 over the same steps: the batch split
@@ -8007,11 +8319,127 @@ def run_sharded(dev, seed, cfg, ckroot):
               f"(mesh {rc[m]['restored'][0]['mesh']}): {n} rows equal per key bit for bit; "
               f"the resumed step's loss {loss!r}, {rel:.3g} relative from world {W}'s "
               f"(another world sums the batch in another order)")
-    legs = {n: (round(r[0]["init_s"], 1), round(r[0]["seconds"], 1))
+    legs = {n: (round(r[0].get("init_s", 0.0), 1), round(r[0]["seconds"], 1))
             for res in (rb, ra) for n, r in res.items()}
-    print(f"phase 21 (sharded engine) took {time.perf_counter() - t0:.1f} s (process sets "
-          f"{seconds}; rank 0's (init, leg) seconds {legs}); launches (#1, #3, #2, #5) over "
-          f"every rank's legs {total.tolist()}")
+    p22_s = sum(res[n][0]["seconds"] for res in (rb, ra) for n in res if n.startswith("p22_"))
+    total += phase22(dev, cfg, rb, ra, db, label, host_label)
+    print(f"phase 21 (sharded engine) took {time.perf_counter() - t0 - p22_s:.1f} s and "
+          f"phase 22 (placement, async stage, ring attention; legs of phase 21's processes) "
+          f"{p22_s:.1f} s (process sets {seconds}; rank 0's (init, leg) seconds {legs}); "
+          f"launches (#1, #3, #2, #5) over every rank's legs {total.tolist()}")
+    return total, p22_s
+
+
+def phase22(dev, cfg, rb, ra, db, label, host_label):
+    """Phase 22's gates and prints from its legs' records (world 4 over
+    gloo in `rb`, world 1 over NCCL in `ra`; rows files under `db`).
+    Returns the (#1, #3, #2, #5) launches of its main paths (the drift
+    trainers and the real-rate async twins), every rank's."""
+    pc = cfg["place"]
+    W = cfg["world"]
+    total = np.zeros(4, np.int64)
+
+    def held(ok, what):
+        if not ok:
+            raise AssertionError(f"phase 22 {what}")
+
+    def launched(r, what):
+        if dev.type == "cuda" and r["launches"] != r["implied"]:
+            raise AssertionError(f"phase 22 {what} rank: launched (#1, #3, #2, #5) "
+                                 f"{r['launches']}, the path implies {r['implied']}")
+        total[:] += r["launches"]
+
+    # (a) the drift: a plan trainer against a uniform one, bit for bit
+    drift = rb["p22_drift"]
+    for r in drift:
+        u, p = r["uniform"], r["plan"]
+        held(u["losses"] == p["losses"], f"(a) rank {r['rank']}: the plan trainer's losses "
+             f"{p['losses']} against the uniform trainer's {u['losses']}")
+        st = p["stats"]
+        held(st["replans"] >= 1 and st["forced_replans"] == 0,
+             f"(a): {st['replans']} replans, {st['forced_replans']} forced (want >= 1, 0)")
+        for ev in p["adoptions"]:
+            held(ev["moved"] == ev["modeled_rows"], f"(a): window {ev['window']} migrated "
+                 f"{ev['moved']} rows, plan_moved_rows says {ev['modeled_rows']}")
+        held(st["migration_rows"] == sum(ev["moved"] for ev in p["adoptions"]),
+             f"(a): migration_rows {st['migration_rows']}")
+        held(p["overflow_after_adoption"] == 0, f"(a): {p['overflow_after_adoption']} ids "
+             "past the a2a budgets after the adoption")
+        launched(u, "(a) uniform")
+        launched(p, "(a) plan")
+    rows = {t: _load_rows([os.path.join(db, f"p22_drift-{t}-rows-{r}.npz") for r in range(W)])
+            for t in ("uniform", "plan")}
+    _, n_rows = _same_shard_rows(rows["plan"], rows["uniform"],
+                                 "phase 22 (a): the plan trainer's rows against the uniform's")
+    p0, u0 = drift[0]["plan"], drift[0]["uniform"]
+    print(f"placement (a): DLRM-DCN {cfg['model']}, world {W} over gloo on one card "
+          f"(host-staged), a2a + lookahead, the drifting stream (zipf {pc['zipf_a']} cycled, "
+          f"one id space, rotating every {pc['rotate_every']} batches), {pc['windows']} "
+          f"windows of {pc['per_window']} steps with maintain() after each, then "
+          f"train_steps(K={pc['K']}): {len(p0['losses'])} losses equal to the uniform "
+          f"trainer's bit for bit; {p0['stats']['replans']} automatic replans, 0 forced; "
+          f"{n_rows} live keys' rows and accumulators equal per key bit for bit; a2a_overflow "
+          f"{p0['a2a_overflow']} in all, 0 after the first adoption ({label})")
+    for t, r in (("uniform", u0), ("plan", p0)):
+        for w, win in enumerate(r["windows"]):
+            print(f"placement (a): {t} window {w}: measured exchange bytes per shard (26 "
+                  f"tables) {win['exchange_bytes']}, max-table imbalance {win['imbalance']}"
+                  + (f", placer {win['placement']}" if win.get("placement") else ""))
+    for ev in p0["adoptions"]:
+        print(f"placement (a): adopted after window {ev['window']}: modeled imbalance "
+              f"{ev['imbalance'][0]} -> {ev['imbalance'][1]}, modeled gain "
+              f"{ev['gain']} bytes/step against {ev['migration_bytes']} migration bytes "
+              f"(amortized in {ev['amortize_steps']} steps), {ev['moved']} rows moved")
+    print(f"phase 22: peak GB a rank (rank 0) drift {drift[0]['peak_gb']}, async "
+          f"{rb['p22_async'][0]['peak_gb']}, ring {rb['p22_ring'][0]['peak_gb']}; world 1 "
+          f"async {ra['p22_async1'][0]['peak_gb']}")
+    print(f"placement (a): rank 0's seconds (init, maintain() calls, in all) uniform "
+          f"{(round(u0['init_s'], 1), round(u0['maintain_s'], 1), round(u0['seconds'], 1))}, "
+          f"plan {(round(p0['init_s'], 1), round(p0['maintain_s'], 1), round(p0['seconds'], 1))}"
+          f" ({host_label})")
+
+    # (b) the async stage at world 4 (gloo) and world 1 (NCCL)
+    for name, res, world in (("p22_async", rb, W), ("p22_async1", ra, 1)):
+        for r in res[name]:
+            rel = [abs(a - b) / abs(b) for a, b in zip(r["lr0"], r["lr0_eval"])]
+            held(max(rel) <= pc["lr0_rtol"], f"(b) world {world}: lr-0 async losses "
+                 f"{r['lr0']} against eval_step on the batch before {r['lr0_eval']}")
+            held(len(set(r["lr0"])) == len(r["lr0"]), f"(b) world {world}: the lr-0 "
+                 "losses repeat: the steps did not consume new batches")
+            w, s1 = r["window"], r["singles"]
+            held(w["losses"] == s1["losses"] and w["digest"] == s1["digest"],
+                 f"(b) world {world}: train_steps_async(K) against K single steps "
+                 f"({w['losses']} against {s1['losses']})")
+            held(all(np.isfinite(w["losses"])), f"(b) world {world}: losses {w['losses']}")
+            launched(w, f"(b) world {world} async steps")
+        r = res[name][0]
+        print(f"async (b): world {world} over {'NCCL' if world == 1 and dev.type == 'cuda' else 'gloo'}: bootstrap + "
+              f"{pc['async_steps']} train_step_async + train_steps_async(K={pc['async_K']}): "
+              f"losses {[round(x, 6) for x in r['window']['losses']]} equal to "
+              f"{pc['async_steps'] + pc['async_K']} single steps bit for bit (rows too); with "
+              f"every lr 0 the async loss at steps 1-{pc['lr0_steps']} within "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(r['lr0'], r['lr0_eval'])):.3g} "
+              f"relative of eval_step on batch t-1 (bound {pc['lr0_rtol']}); seconds "
+              f"{r['window']['seconds']:.1f} ({host_label if world > 1 else label})")
+
+    # (c) ring attention against #8 and #9 on the whole sequence
+    ring = rb["p22_ring"][0]
+    rc = pc["ring"]
+    for tag in ("full", "causal"):
+        for name, (err, measure, tol) in ring[tag]["errs"].items():
+            held(measure <= tol, f"(c) {tag}: the ring's {name} against "
+                 f"{'#8' if name == 'o' else '#9'}: {measure:.3g} over the bound {tol:.3g}")
+    print(f"ring (c): q, k, v {list(rc['shape'])} f32, {ring['masked']:.4f} of the keys masked "
+          f"(sequence tails), world {W} over gloo: the gathered output against kernel #8 and "
+          f"the gradients of sum(o^2) against #9 (flash_attention on the whole sequence, rank "
+          f"0), (max |err|, measure, bound): "
+          f"{ {t: {n: tuple(float(f'{x:.3g}') for x in e) for n, e in ring[t]['errs'].items()} for t in ('full', 'causal')} }")
+    print(f"ring (c): a first forward without gradients (untimed in the rows below) "
+          f"{[round(r['warm_ms'], 1) for r in rb['p22_ring']]} ms per rank")
+    for tag in ("full", "causal"):
+        print(f"ring (c): {tag} ms per forward {[round(r[tag]['fwd_ms'], 1) for r in rb['p22_ring']]}"
+              f", backward {[round(r[tag]['bwd_ms'], 1) for r in rb['p22_ring']]} per rank "
+              f"({host_label})")
     return total
 
 
@@ -8030,7 +8458,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
         multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST,
         serve=SERVE, retrieval=RETR, guard=GUARD, sharded=SHARD):
-    """Phases 3-21 on `dev`. Returns the kernel records, in the order of the
+    """Phases 3-22 on `dev`. Returns the kernel records, in the order of the
     TPU kernels they replace (#1-#9)."""
     t0 = time.perf_counter()
     phase_s, lap = {}, [t0]
@@ -8258,7 +8686,13 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
             torch.cuda.empty_cache()
         done("19")
 
-        gl, _, served = run_guard(dev, seed, guard, ckroot)
+        # phase 21's world-4 ranks start up during phase 20 and wait
+        early = start_sharded(dev, seed, dict(sharded, model=full), ckroot)
+        try:
+            gl, _, served = run_guard(dev, seed, guard, ckroot)
+        except BaseException:
+            stop_ranks(early)
+            raise
         pooled["max_abs_err"] = max(pooled["max_abs_err"], served[2])
         # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
         gather["launches"] += int(gl[0] + gl[1])
@@ -8268,9 +8702,15 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
             torch.cuda.empty_cache()
         done("20")
 
-        _add_sharded(run_sharded(dev, seed, dict(sharded, model=full), ckroot),
-                     gather, scatter)
+        try:
+            sh, p22_s = run_sharded(dev, seed, dict(sharded, model=full), ckroot, early)
+        finally:
+            stop_ranks(early)
+        _add_sharded(sh, gather, scatter)
         done("21")
+        # phase 22 ran as legs of phase 21's processes: its seconds apart
+        phase_s["21"] = round(phase_s["21"] - p22_s, 1)
+        phase_s["22"] = round(p22_s, 1)
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's

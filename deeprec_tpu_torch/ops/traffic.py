@@ -4,10 +4,10 @@
 sweep's, which `RetrievalEngine.sweep_info` does, and the sharded
 exchanges' models: the per-destination a2a budgets and the hierarchical
 budgets that `parallel/sharded.py` compiles its buckets from, and the wire
-bytes the sharded trainer reports (`dedup_stats` `per_shard`). Host
-arithmetic; every number equals the JAX package's. The train-step gather /
-scatter model belongs to ROADMAP queue A item 2, the migration and replan
-models to item 6b."""
+bytes the sharded trainer reports (`dedup_stats` `per_shard`), and the
+replanner's amortization model (`migration_bytes`, `replan_gain_bytes`).
+Host arithmetic; every number equals the JAX package's. The train-step
+gather / scatter model belongs to ROADMAP queue A item 2."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -425,3 +425,27 @@ def flat_exchange_tier_bytes(
             "total_bytes": float((N - 1) * U * row),
         }
     raise ValueError(f"unknown comm {comm!r}")
+
+
+# --------------------------------------------- replanning amortization model
+
+
+def migration_bytes(moved_rows: int, *, row_bytes: float) -> float:
+    """Modeled one-shot cost of migrating `moved_rows` between shards at a
+    plan adoption: `exchange_row_bytes` over the moved rows, the unit of
+    the placement load model, so gain per step and cost share one
+    currency and the amortization horizon is a division."""
+    return float(moved_rows) * float(row_bytes)
+
+
+def replan_gain_bytes(loads_current, loads_candidate) -> float:
+    """Modeled per-step byte gain of adopting a candidate plan: the drop in
+    the MAX-shard exchange load (the straggler bounds the step; the mean
+    load does not move under re-routing)."""
+    import numpy as np
+
+    cur = np.asarray(loads_current, np.float64)
+    cand = np.asarray(loads_candidate, np.float64)
+    if cur.size == 0 or cand.size == 0:
+        return 0.0
+    return float(cur.max() - cand.max())

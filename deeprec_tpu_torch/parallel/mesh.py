@@ -326,6 +326,44 @@ def all_to_all_uneven(mesh: Mesh, x: torch.Tensor, send_counts: Sequence[int],
     return out, counts
 
 
+def _ppermute(mesh: Mesh, x: torch.Tensor, axis: AxisSpec, shift: int) -> torch.Tensor:
+    group, n, me = _resolve(mesh, axis)
+    if _dist() is None or n == 1:
+        return x.clone()
+    dist = _dist()
+    flat = x.reshape(-1)
+    send = [0] * n
+    recv = [0] * n
+    send[(me + shift) % n] = recv[(me - shift) % n] = flat.numel()
+    out = _run(mesh, group, flat, flat.shape,
+               lambda out, inp: dist.all_to_all_single(
+                   out, inp, output_split_sizes=recv, input_split_sizes=send, group=group))
+    return out.view(x.shape)
+
+
+class _PPermute(torch.autograd.Function):
+    """The ring rotation; its backward rotates the gradient the other way."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _ppermute(mesh, x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(ctx.mesh, g.contiguous(), ctx.axis, -ctx.shift), None, None, None
+
+
+def ppermute(mesh: Mesh, x: torch.Tensor, axis: AxisSpec, shift: int = 1) -> torch.Tensor:
+    """The ring rotation of the JAX `lax.ppermute` with the permutation
+    i -> (i + shift) % n along `axis`: each position sends its `x` to
+    position (i + shift) % n and receives position (i - shift) % n's (same
+    shape and dtype everywhere). Differentiable: the gradient takes the
+    reverse rotation. One all-to-all with a single nonzero split each way,
+    on the group's transport as the other collectives."""
+    return _PPermute.apply(x, mesh, axis, int(shift))
+
+
 def rank_order_sum(parts: torch.Tensor) -> torch.Tensor:
     """parts [n, ...] summed over the first axis in index order."""
     acc = parts[0]

@@ -160,7 +160,9 @@ class ShardedTable:
       * comm="allgather": all-gather ids, reduce-scatter embeddings. Exact
         for any skew; U·D·(N−1) rows a position per direction.
       * comm="a2a": ids bucketed by owner under a per-destination budget
-        (`ops/traffic.py` `a2a_dest_budgets`), one all-to-all each way.
+        (`ops/traffic.py` `a2a_dest_budgets`; under a placement plan each
+        destination also budgets the hot keys the plan routes to it,
+        `plan_dest_hot`), one all-to-all each way.
         Ids past a bucket serve the default for that step and count into
         `a2a_overflow`.
       * comm="hier": the two-tier exchange of a `make_mesh_2d` mesh: ids
@@ -192,6 +194,12 @@ class ShardedTable:
         if comm == "hier" and self.intra is None:
             raise ValueError("comm='hier' needs a 2-D mesh (make_mesh_2d), got axes "
                              f"{mesh.axis_names}")
+        # the active plan's per-destination hot-key arrivals ([N] ints;
+        # None = the uniform hash) and how many plan hot keys leave the
+        # hash-spread tail: inputs of the per-destination budgets, set by
+        # ShardedTrainer.update_placement at an adoption
+        self.plan_dest_hot = None
+        self.plan_hot_count = 0
         # the budgets the last routed call used (measured side of the
         # modeled budgets)
         self.last_a2a_unique = None
@@ -361,7 +369,8 @@ class ShardedTable:
 
     def _a2a_budget(self, U: int) -> int:
         budgets = T_.a2a_dest_budgets(unique=U, num_shards=self.num_shards,
-                                      slack=self.a2a_slack)
+                                      slack=self.a2a_slack, dest_hot=self.plan_dest_hot,
+                                      hot_count=self.plan_hot_count)
         return self._record_budget(U, budgets)
 
     def _record_budget(self, U: int, budgets) -> int:
@@ -420,7 +429,9 @@ class ShardedTable:
     def _hier_budget(self, U: int) -> int:
         budgets = T_.hier_dest_budgets(unique=U, intra=self.intra, inter=self.inter,
                                        slack=self.a2a_slack,
-                                       group_factor=self.hier_group_factor)
+                                       group_factor=self.hier_group_factor,
+                                       dest_hot=self.plan_dest_hot,
+                                       hot_count=self.plan_hot_count)
         return self._record_budget(U, budgets)
 
     def _route_hier(self, ids, pad_value, unique_size, plan=None) -> ShardedRoute:

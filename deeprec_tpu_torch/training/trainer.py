@@ -447,23 +447,34 @@ class Trainer:
         out: Dict[str, Dict[str, float]] = {}
         for bname, b in self.bundles.items():
             ts = state.tables[bname]
+            per_shard = self._per_shard_stats(b, ts)
             for k, f in enumerate(b.features):
                 uniq, ids, ovf = self._bundle_dedup_counters(
                     ts, k if b.stacked else None)
-                out[fcol.resolve_table_name(f)] = {
+                rec = out[fcol.resolve_table_name(f)] = {
                     "unique_fraction": round((uniq + ovf) / ids, 4) if ids else None,
                     "dedup_overflow": ovf,
                 }
+                if per_shard is not None:
+                    rec["per_shard"] = per_shard[k if b.stacked else 0]
                 if not b.stacked:
                     break  # a shared table holds one merged counter
         self._publish_dedup_obs(out)
         return out
 
+    def _per_shard_stats(self, b: Bundle, ts: TableState):
+        """Owner load per mesh position of each member of a bundle, or None
+        without a shard axis (the sharded trainer overrides)."""
+        return None
+
     @staticmethod
     def _publish_dedup_obs(stats: Dict[str, Dict]) -> None:
         """The dedup telemetry into the obs plane: per-table unique-fraction
-        and overflow gauges, from the host ints `dedup_stats` already read.
-        The table label is a bounded set."""
+        and overflow gauges, from the host ints `dedup_stats` already read,
+        and for a sharded trainer the per-shard exchange bytes
+        (`deeprec_shard_exchange_bytes{table,shard}`) and their max / mean
+        imbalance (`deeprec_shard_imbalance{table}`, whose windowed slope
+        the replan trigger reads). The labels are bounded sets."""
         from deeprec_tpu_torch.obs import metrics as obs_metrics
 
         if not obs_metrics.metrics_enabled():
@@ -478,6 +489,16 @@ class Trainer:
             reg.gauge("deeprec_dedup_overflow",
                       "ids past the unique budget since last reset",
                       lab).set(rec.get("dedup_overflow") or 0)
+            ps = rec.get("per_shard")
+            if not ps:
+                continue
+            reg.gauge("deeprec_shard_imbalance",
+                      "max/mean per-shard exchange-bytes imbalance",
+                      lab).set(ps["imbalance"])
+            for i, xb in enumerate(ps.get("exchange_bytes", ())):
+                reg.gauge("deeprec_shard_exchange_bytes",
+                          "modeled exchange bytes per mesh position",
+                          {"table": tname, "shard": str(i)}).set(xb)
 
     def update_budgets(self, state: TrainState, *, slack: float = 1.5,
                        ema: float = 0.5
@@ -560,10 +581,14 @@ class Trainer:
         first, before occupancy and growth read the state, and counted as
         `rows_reinit` (and into `deeprec_guard_rows_reinit{table}`).
 
-        The placement plan raises NotImplementedError: slice 18 (ROADMAP
-        queue A item 6b) ports it."""
-        self._check_maintain_ported()
+        Under `placement="plan"` (the sharded trainer) the drift gate
+        `maybe_replan` runs first, while the window's owner counters are
+        still unreset, and each bundle's report carries its `placement`
+        record."""
         step = int(state.step) if step is None else int(step)
+        placement_report = {}
+        if getattr(self, "placement", "uniform") == "plan":
+            state, placement_report = self.maybe_replan(state)
         state, dedup_report = self.update_budgets(state)
         total_bytes = (sum(self._state_bytes(ts) for ts in state.tables.values())
                        if hbm_budget_bytes else 0)
@@ -581,6 +606,8 @@ class Trainer:
             if rows_reinit:
                 rep["rows_reinit"] = rows_reinit
             rep.update(dedup_report.get(bname, {}))
+            if bname in placement_report:
+                rep["placement"] = placement_report[bname]
             if _tiered(b):
                 with phase_scope("tier_sync"):
                     ts, demoted, promoted = self._tier_sync(b, ts, step,
@@ -615,12 +642,15 @@ class Trainer:
         return (TrainState(step=state.step, tables=tables, dense=state.dense,
                            opt_state=state.opt_state), report)
 
-    def _check_maintain_ported(self) -> None:
-        """Raise for the parts of `maintain` a later slice ports."""
-        if getattr(self, "placement", "uniform") == "plan":
-            raise NotImplementedError(
-                "maintain: placement='plan' waits for slice 18 (ROADMAP queue A "
-                "item 6b)")
+    def update_placement(self, state: TrainState, **kw):
+        """Recompute the skew-aware shard placement and migrate rows: a
+        no-op without a shard axis (the sharded trainer implements it)."""
+        return state, {}
+
+    def maybe_replan(self, state: TrainState):
+        """The drift-driven replan gate: a no-op without a shard axis (the
+        sharded trainer implements it)."""
+        return state, {}
 
     def _bundle_fill(self, b: Bundle, ts: TableState) -> Tuple[int, List[int]]:
         """(the fullest member's live keys, every member's insert_fails):

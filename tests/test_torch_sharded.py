@@ -386,13 +386,20 @@ def test_losses_and_rows_match_jax_at_2(two, comm):
 
 
 def test_placement_plan_raises_naming_slice_18():
+    """Slice 18 ported placement="plan" (tests/test_torch_placement.py): it
+    builds, routing by the uniform hash until a plan is adopted, and only
+    an unknown placement still raises."""
     from deeprec_tpu_torch.models import DLRMDCN
     from deeprec_tpu_torch.optim import Adagrad
     from deeprec_tpu_torch.parallel import ShardedTrainer, make_mesh
 
-    with pytest.raises(NotImplementedError, match="slice 18"):
+    tr = ShardedTrainer(DLRMDCN(**KW), Adagrad(lr=LR), mesh=make_mesh(device="cpu"),
+                        placement="plan")
+    assert tr.placement == "plan" and tr._plans == {}
+    assert all(tr.routing_fingerprint(b) == "uniform" for b in tr.bundles)
+    with pytest.raises(ValueError, match="placement"):
         ShardedTrainer(DLRMDCN(**KW), Adagrad(lr=LR), mesh=make_mesh(device="cpu"),
-                       placement="plan")
+                       placement="skewed")
 
 
 def test_world_of_one_without_a_process_group_is_the_trainer():

@@ -393,7 +393,10 @@ def test_maintain_grows_on_overfill_like_jax():
 @pytest.mark.parametrize("case", ["hbm_budget_bytes", "tier_async", "storage",
                                   "placement", "sentinel"])
 def test_maintain_unported_paths_raise(case):
-    """placement='plan' still raises, naming its ROADMAP item. The
+    """Every path that once raised now runs. placement='plan' on the
+    single-device Trainer runs the JAX no-op `maybe_replan` before the
+    budgets (the sharded trainer's placer is held in
+    tests/test_torch_placement.py) and adds no `placement` record. The
     multi-tier paths and the sentinel's row hygiene, ported since
     (tests/test_torch_multi_tier.py, tests/test_torch_tier_paging.py and
     tests/test_torch_guard.py hold them against the JAX package), now run: a
@@ -415,12 +418,12 @@ def test_maintain_unported_paths_raise(case):
 
         trainer.sentinel = SentinelConfig(row_evict_quantile=0.9)
     if case == "placement":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            trainer.maintain(st, **kw)
-        return
+        for out, rep in (trainer.maybe_replan(st), trainer.update_placement(st, force=True)):
+            assert out is st and rep == {}
     st, rep = trainer.maintain(st, **kw)
     for bname, r in rep.items():
         assert r["capacity"] == 64 and "grew_to" not in r and "auto_tiered" not in r
+        assert "placement" not in r
         assert "rows_reinit" not in r
         if tiered:
             assert (r["demoted"], r["promoted"]) == (0, 0)

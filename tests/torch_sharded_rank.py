@@ -31,11 +31,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _model(spec, job):
+    from deeprec_tpu_torch import config
     from deeprec_tpu_torch.features import SparseFeature
-    from deeprec_tpu_torch.models import DLRMDCN
+    from deeprec_tpu_torch.models import DLRMDCN, WDL
 
-    model = DLRMDCN(**spec["model"])
+    kw = dict(spec["model"], **job.get("model_kw", {}))
+    model = (WDL if spec.get("model_name") == "wdl" else DLRMDCN)(**kw)
     over = {k: job[k] for k in ("value_dtype", "exchange_dtype") if job.get(k)}
+    if job.get("cbf"):
+        over["ev"] = config.EmbeddingVariableOption(cbf_filter=config.CBFFilter(**job["cbf"]))
     if over:
         model.features = [
             dataclasses.replace(f, table=dataclasses.replace(f.table, **over))
@@ -203,6 +207,299 @@ def collectives_job(job, rank):
     np.savez(job["out"] + f".{rank}.npz", **out)
 
 
+
+
+# ----------------------------------------------- placement, async, ring
+
+
+def _plans_json(trainer):
+    """{bundle: [[offset, hot keys, hot owners] per member]} of the active
+    plans."""
+    return json.dumps({b: [[p.offset, list(p.hot_keys), list(p.hot_owners)] for p in bp.plans]
+                       for b, bp in trainer._plans.items()})
+
+
+def _gauges():
+    """{metric: {labels: value}} of the shard gauges in this process."""
+    from deeprec_tpu_torch.obs import metrics as OM
+
+    snap = OM.default_registry().snapshot()["metrics"]
+    out = {}
+    for name in ("deeprec_shard_imbalance", "deeprec_shard_exchange_bytes"):
+        out[name] = {json.dumps(sorted(s["labels"].items())): s["value"]
+                     for s in snap.get(name, {}).get("series", [])}
+    return out
+
+
+def _sharded(spec, job, rank, device, placement="uniform", cls=None, **over):
+    from deeprec_tpu_torch.optim import Adagrad, adam
+    from deeprec_tpu_torch.parallel import ShardedTrainer
+    from deeprec_tpu_torch.parallel import placement as P
+
+    cls = cls or ShardedTrainer
+    opt = dict(comm=job.get("comm", "allgather"), pipeline_mode=job.get("mode", "off"),
+               placement=placement, placement_hot_budget=job.get("hot_budget", 64),
+               replan=P.ReplanConfig(**job["replan"]) if job.get("replan") else None)
+    opt.update(over)
+    return cls(_model(spec, job), Adagrad(lr=job.get("lr", spec["lr"])),
+               adam(job.get("dense_lr", spec["dense_lr"])), mesh=_mesh(job, device), **opt)
+
+
+def _start(trainer, job, rank):
+    if job.get("state"):
+        return load_state(trainer, job["state"], trainer.mesh.index)
+    return trainer.init(job.get("seed", 0))
+
+
+def _pre(prefix, d):
+    return {f"{prefix}{k}": v for k, v in d.items()}
+
+
+def placement_job(spec, job, rank, device, batches):
+    """The placement scenarios of tests/test_torch_placement.py:
+    force (3 steps from a carried state, update_placement(force=True), 3
+    more), overflow (a migration one rank cannot hold), drift (a plan and a
+    uniform trainer over the drifting stream with maintain() after each
+    window of 2, then one train_steps window of 3), amortize (a horizon of 0
+    defers, a longer one adopts) and ckpt (a part-file save under a
+    drift-made plan restored into uniform, into another plan and into the
+    same plan)."""
+    from deeprec_tpu_torch.parallel import placement as P
+
+    out = {}
+    sc = job["scenario"]
+    if sc == "force":
+        tr = _sharded(spec, job, rank, device, "plan")
+        st = _start(tr, job, rank)
+        losses = []
+        for i in range(3):
+            st, m = tr.train_step(st, batches[i])
+            losses.append(float(m["loss"]))
+        stats = tr.dedup_stats(st)
+        out["gauges"] = np.asarray(json.dumps(_gauges()))
+        out["per_shard"] = np.asarray(json.dumps({t: r.get("per_shard") for t, r in
+                                                  stats.items() if t != "__placement__"}))
+        out.update(_pre("pre.", _rows(tr, st)))
+        st, rep = tr.update_placement(st, force=True)
+        out["report"] = np.asarray(json.dumps(rep))
+        out["last"] = np.asarray(json.dumps(tr.last_placement))
+        out["plans"] = np.asarray(_plans_json(tr))
+        out["stats"] = np.asarray(json.dumps(tr._replan_stats))
+        out.update(_pre("post.", _rows(tr, st)))
+        # the device route of every live key against the host mirror
+        for bname, bp in tr._plans.items():
+            b = tr.bundles[bname]
+            ks = torch.as_tensor(out[f"post.r:{bname}:key"])
+            mem = out[f"post.r:{bname}:member"]
+            dev_owner = np.concatenate([
+                P.plan_owner(ks[mem == t][None], tr.num_shards,
+                             {k: v[t] if b.stacked else v
+                              for k, v in tr._plan_leaves[bname].items()})[0].numpy()
+                for t in range(b.num_tables)])
+            host_owner = np.concatenate([bp.member(t).owner_np(ks[mem == t].numpy())
+                                         for t in range(b.num_tables)])
+            out[f"owner_dev:{bname}"], out[f"owner_host:{bname}"] = dev_owner, host_owner
+        for i in range(3, 6):
+            st, m = tr.train_step(st, batches[i])
+            losses.append(float(m["loss"]))
+        out["losses"] = np.asarray(losses)
+        out["budgets"] = np.asarray(json.dumps({b: np.asarray(sh.last_a2a_budgets).tolist()
+                                                for b, sh in tr.sharded.items()}))
+        out["a2a_overflow_total"] = np.asarray(tr.a2a_overflow(st))
+    elif sc == "overflow":
+        tr = _sharded(spec, job, rank, device, "plan")
+        st = _start(tr, job, rank)
+        for i in range(3):
+            st, _ = tr.train_step(st, batches[i])
+        real = P.build_plans
+
+        def all_to_zero(num_shards, members, **kw):
+            """The placer's plans, with every live key routed to shard 0."""
+            plans, rep = real(num_shards, members, **kw)
+            for m in members:
+                plans[(m.bundle, m.member)] = P.ShardPlan(
+                    num_shards=num_shards, sentinel=m.sentinel,
+                    hot_keys=tuple(int(k) for k in m.keys),
+                    hot_owners=(0,) * len(m.keys))
+            return plans, rep
+
+        out.update(_pre("pre.", _rows(tr, st)))
+        P.build_plans = all_to_zero
+        try:
+            st, rep = tr.update_placement(st, force=True)
+        finally:
+            P.build_plans = real
+        out["report"] = np.asarray(json.dumps(rep))
+        out["plans"] = np.asarray(_plans_json(tr))
+        out["leaves"] = np.asarray(len(tr._plan_leaves))
+        out["stats"] = np.asarray(json.dumps(tr._replan_stats))
+        out.update(_pre("post.", _rows(tr, st)))
+        st, m = tr.train_step(st, batches[3])
+        out["after_loss"] = np.asarray(float(m["loss"]))
+    elif sc == "drift":
+        tu = _sharded(spec, job, rank, device, "uniform")
+        tp = _sharded(spec, job, rank, device, "plan")
+        su, sp = tu.init(0), tp.init(0)
+        lu, lp, i = [], [], 0
+        reps = []
+        for w in range(job["windows"]):
+            for _ in range(job["per_window"]):
+                su, mu = tu.train_step(su, batches[i])
+                sp, mp = tp.train_step(sp, batches[i])
+                lu.append(float(mu["loss"]))
+                lp.append(float(mp["loss"]))
+                i += 1
+            sp, rep = tp.maintain(sp)
+            su, _ = tu.maintain(su)
+            reps.append({b: r.get("placement") for b, r in rep.items()})
+        win = batches[i:i + 3]
+        su, mu = tu.train_steps(su, win)
+        sp, mp = tp.train_steps(sp, win)
+        lu += mu["loss"].tolist()
+        lp += mp["loss"].tolist()
+        out["losses_u"], out["losses_p"] = np.asarray(lu), np.asarray(lp)
+        out["reports"] = np.asarray(json.dumps(reps))
+        out["stats"] = np.asarray(json.dumps(tp.dedup_stats(sp)["__placement__"]))
+        out["a2a_overflow_total"] = np.asarray(tp.a2a_overflow(sp))
+        out.update(_pre("u.", _rows(tu, su)))
+        out.update(_pre("p.", _rows(tp, sp)))
+    elif sc == "amortize":
+        tr = _sharded(spec, job, rank, device, "plan")
+        st = tr.init(0)
+        for i in range(3):
+            st, _ = tr.train_step(st, batches[i])
+        st, rep0 = tr.update_placement(st, horizon_steps=0)
+        last0 = dict(tr.last_placement)
+        stats0 = dict(tr._replan_stats)
+        for i in range(3, 5):
+            st, _ = tr.train_step(st, batches[i])
+        st, rep1 = tr.update_placement(st, horizon_steps=last0["amortize_steps"] * 4 + 4)
+        out["reports"] = np.asarray(json.dumps([rep0, rep1]))
+        out["last"] = np.asarray(json.dumps([last0, tr.last_placement]))
+        out["stats"] = np.asarray(json.dumps([stats0, tr._replan_stats]))
+    elif sc == "ckpt":
+        from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+
+        tr = _sharded(spec, job, rank, device, "plan")
+        st = tr.init(0)
+        for i in range(job["steps"]):
+            st, _ = tr.train_step(st, batches[i])
+            if (i + 1) % 2 == 0:
+                st, _ = tr.maintain(st)
+        if not tr._plans:  # the drift made no plan: place once
+            st, _ = tr.update_placement(st, force=True)
+        st, _ = CheckpointManager(job["save"], tr, sharded_io=True).save(st)
+        out.update(_pre("saved.", _rows(tr, st)))
+        out["saved.fp"] = np.asarray(json.dumps({b: tr.routing_fingerprint(b) for b in tr._plans}))
+        for b, ts in st.tables.items():
+            out[f"saved.bloom:{b}"] = ts.bloom.cpu().numpy().copy()
+        nxt = batches[job["steps"]]
+        st, m = tr.train_step(st, nxt)
+        out["next_loss"] = np.asarray(float(m["loss"]))
+        plan_a = dict(tr._plans)
+        for tag in ("uniform", "planB", "planA"):
+            rt = _sharded(spec, job, rank, device, "uniform" if tag == "uniform" else "plan")
+            if tag == "planB":
+                for b, bp in plan_a.items():
+                    rt._set_plan(b, P.BundlePlan(tuple(
+                        dataclasses.replace(p, offset=(p.offset + 1) % p.num_shards,
+                                            hot_keys=(), hot_owners=()) for p in bp.plans)))
+            elif tag == "planA":
+                for b, bp in plan_a.items():
+                    rt._set_plan(b, bp)
+            rs = CheckpointManager(job["save"], rt).restore()
+            out.update(_pre(f"{tag}.", _rows(rt, rs)))
+            out[f"{tag}.fp"] = np.asarray(json.dumps({b: rt.routing_fingerprint(b)
+                                                      for b in rt.bundles}))
+            for b, ts in rs.tables.items():
+                out[f"{tag}.bloom:{b}"] = ts.bloom.cpu().numpy().copy()
+                # a sketch rebuilt from this shard's restored rows
+                from deeprec_tpu_torch.embedding import filters
+                from deeprec_tpu_torch.embedding.table import META_FREQ, empty_key
+
+                cbf = rt.bundles[b].table.cfg.ev.cbf_filter
+                rebuilt = torch.zeros_like(ts.bloom)
+                for t in range(ts.keys.shape[0]):
+                    occ = ts.keys[t] != empty_key(rt.bundles[b].table.cfg)
+                    filters.cbf_add(cbf, rebuilt[t:t + 1], ts.keys[t][occ][None],
+                                    ts.meta[t, META_FREQ][occ][None])
+                out[f"{tag}.rebuilt:{b}"] = rebuilt.cpu().numpy()
+            if tag == "planA":
+                rs, m = rt.train_step(rs, nxt)
+                out["planA.next_loss"] = np.asarray(float(m["loss"]))
+    np.savez(job["out"] + f".{rank}.npz", **out)
+
+
+def async_job(spec, job, rank, device, batches):
+    """`AsyncShardedTrainer`: `bootstrap` on batch 0, then `steps` single
+    async steps (batches 1..) and, from a second trainer on the same
+    start, the same steps as one `train_steps_async` window; with lr0 the
+    sync trainer's eval losses of batches 0.. after the same lookups."""
+    from deeprec_tpu_torch.parallel import AsyncShardedTrainer
+
+    out = {}
+    n = job["steps"]
+    tr = _sharded(spec, job, rank, device, cls=AsyncShardedTrainer)
+    st = _start(tr, job, rank)
+    ast = tr.bootstrap(st, batches[0])
+    losses = []
+    for t in range(1, n + 1):
+        ast, m = tr.train_step_async(ast, batches[t])
+        losses.append(float(m["loss"]))
+    out["losses"] = np.asarray(losses)
+    out.update(_rows(tr, ast.inner))
+    for name, t in ast.inner.dense.items():
+        out[f"d:{name}"] = t.detach().cpu().numpy().copy()
+    if job.get("window"):
+        tw = _sharded(spec, job, rank, device, cls=AsyncShardedTrainer)
+        aw = tw.bootstrap(_start(tw, job, rank), batches[0])
+        aw, m = tw.train_steps_async(aw, batches[1:n + 1])
+        out["window_losses"] = m["loss"].numpy()
+        out.update(_pre("w.", _rows(tw, aw.inner)))
+        for name, t in aw.inner.dense.items():
+            out[f"w.d:{name}"] = t.detach().cpu().numpy().copy()
+    if job.get("sync_eval"):  # lr 0: the sync trainer after t-1 steps evaluates batch t-1
+        ts_ = _sharded(spec, job, rank, device)
+        ss = _start(ts_, job, rank)
+        ev = []
+        for t in range(1, n + 1):
+            ss, _ = ts_.train_step(ss, batches[t - 1])
+            loss, _ = ts_.eval_step(ss, batches[t - 1])
+            ev.append(float(loss))
+        out["sync_eval"] = np.asarray(ev)
+    np.savez(job["out"] + f".{rank}.npz", **out)
+
+
+def ring_job(spec, job, rank, device, batches):
+    """`ring_attention_sharded` on the global q, k, v, mask of job["inputs"]
+    (an .npz), causal or not: the output, the gradients of sum(o^2), and
+    `ppermute` forward and backward on a rank-stamped tensor."""
+    from deeprec_tpu_torch.parallel import (
+        make_mesh, mesh_batch_axes, ppermute, ring_attention_sharded)
+
+    mesh = make_mesh(device=device)
+    z = np.load(job["inputs"])
+    out = {}
+    for causal in job.get("causal", (False, True)):
+        grads = job.get("grads", True)
+        q, k, v = (torch.tensor(z[n], requires_grad=grads) for n in ("q", "k", "v"))
+        o = ring_attention_sharded(mesh, q, k, v, torch.as_tensor(z["mask"]), causal=causal)
+        tag = "causal" if causal else "full"
+        out[f"{tag}:o"] = o.detach().numpy()
+        if grads:
+            (o ** 2).sum().backward()
+            for n, x in (("q", q), ("k", k), ("v", v)):
+                out[f"{tag}:d{n}"] = x.grad.numpy()
+    x = torch.full((3,), float(mesh.index), requires_grad=True)
+    y = ppermute(mesh, x, mesh_batch_axes(mesh), shift=1)
+    (y * torch.arange(1.0, 4.0) * (mesh.index + 1)).sum().backward()
+    out["pp:y"], out["pp:grad"] = y.detach().numpy(), x.grad.numpy()
+    np.savez(job["out"] + f".{rank}.npz", **out)
+
+
+JOBS = {"placement": placement_job, "async": async_job, "ring": ring_job}
+
+
 def spawn(tmp_path, world, jobs, tag, batches=None, timeout=240, **spec):
     """Run `jobs` on `world` gloo ranks, each a process running this file,
     meeting through a file:// rendezvous under tmp_path. Returns {job name:
@@ -256,6 +553,8 @@ def main():
         for job in spec["jobs"]:
             if job.get("kind") == "collectives":
                 collectives_job(job, rank)
+            elif job.get("kind") in JOBS:
+                JOBS[job["kind"]](spec, job, rank, device, batches)
             else:
                 run_job(spec, job, rank, device, batches)
             dist.barrier()
