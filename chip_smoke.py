@@ -367,6 +367,28 @@ the seconds of every phase are printed at the end):
      8192, 8] f32 with the sequence tails masked, causal and not, its output
      against kernel #8 and its gradients of sum(o^2) against #9 on the whole
      sequence (phase 10's tolerances), its ms per forward and backward.
+ 23. multi-tier tables under the sharded trainer (TIERS23), as further legs
+     of phase 21's processes at FULL's widths with a global capacity of
+     2^11 a table, which the windows' ids overfill: (a) world 4 over gloo,
+     hbm_dram tables, windows of 3, 1 and 1 steps with maintain() after
+     each: before each maintain every rank copies its shard, then syncs a
+     one-device MultiTierTable per member over the copy at the same step:
+     device rows, freq, version, accumulators and the host-store export
+     per key bit for bit; the same #3 / #5 launches as that sync; every
+     rank's report equal, `demoted` the sum over the ranks, the first
+     maintain demoting on every rank and a later one promoting; finite
+     losses; (b) world 1 over NCCL, the tiered ShardedTrainer against the
+     tiered Trainer over windows of 3, 1, 1 and 1 steps (the third maintain
+     tier_async=True): losses, rows per key, reports and host stores bit
+     for bit (f32 wire); (c) world 4, plain tables, maintain(hbm_budget_bytes=
+     the whole mesh's table bytes): every rank auto-tiers at its capacity
+     with demoted > 0, the next maintain at that budget grows and demotes
+     nothing (it may heal chains a rebuild left failed inserts in); (d)
+     save_async of part files at world 4 is synchronous (`last_save["async"]`
+     False) and restores what save restores, per key; at world 1
+     (sharded_io=True) it writes on the writer thread; (e) trace_guard:
+     the builds and first loads of `build_all`, and no build and no load
+     in (a)'s steady-state windows or in the training phase's timed steps.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -1413,16 +1435,24 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
         if not np.array_equal(size, want):
             raise AssertionError(f"{bname}: table sizes {size}, distinct ids {want}")
 
+    from deeprec_tpu_torch.analysis import trace_guard
+
     _sync(dev)
     t0 = time.perf_counter()
-    for i in range(cfg["checked"], cfg["checked"] + cfg["timed"]):
-        state, m = trainer.train_step(state, staged[i])
-    _sync(dev)
+    # phase 23 (e): the steady-state steps build and load no kernel library
+    with trace_guard(max_compiles=0, note="the training phase's timed steps") as guard:
+        for i in range(cfg["checked"], cfg["checked"] + cfg["timed"]):
+            state, m = trainer.train_step(state, staged[i])
+        _sync(dev)
     timed_s = time.perf_counter() - t0
+    if guard.traces:
+        raise AssertionError(f"the training phase's timed steps loaded {guard.traces} "
+                             "kernel libraries")
     losses.append(float(m["loss"]))
     stats = {
         "init_s": init_s, "losses": losses, "launches": launches,
         "per_step": per_step, "probe_syncs_per_step": probe_syncs,
+        "guard": (guard.compiles, guard.traces),
         "untouched_rows_checked": untouched,
         "examples_per_s": cfg["timed"] * cfg["batch"] / timed_s,
         "step_ms": timed_s / cfg["timed"] * 1e3,
@@ -1551,7 +1581,8 @@ def run_training(dev, full, small, ckroot, seed, cfg):
           f"step {cfg['checked']} {losses[cfg['checked'] - 1]:.6f}, step "
           f"{cfg['checked'] + cfg['timed']} {losses[-1]:.6f}; peak device memory "
           f"{st['peak_gb']} GB; probe loop {st['probe_syncs_per_step']:.1f} host "
-          f"syncs per step")
+          f"syncs per step; trace_guard(max_compiles=0) over the timed steps: "
+          f"{st['guard'][0]} builds, {st['guard'][1]} library loads")
     if "profile" in st:
         print_train_profile(f"train steps of batch {cfg['batch']}", cfg["profiled"],
                             st["profile"], st["step_ms"])
@@ -7544,9 +7575,16 @@ PLACE = dict(zipf_a=(1.6, 1.9, 2.2, 2.5), rotate_every=4, windows=4, per_window=
              ring=dict(shape=(32, 4, 8192, 8), masked=0.05))
 
 
+# Phase 23, the tiers under the sharded trainer, as legs of the
+# same process sets (`_tiers_leg`, `_tiers1_leg`, `_budget_leg`).
+TIERS23 = dict(capacity=1 << 11, windows=(3, 1, 1), windows1=(3, 1, 1, 1), async_at=2,
+               budget_steps=3)
+
+
 SHARD = dict(batch=2048, vocab=1_000_000, lr=0.05, dense_lr=1e-3, steps_a=4, steps_b=3,
              bf16_steps=2, world=4, loss_rtol=1e-4, bf16_wire_rtol=1e-3,
-             bf16_wire_atol=1e-3, update_rtol=0.1, timeout=900, place=PLACE)
+             bf16_wire_atol=1e-3, update_rtol=0.1, timeout=900, place=PLACE,
+             tiers=TIERS23)
 
 
 def _shard_model(cfg, seed, value_dtype=None, exchange=None):
@@ -7936,6 +7974,257 @@ def _ring_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
 P22_LEGS = {"drift": _drift_leg, "async": _async_leg, "ring": _ring_leg}
 
 
+# ------------------------------------------------------------ phase 23
+
+
+def _tier_model(cfg, seed, tiered=True, scale=1):
+    """Phase 21's DLRM-DCN with the f32 wire at TIERS23's capacity (times
+    `scale`: a restore target with room, where probe chains of a table at
+    the low watermark could drop a key), its tables hbm_dram (tiered) or on
+    the device only."""
+    from deeprec_tpu_torch import config
+
+    over = dict(capacity=cfg["tiers"]["capacity"] * scale)
+    if tiered:
+        over["ev"] = config.EmbeddingVariableOption(
+            storage=config.StorageOption(storage_type="hbm_dram"))
+    return _retable(_shard_model(cfg, seed, exchange="float32"), **over)
+
+
+def _host_export(mt):
+    """A tier's host store sorted by key: keys, packed rows, freqs, versions."""
+    k, v, f, ver = mt.host.export()
+    o = np.argsort(k, kind="stable")
+    return k[o], v[o], f[o], ver[o]
+
+
+def _exports_digest(trainer) -> str:
+    """A digest of every member tier's host store, in member order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for bname, b in trainer.bundles.items():
+        for k in range(b.num_tables):
+            mt = trainer._tiers.get((bname, trainer._tier_index(b, k)))
+            if mt is None or mt.host is None:
+                h.update(b"-")
+                continue
+            mt.join()  # an overlapped round's stores, once it wrote them
+            for a in _host_export(mt):
+                h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _ints(counts):
+    """Launch counts as plain ints (for the records' JSON)."""
+    return [int(x) for x in np.asarray(counts)]
+
+
+def _tiers_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
+    """Phase 23 (a), (d) at world 4 and (e) on one rank: a tiered
+    ShardedTrainer over the windows, maintain() after each, every maintain
+    held against one-device MultiTierTables synced over a copy of this
+    rank's shard at the same step; then part-file saves, synchronous and
+    async, each restored into a fresh trainer."""
+    import types
+
+    from deeprec_tpu_torch.analysis import trace_guard
+    from deeprec_tpu_torch.embedding.multi_tier import MultiTierTable
+    from deeprec_tpu_torch.embedding.table import member_view
+    from deeprec_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import _put_member
+
+    tc = cfg["tiers"]
+    wins = tc["windows"]
+    batches = _shard_batches(cfg, seed + 3, sum(wins))
+    t0 = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    tr = ShardedTrainer(_tier_model(cfg, seed), *opt(), mesh=mesh)
+    st = tr.init()
+    refs = {}  # (bundle, member) -> the one-device MultiTierTable
+    losses, reports, windows, guards, i = [], [], [], [], 0
+    maint = np.zeros(4, np.int64)
+    cmp_l = np.zeros(4, np.int64)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    _zero_row_counts()
+    for w, n in enumerate(wins):
+        with trace_guard(max_compiles=None if w == 0 else 0, note="phase 23 (a)") as g:
+            for _ in range(n):
+                st, m = tr.train_step(st, batches[i])
+                losses.append(float(m["loss"]))
+                i += 1
+        if w:  # after the first window every kernel is built and loaded
+            guards.append([g.compiles, g.traces])
+        c0 = np.asarray(_rank_launches())
+        copy_ = {b: _copy_table_state(ts, dev) for b, ts in st.tables.items()}
+        c1 = np.asarray(_rank_launches())
+        step = int(st.step)
+        t1 = time.perf_counter()
+        st, rep = tr.maintain(st)
+        _sync(dev)
+        maint_s = time.perf_counter() - t1
+        c2 = np.asarray(_rank_launches())
+        local = {}
+        for bname, b in tr.bundles.items():
+            ts = copy_[bname]
+            for k in range(b.num_tables):
+                mt = refs.get((bname, k))
+                if mt is None:
+                    mt = refs[(bname, k)] = MultiTierTable(b.table,
+                                                           slot_fills=tr._slot_fills(b))
+                m_, stats = mt.sync(member_view(ts, k), step)
+                ts = _put_member(ts, k, m_)
+                d = local.setdefault(bname, [0, 0])
+                d[0] += stats.demoted
+                d[1] += stats.promoted
+            copy_[bname] = ts
+        c3 = np.asarray(_rank_launches())
+        if not np.array_equal(c2 - c1, c3 - c2):
+            raise AssertionError(f"phase 23 (a) rank {rank} window {w}: the maintain launched "
+                                 f"(#1, #3, #2, #5) {(c2 - c1).tolist()}, the one-device "
+                                 f"syncs {(c3 - c2).tolist()}")
+        maint += c2 - c1
+        _, n_rows = _same_shard_rows(_shard_rows(tr, st),
+                                     _shard_rows(tr, types.SimpleNamespace(tables=copy_)),
+                                     f"phase 23 (a) rank {rank} window {w}: the shard "
+                                     "against the one-device syncs")
+        host_rows = 0
+        for (bname, k), mt in refs.items():
+            got = _host_export(tr._tiers[(bname, tr._tier_index(tr.bundles[bname], k))])
+            want = _host_export(mt)
+            if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"phase 23 (a) rank {rank} window {w}: member {k}'s host "
+                                     "store differs from the one-device sync's")
+            host_rows += len(want[0])
+        del copy_
+        cmp_l += (c1 - c0) + (np.asarray(_rank_launches()) - c2)
+        reports.append(rep)
+        windows.append(dict(local=local, rows=n_rows, host_rows=host_rows,
+                            maintain_s=maint_s, launches=_ints(c2 - c1)))
+    total = np.asarray(_rank_launches()) - cmp_l
+    implied = np.asarray(_leg_launches(tr, sum(wins)), np.int64) + maint
+    rec = dict(losses=losses, reports=reports, windows=windows, guards=guards,
+               launches=_ints(total), implied=_ints(implied),
+               maintain_launches=_ints(maint), init_s=init_s,
+               train_s=time.perf_counter() - t0)
+    # (d) part files at world 4: save, and save_async (synchronous here)
+    live = _rows_digest(_shard_rows(tr, st))
+    d_s, d_a = (os.path.join(out_dir, f"p23_{t}") for t in ("sync", "async"))
+    st, _ = CheckpointManager(d_s, tr, sharded_io=True).save(st)
+    ck = CheckpointManager(d_a, tr, sharded_io=True)
+    st, _ = ck.save_async(st)
+    ck.wait()
+    rec["async_flag"] = ck.last_save["async"]
+    del tr, st
+    digests = []
+    for d in (d_s, d_a):
+        rt = ShardedTrainer(_tier_model(cfg, seed, scale=2), *opt(), mesh=mesh)
+        rs = CheckpointManager(d, rt).restore()
+        digests.append(_rows_digest(_shard_rows(rt, rs)))
+        del rt, rs
+    rec["digests"] = dict(live=live, sync=digests[0], async_=digests[1])
+    return rec
+
+
+def _tiers1_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
+    """Phase 23 (b) and (d) at world 1 (NCCL on the card): the tiered
+    Trainer, then the tiered ShardedTrainer, over the same windows with
+    maintain() after each (the `async_at`-th with tier_async=True); per
+    window the losses, the rows' digest, the report and the host stores'
+    digest; then the ShardedTrainer's async part-file save."""
+    import threading
+
+    from deeprec_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.training.trainer import Trainer
+
+    tc = cfg["tiers"]
+    wins = tc["windows1"]
+    batches = _shard_batches(cfg, seed + 5, sum(wins))
+    rec = {}
+    for kind in ("plain", "sharded"):
+        t0 = time.perf_counter()
+        if kind == "plain":
+            tr = Trainer(_tier_model(cfg, seed), *opt(), device=dev)
+        else:
+            tr = ShardedTrainer(_tier_model(cfg, seed), *opt(), mesh=make_mesh(device=dev))
+        st = tr.init()
+        _zero_row_counts()
+        cmp_l = np.zeros(4, np.int64)  # the comparison's own launches
+        out = dict(losses=[], rows=[], stores=[], reports=[], maintain=[])
+        i = 0
+        for w, n in enumerate(wins):
+            for _ in range(n):
+                st, m = tr.train_step(st, batches[i])
+                out["losses"].append(float(m["loss"]))
+                i += 1
+            c0 = np.asarray(_rank_launches())
+            st, rep = tr.maintain(st, tier_async=w == tc["async_at"])
+            c1 = np.asarray(_rank_launches())
+            out["maintain"].append(_ints(c1 - c0))
+            out["reports"].append(json.dumps(rep, sort_keys=True))
+            out["rows"].append(_rows_digest(_shard_rows(tr, st)))
+            out["stores"].append(_exports_digest(tr))
+            cmp_l += np.asarray(_rank_launches()) - c1
+        maint = np.sum(out["maintain"], 0)
+        out["launches"] = _ints(np.asarray(_rank_launches()) - cmp_l)
+        out["implied"] = _ints(np.asarray(_leg_launches(tr, sum(wins))) + maint)
+        out["seconds"] = time.perf_counter() - t0
+        if kind == "sharded":  # (d) at world 1: the part write on the writer thread
+            d = os.path.join(out_dir, "p23_w1_async")
+            ck = CheckpointManager(d, tr, sharded_io=True)
+            seen = []
+            ck.on_write = lambda path: seen.append(threading.current_thread().name)
+            live = _rows_digest(_shard_rows(tr, st))
+            st, _ = ck.save_async(st)
+            ck.wait()
+            rs = CheckpointManager(d, ShardedTrainer(_tier_model(cfg, seed, scale=2), *opt(),
+                                                     mesh=tr.mesh)).restore()
+            out["save"] = dict(async_=ck.last_save["async"], thread=seen[0] if seen else None,
+                               live=live,
+                               restored=_rows_digest(_shard_rows(tr, rs)))
+            del rs
+        rec[kind] = out
+        del tr, st
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rec
+
+
+def _budget_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
+    """Phase 23 (c) on one rank: plain tables over `budget_steps` steps, then
+    maintain(hbm_budget_bytes= the whole mesh's table bytes) twice."""
+    from deeprec_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    tc = cfg["tiers"]
+    tr = ShardedTrainer(_tier_model(cfg, seed, tiered=False), *opt(),
+                        mesh=make_mesh(device=dev))
+    st = tr.init()
+    batches = _shard_batches(cfg, seed + 4, tc["budget_steps"])
+    _zero_row_counts()
+    losses = []
+    for b in batches:
+        st, m = tr.train_step(st, b)
+        losses.append(float(m["loss"]))
+    budget = sum(tr._table_bytes(ts) for ts in st.tables.values())
+    st, rep1 = tr.maintain(st, hbm_budget_bytes=budget)
+    demoting = [mt for mt in tr._tiers.values() if len(mt.host)]
+    local = sum(len(mt.host) for mt in demoting)
+    st, rep2 = tr.maintain(st, hbm_budget_bytes=budget)
+    steps = np.asarray(_leg_launches(tr, len(batches)), np.int64)
+    # the forced sync's demote: one gather of the values and one of the
+    # accumulator per member that demoted
+    implied = steps + np.asarray([0, 2 * len(demoting), 0, 0])
+    return dict(losses=losses, budget=budget, reports=[rep1, rep2], local=local,
+                capacity=tr.bundles["group0"].table.cfg.capacity,
+                launches=_rank_launches(), implied=_ints(implied))
+
+
+P23_LEGS = {"tiers": _tiers_leg, "tiers1": _tiers1_leg, "budget": _budget_leg}
+
+
 def sharded_rank(spec_path):
     """One rank of phase 21 (this process was started by the launcher):
     runs the spec's legs in order and writes each leg's record (and rows
@@ -7980,8 +8269,9 @@ def sharded_rank(spec_path):
         t_leg = time.perf_counter()
         rec = {"name": leg["name"], "rank": rank, "world": world}
         opt = (Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"]))
-        if leg.get("p22"):  # phase 22's legs
-            rec.update(P22_LEGS[leg["p22"]](
+        if leg.get("p22") or leg.get("p23"):  # phase 22's and 23's legs
+            fn = P22_LEGS[leg["p22"]] if leg.get("p22") else P23_LEGS[leg["p23"]]
+            rec.update(fn(
                 leg, cfg, seed, dev, out_dir, rank,
                 lambda: (Adagrad(lr=cfg["lr"]), adam(cfg["dense_lr"])),
                 _shard_model(cfg, seed)))
@@ -8115,7 +8405,8 @@ def _legs_b(cfg, parts):
             dict(name="bf16_tables", comm="a2a", value_dtype="bfloat16",
                  steps=cfg["bf16_steps"]),
             dict(name="p22_drift", p22="drift"), dict(name="p22_async", p22="async"),
-            dict(name="p22_ring", p22="ring")]
+            dict(name="p22_ring", p22="ring"), dict(name="p23_tiers", p23="tiers"),
+            dict(name="p23_budget", p23="budget")]
 
 
 def start_sharded(dev, seed, cfg, ckroot):
@@ -8181,7 +8472,7 @@ def run_sharded(dev, seed, cfg, ckroot, early=None):
     legs_a = [dict(name="plain", plain=True, steps=A, rows=True),
               dict(name="f32_wire", exchange="float32", steps=A, rows=True),
               dict(name="bf16_wire", steps=A, rows=True, rows_at=[1, Bs]),
-              dict(name="p22_async1", p22="async")]
+              dict(name="p22_async1", p22="async"), dict(name="p23_tiers1", p23="tiers1")]
     procs, db = early["procs"], early["dir"]
     with open(early["go"], "w"):
         pass
@@ -8203,8 +8494,8 @@ def run_sharded(dev, seed, cfg, ckroot, early=None):
     rc = {m: _wait_ranks(procs, d, legs_c + (legs_a if m == 1 else []), cfg["timeout"],
                          f"(c) world {m}") for m, (procs, d) in runs.items()}
     seconds["c+a"] = round(time.perf_counter() - t1, 1)
-    counted(rb, [leg["name"] for leg in legs_b
-                 if leg["name"] != "restored_4" and not leg.get("p22")])
+    counted(rb, [leg["name"] for leg in legs_b if leg["name"] != "restored_4"
+                 and not leg.get("p22") and not leg.get("p23")])
     ra, da = rc[1], runs[1][1]
     counted(ra, ["f32_wire", "bf16_wire"])
 
@@ -8244,7 +8535,8 @@ def run_sharded(dev, seed, cfg, ckroot, early=None):
               for r in rb[n])
     if ovf:
         raise AssertionError(f"phase 21 (b): summed a2a_overflow {ovf}")
-    fails = sum(r["insert_fails"] for n in rb if not n.startswith("p22_") for r in rb[n])
+    fails = sum(r["insert_fails"] for n in rb if not n.startswith(("p22_", "p23_"))
+                for r in rb[n])
     if fails:
         raise AssertionError(f"phase 21 (b): {fails} failed inserts")
     # against (a)'s bf16-wire world 1 over the same steps: the batch split
@@ -8321,13 +8613,16 @@ def run_sharded(dev, seed, cfg, ckroot, early=None):
               f"(another world sums the batch in another order)")
     legs = {n: (round(r[0].get("init_s", 0.0), 1), round(r[0]["seconds"], 1))
             for res in (rb, ra) for n, r in res.items()}
-    p22_s = sum(res[n][0]["seconds"] for res in (rb, ra) for n in res if n.startswith("p22_"))
+    p22_s, p23_s = (sum(res[n][0]["seconds"] for res in (rb, ra) for n in res
+                        if n.startswith(tag)) for tag in ("p22_", "p23_"))
     total += phase22(dev, cfg, rb, ra, db, label, host_label)
-    print(f"phase 21 (sharded engine) took {time.perf_counter() - t0 - p22_s:.1f} s and "
+    total += phase23(dev, cfg, rb, ra, label, host_label)
+    print(f"phase 21 (sharded engine) took {time.perf_counter() - t0 - p22_s - p23_s:.1f} s, "
           f"phase 22 (placement, async stage, ring attention; legs of phase 21's processes) "
-          f"{p22_s:.1f} s (process sets {seconds}; rank 0's (init, leg) seconds {legs}); "
+          f"{p22_s:.1f} s and phase 23 (tiers under the sharded trainer; legs too) "
+          f"{p23_s:.1f} s (process sets {seconds}; rank 0's (init, leg) seconds {legs}); "
           f"launches (#1, #3, #2, #5) over every rank's legs {total.tolist()}")
-    return total, p22_s
+    return total, p22_s, p23_s
 
 
 def phase22(dev, cfg, rb, ra, db, label, host_label):
@@ -8440,6 +8735,126 @@ def phase22(dev, cfg, rb, ra, db, label, host_label):
         print(f"ring (c): {tag} ms per forward {[round(r[tag]['fwd_ms'], 1) for r in rb['p22_ring']]}"
               f", backward {[round(r[tag]['bwd_ms'], 1) for r in rb['p22_ring']]} per rank "
               f"({host_label})")
+    return total
+
+
+def phase23(dev, cfg, rb, ra, label, host_label):
+    """Phase 23's gates and prints from its legs' records (world 4 over
+    gloo in `rb`, world 1 over NCCL in `ra`). Returns the (#1, #3, #2, #5)
+    launches of its main paths, every rank's."""
+    tc = cfg["tiers"]
+    W = cfg["world"]
+    total = np.zeros(4, np.int64)
+
+    def held(ok, what):
+        if not ok:
+            raise AssertionError(f"phase 23 {what}")
+
+    def launched(r, what):
+        if dev.type == "cuda" and r["launches"] != r["implied"]:
+            raise AssertionError(f"phase 23 {what}: launched (#1, #3, #2, #5) "
+                                 f"{r['launches']}, the path implies {r['implied']}")
+        total[:] += r["launches"]
+
+    # (a) world 4: every rank's reports equal, demoted the sum over ranks
+    a = rb["p23_tiers"]
+    reps = [json.dumps(r["reports"], sort_keys=True) for r in a]
+    held(len(set(reps)) == 1, "(a): the ranks' maintain reports differ")
+    rep0 = a[0]["reports"]
+    for w in range(len(tc["windows"])):
+        for bname, rep in rep0[w].items():
+            for j, key in enumerate(("demoted", "promoted")):
+                s_ = sum(r["windows"][w]["local"][bname][j] for r in a)
+                held(rep[key] == s_, f"(a) window {w}: the report's {key} {rep[key]}, the "
+                     f"ranks' one-device syncs {s_}")
+    held(all(sum(d[0] for d in r["windows"][0]["local"].values()) > 0 for r in a),
+         "(a): the first maintain did not demote on every rank")
+    held(any(rep["promoted"] > 0 for w in rep0[1:] for rep in w.values()),
+         "(a): no later maintain promoted")
+    for r in a:
+        held(all(np.isfinite(r["losses"])), f"(a) rank {r['rank']}: losses {r['losses']}")
+        held(r["losses"] == a[0]["losses"], f"(a) rank {r['rank']}: losses differ from rank 0's")
+        held(all(g == [0, 0] for g in r["guards"]), f"(e) rank {r['rank']}: the steady-state "
+             f"windows built and loaded {r['guards']} (builds, loads)")
+        held(dev.type != "cuda" or (r["maintain_launches"][1] > 0
+                                    and r["maintain_launches"][3] > 0),
+             f"(a) rank {r['rank']}: the maintains launched {r['maintain_launches']}")
+        launched(r, f"(a) rank {r['rank']}")
+    print(f"tiers (a): DLRM-DCN {cfg['model']} at capacity {tc['capacity']} a table (hbm_dram, "
+          f"LFU, watermarks 0.8 / 0.6), world {W} over gloo on one card (host-staged), "
+          f"windows of {list(tc['windows'])} steps of {cfg['batch']} with maintain() after each: "
+          f"per window (demoted, promoted) "
+          f"{[(sum(x['demoted'] for x in w.values()), sum(x['promoted'] for x in w.values())) for w in rep0]} "
+          f"summed over the ranks and equal on every rank; each rank's shard (rows, freq, "
+          f"version, accumulator per key) and host stores bit for bit against one-device "
+          f"MultiTierTables synced over a copy at the same step (rank 0's rows per window "
+          f"{[w['rows'] for w in a[0]['windows']]}, host rows {[w['host_rows'] for w in a[0]['windows']]}); "
+          f"each maintain launched what those syncs launch (rank 0, (#1, #3, #2, #5) in all "
+          f"{a[0]['maintain_launches']}); losses {[round(x, 6) for x in a[0]['losses']]}")
+    print(f"tiers (a): rank 0's maintain seconds per window "
+          f"{[round(w['maintain_s'], 3) for w in a[0]['windows']]}; peak GB per rank "
+          f"{[r['peak_gb'] for r in a]} ({host_label})")
+    # (d) world 4: save_async synchronous, both restores the live rows
+    for r in a:
+        held(r["async_flag"] is False, f"(d) rank {r['rank']}: save_async of part files at "
+             f"world {W} ran in the background")
+        dg = r["digests"]
+        held(dg["sync"] == dg["async_"] == dg["live"], f"(d) rank {r['rank']}: the restores "
+             f"of save and save_async against the live rows {dg}")
+    # (b) world 1: the sharded trainer against the Trainer
+    b = ra["p23_tiers1"][0]
+    pl, sh = b["plain"], b["sharded"]
+    for k in ("losses", "rows", "stores", "reports", "maintain"):
+        held(pl[k] == sh[k], f"(b): the ShardedTrainer's {k} against the Trainer's")
+    held(all(np.isfinite(sh["losses"])), f"(b): losses {sh['losses']}")
+    launched(sh, "(b) sharded")
+    if dev.type == "cuda":
+        held(pl["launches"] == pl["implied"], f"(b) the Trainer launched {pl['launches']}, "
+             f"its path implies {pl['implied']}")
+    sv = sh["save"]
+    held(sv["async_"] is True and (sv["thread"] or "").startswith("ckpt-writer-full")
+         and sv["restored"] == sv["live"], f"(d) world 1: the async part save {sv}")
+    reps1 = [json.loads(x) for x in sh["reports"]]
+    print(f"tiers (b): world 1 over {'NCCL' if dev.type == 'cuda' else 'gloo'}, the tiered "
+          f"ShardedTrainer against the tiered Trainer over windows of {list(tc['windows1'])} "
+          f"steps (maintain {tc['async_at']} with tier_async=True): losses, rows, reports "
+          f"and host stores bit for bit (f32 wire); per window (demoted, promoted) "
+          f"{[(sum(x['demoted'] for x in w.values()), sum(x['promoted'] for x in w.values())) for w in reps1]}; "
+          f"seconds Trainer {pl['seconds']:.1f}, sharded {sh['seconds']:.1f} ({label})")
+    print(f"tiers (d): part files at world {W}: save_async synchronous on every rank "
+          f"(last_save['async'] False), its restore and save's equal to the live rows per key "
+          f"bit for bit; at world 1 (sharded_io=True) written on {sv['thread']} and restored "
+          f"bit for bit")
+    # (c) world 4: auto-tier at the whole mesh's bytes, then nothing
+    c = rb["p23_budget"]
+    for r in c:
+        rep1, rep2 = r["reports"]
+        for bname, x in rep1.items():
+            held(x.get("auto_tiered") and x["capacity"] == tc["capacity"] // W
+                 and x["demoted"] > 0 and "grew_to" not in x,
+                 f"(c) rank {r['rank']}: the first maintain at the budget {x}")
+            held(x["demoted"] == sum(q["local"] for q in c),
+                 f"(c): demoted {x['demoted']} against the ranks' host rows")
+        # the next maintain grows nothing and demotes nothing; an auto-tier
+        # there only heals the chains where the first one's rebuild left
+        # failed inserts (a rebuild at the low watermark can drop a key past
+        # max_probes, in both packages alike)
+        held(all("grew_to" not in x and not x.get("demoted")
+                 and (not x.get("auto_tiered") or x["insert_fails"] > 0)
+                 for x in rep2.values()),
+             f"(c) rank {r['rank']}: the second maintain acted {rep2}")
+        held(r["capacity"] == tc["capacity"] // W, f"(c): capacity {r['capacity']}")
+        launched(r, f"(c) rank {r['rank']}")
+    print(f"tiers (c): plain tables, world {W}, {tc['budget_steps']} steps, then maintain("
+          f"hbm_budget_bytes={c[0]['budget']}, the whole mesh's table bytes): every rank "
+          f"auto-tiered at capacity {c[0]['capacity']} a shard, demoted "
+          f"{c[0]['reports'][0]['group0']['demoted']} (the ranks' host rows; the rebuild "
+          f"left {c[0]['reports'][1]['group0']['insert_fails']} failed inserts); the next "
+          f"maintain at that budget grew nothing and demoted nothing "
+          f"({'healed the chains' if c[0]['reports'][1]['group0'].get('auto_tiered') else 'no action'})")
+    print(f"phase 23: peak GB a rank (rank 0) tiers {a[0]['peak_gb']}, budget "
+          f"{c[0]['peak_gb']}; world 1 {b['peak_gb']}; seconds (rank 0) tiers "
+          f"{a[0]['seconds']:.1f}, budget {c[0]['seconds']:.1f}, world 1 {b['seconds']:.1f}")
     return total
 
 
@@ -8703,14 +9118,15 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         done("20")
 
         try:
-            sh, p22_s = run_sharded(dev, seed, dict(sharded, model=full), ckroot, early)
+            sh, p22_s, p23_s = run_sharded(dev, seed, dict(sharded, model=full), ckroot, early)
         finally:
             stop_ranks(early)
         _add_sharded(sh, gather, scatter)
         done("21")
-        # phase 22 ran as legs of phase 21's processes: its seconds apart
-        phase_s["21"] = round(phase_s["21"] - p22_s, 1)
+        # phases 22 and 23 ran as legs of phase 21's processes: their seconds apart
+        phase_s["21"] = round(phase_s["21"] - p22_s - p23_s, 1)
         phase_s["22"] = round(p22_s, 1)
+        phase_s["23"] = round(p23_s, 1)
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's
@@ -8768,9 +9184,13 @@ def main(argv=None) -> int:
     try:
         smi = _smi()
         print(smi)
+        from deeprec_tpu_torch.analysis import trace_guard
+
         t1 = time.perf_counter()
-        names = _build.build_all()
-        print(f"build: {names} in {time.perf_counter() - t1:.1f} s")
+        with trace_guard(max_compiles=None) as built:  # measure only
+            names = _build.build_all()
+        print(f"build: {names} in {time.perf_counter() - t1:.1f} s; trace_guard counted "
+              f"{built.compiles} nvcc builds and {built.traces} library loads")
         kernels = run(
             dev, args.seed,
             full=FULL, small=dict(FULL, capacity=SMALL_CAPACITY,

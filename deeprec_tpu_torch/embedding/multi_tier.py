@@ -51,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeprec_tpu_torch.analysis.annotations import not_thread_safe
 from deeprec_tpu_torch.config import StorageType
 from deeprec_tpu_torch.embedding.table import (
     META_DIRTY, META_FREQ, META_VERSION, EmbeddingTable, TableState, empty_key, member_view,
@@ -61,6 +62,7 @@ from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
 from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX
 
 
+@not_thread_safe
 class DiskKV:
     """Log-structured on-disk row store, the SSD tier. Rows append to a flat
     record log (key i64, freq i32, version i32, value f32[dim]) after an
@@ -571,11 +573,11 @@ class MultiTierTable:
         """Move the host tier's coldest rows past host_capacity to the disk
         tier (caller holds the store lock). Returns the rows moved."""
         n_spill = len(self.host) - self.host_capacity
-        ks, vs, fs, vers = self.host.export()
+        ks, vs, fs, vers = self.host.export()  # noqa: DRT004 — spill export, round-exclusive ownership (or the caller's, after _settle)
         order = np.argsort(vers) if self.cache_strategy == "lru" else np.argsort(fs)
         out = order[:n_spill]
-        self.disk.put(ks[out], vs[out], fs[out], vers[out])
-        self.host.erase(ks[out])
+        self.disk.put(ks[out], vs[out], fs[out], vers[out])  # noqa: DRT004 — spill write, round-exclusive ownership
+        self.host.erase(ks[out])  # noqa: DRT004 — spill erase, round-exclusive ownership
         return int(n_spill)
 
     # ------------------------------------------------------ overlapped sync
@@ -749,7 +751,7 @@ class MultiTierTable:
             h = {k: v.numpy() for k, v in host.items()}
             with self._store_lock:
                 if n_out:
-                    self.host.put(h["demote_keys"][:n_out].astype(np.int64),
+                    self.host.put(h["demote_keys"][:n_out].astype(np.int64),  # noqa: DRT004 — worker owns the tier stores until _settle(); every other path drains first
                                   h["demote_rows"][:n_out], h["demote_freqs"][:n_out],
                                   h["demote_versions"][:n_out])
                 occ = h["keys"] != empty_key(self.table.cfg)
@@ -758,11 +760,11 @@ class MultiTierTable:
                 dev_keys = dev_all[scan]
                 pending = None
                 if len(dev_keys):
-                    h_vals, h_freq, h_ver, found = self.host.get(dev_keys)
+                    h_vals, h_freq, h_ver, found = self.host.get(dev_keys)  # noqa: DRT004 — read-only promote scan under the same round-exclusive ownership
                     from_disk = np.zeros(len(dev_keys), bool)
                     if self.disk is not None and (~found).any():
                         miss = ~found
-                        d_vals, d_freq, d_ver, d_found = self.disk.get(dev_keys[miss])
+                        d_vals, d_freq, d_ver, d_found = self.disk.get(dev_keys[miss])  # noqa: DRT004 — disk second-chance read, round-exclusive ownership
                         if d_found.any():
                             mix = np.nonzero(miss)[0][d_found]
                             h_vals[mix] = d_vals[d_found]

@@ -18,7 +18,6 @@ import math
 from typing import Sequence
 
 import torch
-from torch import nn
 
 from deeprec_tpu_torch import nn as dnn
 from deeprec_tpu_torch.config import EmbeddingVariableOption

@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-from torch import nn
 
 from deeprec_tpu_torch import nn as dnn
 from deeprec_tpu_torch.config import EmbeddingVariableOption

@@ -33,6 +33,7 @@ from typing import Tuple
 
 import numpy as np
 
+from deeprec_tpu_torch.analysis.annotations import not_thread_safe
 from deeprec_tpu_torch.ops._build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parent / "host_kv.cpp"
@@ -235,6 +236,7 @@ def criteo_parse_native(buf: bytes, max_rows: int, num_dense: int = 13,
     return int(rows), labels, dense, cats, int(consumed.value)
 
 
+@not_thread_safe
 class HostKV:
     """int64 key -> (float32[dim] row, freq, version) host store, native
     (`host_kv.cpp`). Not thread-safe."""

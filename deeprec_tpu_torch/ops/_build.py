@@ -6,6 +6,8 @@ its source, the `csrc/*.cuh` headers and the flags, so a changed source rebuilds
 loads as is.
 Nothing builds at import time: `load` runs at a kernel's first launch, and
 `build_all` starts one nvcc per source at once (set-up time of a run).
+`counts` holds the process's nvcc builds and first library loads, which
+`analysis.trace_guard` reads.
 """
 from __future__ import annotations
 
@@ -78,6 +80,8 @@ _RESTYPES = {"fused_sparse_backward_workspace": ctypes.c_longlong}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# nvcc builds finished and kernel libraries loaded, over the process's life
+counts = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -118,6 +122,7 @@ def _finish(name: str, started) -> None:
             + log.decode(errors="replace")
         )
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    counts["builds"] += 1
 
 
 def build_all() -> List[str]:
@@ -142,4 +147,5 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = lib
+            counts["loads"] += 1
         return lib

@@ -126,7 +126,7 @@ def hash_dedup(flat: torch.Tensor, size: int, *, sentinel, max_probes: int = 64,
     tail = torch.where(sel >= 0, scratch.gather(1, sel.clamp(min=0).long()),
                        torch.full_like(sel, sentinel, dtype=flat.dtype))
     uids = torch.cat(
-        [torch.full((R, 1), sentinel, dtype=flat.dtype, device=device), tail], 1)
+        [torch.full((R, 1), sentinel, dtype=flat.dtype, device=device), tail], 1)  # noqa: DRT003 — one sentinel column joined to the [R, U - 1] tail; only the [R, U] result is read
 
     pos_ok = valid & (slot >= 0)
     r = rank.gather(1, torch.where(pos_ok, slot, 0))

@@ -100,8 +100,8 @@ def flash_forward_plain(q, k, v, mask, causal: bool, sm_scale: float,
     lse [B, H, Lq] f32)."""
     B, H, Lq, D = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
-    m = torch.full((B, H, Lq, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, H, Lq, 1), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Lq, 1), NEG_INF, dtype=torch.float32, device=q.device)  # noqa: DRT003 — keepdims accumulator of the plain version; the kernel keeps its own layout
+    l = torch.zeros((B, H, Lq, 1), dtype=torch.float32, device=q.device)  # noqa: DRT003 — keepdims accumulator, same contract as m above
     acc = torch.zeros((B, H, Lq, D), dtype=torch.float32, device=q.device)
     for kb in range(k.shape[2] // block_k):
         s = _block_scores(qf, kf, mask, kb, block_k, sm_scale, causal)

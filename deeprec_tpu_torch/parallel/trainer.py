@@ -32,8 +32,16 @@ rank runs the deterministic numpy placer on them. The migration
 keeps the old plan and state on every rank. Any single-owner routing trains
 bit for bit the same per key, so the losses never see a replan.
 
-Multi-tier (hbm_dram) bundles are not ported to the sharded trainer
-(ROADMAP queue A item 6c).
+Multi-tier bundles (storage hbm_dram / hbm_dram_ssd): each position keeps
+its own tier per member — its host store and, under a storage path, its
+disk log `<path>_m<k>_<s>` (`_m<s>` for a one-table bundle) at mesh
+position s, as the JAX package keys its (table, shard) members — and
+`maintain()` syncs only its own shard against them, so no collective runs on
+a tier thread. The growth and auto-tier decisions read every position's
+occupancy and failed inserts and the whole mesh's table bytes, so every
+position takes the same one; `demoted`, `promoted` and `rows_reinit` are
+summed over the mesh. Tiered bundles keep the hash under placement="plan"
+(their demoted rows live in per-position stores no migration moves).
 """
 from __future__ import annotations
 
@@ -125,11 +133,6 @@ class ShardedTrainer(Trainer):
                          unique_budget=unique_budget, remat=remat, stage=stage,
                          pipeline_mode=pipeline_mode, pipeline_chunks=pipeline_chunks,
                          sentinel=sentinel)
-        tiered = [bname for bname, b in self.bundles.items() if _tiered(b)]
-        if tiered:
-            raise NotImplementedError(
-                f"ShardedTrainer: multi-tier bundles {tiered} are not ported to the "
-                "sharded trainer (ROADMAP queue A item 6c)")
         # "chunked" and "nested" (the 2-D lookahead) split the value and
         # gradient exchanges into pipeline_chunks column chunks
         self._chunks = (self.pipeline_chunks if pipeline_mode in ("chunked", "nested")
@@ -385,15 +388,31 @@ class ShardedTrainer(Trainer):
         self.sharded[b.name].plan_dest_hot = old.plan_dest_hot
         self.sharded[b.name].plan_hot_count = old.plan_hot_count
 
+    def _mesh_sum(self, *counts: int) -> List[int]:
+        local = torch.tensor(counts, dtype=torch.int64, device=self.device)
+        return [int(v) for v in self._psum(local).tolist()]
+
+    def _table_bytes(self, ts: TableState) -> int:
+        """The whole mesh's bytes of the bundle: every shard has the same
+        shape, so N times this position's."""
+        return self._state_bytes(ts) * self.num_shards
+
+    def _tier_index(self, b: Bundle, k: int) -> Tuple[int, ...]:
+        s = self.mesh.index
+        return (k, s) if b.stacked else (s,)
+
+    def enable_tier_paging(self, **kw):
+        raise NotImplementedError(
+            "tier paging is wired for the base Trainer; sharded multi-tier runs keep "
+            "maintain(tier_async=True)")
+
     def maintain(self, state: TrainState, **kw):
         """`Trainer.maintain` with a GLOBAL `max_capacity` (divided by N for
-        the shards); every position takes the same growth decision."""
+        the shards) and a GLOBAL `hbm_budget_bytes` (the whole mesh's table
+        bytes); every position takes the same growth or auto-tier
+        decision, and tiered bundles sync each position's own shard."""
         if kw.get("max_capacity"):
             kw["max_capacity"] = max(1, kw["max_capacity"] // self.num_shards)
-        if kw.get("hbm_budget_bytes"):
-            raise NotImplementedError(
-                "ShardedTrainer.maintain(hbm_budget_bytes=): auto-tiering is not ported "
-                "to the sharded trainer (ROADMAP queue A item 6c)")
         state, report = super().maintain(state, **kw)
         for ts in state.tables.values():
             ensure_shard_counters(ts)

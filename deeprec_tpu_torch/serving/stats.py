@@ -28,11 +28,9 @@ autoscaler. With the plane off, plain ``LatencyHistogram``s keep the
 legacy surface identical at zero obs cost.
 
 The port's copy of `deeprec_tpu/serving/stats.py`, over the port's own
-`training/profiler.LatencyHistogram` and `obs/metrics.py`. The JAX class
-carries a `@guarded_by("_lock")` marker, which only feeds the JAX
-package's lint (`analysis/`, ROADMAP queue A item 8 (c)); the port leaves it
-out. The ``device`` stage ends in the device-to-host copy of the answer,
-which synchronises with the card.
+`training/profiler.LatencyHistogram` and `obs/metrics.py`. The
+``device`` stage ends in the device-to-host copy of the answer, which
+synchronises with the card.
 """
 from __future__ import annotations
 
@@ -40,6 +38,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from deeprec_tpu_torch.analysis.annotations import guarded_by
 from deeprec_tpu_torch.obs import metrics as obs_metrics
 from deeprec_tpu_torch.training.profiler import LatencyHistogram
 
@@ -48,6 +47,7 @@ STAGES = ("queue", "pad", "device", "post", "e2e", "retrieval")
 _COUNTERS = ("requests", "batches", "rows", "errors")
 
 
+@guarded_by("_lock")
 class ServingStats:
     """Thread-safe aggregate of the serving front's stage timers plus
     batch-shape and error counters."""

@@ -39,7 +39,11 @@ stage's reads in stream order) and write on a background thread that
 waits on that event; training continues meanwhile. At most one save is in
 flight, `wait()` drains it and re-raises a writer failure, and a failed
 delta writer escalates the next save to a full one (its rows are clean but
-in no file).
+in no file). A sharded run of several positions saves synchronously from
+the async calls (`last_save["async"]` False): the part write's meets must
+run on the thread that runs the collectives, as the JAX manager falls
+back for a run of several processes; a one-position sharded run writes its
+parts on the writer thread, with nothing to meet.
 
 `transfer_bytes` in `last_save` counts what the JAX package's
 `_tree_bytes` counts: for a delta the padded compacted arrays plus each
@@ -88,6 +92,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeprec_tpu_torch.analysis.annotations import not_thread_safe
 from deeprec_tpu_torch.embedding.table import (
     COUNTERS, KEY_DTYPES, META_DIRTY, META_FREQ, META_VERSION, EmbeddingTable, TableState,
     SHARD_COUNTERS, empty_key, member_view, quantize_rows_int8,
@@ -436,6 +441,8 @@ class CheckpointManager:
                 "CheckpointManager: a ShardedTrainer over several positions saves "
                 "part files (sharded_io=True); no position holds the whole table")
         self._rank = trainer.mesh.index if self._sharded else 0
+        # positions of the run that meet in a part write (1: nothing to meet)
+        self._world = trainer.mesh.size if self._sharded else 1
         self.dir = directory
         self.trainer = trainer
         self.keep = keep
@@ -499,9 +506,11 @@ class CheckpointManager:
         return state, plan.path
 
     def _save_async(self, state: TrainState, kind: str) -> Tuple[TrainState, str]:
-        if self._parts:
-            raise ValueError("part-file saves are synchronous (the positions meet "
-                             "before the manifest): use save / save_incremental")
+        if self._world > 1:
+            # the part write's meets must run where the training thread's
+            # collectives run: the synchronous save, as the JAX manager
+            # does for a run of several processes
+            return self._save(state, kind)
         self.wait()  # at most one save in flight
         kind = self._effective_kind(kind)
         t0 = time.perf_counter()
@@ -523,7 +532,7 @@ class CheckpointManager:
                 self.on_write(plan.path)
             t0 = time.perf_counter()
             t0w = time.time()
-            self._write_plan(plan)
+            self._write_plan(plan)  # noqa: DRT004 — single-writer invariant: _save_async drains the previous writer, readers wait() first
             record["write_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
             # obs timeline span of the background write (a no-op unless
             # DEEPREC_TRACE is configured)
@@ -658,6 +667,7 @@ class CheckpointManager:
             event.record(side)
         return out, event
 
+    @not_thread_safe
     def _write_plan(self, plan: _SavePlan) -> None:
         """The write half: truncate and filter each member's rows, write the
         files, commit the manifest last, then run retention. One writer at a
@@ -707,11 +717,13 @@ class CheckpointManager:
         clears the directory of a crashed earlier attempt (manifest first),
         every position writes its parts and positions, the digests meet on
         position 0, which writes the dense state and commits the manifest;
-        a last barrier keeps every position behind the commit."""
+        a last barrier keeps every position behind the commit. At world 1
+        nothing meets (this may run on the writer thread)."""
         from deeprec_tpu_torch.parallel import mesh as M
 
         mesh = self.trainer.mesh
         path, incr, rank = plan.path, plan.kind == "incr", self._rank
+        meet = self._world > 1
         os.makedirs(path, exist_ok=True)
         if rank == 0:
             mf = os.path.join(path, "manifest.json")
@@ -720,7 +732,8 @@ class CheckpointManager:
             for stale in (glob.glob(os.path.join(path, "table_*.npz"))
                           + glob.glob(os.path.join(path, "datasets.part*.json"))):
                 os.remove(stale)
-        M.barrier(mesh)
+        if meet:
+            M.barrier(mesh)
         digests: Dict[str, Dict[str, str]] = {}
         for bname, pkgs in plan.tables.items():
             cfg, stacked = plan.cfgs[bname]
@@ -736,7 +749,7 @@ class CheckpointManager:
                 _savez(digests, path, fname[:-4] + f".part{rank:05d}.npz", rows)
         self._write_positions(path, plan.positions)
         merged: Dict[str, Dict[str, str]] = {}
-        for d in M.all_gather_object(mesh, digests):
+        for d in (M.all_gather_object(mesh, digests) if meet else [digests]):
             merged.update(d)
         if rank == 0:
             _savez(merged, path, "dense.npz", _leaves_file([t.numpy() for t in plan.dense]))
@@ -753,7 +766,8 @@ class CheckpointManager:
                 manifest["bundles"] = plan.bundles
             _commit_manifest(path, manifest)
             self._gc()
-        M.barrier(mesh)
+        if meet:
+            M.barrier(mesh)
 
     # -------------------------------------------------------------- listing
 

@@ -206,8 +206,10 @@ def _put_member(ts: TableState, k: int, m: TableState) -> TableState:
     pairs = [(ts.keys, m.keys), (ts.values, m.values), (ts.meta, m.meta)]
     pairs += [(ts.slots[n], m.slots[n]) for n in ts.slots]
     pairs += [(getattr(ts, n), getattr(m, n)) for n in COUNTERS]
-    pairs += [(getattr(ts, n), getattr(m, n)) for n in SHARD_COUNTERS
-              if getattr(ts, n) is not None and getattr(m, n) is not None]
+    # a rebuilt member carries no shard counters: they restart at zero
+    pairs += [(getattr(ts, n), getattr(m, n) if getattr(m, n) is not None
+               else torch.zeros_like(m.insert_fails))
+              for n in SHARD_COUNTERS if getattr(ts, n) is not None]
     if ts.bloom is not None:
         pairs.append((ts.bloom, m.bloom))
     if ts.qscale is not None:
@@ -574,7 +576,9 @@ class Trainer:
         `grew_to` — unless the growth would take the table bytes of all
         bundles past `hbm_budget_bytes`: then it is auto-tiered instead
         (a synchronous forced sync, `auto_tiered`, `demoted`, `promoted`).
-        Bytes are counted as `_state_bytes` counts them.
+        Bytes are counted as `_table_bytes` counts them (the sharded
+        trainer's: the whole mesh's). `demoted`, `promoted` and
+        `rows_reinit` are totals over every member (and mesh position).
 
         With a sentinel whose `row_evict_quantile` is set, each member's
         anomalous rows (`guard/rows.anomaly_evict`) are re-initialized
@@ -590,7 +594,7 @@ class Trainer:
         if getattr(self, "placement", "uniform") == "plan":
             state, placement_report = self.maybe_replan(state)
         state, dedup_report = self.update_budgets(state)
-        total_bytes = (sum(self._state_bytes(ts) for ts in state.tables.values())
+        total_bytes = (sum(self._table_bytes(ts) for ts in state.tables.values())
                        if hbm_budget_bytes else 0)
         if max_capacity:
             max_capacity = 1 << (int(max_capacity).bit_length() - 1)
@@ -620,7 +624,7 @@ class Trainer:
                     new_c *= 2
                 if max_capacity:
                     new_c = min(new_c, max_capacity)
-                growth_bytes = self._state_bytes(ts) * (new_c // C - 1)
+                growth_bytes = self._table_bytes(ts) * (new_c // C - 1)
                 if hbm_budget_bytes and total_bytes + growth_bytes > hbm_budget_bytes:
                     # over the budget: demote cold rows to the host tier and
                     # keep the capacity; forced, since the pressure may come
@@ -675,6 +679,7 @@ class Trainer:
             if n:
                 ts = _put_member(ts, k, m)
                 total += n
+        total = self._mesh_sum(total)[0]
         if total:
             from deeprec_tpu_torch.obs import metrics as obs_metrics
 
@@ -684,6 +689,22 @@ class Trainer:
                     "anomalous table rows re-initialized by maintain() row hygiene",
                     {"table": b.name}).inc(total)
         return ts, total
+
+    def _mesh_sum(self, *counts: int) -> List[int]:
+        """Integer counts summed over the mesh (the sharded trainer's; one
+        device: as they are). Every position must call it."""
+        return [int(c) for c in counts]
+
+    def _table_bytes(self, ts: TableState) -> int:
+        """The bytes one bundle's table state takes, counted as
+        `hbm_budget_bytes` counts them: `_state_bytes` here, the whole
+        mesh's on the sharded trainer."""
+        return self._state_bytes(ts)
+
+    def _tier_index(self, b: Bundle, k: int) -> Tuple[int, ...]:
+        """The index of member k's tier: (k,) in a stacked bundle, ()
+        otherwise (the sharded trainer adds its mesh position)."""
+        return (k,) if b.stacked else ()
 
     @staticmethod
     def _state_bytes(ts: TableState) -> int:
@@ -701,9 +722,9 @@ class Trainer:
                 + 7 * 4 * ts.keys.shape[0])
 
     def _multi_tier_for(self, b: Bundle, idx: Tuple[int, ...]):
-        """The MultiTierTable of one member ((k,) of a stacked bundle, ()
-        otherwise), made at first use with its own host store and, under a
-        storage path, its own disk log `<path>_m<k>`."""
+        """The MultiTierTable of one member (`_tier_index`), made at first
+        use with its own host store and, under a storage path, its own disk
+        log `<path>_m<i>_<j>...` over the index."""
         from deeprec_tpu_torch.embedding.multi_tier import MultiTierTable
 
         key = (b.name, idx)
@@ -721,11 +742,11 @@ class Trainer:
                    tier_async: bool = False):
         """Sync every member of bundle `b` with its MultiTierTable (sync, or
         sync_async when tier_async and not force). Returns (the bundle's
-        state, demoted, promoted)."""
+        state, demoted, promoted), the counts summed over the mesh."""
         from deeprec_tpu_torch.embedding.multi_tier import probe_members
 
         demoted = promoted = 0
-        tiers = [self._multi_tier_for(b, (k,) if b.stacked else ())
+        tiers = [self._multi_tier_for(b, self._tier_index(b, k))
                  for k in range(b.num_tables)]
         overlapped = tier_async and not force
         # the last rounds' candidates of every member, probed in one loop
@@ -739,6 +760,7 @@ class Trainer:
             ts = _put_member(ts, k, m)
             demoted += stats.demoted
             promoted += stats.promoted
+        demoted, promoted = self._mesh_sum(demoted, promoted)
         return ts, demoted, promoted
 
     def tier_stall_ms(self) -> float:
@@ -797,7 +819,7 @@ class Trainer:
             if not _tiered(b):
                 continue
             for k in range(b.num_tables):
-                self._multi_tier_for(b, (k,) if b.stacked else ()).warm_fold(
+                self._multi_tier_for(b, self._tier_index(b, k)).warm_fold(
                     _member(state.tables[bname], k), chunk=self._tier_chunk)
 
     def fold_tier_prefetch(self, state: TrainState):

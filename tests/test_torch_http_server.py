@@ -104,6 +104,23 @@ def both(s, path, **kw):
     return call(s["port"], path, **kw), call(s["jport"], path, **kw)
 
 
+def headers_only(port, path, length):
+    """(status, body bytes) of a POST that announces `length` body bytes and
+    sends none: the request line and headers over a plain socket, then the
+    answer read to the server's close. A server that answers before reading
+    the body is read without racing a client still writing it."""
+    import http.client
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+        sock.sendall((f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                      f"Content-Type: application/json\r\nContent-Length: {length}\r\n\r\n"
+                      ).encode())
+        resp = http.client.HTTPResponse(sock)
+        resp.begin()
+        return resp.status, resp.read()
+
+
 # ---------------------------------------------------------------- predict
 
 
@@ -214,7 +231,10 @@ def test_body_cap_and_malformed_json_match_jax(servers):
     s = servers
     big = json.dumps({"features": {k: v * 3000 for k, v in s["feats"].items()}}).encode()
     assert len(big) > 1 << 16
-    (c, b), (jc, jb) = both(s, "/v1/predict", raw=big)
+    # both servers answer from the headers: the body is never sent, so the
+    # answer cannot race a client still writing it
+    (c, b), (jc, jb) = (headers_only(p, "/v1/predict", len(big))
+                        for p in (s["port"], s["jport"]))
     assert c == jc == 400 and json.loads(b) == json.loads(jb)
     assert json.loads(b)["limit_bytes"] == 1 << 16
     (c, b), (jc, jb) = both(s, "/v1/predict", raw=b'{"features": {oops')

@@ -2,7 +2,8 @@
 gloo through a file:// rendezvous run a script that sums over the mesh; the
 modelzoo driver's `--sharded --comm a2a` trains under the launcher on two
 ranks, saves part files and resumes from them on one; and without CUDA the
-launcher's default device refuses to start."""
+launcher's default device refuses to start; `--maintain_every` with
+`--hbm_budget_mb` auto-tiers over the mesh."""
 import json
 import os
 import re
@@ -83,6 +84,30 @@ def test_modelzoo_sharded_under_the_launcher_and_resume_at_one(tmp_path):
     (rc, text), = _launch(tmp_path, 1, flags + ["--steps", "5"], "zoo1")
     assert rc == 0, text[-3000:]
     assert "restored from step 3" in text and sorted(_losses(text)) == [4, 5]
+
+
+def test_modelzoo_sharded_maintain_auto_tiers_under_an_hbm_budget(tmp_path):
+    """2 ranks of `--sharded --maintain_every 2 --hbm_budget_mb 1`: the tables
+    (about 1.8 MB in all) overfill, growth would pass the budget, so the
+    bundle auto-tiers at its capacity; both ranks print the same report,
+    `demoted` summed over the mesh."""
+    flags = ["-m", "deeprec_tpu_torch.modelzoo", "--model", "wide_and_deep", "--sharded",
+             "--device", "cpu", "--batch_size", "256", "--capacity", "256", "--vocab",
+             "20000", "--emb_dim", "32", "--log_every", "1", "--eval_every", "0",
+             "--eval_batches", "1", "--save_steps", "0", "--steps", "4",
+             "--maintain_every", "2", "--hbm_budget_mb", "1"]
+    res = _launch(tmp_path, 2, flags, "zootier")
+    assert all(rc == 0 for rc, _ in res), res[0][1][-3000:]
+    reports = [[line for line in text.splitlines() if line.startswith("maintain: ")]
+               for _, text in res]
+    assert reports[0] and reports[0] == reports[1], reports
+    import ast
+
+    rep = ast.literal_eval(reports[0][-1][len("maintain: "):])
+    acted = [r for r in rep.values() if r.get("auto_tiered")]
+    assert acted and all(r["demoted"] > 0 and r["capacity"] == 128 and "grew_to" not in r
+                         for r in acted), rep
+    assert _losses(res[0][1]) == _losses(res[1][1])
 
 
 def test_default_device_needs_cuda(tmp_path):

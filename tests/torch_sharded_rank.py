@@ -40,11 +40,17 @@ def _model(spec, job):
     over = {k: job[k] for k in ("value_dtype", "exchange_dtype") if job.get(k)}
     if job.get("cbf"):
         over["ev"] = config.EmbeddingVariableOption(cbf_filter=config.CBFFilter(**job["cbf"]))
+    if job.get("storage"):  # on the tables of features `storage_on` (default all)
+        over["ev"] = config.EmbeddingVariableOption(
+            storage=config.StorageOption(**job["storage"]))
+    on = job.get("storage_on")
     if over:
+        sparse = [f for f in model.features if isinstance(f, SparseFeature)
+                  and f.table is not None]
+        pick = {id(f) for i, f in enumerate(sparse) if on is None or i in on}
         model.features = [
             dataclasses.replace(f, table=dataclasses.replace(f.table, **over))
-            if isinstance(f, SparseFeature) and f.table is not None else f
-            for f in model.features]
+            if id(f) in pick else f for f in model.features]
     return model
 
 
@@ -497,7 +503,131 @@ def ring_job(spec, job, rank, device, batches):
     np.savez(job["out"] + f".{rank}.npz", **out)
 
 
-JOBS = {"placement": placement_job, "async": async_job, "ring": ring_job}
+# ------------------------------------------------------ tiers, async saves
+
+
+def tier_record(trainer, st, report=None):
+    """What a tier scenario compares after a maintain: the rows and
+    counters (`_rows`), the report, and each of this position's member
+    tiers' host-store export and disk-log contents (by key), keyed
+    <bundle>:<index>."""
+    out = _rows(trainer, st)
+    if report is not None:
+        out["report"] = np.asarray(json.dumps(report, sort_keys=True))
+    for (bname, idx), mt in sorted(trainer._tiers.items()):
+        tag = f"{bname}:{'_'.join(map(str, idx))}"
+        if mt.host is not None:
+            k, v, f, ver = mt.host.export()
+            out[f"host:{tag}:keys"], out[f"host:{tag}:rows"] = k, v
+            out[f"host:{tag}:meta"] = np.stack([f, ver], 1) if len(k) else np.zeros((0, 2))
+        if mt.disk is not None:
+            keys = np.sort(np.fromiter(mt.disk.index, np.int64, len(mt.disk.index)))
+            v, f, ver, found = mt.disk.get(keys)
+            assert found.all()
+            out[f"disk:{tag}:keys"], out[f"disk:{tag}:rows"] = keys, v
+            out[f"disk:{tag}:meta"] = np.stack([f, ver], 1) if len(keys) else np.zeros((0, 2))
+            out[f"disk:{tag}:path"] = np.asarray(os.path.basename(mt.disk.path))
+    return out
+
+
+def tiers_job(spec, job, rank, device, batches):
+    """A tier scenario: `ops` in order — load (a carried JAX state), steps
+    (n train steps from batch `first`, losses kept), maintain (its keyword
+    arguments; the report and `tier_record` under the op's tag), drain
+    (every member tier drained into the state, the summed TierStats under
+    the tag), record (`tier_record` under the tag), paging (whether
+    enable_tier_paging raises NotImplementedError), place
+    (update_placement(force=True): its report, the plans left, the
+    fingerprints)."""
+    from deeprec_tpu_torch.embedding.table import member_view
+    from deeprec_tpu_torch.training.trainer import _put_member
+
+    tr = _sharded(spec, job, rank, device, job.get("placement", "uniform"))
+    st = tr.init(0)
+    out = {}
+    for op in job["ops"]:
+        kind, tag = op["op"], op.get("tag", "")
+        if kind == "load":
+            st = load_state(tr, op["state"], tr.mesh.index)
+        elif kind == "steps":
+            losses = []
+            for i in range(op["n"]):
+                st, m = tr.train_step(st, batches[op["first"] + i])
+                losses.append(float(m["loss"]))
+            out[f"{tag}losses"] = np.asarray(losses, np.float64)
+        elif kind == "maintain":
+            st, rep = tr.maintain(st, **op.get("kw", {}))
+            out.update(_pre(tag, tier_record(tr, st, rep)))
+        elif kind == "drain":
+            total = {}
+            for bname, b in tr.bundles.items():
+                ts = st.tables[bname]
+                for k in range(b.num_tables):
+                    mt = tr._tiers.get((bname, tr._tier_index(b, k)))
+                    if mt is None:
+                        continue
+                    m, stats = mt.drain(member_view(ts, k))
+                    ts = _put_member(ts, k, m)
+                    for name, v in dataclasses.asdict(stats).items():
+                        total[name] = total.get(name, 0) + v
+                st.tables[bname] = ts
+            out[f"{tag}drain"] = np.asarray(json.dumps(total, sort_keys=True))
+            out.update(_pre(tag, tier_record(tr, st)))
+        elif kind == "record":
+            out.update(_pre(tag, tier_record(tr, st)))
+        elif kind == "paging":
+            try:
+                tr.enable_tier_paging()
+                out["paging"] = np.asarray("no raise")
+            except NotImplementedError as e:
+                out["paging"] = np.asarray(f"NotImplementedError: {e}")
+        elif kind == "place":
+            st, rep = tr.update_placement(st, force=True)
+            out["place"] = np.asarray(json.dumps(rep, sort_keys=True))
+            out["plans"] = np.asarray(len(tr._plans))
+            out["fingerprints"] = np.asarray(json.dumps(
+                {b: tr.routing_fingerprint(b) for b in tr.bundles}))
+    np.savez(job["out"] + f".{rank}.npz", **out)
+
+
+def ckpt_async_job(spec, job, rank, device, batches):
+    """Async part-file saves at this world: two runs of the same steps from
+    the same init, one saving with save / save_incremental, the other with
+    save_async / save_incremental_async (a full save after `steps`, one
+    more step, a delta); each run's live rows, its saves'
+    `last_save["async"]` and kinds, and its directory restored into a fresh
+    trainer."""
+    from deeprec_tpu_torch.training.checkpoint import CheckpointManager
+
+    out = {}
+    for tag in ("sync", "async"):
+        tr = _sharded(spec, job, rank, device)
+        st = tr.init(0)
+        for i in range(job["steps"]):
+            st, _ = tr.train_step(st, batches[i])
+        ck = CheckpointManager(os.path.join(job["dir"], tag), tr, sharded_io=True)
+        flags, kinds = [], []
+        for save in ("full", "incr"):
+            if save == "incr":
+                st, _ = tr.train_step(st, batches[job["steps"]])
+            if tag == "sync":
+                st, _ = ck.save(st) if save == "full" else ck.save_incremental(st)
+            else:
+                st, _ = ck.save_async(st) if save == "full" else ck.save_incremental_async(st)
+                ck.wait()
+            flags.append(ck.last_save["async"])
+            kinds.append(ck.last_save["kind"])
+        out[f"{tag}.flags"], out[f"{tag}.kinds"] = np.asarray(flags), np.asarray(kinds)
+        out.update(_pre(f"{tag}.live.", _rows(tr, st)))
+        rt = _sharded(spec, job, rank, device)
+        rs = CheckpointManager(os.path.join(job["dir"], tag), rt, sharded_io=True).restore()
+        out.update(_pre(f"{tag}.restored.", _rows(rt, rs)))
+        out[f"{tag}.step"] = np.asarray(int(rs.step))
+    np.savez(job["out"] + f".{rank}.npz", **out)
+
+
+JOBS = {"placement": placement_job, "async": async_job, "ring": ring_job,
+        "tiers": tiers_job, "ckpt_async": ckpt_async_job}
 
 
 def spawn(tmp_path, world, jobs, tag, batches=None, timeout=240, **spec):
