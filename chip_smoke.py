@@ -370,8 +370,8 @@ the seconds of every phase are printed at the end):
  23. multi-tier tables under the sharded trainer (TIERS23), as further legs
      of phase 21's processes at FULL's widths with a global capacity of
      2^11 a table, which the windows' ids overfill: (a) world 4 over gloo,
-     hbm_dram tables, windows of 3, 1 and 1 steps with maintain() after
-     each: before each maintain every rank copies its shard, then syncs a
+     hbm_dram tables, windows of 3 and 1 steps (3, 1 and 1 before phase
+     24) with maintain() after each: before each maintain every rank copies its shard, then syncs a
      one-device MultiTierTable per member over the copy at the same step:
      device rows, freq, version, accumulators and the host-store export
      per key bit for bit; the same #3 / #5 launches as that sync; every
@@ -385,10 +385,36 @@ the seconds of every phase are printed at the end):
      with demoted > 0, the next maintain at that budget grows and demotes
      nothing (it may heal chains a rebuild left failed inserts in); (d)
      save_async of part files at world 4 is synchronous (`last_save["async"]`
-     False) and restores what save restores, per key; at world 1
+     False) and writes what save writes, array for array, and save's
+     restore equals the live rows per key (both saves were restored before
+     phase 24); at world 1
      (sharded_io=True) it writes on the writer thread; (e) trace_guard:
      the builds and first loads of `build_all`, and no build and no load
      in (a)'s steady-state windows or in the training phase's timed steps.
+ 24. deeprec_tpu_torch/ops/traffic.py's models against the port's measured
+     work, each line with the card's name and power limit: (a) the
+     single-table lookup + apply (capacity 2^12, dim 16, Adagrad, 256 ids)
+     on the diet and the legacy apply arm behind the hash and the sort
+     dedup: `count_device_ops` equal to `expected_lookup_apply_ops` and
+     the #3 / #5 launches equal to the count's row-kernel share; (b) from
+     phase 6's profiled steps, `dlrm_reference_traffic` at the measured
+     unique fraction and Adagrad's slot width beside the device time of
+     the `phase_lookup` and `phase_sparse_apply` ranges, its share of 3.35
+     TB/s; (c) in phase 8, `fused_sparse_step_traffic` summed over the
+     tables equal to #6 / #7's bound bytes (`fused_step_directions`) to the
+     byte; (d) in phase 14, the peak memory of an off and a lookahead
+     window beside `pipeline_buffer_bytes` over the loop's tables, and
+     `modeled_overlap_step` from the profiled window's device times of a
+     step's work beside the measured off and lookahead steps; (e) in phase 18, on its model and
+     Predictor, SERVING_BENCH.json's compute_reuse protocol (64 users
+     zipf(1.1), 4 rows a request, 8 HTTP clients in a process of their
+     own, a 64 MB answer cache, 5
+     s with the cache off and 5 s on, a delta published mid-load): every
+     request answered, a miss, its hit and a no_cache re-evaluation the
+     same bits at one version, no old-version answer after the swap, the
+     cache within capacity; the hit rate beside `zipf_expected_hit_rate`,
+     the rates before, just after and after the swap, the requests/s factor
+     beside `serving_reuse_speedup` at the measured hit cost.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
@@ -398,6 +424,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -1468,6 +1495,13 @@ def train_phase(dev, model_kw, ckdir, seed, cfg):
 
         stats["profile"] = profile_device(step, cfg["profiled"])
         state = box.pop()
+    # phase 24 (b): the measured unique fraction, the mean over the tables of
+    # every step's, and the optimizer's per-row slot widths
+    fracs = [r["unique_fraction"] for r in trainer.dedup_stats(state).values()]
+    stats["unique_fraction"] = float(np.mean(fracs))
+    stats["tables"] = sum(b.num_tables for b in trainer.bundles.values())
+    stats["slot_widths"] = tuple(w for shape, _ in trainer.sparse_opt.slot_specs(
+        model_kw["emb_dim"]).values() for w in shape)
 
     # the trained rows, served back through a checkpoint and Predictor
     served = {}
@@ -1744,21 +1778,31 @@ def tight_budget(values, row_ix, what):
           "out-of-budget positions add nothing")
 
 
-def fused_bytes(bundles, last, slot_width):
-    """The byte bounds (forward, backward) of one step from the fused
-    model's terms (ops/traffic.py fused_sparse_step_traffic(fused=True) of
-    the JAX package), summed over tables, with this step's unique rows: ids
-    read once per direction, each unique row read once (and written once
-    backward, with its slot rows), bags out, gradients in."""
-    fwd = bwd = 0
+def _fused_tables(bundles, last, slot_width):
+    """The keywords of ops/traffic.py's fused step model for every table of
+    one step: its positions, bags, this step's unique rows, width, value
+    bytes and the optimizer's slot width."""
     for L, (table, st) in bundles.items():
         row_ix, res = last[L]
-        T, B, _ = row_ix.shape
-        N, D = B * L, st.values.shape[2]
-        vb = st.values.element_size()
+        B = row_ix.shape[1]
         for u in (res.uids >= 0).sum(-1).tolist():
-            fwd += 4 * N + u * D * vb + B * D * 4
-            bwd += B * D * 4 + 4 * N + 2 * u * D * vb + 2 * slot_width * 4 * u
+            yield dict(positions=B * L, batch=B, unique=u, dim=st.values.shape[2],
+                       value_bytes=st.values.element_size(), slot_widths=(slot_width,))
+
+
+def fused_bytes(bundles, last, slot_width):
+    """The byte bounds (forward, backward) of one step: the fused model's
+    terms (ops/traffic.py fused_step_directions) summed over tables, with
+    this step's unique rows: ids read once per direction, each unique row
+    read once (and written once backward, with its slot rows), bags out,
+    gradients in."""
+    from deeprec_tpu_torch.ops import traffic as T
+
+    fwd = bwd = 0
+    for kw in _fused_tables(bundles, last, slot_width):
+        split = T.fused_step_directions(**kw)
+        fwd += split["forward"]
+        bwd += split["backward"]
     return fwd, bwd
 
 
@@ -1910,6 +1954,15 @@ def fused_phase(dev, seed, cfg):
 
     # per-step device times at the main path's shapes: all groups once
     fwd_b, bwd_b = fused_bytes(bundles, last, cfg["dim"])
+    # phase 24 (c): the whole-step model summed over the tables against them
+    from deeprec_tpu_torch.ops import traffic as T
+
+    tables = list(_fused_tables(bundles, last, cfg["dim"]))
+    model_b = sum(T.fused_sparse_step_traffic(fused=True, **kw)["hbm_bytes"] for kw in tables)
+    if model_b != fwd_b + bwd_b:
+        raise AssertionError(f"phase 24 (c): fused_sparse_step_traffic over the tables "
+                             f"{model_b} B, the bounds' bytes {fwd_b} + {bwd_b}")
+    stats["model_bytes"] = dict(model=model_b, fwd=fwd_b, bwd=bwd_b, tables=len(tables))
     items = [(L, table, st, *last[L]) for L, (table, st) in bundles.items()]
     U = {L: resolve_size(row_ix.shape[1] * L, row_ix.shape[1] * L)
          for L, _, _, row_ix, _ in items}
@@ -2733,7 +2786,8 @@ def zoo_phase(dev, seed, cfg, ckroot):
 LOOP = dict(batch=2048, vocab=1_000_000, K=8, windows=40, every=5, accum_windows=2,
             accum=4, eval_batches=8, filter_freq=2, steps_to_live=200, lr=0.05,
             dense_lr=1e-3, max_capacity=1 << 20, auc_floor=0.60, off_windows=(25, 30),
-            raw_windows=(35, 40), profiled=20, agree_batch=256, agree_K=4,
+            raw_windows=(35, 40), profiled=20, peak_windows=(28, 31),
+            agree_batch=256, agree_K=4,
             tiny_vocab=40, budget=64, stage_batch=2048, stage_windows=2,
             cbf=dict(filter_freq=2, max_element_size=1 << 14), cbf_steps=3,
             ttl=1, l2_per_dim=0.0025)
@@ -3029,6 +3083,9 @@ def loop_phase(dev, seed, full, cfg):
     staged = trainer.stage(iter(host[:cfg["raw_windows"][0] * K]), depth=2)
     windows, maint, losses, evicted, reports = [], [], [], [], []
     prof, fails_after = None, None
+    # phase 24 (d): the peak memory of one off and one lookahead window
+    peaks = {"off": None, "lookahead": None}
+    peak_at = dict(zip(cfg["peak_windows"], peaks)) if dev.type == "cuda" else {}
 
     def one_window(w, profiled=False):
         nonlocal state
@@ -3037,10 +3094,14 @@ def loop_phase(dev, seed, full, cfg):
                                  else "lookahead")
         syncs = sum(b.table.probe_syncs for b in trainer.bundles.values())
         _sync(dev)
+        if w in peak_at:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         src = iter(host[w * K:(w + 1) * K]) if raw else staged
         state, mets = trainer.train_steps(state, [next(src) for _ in range(K)])
         _sync(dev)
+        if w in peak_at:
+            peaks[peak_at[w]] = torch.cuda.max_memory_allocated()
         windows.append((w, "profiled" if profiled else trainer.pipeline_mode,
                         "off" if raw else "auto", time.perf_counter() - t0,
                         sum(b.table.probe_syncs for b in trainer.bundles.values()) - syncs))
@@ -3097,11 +3158,19 @@ def loop_phase(dev, seed, full, cfg):
     caps = [ts.keys.shape[1] for ts in state.tables.values()]
     grew = [r["grew_to"] for _, r in reports if "grew_to" in r]
     removed = sum(s0 - s1 - lost for _, s0, s1, lost in evicted)
+    # phase 24 (d): the lookahead's resident carry, modeled over the tables at
+    # their shapes (single-hot: B positions and, with no budget, U = B)
+    from deeprec_tpu_torch.ops import traffic
+
+    ts = state.tables[bname]
+    buffer_model = ts.keys.shape[0] * traffic.pipeline_buffer_bytes(
+        unique=B, dim=ts.values.shape[2], positions=B, value_bytes=ts.values.element_size(),
+        key_bytes=ts.keys.element_size())
     stats = dict(distinct=distinct, C0=C0, data_s=data_s, windows=windows, maint=maint,
                  losses=losses, evicted=evicted, reports=reports, accum_s=accum_s,
                  fails=(fails_after, fails_end), auc=auc, launches=launches, want=want,
                  profile=prof, grew=grew, caps=caps, removed=removed,
-                 bundle_tables=b.num_tables)
+                 bundle_tables=b.num_tables, peaks=peaks, buffer_model=buffer_model)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss in the loop: {losses}")
     if fails_end != fails_after:
@@ -3185,7 +3254,10 @@ def run_loop(dev, seed, full, small, cfg, ckroot):
 # Phase 15, multi-tier storage. (b) trains MLPerf DLRM-DCN with a device
 # tier of `capacity` slots per table: over its 14 windows the run's ids
 # (SyntheticCriteo, vocab 10^6) pass 2^15 slots' high watermark at window
-# 10, and the later windows demote, promote and fold. (c) starts the modelzoo's budget path at `capacity`
+# 10, and the later windows demote, promote and fold (at 2^14 slots and 10
+# windows the phase took 30 s longer: three demotes of 92,000-106,000 rows
+# where 2^15 has one of 155,000 and a small one, and an eighth of the keys
+# lost to failed inserts). (c) starts the modelzoo's budget path at `capacity`
 # slots with a budget of 3 tables' worth of bytes: one growth fits, the
 # next does not.
 TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=14, capacity=1 << 15, every=5,
@@ -3198,7 +3270,11 @@ TIER = dict(batch=2048, vocab=1_000_000, K=8, windows=14, capacity=1 << 15, ever
                      rounds=(("sync", 1500, 0.0), ("sync", 1500, 0.0), ("sync", 600, 0.5),
                              ("async", 300, 0.5), ("async", 350, 0.5))),
             train=dict(batch=256, K=4, rounds=2, prefill=6, depth=8),
-            budget=dict(capacity=1 << 14, windows=10, budget_tables=3))
+            budget=dict(capacity=1 << 14, windows=10, budget_tables=3),
+            # (a)'s budget agreement: batches of 2048 that fill its state
+            # past the growth threshold (occupancy 0.67; at 4, 0.56 grows
+            # nothing)
+            budget_prefill=5)
 FILLS = (("accum", 0.1),)
 
 
@@ -3476,7 +3552,7 @@ def tier_budget_agreement(dev, seed, small, cfg):
 
     gen = SyntheticCriteo(batch_size=2048, vocab=cfg["vocab"], seed=seed + 85)
     cpu = trainer("cpu")
-    state0 = _prefill(cpu, cpu.init(), [gen.batch() for _ in range(7)])
+    state0 = _prefill(cpu, cpu.init(), [gen.batch() for _ in range(cfg["budget_prefill"])])
     (bname, b), = cpu.bundles.items()
     total = cpu._state_bytes(state0.tables[bname])
     lines = []
@@ -5500,6 +5576,23 @@ def serve_load(dev, seed, full, cfg, ckdir):
         lag=p.last_apply_lag_seconds, last_update_ms=p.last_update_ms, step=state.step,
         losses=losses)
 
+    # phase 24 (e) on this model and Predictor, with launch counts of its own:
+    # its delta is a link of the chain (`paths`) for the fresh Predictors below
+    def commit():
+        nonlocal state
+        with train_stream:
+            for i in range(REUSE["steps"]):
+                state, _ = trainer.train_step(state, staged[i])
+        save(True)
+
+    t_reuse = time.perf_counter()
+    reuse = {}
+    with _own_counts(reuse):
+        reuse["stats"] = compute_reuse(p, probe, commit,
+                                       os.path.join(os.path.dirname(ckdir), "reuse"))
+    reuse["seconds"] = time.perf_counter() - t_reuse
+    st["reuse"] = reuse
+
     # (d) the quality gate: a delta whose dense leaves are NaN
     t_gate = time.perf_counter()
     before = p.predict(probe)
@@ -5628,7 +5721,7 @@ def _residencies(dev, p, p8, probe, model, cfg, ckdir, st, paths):
 
 def run_serving(dev, seed, full, cfg, ckroot):
     """Phase 18, printed. Returns the launches of (#1, #3, #2, #5, #4) over
-    its path."""
+    its path and phase 24 (e)'s record (run inside it, counted apart)."""
     from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
 
     t0 = time.perf_counter()
@@ -5691,9 +5784,10 @@ def run_serving(dev, seed, full, cfg, ckroot):
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
     print(f"serving stack: the path launched (#1, #3, #2, #5, #4) {launches.tolist()} (implied "
           f"{want.tolist()}); peak device memory {peak} GB")
-    print(f"phase 18 (the serving stack) took {time.perf_counter() - t0:.1f} s")
+    print(f"phase 18 (the serving stack) took {time.perf_counter() - t0:.1f} s (phase 24 "
+          f"(e) inside it {st['reuse']['seconds']:.1f} s)")
     shutil.rmtree(ckdir, ignore_errors=True)
-    return launches
+    return launches, st["reuse"]
 
 
 # ------------------------------------------------------------ phase 19
@@ -7577,7 +7671,7 @@ PLACE = dict(zipf_a=(1.6, 1.9, 2.2, 2.5), rotate_every=4, windows=4, per_window=
 
 # Phase 23, the tiers under the sharded trainer, as legs of the
 # same process sets (`_tiers_leg`, `_tiers1_leg`, `_budget_leg`).
-TIERS23 = dict(capacity=1 << 11, windows=(3, 1, 1), windows1=(3, 1, 1, 1), async_at=2,
+TIERS23 = dict(capacity=1 << 11, windows=(3, 1), windows1=(3, 1, 1, 1), async_at=2,
                budget_steps=3)
 
 
@@ -8118,14 +8212,60 @@ def _tiers_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
     ck.wait()
     rec["async_flag"] = ck.last_save["async"]
     del tr, st
-    digests = []
-    for d in (d_s, d_a):
-        rt = ShardedTrainer(_tier_model(cfg, seed, scale=2), *opt(), mesh=mesh)
-        rs = CheckpointManager(d, rt).restore()
-        digests.append(_rows_digest(_shard_rows(rt, rs)))
-        del rt, rs
-    rec["digests"] = dict(live=live, sync=digests[0], async_=digests[1])
+    # save_async committed the manifest save committed and wrote what save
+    # wrote, array for array (this rank's part files; rank 0's dense state
+    # too), so one restore stands for both
+    rec["async_files"] = _same_saves(d_s, d_a, rank)
+    rt = ShardedTrainer(_tier_model(cfg, seed, scale=2), *opt(), mesh=mesh)
+    rs = CheckpointManager(d_s, rt).restore()
+    rec["digests"] = dict(live=live, sync=_rows_digest(_shard_rows(rt, rs)))
+    del rt, rs
     return rec
+
+
+def _same_saves(a, b, rank):
+    """Whether checkpoint directories `a` and `b` hold the same save: every
+    `manifest.json` at the same paths with equal contents (step, kind,
+    base, digests, routing, parts: what restore reads to see a save at
+    all), and the same .npz files of this rank (its `.part<rank>` files;
+    rank 0 also the files of no part), with every array equal. Returns the
+    number of .npz files compared, or raises."""
+    import glob as _glob
+
+    mine = f".part{rank:05d}.npz"
+
+    def files(d, pattern, keep):
+        return sorted(os.path.relpath(f, d)
+                      for f in _glob.glob(os.path.join(d, "**", pattern), recursive=True)
+                      if keep(f))
+
+    manifests = files(a, "manifest.json", lambda f: True)
+    if not manifests or manifests != files(b, "manifest.json", lambda f: True):
+        raise AssertionError(f"phase 23 (d) rank {rank}: save committed {manifests}, "
+                             f"save_async {files(b, 'manifest.json', lambda f: True)}")
+    for n in manifests:
+        with open(os.path.join(a, n)) as x, open(os.path.join(b, n)) as y:
+            ma, mb = json.load(x), json.load(y)
+        if ma != mb:
+            keys = sorted(k for k in set(ma) | set(mb) if ma.get(k) != mb.get(k))
+            raise AssertionError(f"phase 23 (d) rank {rank}: {n} differs between save and "
+                                 f"save_async in {keys}")
+
+    def npz(d):
+        return files(d, "*.npz",
+                     lambda f: f.endswith(mine) or (rank == 0 and ".part" not in f))
+
+    names = npz(a)
+    if not names or names != npz(b):
+        raise AssertionError(f"phase 23 (d) rank {rank}: save wrote {names}, save_async "
+                             f"{npz(b)}")
+    for n in names:
+        with np.load(os.path.join(a, n)) as x, np.load(os.path.join(b, n)) as y:
+            if sorted(x.files) != sorted(y.files) or not all(
+                    np.array_equal(x[k], y[k]) for k in x.files):
+                raise AssertionError(f"phase 23 (d) rank {rank}: {n} differs between save "
+                                     "and save_async")
+    return len(names)
 
 
 def _tiers1_leg(leg, cfg, seed, dev, out_dir, rank, opt, model):
@@ -8799,8 +8939,9 @@ def phase23(dev, cfg, rb, ra, label, host_label):
         held(r["async_flag"] is False, f"(d) rank {r['rank']}: save_async of part files at "
              f"world {W} ran in the background")
         dg = r["digests"]
-        held(dg["sync"] == dg["async_"] == dg["live"], f"(d) rank {r['rank']}: the restores "
-             f"of save and save_async against the live rows {dg}")
+        held(dg["sync"] == dg["live"] and r["async_files"] > 0, f"(d) rank {r['rank']}: the "
+             f"restore of save against the live rows {dg}, save_async's files "
+             f"{r['async_files']}")
     # (b) world 1: the sharded trainer against the Trainer
     b = ra["p23_tiers1"][0]
     pl, sh = b["plain"], b["sharded"]
@@ -8822,9 +8963,11 @@ def phase23(dev, cfg, rb, ra, label, host_label):
           f"{[(sum(x['demoted'] for x in w.values()), sum(x['promoted'] for x in w.values())) for w in reps1]}; "
           f"seconds Trainer {pl['seconds']:.1f}, sharded {sh['seconds']:.1f} ({label})")
     print(f"tiers (d): part files at world {W}: save_async synchronous on every rank "
-          f"(last_save['async'] False), its restore and save's equal to the live rows per key "
-          f"bit for bit; at world 1 (sharded_io=True) written on {sv['thread']} and restored "
-          f"bit for bit")
+          f"(last_save['async'] False), its manifests equal to save's and its files equal "
+          f"to save's array for array "
+          f"({[r['async_files'] for r in a]} files a rank), save's restore equal to the live "
+          f"rows per key bit for bit; at world 1 (sharded_io=True) written on {sv['thread']} "
+          f"and restored bit for bit")
     # (c) world 4: auto-tier at the whole mesh's bytes, then nothing
     c = rb["p23_budget"]
     for r in c:
@@ -8858,6 +9001,420 @@ def phase23(dev, cfg, rb, ra, label, host_label):
     return total
 
 
+# ------------------------------------------------------------ phase 24
+
+# Phase 24, ops/traffic.py's models against the port's measured work. (a)
+# runs as phase 24 proper; (b), (c) and (d) read what phases 6, 8 and 14
+# measured (phase 6's profiled steps, phase 8's byte bounds, phase 14's off
+# and lookahead windows); (e) runs inside phase 18, on its model, its
+# Predictor and its trainer, with launch counts of its own (`_own_counts`).
+# (e) is SERVING_BENCH.json's compute_reuse protocol: `users` users drawn
+# zipf(`alpha`), `rows` rows a request, `clients` closed-loop HTTP clients,
+# a `cache_mb` answer cache, `seconds` an arm, a delta published mid-load.
+REUSE = dict(users=64, alpha=1.1, rows=4, clients=8, cache_mb=64, seconds=5.0,
+             settle=0.4, max_batch=32, max_wait_ms=1.0, steps=2)
+
+
+@contextlib.contextmanager
+def _own_counts(out):
+    """The launch counts of a path that runs inside another path's: every
+    count set to 0 just before, (#1, #3, #2, #5, #4) read into `out` just
+    after (the bf16 ones added to PAIR_LAUNCHES), then put back."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        apply_rows_sr, fused_gather_combine, gather_rows)
+
+    saved = [(k, a, getattr(k, a)) for k in (gather_rows, apply_rows_sr)
+             for a in ("launches", "launches_bf16")]
+    saved.append((fused_gather_combine, "launches", fused_gather_combine.launches))
+    for k, a, _ in saved:
+        setattr(k, a, 0)
+    try:
+        yield out
+    finally:
+        out["launches"] = _launch_counts()
+        _row_counts()
+        for k, a, v in saved:
+            setattr(k, a, v)
+
+
+def op_count_phase(dev):
+    """Phase 24 (a): the single-table lookup + apply program
+    (`optim/apply.lookup_apply_region`: capacity 2^12, dim 16, Adagrad, 256
+    ids) on the diet and the legacy apply arm behind the hash and the sort
+    dedup, on `dev`: `count_device_ops` equal to `expected_lookup_apply_ops`
+    (tests/test_torch_traffic.py holds the same on the CPU), and on the
+    card the #3 / #5 launches equal to the count's row-kernel share.
+    Returns [(arm, the count, the model)]."""
+    from deeprec_tpu_torch.ops import traffic as T
+    from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
+    from deeprec_tpu_torch.optim import Adagrad
+    from deeprec_tpu_torch.optim.apply import lookup_apply_region
+
+    rows = []
+    for budgeted in (True, False):
+        for diet in (True, False):
+            what = f"{'diet' if diet else 'legacy'} apply, {'hash' if budgeted else 'sort'} dedup"
+            want = T.expected_lookup_apply_ops(diet=diet, budgeted=budgeted)
+            region = lookup_apply_region(Adagrad(lr=0.05), diet=diet, budgeted=budgeted,
+                                         device=dev)
+            _sync(dev)
+            n0 = (gather_rows.launches, apply_rows_sr.launches)
+            got = T.count_device_ops(region)
+            _sync(dev)
+            n = (gather_rows.launches - n0[0], apply_rows_sr.launches - n0[1])
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"phase 24 (a) {what} on {dev.type}: counted {got}, the "
+                                     f"model {want}")
+            if dev.type == "cuda" and n != (got["row_gather"], got["row_scatter"]):
+                raise AssertionError(f"phase 24 (a) {what}: launched (#3, #5) {n}, the count's "
+                                     f"row kernels {(got['row_gather'], got['row_scatter'])}")
+            rows.append((what, got, want))
+    return rows
+
+
+def engine_bytes(stats, batch, dim):
+    """Phase 24 (b) from phase 6's stats: `dlrm_reference_traffic` at the
+    measured mean unique fraction and the optimizer's slot widths, beside
+    the device time of the profiled steps' `phase_lookup` and
+    `phase_sparse_apply` ranges. Returns a dict (no time without a
+    profile)."""
+    from deeprec_tpu_torch.ops import traffic as T
+
+    kw = dict(batch=batch, num_tables=stats["tables"], dim=dim,
+              slot_widths=stats["slot_widths"])
+    model = T.dlrm_reference_traffic(unique_fraction=stats["unique_fraction"], **kw)
+    out = dict(unique_fraction=stats["unique_fraction"], slot_widths=stats["slot_widths"],
+               tables=stats["tables"], bytes=model["total_bytes"],
+               bytes_at_b=T.dlrm_reference_traffic(**kw)["total_bytes"],
+               bound_ms=model["total_bytes"] / HBM_BYTES_PER_S * 1e3)
+    if "profile" in stats:
+        phases = stats["profile"][4]
+        out["device_ms"] = sum(phases[k][1] for k in ("phase_lookup", "phase_sparse_apply")
+                               if k in phases) / 1e3
+        out["share"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
+def overlap_model(st, cfg):
+    """Phase 24 (d) from phase 14's stats: `pipeline_buffer_bytes` summed
+    over the loop's tables at their shapes beside the peak-memory
+    difference of a lookahead and an off window, and `modeled_overlap_step`
+    beside the measured steps of both modes. The model's inputs are the
+    device times of a step's work, which the schedule reorders and does
+    not change (on the H100 an off window's device busy time a step is a
+    lookahead window's within 0.1 %), read from the profiled window: dense `phase_dense_fwd_bwd` and the autograd engine's
+    backward, route the route ranges (`phase_route_next` and the window's
+    first `phase_lookup`), other the rest of the busy time. Returns a
+    dict."""
+    from deeprec_tpu_torch.ops import traffic as T
+
+    K = cfg["K"]
+    out = dict(buffer_model=st["buffer_model"], peaks=st["peaks"])
+    if None not in st["peaks"].values():
+        out["peak_diff"] = st["peaks"]["lookahead"] - st["peaks"]["off"]
+        out["peak_ratio"] = out["peak_diff"] / st["buffer_model"]
+    maint_after = {w for w, _, _ in st["maint"]}
+    steps = {mode: float(np.median([sec for w, m, stage, sec, _ in st["windows"]
+                                    if m == mode and stage == "auto"
+                                    and w + 1 not in maint_after])) / K * 1e3
+             for mode in ("off", "lookahead")}
+    out["measured_ms"] = steps
+    if st.get("profile") is not None:  # one window, per step
+        _, busy, _, _, phases = st["profile"]
+        dev_ms = {k: d / K / 1e3 for k, (_, d) in phases.items()}
+        dense = dev_ms.get("phase_dense_fwd_bwd", 0.0) + dev_ms.get("autograd_engine_backward", 0.0)
+        route = dev_ms.get("phase_route_next", 0.0) + dev_ms.get("phase_lookup", 0.0)
+        other = busy / K / 1e3 - dense - route
+        out["inputs_ms"] = dict(dense=dense, route=route, other=other)
+        out["modeled_ms"] = {m: T.modeled_overlap_step(dense_ms=dense, route_ms=route,
+                                                       other_ms=other, mode=m)
+                             for m in ("off", "lookahead")}
+        out["ratio"] = {m: steps[m] / out["modeled_ms"][m] for m in steps}
+    return out
+
+
+def _user_payload(req, u, rows):
+    """User u's persistent request (SERVING_BENCH.json's population): a
+    `rows`-slice of `req`, the dense columns shifted by u * 1e-3 and the
+    categorical ones rolled by u: distinct fingerprints, one shape."""
+    out = {}
+    for k, v in req.items():
+        a = np.asarray(v)
+        out[k] = (a[:rows] + a.dtype.type(u) * a.dtype.type(1e-3)
+                  if np.issubdtype(a.dtype, np.floating) else np.roll(a, u, axis=0)[:rows])
+    return out
+
+
+# Phase 24 (e)'s closed-loop clients, in a process of their own (`python -c
+# _CLIENTS spec.json`): their HTTP and JSON work does not share the
+# server's interpreter lock. Each of `clients` threads draws a body per
+# request with `probs` until the file `stop` exists; every answer must be
+# 200 with finite probabilities in (0, 1), and the first failure stops them
+# all. The file `started` marks the threads' start. Writes {"recs":
+# [[client, t start, t end, stamped version]], "errors": [...]}
+# (monotonic clock, which the server's process shares).
+_CLIENTS = r"""
+import json, os, sys, threading, time, urllib.request
+import numpy as np
+spec = json.load(open(sys.argv[1]))
+bodies = [b.encode() for b in json.load(open(spec["bodies"]))]
+probs = np.asarray(spec["probs"], np.float64)
+url = "http://127.0.0.1:%d/v1/predict" % spec["port"]
+recs, errors, lock = [], [], threading.Lock()
+
+def client(c):
+    rng = np.random.default_rng(spec["seed"] + c)
+    mine = []
+    try:
+        while not errors and not os.path.exists(spec["stop"]):
+            j = int(rng.choice(len(bodies), p=probs))
+            t0 = time.monotonic()
+            req = urllib.request.Request(url, data=bodies[j],
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                d = json.loads(r.read())
+            t1 = time.monotonic()
+            pr = np.asarray(d["predictions"], np.float64)
+            if not (np.all(np.isfinite(pr)) and np.all(pr > 0) and np.all(pr < 1)):
+                raise ValueError("an answer is not finite in (0, 1): %s" % pr.tolist())
+            mine.append((c, t0, t1, d["model_version"]))
+    except BaseException as e:
+        errors.append("%s: %s" % (type(e).__name__, e))
+    with lock:
+        recs.extend(mine)
+
+threads = [threading.Thread(target=client, args=(c,)) for c in range(spec["clients"])]
+for th in threads:
+    th.start()
+open(spec["started"], "w").close()
+for th in threads:
+    th.join()
+json.dump({"recs": recs, "errors": errors}, open(spec["out"], "w"))
+"""
+
+
+@contextlib.contextmanager
+def _clients(port, tmp, probs, clients, seed, out):
+    """`_CLIENTS` against `port` with the bodies in `tmp`/bodies.json,
+    started before the block runs and stopped after it: the block's
+    requests, [(client, t start, t end, stamped version)] by start time,
+    land in `out`. Raises on a failed request."""
+    spec = dict(port=port, bodies=os.path.join(tmp, "bodies.json"), probs=list(probs),
+                clients=clients, seed=seed, **{k: os.path.join(tmp, f"{k}-{seed}")
+                                                for k in ("stop", "started", "out")})
+    path = os.path.join(tmp, f"spec-{seed}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    proc = subprocess.Popen([sys.executable, "-c", _CLIENTS, path])
+    try:
+        _wait_for(lambda: os.path.exists(spec["started"]) or proc.poll() is not None,
+                  "the clients' process", phase=24)
+        yield
+    finally:
+        open(spec["stop"], "w").close()
+        proc.wait(timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"phase 24 (e): the clients' process exited {proc.returncode}")
+    with open(spec["out"]) as f:
+        got = json.load(f)
+    if got["errors"]:
+        raise AssertionError(f"phase 24 (e): {len(got['errors'])} clients failed: "
+                             f"{got['errors'][0]}")
+    out.extend(sorted((tuple(r) for r in got["recs"]), key=lambda r: r[1]))
+
+
+def compute_reuse(p, req, commit, tmp, cfg=REUSE):
+    """Phase 24 (e) on phase 18's Predictor `p`: ModelServer + HttpServer
+    with the answer cache off, then on (`cache_mb`), under zipf(`alpha`)
+    traffic from `clients` closed-loop clients in a process of their own
+    (`_clients`; specs and records under `tmp`): per arm `settle` s, then a
+    measured window of `seconds` s; with the cache on, every user once
+    before, and after the window `commit()` (a few train steps and a delta
+    on disk), then under a further drive `p.poll_updates()` a third of
+    `seconds` in (the publish mid-load), the drive on to at least `seconds`
+    and a third of `seconds` of recovery; then a cold miss, its hit and a
+    `no_cache` re-evaluation. Gates: every request answered, the hit, the
+    miss and the re-evaluation the same bits at one version, no answer of
+    the old version after the swap, versions never decreasing per client,
+    the cache within capacity. Returns the measurements."""
+    from deeprec_tpu_torch.ops import traffic as T
+    from deeprec_tpu_torch.serving import HttpServer, ModelServer
+
+    users, rows, secs = cfg["users"], cfg["rows"], cfg["seconds"]
+    cap = int(cfg["cache_mb"] * (1 << 20))
+    pool = [_user_payload(req, u, rows) for u in range(users)]
+    bodies = [json.dumps({"features": {k: v.tolist() for k, v in f.items()}}) for f in pool]
+    os.makedirs(tmp, exist_ok=True)
+    with open(os.path.join(tmp, "bodies.json"), "w") as f:
+        json.dump(bodies, f)
+    ranks = np.arange(1, users + 1, dtype=np.float64) ** -float(cfg["alpha"])
+    probs = ranks / ranks.sum()
+    out = {"arms": {}}
+
+    def counts(ms):
+        return ms.reuse.hits, ms.reuse.misses
+
+    def rate(after, before):
+        dh, dm = after[0] - before[0], after[1] - before[1]
+        return dh / max(dh + dm, 1)
+
+    for seed, (arm, cache) in enumerate((("cache_off", 0), ("cache_on", cap))):
+        t_arm = time.monotonic()
+        ms = ModelServer(p, max_batch=cfg["max_batch"], max_wait_ms=cfg["max_wait_ms"],
+                         reuse_cache_bytes=cache)
+        http = HttpServer(ms, port=0, host="127.0.0.1").start()
+        try:
+            if cache:  # every user once: the whole population resident
+                with concurrent.futures.ThreadPoolExecutor(cfg["clients"]) as ex:
+                    for code, data in ex.map(
+                            lambda b: _http(http.port, "/v1/predict", b.encode()), bodies):
+                        if code != 200:
+                            raise AssertionError(f"/v1/predict answered {code}: {data[:200]}")
+            recs = []
+            with _clients(http.port, tmp, probs, cfg["clients"], seed, recs):
+                time.sleep(cfg["settle"])
+                ms.stats.reset()
+                c0 = counts(ms) if cache else None
+                w0 = time.monotonic()
+                time.sleep(secs)
+                w1 = time.monotonic()
+                c1 = counts(ms) if cache else None
+            lat = np.array([(r[2] - r[1]) * 1e3 for r in recs if w0 <= r[1] and r[2] <= w1])
+            rec = dict(requests=len(lat), rps=len(lat) / (w1 - w0),
+                       p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)))
+            if cache:
+                rec["hit_rate"] = rate(c1, c0)
+                rec["entries"] = len(ms.reuse)
+                rec["occupancy"] = ms.reuse.occupancy_bytes()
+                # a delta published mid-load: the hit rate before, in the
+                # window right after the swap, and after it
+                v0 = p.version
+                t_commit = time.monotonic()
+                commit()  # the delta is on disk; no poller runs
+                t_load = time.monotonic()
+                load = []
+                with _clients(http.port, tmp, probs, cfg["clients"], 101, load):
+                    t_start, p0 = time.monotonic(), counts(ms)
+                    time.sleep(secs / 3)
+                    pre = counts(ms)
+                    t1 = time.monotonic()
+                    published = p.poll_updates()
+                    t_swap = time.monotonic()
+                    pub = counts(ms)
+                    time.sleep(max(0.25, secs / 6))
+                    dip = counts(ms)
+                    time.sleep(max(0.0, t_start + secs - time.monotonic()))
+                    time.sleep(max(0.4, secs / 3))
+                    p1 = counts(ms)
+                if not published or p.version != v0 + 1:
+                    raise AssertionError(f"phase 24 (e): the delta was not published "
+                                         f"(version {v0} -> {p.version})")
+                stale = [r for r in load if r[1] > t_swap and r[3] != p.version]
+                if stale:
+                    raise AssertionError(f"phase 24 (e): {len(stale)} requests started after "
+                                         f"the swap were answered at version {stale[0][3]}")
+                for c in range(cfg["clients"]):
+                    vers = [r[3] for r in sorted(load, key=lambda r: r[2]) if r[0] == c]
+                    if vers != sorted(vers):
+                        raise AssertionError(f"phase 24 (e): client {c}'s versions decreased")
+                out["publish"] = dict(pre=rate(pre, p0), dip=rate(dip, pub),
+                                      recovered=rate(p1, dip),
+                                      invalidations=ms.reuse.invalidations,
+                                      requests=len(load), version=p.version,
+                                      poll_s=t_swap - t1, commit_s=t_load - t_commit,
+                                      drive_s=time.monotonic() - t_load)
+                # a cold miss, the hit that follows, a forced re-evaluation
+                probe = _user_payload(req, users + 7, rows)
+                h0 = counts(ms)
+                r1, v1 = ms.request_versioned(probe)
+                r2, v2 = ms.request_versioned(probe)
+                r3, v3 = ms.request_versioned(probe, no_cache=True)
+                if (counts(ms)[0] - h0[0], counts(ms)[1] - h0[1]) != (1, 1):
+                    raise AssertionError(f"phase 24 (e): the probe's miss and hit counted "
+                                         f"{counts(ms)} from {h0}")
+                if not (v1 == v2 == v3 and np.array_equal(r1, r2) and np.array_equal(r1, r3)):
+                    raise AssertionError(f"phase 24 (e): miss, hit and no_cache differ (versions "
+                                         f"{v1}, {v2}, {v3})")
+                out["bit_identical"] = True
+                occ = ms.reuse.occupancy_bytes()
+                if max(occ, rec["occupancy"]) > cap:
+                    raise AssertionError(f"phase 24 (e): the cache holds {occ} B over {cap} B")
+                out["occupancy_end"] = occ
+            rec["seconds"] = time.monotonic() - t_arm
+            out["arms"][arm] = rec
+        finally:
+            http.stop()
+            ms.close()
+            if ms.reuse is not None:
+                p._reuse_caches.remove(ms.reuse)
+    shutil.rmtree(tmp, ignore_errors=True)
+    off, on = out["arms"]["cache_off"], out["arms"]["cache_on"]
+    hr = on["hit_rate"]
+    c = min(on["p50"] / max(off["p50"], 1e-9), 0.999)
+    out.update(factor=on["rps"] / max(off["rps"], 1e-9), hit_cost=c,
+               zipf=T.zipf_expected_hit_rate(users=users, alpha=cfg["alpha"],
+                                             resident=on["entries"]),
+               modeled=T.serving_reuse_speedup(hit_rate=min(hr, 0.999), hit_cost_ratio=c),
+               ceiling=T.serving_reuse_speedup(hit_rate=min(hr, 0.999)))
+    return out
+
+
+def print_phase24(p24, label):
+    """Phase 24's lines, each with the card's name and power limit."""
+    for what, got, want in p24["ops"]:
+        print(f"traffic (a): lookup + apply, {what}: counted (gather, scatter) "
+              f"{(got['gather'], got['scatter'])}, the model "
+              f"{(want['gather'], want['scatter'])}; row kernels (#3, #5) "
+              f"{(got['row_gather'], got['row_scatter'])} = the card's launches ({label})")
+    e = p24.get("engine")
+    if e is not None:
+        dev = (f"; the profiled steps' phase_lookup + phase_sparse_apply device time "
+               f"{e['device_ms']:.3f} ms/step, a share {e['share']:.5f} of "
+               f"{HBM_BYTES_PER_S / 1e12} TB/s" if "device_ms" in e else "; not profiled")
+        print(f"traffic (b): DLRM-DCN step, dlrm_reference_traffic(batch 2048, {e['tables']} "
+              f"tables, dim 128, unique_fraction {e['unique_fraction']:.4f} measured, slot_widths "
+              f"{e['slot_widths']}) {e['bytes']:.0f} B ({e['bytes_at_b']:.0f} B at U = B), "
+              f"{e['bound_ms']:.5f} ms at {HBM_BYTES_PER_S / 1e12} TB/s{dev} ({label})")
+    f = p24.get("fused")
+    if f is not None:
+        print(f"traffic (c): the fused bag step: fused_sparse_step_traffic(fused=True) summed "
+              f"over {f['tables']} tables {f['model']:.0f} B = phase 8's bound bytes forward "
+              f"{f['fwd']} + backward {f['bwd']} ({label})")
+    d = p24.get("overlap")
+    if d is not None:
+        peak = (f"peak memory lookahead - off {d['peak_diff'] / 1e6:.3f} MB against "
+                f"pipeline_buffer_bytes {d['buffer_model'] / 1e6:.3f} MB (ratio "
+                f"{d['peak_ratio']:.3f})" if "peak_diff" in d else "peak memory not measured")
+        print(f"traffic (d): the loop's lookahead: {peak}; measured step ms "
+              f"{ {k: round(v, 3) for k, v in d['measured_ms'].items()} }" +
+              (f", modeled_overlap_step from the profiled window's device ms a step "
+               f"{ {k: round(v, 3) for k, v in d['inputs_ms'].items()} }: "
+               f"{ {k: round(v, 3) for k, v in d['modeled_ms'].items()} }, measured / modeled "
+               f"{ {k: round(v, 3) for k, v in d['ratio'].items()} }" if "ratio" in d else "")
+              + f" ({label})")
+    r = p24.get("reuse")
+    if r is not None:
+        off, on, pub = r["arms"]["cache_off"], r["arms"]["cache_on"], r["publish"]
+        print(f"traffic (e): compute reuse, {REUSE['users']} users zipf({REUSE['alpha']}), "
+              f"{REUSE['rows']} rows a request, {REUSE['clients']} clients, "
+              f"{REUSE['seconds']} s an arm: cache off {off['rps']:.1f} requests/s (p50 "
+              f"{off['p50']:.3f}, p99 {off['p99']:.3f} ms), cache on {on['rps']:.1f} (p50 "
+              f"{on['p50']:.3f}, p99 {on['p99']:.3f} ms); hit rate {on['hit_rate']:.4f} against "
+              f"zipf_expected_hit_rate(resident={on['entries']}) {r['zipf']:.4f}; requests/s "
+              f"factor {r['factor']:.3f} against serving_reuse_speedup {r['modeled']:.3f} at the "
+              f"measured hit cost {r['hit_cost']:.4f} (ceiling {r['ceiling']:.1f}) ({label})")
+        print(f"traffic (e): a delta published mid-load (committed in {pub['commit_s']:.2f} s "
+              f"before the drive, polled in {pub['poll_s']:.2f} s under load; the drive with its "
+              f"recovery {pub['drive_s']:.2f} s; arms {off['seconds']:.2f} s and "
+              f"{on['seconds']:.2f} s): hit rate before {pub['pre']:.4f}, "
+              f"after the swap {pub['dip']:.4f}, recovered {pub['recovered']:.4f}; "
+              f"{pub['invalidations']} entries invalidated; {pub['requests']} requests, none "
+              f"of the old version after the swap, none failed; a miss, its hit and no_cache "
+              f"equal bit for bit; occupancy {on['occupancy']} B, {r['occupancy_end']} B at "
+              f"the end, within {REUSE['cache_mb']} MB ({label})")
+    print(f"traffic: phase 24 launched (#3, #5, #4) {p24['launches']} ({label})")
+
+
 def _add_sharded(sh, gather, scatter):
     """Phase 21's rank launches (#1, #3, #2, #5) into the records: the
     ranks are other processes, so their bf16 launches go to PAIR_LAUNCHES
@@ -8873,10 +9430,13 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         combine_edges=COMBINE_EDGES, combine_group_edges=COMBINE_GROUP_EDGES,
         multi=MULTI, zoo=ZOO, loop=LOOP, tier=TIER, ckpt=CKPT, ingest=INGEST,
         serve=SERVE, retrieval=RETR, guard=GUARD, sharded=SHARD):
-    """Phases 3-22 on `dev`. Returns the kernel records, in the order of the
+    """Phases 3-24 on `dev`. Returns the kernel records, in the order of the
     TPU kernels they replace (#1-#9)."""
+    from deeprec_tpu_torch.ops.fused_lookup import fused_gather_combine
+
     t0 = time.perf_counter()
     phase_s, lap = {}, [t0]
+    p24 = {}  # phase 24's records, most of them from the phases it reads
 
     def done(name):
         """The seconds since the previous phase ended, as phase `name`'s."""
@@ -8972,12 +9532,14 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         tst = run_training(dev, full, small, ckroot, seed, train)
         gather["launches"] += tst["launches"][1]
         scatter["launches"] = tst["launches"][0]
+        p24["engine"] = engine_bytes(tst, train["batch"], full["emb_dim"])
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         done("6-7")
 
         fst, f_rec, b_rec = fused_phase(dev, seed, fused)
         rec["fused_sparse_forward"], rec["fused_sparse_backward"] = f_rec, b_rec
+        p24["fused"] = fst["model_bytes"]
         gather["launches"] += fst["launches"][2]
         scatter["launches"] += fst["launches"][3]
         print(f"fused bag step: {fst['groups']} bag-length groups of the MLPerf "
@@ -9046,6 +9608,7 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         done("13")
 
         lst = run_loop(dev, seed, full, small, loop, ckroot)
+        p24["overlap"] = overlap_model(lst, loop)
         # #1 and #2 reach the records through PAIR_LAUNCHES below
         gather["launches"] += int(lst["launches"][:2].sum())
         scatter["launches"] += int(lst["launches"][2:4].sum())
@@ -9081,7 +9644,8 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
             torch.cuda.empty_cache()
         done("17")
 
-        sl = run_serving(dev, seed, full, serve, ckroot)
+        sl, reuse = run_serving(dev, seed, full, serve, ckroot)
+        p24["reuse"] = reuse["stats"]
         # (#1, #3, #2, #5, #4); #1 and #2 reach the records through PAIR_LAUNCHES
         gather["launches"] += int(sl[0] + sl[1])
         scatter["launches"] += int(sl[2] + sl[3])
@@ -9127,6 +9691,26 @@ def run(dev, seed, full, small, kernel_shapes, batches, timed, train=TRAIN,
         phase_s["21"] = round(phase_s["21"] - p22_s - p23_s, 1)
         phase_s["22"] = round(p22_s, 1)
         phase_s["23"] = round(p23_s, 1)
+
+        _zero_row_counts()  # phase 24 (a)'s path starts here
+        fused_gather_combine.launches = 0
+        p24["ops"] = op_count_phase(dev)
+        la = _launch_counts()
+        _row_counts()  # ... and ends here
+        le = reuse["launches"]  # (e)'s path, counted on its own inside phase 18
+        for arr in (la, le):
+            gather["launches"] += int(arr[0] + arr[1])
+            scatter["launches"] += int(arr[2] + arr[3])
+            pooled["launches"] += int(arr[4])
+        p24["launches"] = [int(la[1] + le[1]), int(la[3] + le[3]), int(le[4])]
+        if dev.type == "cuda" and not all(p24["launches"]):
+            raise AssertionError(f"phase 24 launched (#3, #5, #4) {p24['launches']}: a kernel "
+                                 "of its path never ran")
+        print_phase24(p24, _smi() if dev.type == "cuda" else "cpu")
+        done("24")
+        # (e) ran inside phase 18: its seconds are phase 24's
+        phase_s["18"] = round(phase_s["18"] - reuse["seconds"], 1)
+        phase_s["24"] = round(phase_s["24"] + reuse["seconds"], 1)
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     # the bf16 launches of #3 and #5 on the main paths are #1's and #2's

@@ -12,7 +12,10 @@ Each wrapper launches its hand-written kernel for a CUDA tensor
 (`csrc/<name>.cu`, built by `ops/_build.py` at first use) and counts the
 launch in `<wrapper>.launches` (#3 and #5 also count their bf16 branches,
 #1 and #2, in `.launches_bf16`); for a CPU tensor it runs its plain PyTorch
-version. Nothing falls back: a failed build or launch raises.
+version. Nothing falls back: a failed build or launch raises. Inside
+`row_op_ranges()` the row gather and scatter run in a torch.profiler range
+named `deeprec_tpu_torch::<wrapper>`, on either device, so `ops/traffic.py`
+`count_device_ops` counts each call once, kernel or plain version.
 
 Stochastic rounding: the port cannot reproduce `jax.random`'s threefry
 stream, so the row scatter's random bits are its own (`sr_bits`, a counter
@@ -25,8 +28,11 @@ trained through it rounds bit for bit as the JAX package rounds it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
+import threading
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -51,6 +57,35 @@ def _launch(name: str, tensor: torch.Tensor, *args, launcher: str = "") -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
+_RANGES = threading.local()  # .open: row_op_ranges() entered on this thread
+
+
+@contextlib.contextmanager
+def row_op_ranges():
+    """While open, each call of a `_profiled_range` wrapper on this thread
+    runs inside a torch.profiler range `deeprec_tpu_torch::<wrapper>`;
+    outside, no range is made, so no other profile sees one."""
+    _RANGES.open = getattr(_RANGES, "open", 0) + 1
+    try:
+        yield
+    finally:
+        _RANGES.open -= 1
+
+
+def _profiled_range(fn):
+    """`fn`, run inside its `deeprec_tpu_torch::<name>` range while
+    `row_op_ranges()` is open on the calling thread."""
+    label = f"deeprec_tpu_torch::{fn.__name__}"
+
+    @functools.wraps(fn)
+    def inner(*args, **kw):
+        if not getattr(_RANGES, "open", 0):
+            return fn(*args, **kw)
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return inner
+
+
 # ------------------------------------------------------------- row gather
 
 
@@ -64,6 +99,7 @@ def gather_rows_plain(values: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
     return values[t, safe]
 
 
+@_profiled_range
 def gather_rows(values: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
     """values [T, C, D] (f32 or bf16), ix [T, n] int32 -> [T, n, D], with
     each index clipped to its own table's [0, C-1]."""
@@ -303,6 +339,7 @@ def apply_rows_sr_plain(values: torch.Tensor, slot_ix: torch.Tensor,
     return values
 
 
+@_profiled_range
 def apply_rows_sr(values: torch.Tensor, slot_ix: torch.Tensor,
                   rows: torch.Tensor, seed=0, bits=None) -> torch.Tensor:
     """values [T, C, D] (f32 or bf16) updated IN PLACE — the port's

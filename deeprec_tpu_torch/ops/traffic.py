@@ -1,16 +1,42 @@
-"""Byte accounting of the embedding engine — the port holds, of
-`deeprec_tpu/ops/traffic.py`, the serving residency model, which
-`Predictor.residency_info` compares its measured bytes with, the retrieval
-sweep's, which `RetrievalEngine.sweep_info` does, and the sharded
-exchanges' models: the per-destination a2a budgets and the hierarchical
-budgets that `parallel/sharded.py` compiles its buckets from, and the wire
-bytes the sharded trainer reports (`dedup_stats` `per_shard`), and the
-replanner's amortization model (`migration_bytes`, `replan_gain_bytes`).
-Host arithmetic; every number equals the JAX package's. The train-step
-gather / scatter model belongs to ROADMAP queue A item 2."""
+"""Traffic accounting of the embedding engine: the port of
+`deeprec_tpu/ops/traffic.py`, whole. Host arithmetic; every number equals
+the JAX package's (the same expressions, so the same floats).
+
+  * **Step bytes**: `table_step_traffic` (one table's device bytes per
+    train step, plus the sharded exchange's wire bytes), the fused bag
+    step's `fused_sparse_step_traffic`, the reference DLRM's
+    `dlrm_reference_traffic`, and the lookahead's resident double buffer
+    `pipeline_buffer_bytes` with the overlap model `modeled_overlap_step`.
+    `chip_smoke.py` phase 8 takes #6 / #7's byte bounds from the fused
+    model, and phase 24 holds them against the card's step.
+  * **Op counts**: `count_device_ops` counts the gather- and scatter-class
+    operations one eager region dispatches (torch.profiler, at the
+    dispatcher), and `expected_lookup_apply_ops` says what the
+    single-table lookup + apply should dispatch; a change to the engine's
+    op mix must show in both.
+  * **Serving**: the residency model `Predictor.residency_info` compares
+    its measured bytes with, the retrieval sweep's that
+    `RetrievalEngine.sweep_info` does, and the compute-reuse models
+    (`serving_reuse_speedup`, its inverse, `zipf_expected_hit_rate`).
+  * **The sharded exchanges**: the per-destination a2a budgets and the
+    hierarchical budgets that `parallel/sharded.py` compiles its buckets
+    from, the wire bytes the sharded trainer reports (`dedup_stats`
+    `per_shard`), and the replanner's amortization model
+    (`migration_bytes`, `replan_gain_bytes`).
+
+The step models carry a `diet` switch: the forward's gathered rows reused
+by the apply and one fused metadata gather / scatter (`diet=True`, the
+port's hot path: `apply_gradients(reuse_rows=True, stamp_meta=False)` over
+the fused [T, 3, C] metadata) against the apply that gathers the value
+rows again and stamps version / dirty a second time (`diet=False`).
+"""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
+
+# freq / version / dirty, int32 each: the rows of the fused [T, 3, C]
+# metadata tensor (embedding/table.py TableState.meta)
+META_COLS = 3
 
 
 def serving_residency_bytes(
@@ -449,3 +475,487 @@ def replan_gain_bytes(loads_current, loads_candidate) -> float:
     if cur.size == 0 or cand.size == 0:
         return 0.0
     return float(cur.max() - cand.max())
+
+
+# --------------------------------------------------------------- bytes model
+
+
+def table_step_traffic(
+    *,
+    unique: int,
+    dim: int,
+    value_bytes: int = 4,
+    key_bytes: int = 4,
+    slot_widths: Sequence[int] = (0,),
+    diet: bool = True,
+    counter_filter: bool = False,
+    num_shards: int = 1,
+    comm: Optional[str] = None,
+    wire_bytes: int = 4,
+    a2a_slack: float = 2.0,
+    imbalance: float = 1.0,
+) -> Dict[str, float]:
+    """Per-table per-step traffic of the embedding engine.
+
+    `unique` is the number of unique rows the step touches (post-dedup, the
+    budgeted U); `slot_widths` the optimizer's per-row slot widths (f32).
+    Steady state: the initializer scatter for newly created rows is
+    excluded (it is proportional to table GROWTH, not step traffic).
+
+    Returns {"hbm_bytes", "wire_bytes", "wire_bytes_max_shard",
+    "total_bytes"}: "hbm_bytes" are the device-memory bytes (the key is the
+    JAX package's name), wire_bytes is 0 for unsharded tables; for
+    num_shards > 1 it models the per-device payload of the `comm` exchange
+    ("allgather" | "a2a") at `wire_bytes` per value/grad element (4 = fp32,
+    2 = bf16; ids/counts always ride int32).
+
+    `imbalance` is the max/mean per-shard owner-load skew
+    (`shard_imbalance`): wire_bytes stays the MEAN payload, and
+    "wire_bytes_max_shard" models the straggler shard that bounds the
+    exchange (mean x imbalance), the quantity the placement plan flattens.
+    """
+    U, D, vb, kb = unique, dim, value_bytes, key_bytes
+    slot_b = sum(w * 4 for w in slot_widths)
+
+    # --- device memory: per-unique-id engine traffic (gathers read,
+    # scatters write; .add reads and writes).
+    probe = 2 * kb * U  # key gather + claim scatter
+    value = (1 * D * vb) * U  # lookup row gather — the apply reuses it
+    value += (1 * D * vb) * U  # apply row scatter
+    slots = 2 * slot_b * U  # apply slot gather + scatter
+    if diet:
+        # one fused [3] gather + one fused [3] scatter
+        meta = 2 * META_COLS * 4 * U
+    else:
+        # forward: freq RMW (r+w) + version set + dirty set; admission
+        # freq gather when a counter filter gates; apply re-gather of the
+        # value rows and the duplicate version/dirty re-stamps.
+        meta = (2 * 4 + 4 + 1) * U
+        meta += (4 * U) if counter_filter else 0
+        meta += (4 + 1) * U  # apply-side version/dirty re-stamp
+        value += (1 * D * vb) * U  # apply-side value re-gather
+    hbm = probe + value + slots + meta
+
+    # --- wire: per-device exchange payload for sharded tables.
+    wire = 0.0
+    if num_shards > 1 and comm:
+        N = num_shards
+        if comm == "allgather":
+            # ids + counts allgather (int32), value psum_scatter, grad
+            # allgather — each moves ~(N-1)·U rows per device.
+            wire += (N - 1) * U * (kb + 4)
+            wire += (N - 1) * U * D * wire_bytes  # embeddings down
+            wire += (N - 1) * U * D * wire_bytes  # grads up
+        elif comm == "a2a":
+            # the bucket is the max of the per-destination budget vector
+            # (uniform hash: hot terms zero, the slack·U/N bucket)
+            Bd = a2a_bucket_rows(unique=U, num_shards=N, slack=a2a_slack)
+            wire += a2a_exchange_wire_bytes(
+                bucket_rows=Bd, num_shards=N, dim=D,
+                wire_bytes=wire_bytes, key_bytes=kb,
+            )
+        else:
+            raise ValueError(f"unknown comm {comm!r}")
+    return {
+        "hbm_bytes": float(hbm),
+        "wire_bytes": float(wire),
+        "wire_bytes_max_shard": float(wire) * max(1.0, float(imbalance)),
+        "total_bytes": float(hbm + wire),
+    }
+
+
+def fused_sparse_step_traffic(
+    *,
+    positions: int,
+    batch: int,
+    unique: int,
+    dim: int,
+    value_bytes: int = 4,
+    key_bytes: int = 4,
+    slot_widths: Sequence[int] = (0,),
+    fused: bool = True,
+) -> Dict[str, float]:
+    """Modeled device bytes of one fwd+bwd sparse bag step (lookup +
+    combine + optimizer apply) for one table.
+
+    `positions` is the flattened id-stream length N = B·L, `batch` the bag
+    count B, `unique` the budgeted U. The split-phase model
+    (`fused=False`) counts every materialization of the unfused path,
+    including the O(N·D) expansion terms the fused kernels eliminate: the
+    `emb_u[inverse]` gather that materializes [N, D] before the combine,
+    and the mirrored [N, D] per-position grad contributions the backward
+    expands before segment-summing. The fused model (`fused=True`; kernels
+    #6 and #7) keeps only the irreducible stream: ids in, unique rows read
+    once, bags out, grads in, unique value and slot rows read and written
+    once; the [U, D] and [N, D] intermediates never reach device memory.
+    `chip_smoke.py` phase 8 takes #6 / #7's byte bounds from these terms.
+    """
+    N, B, U, D = positions, batch, unique, dim
+    vb, kb = value_bytes, key_bytes
+    slot_b = sum(w * 4 for w in slot_widths)
+
+    if not fused:
+        hbm = 2 * kb * N  # dedup: key gather + claim scatter over N lanes
+        hbm += U * D * vb  # unique row gather (read)
+        hbm += 2 * U * D * vb  # [U, D] emb_u round-trip (write, re-read)
+        hbm += N * D * vb  # combine: emb_u[inverse] expands to [N, D]
+        hbm += B * D * 4  # combined bags out (f32)
+        hbm += B * D * 4  # backward: bag grads in (f32)
+        hbm += N * D * 4  # per-position grad contribs expand to [N, D]
+        hbm += 2 * U * D * 4  # [U, D] grad_u round-trip (scatter, re-read)
+        hbm += 2 * U * D * vb  # apply: value row gather + scatter
+        hbm += 2 * slot_b * U  # apply: slot gather + scatter
+    else:  # the terms live once, split per kernel, in fused_step_directions
+        hbm = sum(fused_step_directions(
+            positions=N, batch=B, unique=U, dim=D, value_bytes=vb,
+            key_bytes=kb, slot_widths=slot_widths).values())
+    return {"hbm_bytes": float(hbm)}
+
+
+def fused_step_directions(
+    *,
+    positions: int,
+    batch: int,
+    unique: int,
+    dim: int,
+    value_bytes: int = 4,
+    key_bytes: int = 4,
+    slot_widths: Sequence[int] = (0,),
+) -> Dict[str, int]:
+    """The terms of `fused_sparse_step_traffic(fused=True)` split by
+    direction: {"forward": kernel #6's bytes, "backward": kernel #7's}.
+    The whole-step model is their sum; `chip_smoke.py` phase 8 bounds #6
+    and #7 with them."""
+    N, B, U, D = positions, batch, unique, dim
+    vb, kb = value_bytes, key_bytes
+    slot_b = sum(w * 4 for w in slot_widths)
+    fwd = kb * N  # forward reads the id stream once; the probe is on-chip
+    fwd += U * D * vb  # unique rows read once
+    fwd += B * D * 4  # combined bags out (f32)
+    bwd = B * D * 4  # backward: bag grads in (f32)
+    bwd += kb * N  # backward re-reads ids/inverse
+    bwd += 2 * U * D * vb  # value rows: read + updated write
+    bwd += 2 * slot_b * U  # slot rows: read + write
+    if vb == 2:
+        bwd += U * D * 4  # row-keyed SR bits (u32) for bf16 tables
+    return {"forward": fwd, "backward": bwd}
+
+
+def dlrm_reference_traffic(
+    *,
+    batch: int = 2048,
+    num_tables: int = 26,
+    dim: int = 16,
+    unique_fraction: float = 1.0,
+    slot_widths: Sequence[int] = (16,),
+    diet: bool = True,
+    num_shards: int = 1,
+    comm: Optional[str] = None,
+    exchange_dtype: str = "float32",
+    pipeline_mode: str = "off",
+) -> Dict[str, float]:
+    """Whole-model per-step traffic at the reference DLRM shape (26 single-
+    hot features, dim 16, Adagrad). `unique_fraction` scales the per-table
+    touched rows (the dedup budget); sharded shapes split the batch across
+    devices and add the exchange term. `pipeline_mode != "off"` adds the
+    lookahead's double-buffer residency under "pipeline_buffer_bytes"
+    (per-step traffic itself is unchanged by pipelining: the same ops,
+    reordered)."""
+    wire_bytes = 2 if exchange_dtype == "bfloat16" else 4
+    local_batch = batch // max(num_shards, 1)
+    U = max(1, int(round(local_batch * unique_fraction)))
+    per_table = table_step_traffic(
+        unique=U, dim=dim, slot_widths=slot_widths, diet=diet,
+        num_shards=num_shards, comm=comm, wire_bytes=wire_bytes,
+    )
+    out = {k: v * num_tables for k, v in per_table.items()}
+    out["pipeline_buffer_bytes"] = num_tables * pipeline_buffer_bytes(
+        unique=U, dim=dim, positions=local_batch, num_shards=num_shards,
+        comm=comm, pipeline_mode=pipeline_mode,
+    )
+    return out
+
+
+# ------------------------------------------------------- compute reuse
+
+
+def serving_reuse_speedup(
+    *, hit_rate: float, hit_cost_ratio: float = 0.0,
+) -> float:
+    """Modeled effective requests/s factor of the serving compute-reuse
+    layer (serving/reuse.py) at an answer-cache hit rate, closed-loop:
+
+        speedup = 1 / (1 - h + h * c)
+
+    where ``h`` is the hit rate and ``c`` the cost of serving a hit
+    relative to a full evaluation (fingerprint + dict lookup against a
+    device dispatch; about 0 for the answer cache, more for a user-tower
+    cache whose candidate lane still runs the item tower). Amdahl on the
+    per-request serial cost: at h = 0.5, c = 0 the tier answers 2x the
+    requests per second from the same compute. `chip_smoke.py` phase 24
+    prints the measured factor beside this model at the measured c."""
+    h = float(hit_rate)
+    c = float(hit_cost_ratio)
+    if not 0.0 <= h <= 1.0:
+        raise ValueError(f"hit_rate must be in [0, 1], got {h}")
+    if c < 0.0:
+        raise ValueError(f"hit_cost_ratio must be >= 0, got {c}")
+    denom = (1.0 - h) + h * c
+    if denom <= 0.0:
+        raise ValueError("hit_rate 1.0 with zero hit cost: infinite model")
+    return 1.0 / denom
+
+
+def reuse_hit_rate_for_speedup(
+    *, speedup: float, hit_cost_ratio: float = 0.0,
+) -> float:
+    """Inverse of `serving_reuse_speedup`: the answer-cache hit rate a
+    target requests/s factor requires (capacity planning: size the cache
+    and population so the zipf head clears this rate)."""
+    s = float(speedup)
+    c = float(hit_cost_ratio)
+    if s < 1.0:
+        raise ValueError(f"speedup must be >= 1, got {s}")
+    if c >= 1.0:
+        raise ValueError(f"hit_cost_ratio must be < 1, got {c}")
+    return (1.0 - 1.0 / s) / (1.0 - c)
+
+
+def zipf_expected_hit_rate(*, users: int, alpha: float,
+                           resident: int) -> float:
+    """Expected answer-cache hit rate for a zipf(alpha) population of
+    `users` distinct request keys with the hottest `resident` keys cached
+    (steady state, capacity >= resident): the probability mass of the
+    resident head,
+
+        sum_{r<resident} r^-alpha / sum_{r<users} r^-alpha."""
+    if users < 1 or resident < 0:
+        raise ValueError(f"bad population users={users} resident={resident}")
+    ranks = [float(r + 1) ** (-float(alpha)) for r in range(int(users))]
+    total = sum(ranks)
+    return sum(ranks[: min(int(resident), int(users))]) / total
+
+
+# ---------------------------------------------------------- pipelining model
+
+
+def pipeline_buffer_bytes(
+    *,
+    unique: int,
+    dim: int,
+    positions: Optional[int] = None,
+    value_bytes: int = 4,
+    key_bytes: int = 4,
+    num_shards: int = 1,
+    comm: Optional[str] = None,
+    pipeline_mode: str = "lookahead",
+) -> float:
+    """Extra RESIDENT bytes per table of the one-batch lookahead
+    (`pipeline_mode != "off"`): the pipelined window double-buffers one
+    in-flight lookup — the carried batch's finished embedding buffer, its
+    routing arrays and the owner-side residual live alongside the current
+    step's. This is capacity, not per-step traffic: the per-step totals of
+    `table_step_traffic` are unchanged by pipelining (the same ops run,
+    reordered).
+
+    `positions` is the flattened id-position count of the batch (B·L per
+    table); the carried inverse / mask / batch ids are batch-shaped, not
+    unique-shaped, so under a dedup budget (U < positions) they dominate
+    the int side of the carry. Defaults to `unique` (the no-dedup U = N
+    case)."""
+    if pipeline_mode == "off":
+        return 0.0
+    U, D = unique, dim
+    pos = unique if positions is None else int(positions)
+    b = U * key_bytes  # carried uids
+    b += U * 4  # counts
+    b += pos * 4  # inverse (batch-shaped [B, L])
+    b += pos * key_bytes  # the prefetched batch's ids themselves
+    b += pos * 1  # per-position mask in the carried views
+    b += U * D * value_bytes  # finished local embedding buffer
+    b += U * D * value_bytes  # owner-side residual rows (reuse_rows diet)
+    if num_shards > 1 and comm == "a2a":
+        b += U * 4  # send_slot routing metadata
+    return float(b)
+
+
+def modeled_overlap_step(
+    *,
+    dense_ms: float,
+    route_ms: float,
+    other_ms: float,
+    mode: str = "off",
+    chunks: int = 1,
+) -> float:
+    """Modeled step time (ms) under the in-step pipelining schedule.
+
+    `route_ms` is the hoistable half of the lookup — id dedup + id
+    exchange + owner probe/metadata (everything the pipelined window issues
+    ahead of the dense compute); `dense_ms` the dense fwd/bwd it hides
+    behind; `other_ms` everything that stays serial (value gather +
+    embedding exchange, grad exchange, sparse apply, dense update).
+
+      off:       dense + route + other           (strictly sequential)
+      lookahead: max(dense, route) + other       (route hidden behind dense)
+      chunked:   like lookahead; the model keeps other_ms whole (it cannot
+                 split the gather from the wire without a trace), so
+                 chunked == lookahead here.
+
+    `chip_smoke.py` phase 24 prints the measured lookahead step beside this
+    model, with the off step's phase times as its inputs."""
+    dense_ms = max(0.0, float(dense_ms))
+    route_ms = max(0.0, float(route_ms))
+    other_ms = max(0.0, float(other_ms))
+    if mode == "off":
+        return dense_ms + route_ms + other_ms
+    return max(dense_ms, route_ms) + other_ms
+
+
+# ------------------------------------------------------------ op-count model
+#
+# The JAX package counts gathers and scatters in the text of the lowered
+# program. The port's program is eager: `count_device_ops` profiles one
+# region and counts the operations it dispatches from Python, by name. An
+# operation nested inside another aten op is that op's business (a
+# composite's internals differ between the CPU and the card) and is not
+# counted; the row-kernel wrappers count once per call, whether the call
+# launched #3 / #5 or ran the plain version on the CPU. So one region gives
+# one count on either device.
+
+GATHER_OPS = {
+    "aten::index": "x[idx], advanced-indexing read (the probe's key reads)",
+    "aten::gather": "torch.gather (dedup scratch reads, the metadata gather)",
+    "aten::index_select": "torch.index_select, rows along one dim",
+    "aten::take": "torch.take, flat-index read",
+    "aten::take_along_dim": "torch.take_along_dim, gather along a dim",
+    "aten::embedding": "F.embedding, a table row read",
+    "aten::embedding_bag": "F.embedding_bag, pooled row reads",
+    "aten::_embedding_bag": "the embedding_bag kernel when called direct",
+}
+SCATTER_OPS = {
+    "aten::index_put_": "x[idx] = v, advanced-indexing write",
+    "aten::index_put": "torch.index_put, out of place",
+    "aten::_index_put_impl_": "index_put_'s implementation called direct",
+    "aten::scatter_": "Tensor.scatter_ (the sort dedup's uid and inverse)",
+    "aten::scatter": "torch.scatter, out of place",
+    "aten::scatter_add_": "Tensor.scatter_add_ (counts, the metadata stamp)",
+    "aten::scatter_add": "torch.scatter_add, out of place",
+    "aten::scatter_reduce_": "Tensor.scatter_reduce_ (the probes' claims)",
+    "aten::scatter_reduce": "torch.scatter_reduce, out of place",
+    "aten::index_add_": "Tensor.index_add_, rows added along one dim",
+    "aten::index_add": "torch.index_add, out of place",
+    "aten::index_copy_": "Tensor.index_copy_, rows written along one dim",
+    "aten::index_copy": "torch.index_copy, out of place",
+    "aten::index_fill_": "Tensor.index_fill_, rows filled along one dim",
+    "aten::masked_scatter_": "Tensor.masked_scatter_, writes at a mask",
+    "aten::put_": "Tensor.put_, flat-index write",
+}
+# the profiler ranges of the row-kernel wrappers (ops/fused_lookup.py
+# row_op_ranges)
+ROW_KERNEL_OPS = {
+    "deeprec_tpu_torch::gather_rows": "gather",  # kernel #3 (#1 on bf16)
+    "deeprec_tpu_torch::apply_rows_sr": "scatter",  # kernel #5 (#2 on bf16)
+}
+_REGION = "deeprec_tpu_torch::count_device_ops"
+
+
+def _op_class(name: str) -> Optional[str]:
+    if name in ROW_KERNEL_OPS:
+        return ROW_KERNEL_OPS[name]
+    if name in GATHER_OPS:
+        return "gather"
+    if name in SCATTER_OPS:
+        return "scatter"
+    return None
+
+
+def count_device_ops(region: Callable[[], object]) -> Dict[str, int]:
+    """Run `region()` once under torch.profiler (host activity only: the
+    dispatcher's records, on the CPU and on the card alike) and count the
+    gather- and scatter-class operations it dispatched: the aten ops of
+    `GATHER_OPS` / `SCATTER_OPS` called from Python, and each call of a
+    row-kernel wrapper (`ROW_KERNEL_OPS`) as one. Returns {"gather",
+    "scatter", "row_gather", "row_scatter"}: the last two are the wrappers'
+    share, the calls that launch #3 / #5 on the card. Collectives are not
+    counted."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deeprec_tpu_torch.ops.fused_lookup import row_op_ranges
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with row_op_ranges(), record_function(_REGION):
+            region()
+    out = {"gather": 0, "scatter": 0, "row_gather": 0, "row_scatter": 0}
+    for e in prof.events():
+        kind = _op_class(e.name)
+        if kind is None:
+            continue
+        p, inside = e.cpu_parent, False
+        while p is not None:
+            if p.name == _REGION:
+                inside = True
+                break
+            if p.name.startswith("aten::") or p.name in ROW_KERNEL_OPS:
+                break  # dispatched by another op, not from Python
+            p = p.cpu_parent
+        if not inside:
+            continue
+        out[kind] += 1
+        if e.name in ROW_KERNEL_OPS:
+            out["row_" + kind] += 1
+    return out
+
+
+def expected_lookup_apply_ops(
+    *,
+    diet: bool = True,
+    budgeted: bool = True,
+    n_row_slots: int = 1,
+) -> Dict[str, int]:
+    """Expected gather / scatter counts (`count_device_ops`) of the
+    single-table TRAIN `EmbeddingTable.lookup_unique` +
+    `optim.apply.apply_gradients` program (no sharding, no admission
+    filter, one per-row optimizer slot unless overridden).
+
+    Base constants are CALIBRATED against the port's program
+    (`optim.apply.lookup_apply_region`): a table of
+    capacity 2^12, dim 16, Adagrad, ids 0..255 into an empty table, the
+    hash dedup at `dedup.resolve_size(128, 256)` (`budgeted`) or the sort
+    dedup at U = N. The probe loops are eager, so each round dispatches its
+    gathers and its claim scatter again; at that input the hash dedup runs
+    3 rounds and the table's probe 2 (3 behind the sort dedup). Counted:
+
+      budgeted, diet   15 gathers  = dedup 3 x 2 + its tail and rank
+                                     gathers 2 + probe 2 x 2 + the fused
+                                     [T, 3, U] metadata gather 1 + the
+                                     value gather #3 1 + the slot gather #3 1
+                       10 scatters = dedup 3 claims + its counts 1 + probe
+                                     2 claims + the initializer rows #5 1 +
+                                     the metadata stamp 1 + value and slot
+                                     writes #5 2
+      sort, diet        9 gathers, 10 scatters (the sort dedup's uid,
+                                     inverse and count scatters 3; probe 3
+                                     rounds)
+
+    The diet arm (`apply_gradients(reuse_rows=True, stamp_meta=False)`,
+    the trainer's hot path) against the legacy one (`reuse_rows=False,
+    stamp_meta=True`), as measured on the port: the legacy apply adds 2
+    gathers and 1 scatter — the value rows gathered again (#3) and the
+    version / dirty re-stamp's gather and scatter. The forward's metadata
+    is one fused gather and one scatter on both arms (the port never had
+    the JAX package's separate freq / version / dirty trio, whose removal
+    is the JAX model's 4 scatters). Every further per-row slot adds one
+    gather (#3) and one write (#5).
+
+    `chip_smoke.py` phase 24 holds this against the count on the card."""
+    if budgeted:  # hash dedup engine front end (ops/dedup.py hash_dedup)
+        counts = {"gather": 15, "scatter": 10}
+    else:  # sort-based dedup front end at U = N (ops/dedup.py sort_unique)
+        counts = {"gather": 9, "scatter": 10}
+    if not diet:
+        counts["gather"] += 2
+        counts["scatter"] += 1
+    extra_slots = n_row_slots - 1
+    counts["gather"] += extra_slots
+    counts["scatter"] += extra_slots
+    return counts

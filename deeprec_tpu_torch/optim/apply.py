@@ -1,6 +1,8 @@
 """Applying sparse gradients to a table — the port of
 `deeprec_tpu/optim/apply.py` (`ensure_slots`, `apply_gradients`,
-`apply_bag_gradients`).
+`apply_bag_gradients`), and `lookup_apply_region`, the single-table
+program whose gathers and scatters `ops/traffic.py`'s op-count model
+counts.
 
 Autograd gives the gradients with respect to the unique gathered
 embeddings [T, U, D]; the apply gathers the matching slot rows through the
@@ -12,13 +14,15 @@ the whole backward in the fused backward kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
+from deeprec_tpu_torch.config import TableConfig
 from deeprec_tpu_torch.embedding.table import (
     META_DIRTY, META_VERSION, EmbeddingTable, TableState, UniqueLookup,
 )
+from deeprec_tpu_torch.ops import dedup
 from deeprec_tpu_torch.ops import fused_lookup as fl
 from deeprec_tpu_torch.ops.fused_lookup import apply_rows_sr, gather_rows
 from deeprec_tpu_torch.optim.sparse import SCALAR_PREFIX, SparseOptimizer
@@ -145,3 +149,27 @@ def apply_bag_gradients(
         ok = (res.uids >= 0) & (res.uids < C)
         _stamp_version_dirty(state, torch.where(ok, res.uids, 0), ok, step)
     return state
+
+
+def lookup_apply_region(opt: SparseOptimizer, *, diet: bool = True,
+                        budgeted: bool = True,
+                        device=None) -> Callable[[], TableState]:
+    """The calibration program of `ops/traffic.expected_lookup_apply_ops`
+    as a region for `ops/traffic.count_device_ops`: a fresh table
+    (capacity 2^12, dim 16) with `opt`'s slots on `device`, and a call that
+    runs one train `lookup_unique` of ids 0..255 (the hash dedup at
+    `dedup.resolve_size(128, 256)` when `budgeted`, else the sort dedup)
+    and `apply_gradients` of unit gradients on the `diet` or legacy arm."""
+    t = EmbeddingTable(TableConfig(name="_traffic_probe", dim=16,
+                                   capacity=1 << 12))
+    state = ensure_slots(t, t.create(device=device), opt)
+    ids = torch.arange(256, dtype=torch.int32, device=state.keys.device)[None]
+    size = dedup.resolve_size(128, 256) if budgeted else None
+
+    def region():
+        res = t.lookup_unique(state, ids, step=0, train=True,
+                              unique_size=size)
+        grad = torch.ones_like(res.embeddings, dtype=torch.float32)
+        return apply_gradients(t, state, opt, res, grad, step=0,
+                               reuse_rows=diet, stamp_meta=not diet)
+    return region
